@@ -1,0 +1,87 @@
+"""Convert between the JAX package's params pytree and the port's params.
+
+The JAX tree (with numpy leaves, e.g. after ``jax.tree_util.tree_map(
+np.asarray, params)``) is ``{"hw": HWParams, "rnn": [[{wx, wh, b}]],
+"head": {dense_w, dense_b, out_w, out_b}, "attn"?: {wq, wk, wv}}``. The port
+keeps the same keys and the same orientation, so the mapping is leaf by
+leaf: no transposes, no reordering of gates, bitwise in both directions.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.drnn import LSTMCell
+from repro_torch.core.heads import Attention, Readout
+from repro_torch.core.holt_winters import HWParams
+from repro_torch.device import resolve_device
+
+__all__ = ["params_from_numpy", "params_to_numpy", "params_to_device"]
+
+_HW_FIELDS = tuple(f.name for f in dataclasses.fields(HWParams))
+_READOUT = ("dense_w", "dense_b", "out_w", "out_b")
+_ATTN = ("wq", "wk", "wv")
+
+
+def _leaf(tree, name):
+    return tree.get(name) if isinstance(tree, dict) else getattr(tree, name, None)
+
+
+def params_from_numpy(tree, device=None):
+    """The port's params from a numpy-leaved JAX params tree, on ``device``.
+
+    ``tree["hw"]`` may be the JAX ``HWParams`` (read by attribute) or a dict
+    of its fields.
+    """
+    dev = resolve_device(device)
+    t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev)
+    hw = HWParams(**{name: (None if _leaf(tree["hw"], name) is None
+                            else t(_leaf(tree["hw"], name)))
+                     for name in _HW_FIELDS})
+    out = {"hw": hw}
+    if "rnn" in tree:
+        out["rnn"] = nn.ModuleList(
+            nn.ModuleList(LSTMCell(t(cell["wx"]), t(cell["wh"]), t(cell["b"]))
+                          for cell in block)
+            for block in tree["rnn"])
+    if "head" in tree:
+        out["head"] = Readout(*(t(tree["head"][k]) for k in _READOUT))
+    if "attn" in tree:
+        out["attn"] = Attention(*(t(tree["attn"][k]) for k in _ATTN))
+    return out
+
+
+def params_to_numpy(params):
+    """The JAX-shaped tree of numpy arrays; ``hw`` becomes a dict of fields."""
+    a = lambda p: p.detach().cpu().numpy().copy()
+    out = {"hw": {name: (None if getattr(params["hw"], name) is None
+                         else a(getattr(params["hw"], name)))
+                  for name in _HW_FIELDS}}
+    if "rnn" in params:
+        out["rnn"] = [[{"wx": a(c.wx), "wh": a(c.wh), "b": a(c.b)} for c in block]
+                      for block in params["rnn"]]
+    if "head" in params:
+        out["head"] = {k: a(getattr(params["head"], k)) for k in _READOUT}
+    if "attn" in params:
+        out["attn"] = {k: a(getattr(params["attn"], k)) for k in _ATTN}
+    return out
+
+
+def params_to_device(params, device):
+    """``params`` on ``device``: a module already there is shared, any other
+    is copied (``nn.Module.to`` would move the caller's module in place)."""
+    dev = resolve_device(device)
+
+    def move(v):
+        if isinstance(v, HWParams):
+            return v.to(dev)
+        if all(p.device == dev for p in v.parameters()):
+            return v
+        return copy.deepcopy(v).to(dev)
+
+    return {k: move(v) for k, v in params.items()}

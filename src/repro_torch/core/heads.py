@@ -1,0 +1,149 @@
+"""Forecasting heads behind ``ESRNNConfig.head`` (PyTorch port).
+
+Counterpart of ``repro.core.heads``: the network that maps the windowed
+features ``(N, P, W + C)`` to normalized log-space predictions ``(N, P, H)``
+is a registry entry
+
+    HeadSpec(
+        init(cfg, generator, device) -> non-hw params subtrees,
+        apply(cfg, params, feats)    -> (yhat_n (N, P, H), c_sq scalar),
+    )
+
+This slice of the port registers the paper's ``lstm`` head only: the dilated
+residual LSTM (+ optional causal attention) followed by the tanh-dense +
+linear readout. The ``esn`` and ``ssm`` heads, and the ``frozen`` param
+groups training needs, come in later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.drnn import drnn_apply, drnn_init, uniform_init
+from repro_torch.device import resolve_device
+
+__all__ = [
+    "HeadSpec", "register_head", "get_head", "available_heads", "Readout",
+    "Attention", "lstm_head_init", "lstm_head_apply",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSpec:
+    """One pluggable head: its init and apply functions."""
+
+    name: str
+    init: Callable
+    apply: Callable
+
+
+_HEADS: Dict[str, HeadSpec] = {}
+
+
+def register_head(spec: HeadSpec) -> HeadSpec:
+    """Add a head to the registry (last registration of a name wins)."""
+    _HEADS[spec.name] = spec
+    return spec
+
+
+def available_heads() -> Tuple[str, ...]:
+    return tuple(sorted(_HEADS))
+
+
+def get_head(name: str) -> HeadSpec:
+    try:
+        return _HEADS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown forecasting head {name!r}; available heads: "
+            f"{list(available_heads())}") from None
+
+
+# ---------------------------------------------------------------------------
+# Shared readout: tanh dense -> linear
+# ---------------------------------------------------------------------------
+
+
+class Readout(nn.Module):
+    """``dense_w (H, H)``, ``dense_b (H,)``, ``out_w (H, out)``, ``out_b (out,)``."""
+
+    def __init__(self, dense_w, dense_b, out_w, out_b):
+        super().__init__()
+        self.dense_w = nn.Parameter(dense_w)
+        self.dense_b = nn.Parameter(dense_b)
+        self.out_w = nn.Parameter(out_w)
+        self.out_b = nn.Parameter(out_b)
+
+
+class Attention(nn.Module):
+    """Causal self-attention weights ``wq``, ``wk``, ``wv``, each ``(H, H)``."""
+
+    def __init__(self, wq, wk, wv):
+        super().__init__()
+        self.wq = nn.Parameter(wq)
+        self.wk = nn.Parameter(wk)
+        self.wv = nn.Parameter(wv)
+
+
+def _readout_init(cfg, generator, dev) -> Readout:
+    scale = 1.0 / math.sqrt(cfg.hidden_size)
+    h, out = cfg.hidden_size, cfg.output_size
+    dt = cfg.tdtype
+    dense_w = uniform_init(generator, (h, h), scale)
+    out_w = uniform_init(generator, (h, out), scale)
+    return Readout(dense_w.to(dev, dt), torch.zeros(h, dtype=dt, device=dev),
+                   out_w.to(dev, dt), torch.zeros(out, dtype=dt, device=dev))
+
+
+def _readout_apply(params, hid):
+    head = params["head"]
+    z = torch.tanh(hid @ head.dense_w + head.dense_b)
+    return z @ head.out_w + head.out_b
+
+
+# ---------------------------------------------------------------------------
+# lstm: the paper's dilated residual LSTM (+ attention) head
+# ---------------------------------------------------------------------------
+
+
+def lstm_head_init(cfg, generator: torch.Generator, device=None):
+    dev = resolve_device(device)
+    feat = cfg.input_size + cfg.n_categories
+    rnn = drnn_init(generator, feat, cfg.hidden_size, cfg.dilations,
+                    dtype=cfg.tdtype, device=dev)
+    params = {"rnn": rnn, "head": _readout_init(cfg, generator, dev)}
+    if cfg.attention:
+        h = cfg.hidden_size
+        scale = 1.0 / math.sqrt(h)
+        ws = [(torch.randn((h, h), generator=generator, device=generator.device)
+               * scale).to(dev, cfg.tdtype) for _ in range(3)]
+        params["attn"] = Attention(*ws)
+    return params
+
+
+def lstm_head_apply(cfg, params, feats):
+    """Dilated residual LSTM -> (causal attention) -> tanh dense -> linear.
+
+    The attention variant (``heads.py:192-204`` in the JAX package) is a
+    plain einsum with a softmax; it has no kernel of its own.
+    """
+    hid, c_sq = drnn_apply(params["rnn"], feats, dilations=cfg.dilations)
+    if cfg.attention:
+        ap = params["attn"]
+        q = hid @ ap.wq
+        k = hid @ ap.wk
+        v = hid @ ap.wv
+        s = torch.einsum("nph,nqh->npq", q, k) / math.sqrt(cfg.hidden_size)
+        p_idx = torch.arange(hid.shape[1], device=hid.device)
+        mask = p_idx[:, None] >= p_idx[None, :]
+        s = s.masked_fill(~mask[None], float("-inf"))
+        hid = hid + torch.einsum("npq,nqh->nph", torch.softmax(s, dim=-1), v)
+    return _readout_apply(params, hid), c_sq
+
+
+register_head(HeadSpec("lstm", lstm_head_init, lstm_head_apply))

@@ -1,0 +1,7 @@
+// Shared C entry points of the kernel library.
+
+#include <cuda_runtime.h>
+
+extern "C" const char* repro_cuda_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

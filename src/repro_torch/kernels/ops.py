@@ -1,0 +1,74 @@
+"""Public wrappers around the port's kernels: dispatch by device.
+
+A tensor on a CUDA device launches the hand-written kernel
+(:mod:`~repro_torch.kernels.hw_scan`, :mod:`~repro_torch.kernels.lstm_cell`);
+a tensor on the CPU takes the kernel's plain PyTorch version
+(:mod:`~repro_torch.kernels.ref`). That is the only rule: there is no flag,
+and a CUDA tensor never falls back to the plain version -- the kernel
+launches or raises.
+
+The constrained-space transforms (sigmoid/exp) and the layout changes
+(time-major for the HW scan) run here, outside the kernels, as in the JAX
+package's ``kernels/ops.py``. The CUDA kernels mask their ragged edges
+themselves, so nothing is padded.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import hw_scan as _hw
+from repro_torch.kernels import lstm_cell as _lstm
+from repro_torch.kernels import ref
+
+
+def _on_cuda(t) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"repro_torch kernels run on cuda or cpu, not {t.device}")
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return {"hw_scan": _hw.launches, "lstm_cell": _lstm.launches}
+
+
+def reset_launch_counts() -> None:
+    _hw.launches = 0
+    _lstm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+
+
+def hw_scan(y, params, *, seasonality: int):
+    """Kernel-backed equivalent of core.holt_winters.hw_smooth (single ring).
+
+    y: (N, T); params: HWParams. Returns levels (N, T), seas (N, T+m).
+    """
+    n = y.shape[0]
+    m = max(seasonality, 1)
+    c = params.constrained()
+    alpha, gamma = c["alpha"], c["gamma"]
+    # flat ring in the param dtype; for m == 1 a zero gamma keeps s == 1
+    init_seas = (c["init_seas"] if seasonality > 1
+                 else torch.ones((n, m), dtype=alpha.dtype, device=alpha.device))
+    if seasonality <= 1:
+        gamma = torch.zeros_like(gamma)
+    if not _on_cuda(y):
+        return ref.hw_scan_ref(y, alpha, gamma, init_seas)
+    levels_tm, seas_tm = _hw.hw_scan_tm(
+        y.t().contiguous(), alpha.contiguous(), gamma.contiguous(),
+        init_seas.t().contiguous())
+    return levels_tm.t(), seas_tm.t()
+
+
+def lstm_cell(wx, wh, b, x, h, c):
+    """Fused LSTM cell; signature mirrors ref.lstm_cell_ref."""
+    if not _on_cuda(x):
+        return ref.lstm_cell_ref(wx, wh, b, x, h, c)
+    return _lstm.lstm_cell(wx, wh, b, x, h, c)
