@@ -8,9 +8,13 @@ nvcc, holds every kernel against its plain PyTorch version on the card,
 drives the forecast-serving path at the full width of the paper's quarterly
 model (hidden 40, dilations ((1, 2), (4, 8)), 6 categories; random weights
 from a fixed seed) and checks it against the same calls on the CPU, then
-serves requests through ``ForecastServer`` on the card. Each phase prints one
-JSON line; any failed check raises and the script exits non-zero. The last
-line is ``{"ok": true, "device": {...}}``.
+serves requests through ``ForecastServer`` on the card. It then trains the
+same model on the card (``train_esrnn``: 24,000 quarterly series of length
+72, dense and sparse Adam) against the same steps on the CPU, times train
+steps, profiles one, and runs a server whose idle fine-tune trains on the
+card against a CPU server. Each phase prints one JSON line; any failed check
+raises and the script exits non-zero. The last line is
+``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the ``src/`` tree beside it, and imports
 nothing of the JAX package. fp32 parity: TF32 is switched off for matmuls
@@ -40,6 +44,16 @@ N_REQUESTS = 96
 N_OBSERVED = 4
 OBS_LEN = 40
 
+# the train cell: M4's quarterly count at the quarterly MIN_LENGTH (72), the
+# esrnn-quarterly spec's batch and the largest batch of
+# benchmarks/table5_speedup.py
+TRAIN_N, TRAIN_T = 24_000, 72
+TRAIN_BATCH, BIG_BATCH = 256, 2048
+DENSE_STEPS, SPARSE_STEPS, SPARSE_SCAN = 10, 8, 4
+TIMED_STEPS = 10
+# the fine-tune server: known series observed, observations each, steps per burst
+FT_SERIES, FT_OBS, FT_STEPS = 8, 40, 2
+
 # tolerances, with their reasons:
 # K1 runs the plain version's operations in the same order with IEEE
 # rounding, so only a contracted multiply-add could differ: rtol 1e-5.
@@ -48,6 +62,19 @@ K1_RTOL = 1e-5
 K3_ATOL = 1e-5
 # the whole forecast, card against CPU (sums in other orders, through exp)
 FC_RTOL, FC_ATOL = 1e-4, 1e-5
+# K2 runs the plain adjoint's operations in the same order, IEEE rounding:
+# rtol 1e-5; atol 1e-6 for cotangents that cancel to near zero.
+K2_RTOL, K2_ATOL = 1e-5, 1e-6
+# K4 as K3. K5's dx, dh_prev, dc_prev sum 4H terms in another order than
+# the plain matmuls: atol 1e-5; its weight gradients sum B rows: atol
+# 1e-5 * sqrt(B). K5's weight gradients must be bit-identical across runs.
+K45_ATOL = 1e-5
+# train losses, card against CPU. The first loss differs only by summation
+# order (~1e-7 relative). Adam's steps are sign-like (about lr * sign(g)
+# per weight), so a gradient component that sits at rounding level can get
+# the opposite step on the two devices; its gradient is ~0, so the loss
+# moves only at second order, and 10 steps stay well inside rtol 1e-4.
+TRAIN_RTOL = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 CUDA-core flop/s
 HBM_BYTES_PER_S = 3.35e12
@@ -65,8 +92,50 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_CAPTURE_STREAM = []
+
+
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Device time per call from CUDA events around ``iters`` calls."""
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed between two CUDA events, so the kernels run back to back and
+    the host's launch path stays out of the reading.
+
+    Every capture runs on one side stream: cuBLAS keeps a 32 MiB workspace
+    for each stream it has run on, so a fresh stream per timing would leave
+    one behind each time (and inflate the train phase's peak memory).
+    """
+    import torch
+
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    side = _CAPTURE_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm up off the default stream
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
+
+
+def wrapper_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    """Time per call of ``iters`` calls issued from the host (CUDA events
+    around the loop): the wrapper's host path where it is longer than the
+    kernel, as in a train step's chain of small launches."""
     import torch
 
     for _ in range(warmup):
@@ -113,6 +182,16 @@ def check_close(name, got, want, *, rtol, atol) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _layers(cfg):
+    """(dilation, input width) of each LSTM layer, in order."""
+    layers, width = [], cfg.input_size + cfg.n_categories
+    for block in cfg.dilations:
+        for d in block:
+            layers.append((d, width))
+            width = cfg.hidden_size
+    return layers
+
+
 def main_path_shapes(cfg):
     """The shapes the forecast and serve phases hand each kernel.
 
@@ -121,12 +200,7 @@ def main_path_shapes(cfg):
     the batch, so rows = batch * d, for the forecast batch and every batch
     bucket.
     """
-    m = max(cfg.seasonality, 1)
-    layers, width = [], cfg.input_size + cfg.n_categories
-    for block in cfg.dilations:
-        for d in block:
-            layers.append((d, width))
-            width = cfg.hidden_size
+    m, layers = max(cfg.seasonality, 1), _layers(cfg)
     k1 = [(N_SERIES, T_LEN, m)] + [(bb, t, m) for bb in BATCH_BUCKETS
                                    for t in LENGTH_BUCKETS]
     k3 = list(dict.fromkeys((n * d, i) for n in (N_SERIES,) + BATCH_BUCKETS
@@ -134,12 +208,9 @@ def main_path_shapes(cfg):
     return k1, k3
 
 
-def check_hw_scan(n, t_len, m, gen):
+def _hw_inputs(n, t_len, m, gen, dev):
     import torch
 
-    from repro_torch.kernels import hw_scan, ref
-
-    dev = torch.device("cuda")
     y = (torch.rand((n, t_len), generator=gen) * 400 + 50).to(dev)
     alpha = torch.rand(n, generator=gen).to(dev)
     if m > 1:
@@ -148,6 +219,25 @@ def check_hw_scan(n, t_len, m, gen):
     else:   # the m == 1 convention of kernels/ops.py: flat ring, gamma 0
         gamma = torch.zeros(n, device=dev)
         init_seas = torch.ones((n, 1), device=dev)
+    return y, alpha, gamma, init_seas
+
+
+def _cell_inputs(rows, in_size, hidden, gen, dev):
+    import torch
+
+    u = lambda *shape: (torch.rand(shape, generator=gen) * 2 - 1).to(dev)
+    wx = u(in_size, 4 * hidden) / in_size ** 0.5
+    wh = u(hidden, 4 * hidden) / hidden ** 0.5
+    b = u(4 * hidden) * 0.1
+    return wx, wh, b, u(rows, in_size), u(rows, hidden), u(rows, hidden) * 2
+
+
+def check_hw_scan(n, t_len, m, gen):
+    import torch
+
+    from repro_torch.kernels import hw_scan, ref
+
+    y, alpha, gamma, init_seas = _hw_inputs(n, t_len, m, gen, torch.device("cuda"))
     y_tm, s_tm = y.t().contiguous(), init_seas.t().contiguous()
     kernel = lambda: hw_scan.hw_scan_tm(y_tm, alpha, gamma, s_tm)
     plain = lambda: ref.hw_scan_ref(y, alpha, gamma, init_seas)
@@ -157,12 +247,13 @@ def check_hw_scan(n, t_len, m, gen):
     err = max(check_close("hw_scan levels", lev_k.t(), lev_p, rtol=K1_RTOL, atol=0.0),
               check_close("hw_scan seas", seas_k.t(), seas_p, rtol=K1_RTOL, atol=0.0))
     rel = max(max_rel(lev_k.t(), lev_p), max_rel(seas_k.t(), seas_p))
-    ms, plain_ms = time_ms(kernel), time_ms(plain, iters=5)
+    ms, plain_ms, host_ms = time_ms(kernel), time_ms(plain, iters=5), wrapper_ms(kernel)
     n_bytes = 4 * n * (t_len + 2 + m) + 4 * n * (t_len + t_len + m)
     n_flops = 8 * n * t_len
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return dict(name="hw_scan", shape=dict(N=n, T=t_len, m=m), max_abs_err=err,
-                max_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=None,
+                max_rel_err=rel, ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms,
+                library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -171,12 +262,7 @@ def check_lstm_cell(rows, in_size, hidden, gen):
 
     from repro_torch.kernels import lstm_cell, ref
 
-    dev = torch.device("cuda")
-    u = lambda *shape: ((torch.rand(shape, generator=gen) * 2 - 1)).to(dev)
-    wx = u(in_size, 4 * hidden) / in_size ** 0.5
-    wh = u(hidden, 4 * hidden) / hidden ** 0.5
-    b = u(4 * hidden) * 0.1
-    x, h, c = u(rows, in_size), u(rows, hidden), u(rows, hidden) * 2
+    wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, gen, torch.device("cuda"))
     kernel = lambda: lstm_cell.lstm_cell(wx, wh, b, x, h, c)
     plain = lambda: ref.lstm_cell_ref(wx, wh, b, x, h, c)
     # one PyTorch call computing the same function (timed only, never used by
@@ -191,13 +277,141 @@ def check_lstm_cell(rows, in_size, hidden, gen):
     h_l, c_l = library()
     check_close("torch.lstm_cell h", h_l, h_p, rtol=0.0, atol=K3_ATOL)
     ms, plain_ms, library_ms = time_ms(kernel), time_ms(plain), time_ms(library)
+    host_ms = wrapper_ms(kernel)
     g4 = 4 * hidden
     n_bytes = 4 * (rows * in_size + 4 * rows * hidden + (in_size + hidden) * g4 + g4)
     n_flops = 2 * rows * (in_size + hidden) * g4
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return dict(name="lstm_cell", shape=dict(B=rows, I=in_size, H=hidden),
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                max_abs_err=err, ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms,
+                library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def train_path_shapes(cfg, window: int):
+    """The shapes the train and fine-tune phases hand K2, K4 and K5.
+
+    K2 gets (series, length, m): the train batches at T = 72 and the
+    fine-tune batch on the server's largest length bucket. K4 and K5 get
+    (rows, input width) with rows = batch * d for each layer.
+    """
+    m, layers = max(cfg.seasonality, 1), _layers(cfg)
+    batches = (TRAIN_BATCH, BIG_BATCH, FT_SERIES)
+    k2 = [(TRAIN_BATCH, TRAIN_T, m), (BIG_BATCH, TRAIN_T, m), (FT_SERIES, window, m)]
+    k45 = list(dict.fromkeys((b * d, i) for b in batches for d, i in layers))
+    return k2, k45
+
+
+def check_hw_scan_bwd(n, t_len, m, gen):
+    """K2 against the plain adjoint on the card. No single PyTorch call
+    computes the adjoint of this recurrence (autograd of the plain scan is
+    one small launch per operation per step), so ``library_ms`` is None."""
+    import torch
+
+    from repro_torch.kernels import hw_scan, ref
+
+    dev = torch.device("cuda")
+    y, alpha, gamma, init_seas = _hw_inputs(n, t_len, m, gen, dev)
+    levels, seas = ref.hw_scan_ref(y, alpha, gamma, init_seas)
+    dlev = torch.randn((n, t_len), generator=gen).to(dev)
+    dseas = torch.randn((n, t_len + m), generator=gen).to(dev)
+    tm = lambda a: a.t().contiguous()
+    args_tm = (tm(y), alpha, gamma, tm(levels), tm(seas), tm(dlev), tm(dseas))
+    kernel = lambda: hw_scan.hw_scan_bwd_tm(*args_tm)
+    plain = lambda: ref.hw_scan_bwd_ref(y, alpha, gamma, levels, seas, dlev, dseas)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    names = ("dy", "dalpha", "dgamma", "dinit_seas")
+    err = max(check_close(f"hw_scan_bwd {name}", g.t() if g.dim() == 2 else g, w,
+                          rtol=K2_RTOL, atol=K2_ATOL)
+              for name, g, w in zip(names, got, want))
+    ms, plain_ms = time_ms(kernel), time_ms(plain, iters=3, warmup=1)
+    host_ms = wrapper_ms(kernel)
+    # reads y, levels, dlev, seas (T N: the kernel reads seas rows 0..T-1
+    # only), dseas ((T+m) N), alpha, gamma; writes dy (T N), dalpha, dgamma,
+    # dinit (m N); 27 flops per (t, series)
+    n_bytes = 4 * n * (3 * t_len + t_len + (t_len + m) + 2) + 4 * n * (t_len + 2 + m)
+    n_flops = 27 * n * t_len
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return dict(name="hw_scan_bwd", shape=dict(N=n, T=t_len, m=m), max_abs_err=err,
+                ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def check_lstm_cell_fwd(rows, in_size, hidden, gen):
+    """K4 against its plain version; ``torch.lstm_cell`` (timed only) as the
+    library yardstick, though it writes no activations."""
+    import torch
+
+    from repro_torch.kernels import lstm_cell, ref
+
+    dev = torch.device("cuda")
+    wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, gen, dev)
+    kernel = lambda: lstm_cell.lstm_cell_fwd(wx, wh, b, x, h, c)
+    plain = lambda: ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
+    w_ih, w_hh, zero_b = wx.t().contiguous(), wh.t().contiguous(), torch.zeros_like(b)
+    library = lambda: torch.lstm_cell(x, [h, c], w_ih, w_hh, b, zero_b)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err = max(check_close(f"lstm_cell_fwd {name}", g, w, rtol=0.0, atol=K45_ATOL)
+              for name, g, w in zip(("h", "c", "act"), got, want))
+    ms, plain_ms, library_ms = time_ms(kernel), time_ms(plain), time_ms(library)
+    host_ms = wrapper_ms(kernel)
+    g4 = 4 * hidden
+    n_bytes = 4 * (rows * in_size + 4 * rows * hidden + rows * g4
+                   + (in_size + hidden) * g4 + g4)
+    n_flops = 2 * rows * (in_size + hidden) * g4
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return dict(name="lstm_cell_fwd", shape=dict(B=rows, I=in_size, H=hidden),
+                max_abs_err=err, ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms,
+                library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_lstm_cell_bwd(rows, in_size, hidden, gen):
+    """K5 against its plain version, and bit-identical weight gradients
+    across two launches. No single PyTorch call computes a cell's backward
+    with its weight gradients (autograd of ``torch.lstm_cell`` is a fused
+    elementwise backward plus separate cuBLAS products), so ``library_ms``
+    is None."""
+    import torch
+
+    from repro_torch.kernels import lstm_cell, ref
+
+    dev = torch.device("cuda")
+    wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, gen, dev)
+    _, c_new, act = ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
+    dh = torch.randn((rows, hidden), generator=gen).to(dev)
+    dc = torch.randn((rows, hidden), generator=gen).to(dev)
+    args = (wx, wh, x, h, c, c_new, act, dh, dc)
+    kernel = lambda: lstm_cell.lstm_cell_bwd(*args)
+    plain = lambda: ref.lstm_cell_bwd_ref(*args)
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    for name, g1, g2 in zip(("dwx", "dwh", "db"), got[3:], again[3:]):
+        if not torch.equal(g1, g2):
+            raise AssertionError(f"lstm_cell_bwd {name}: two launches differ")
+    want = plain()
+    names = ("dx", "dh_prev", "dc_prev", "dwx", "dwh", "db")
+    err = max(check_close(f"lstm_cell_bwd {name}", g, w, rtol=0.0,
+                          atol=K45_ATOL * (1.0 if k < 3 else max(1.0, rows ** 0.5)))
+              for k, (name, g, w) in enumerate(zip(names, got, want)))
+    ms, plain_ms, host_ms = time_ms(kernel), time_ms(plain), wrapper_ms(kernel)
+    g4, kw = 4 * hidden, in_size + hidden
+    n_bytes = (4 * (kw * g4 + rows * in_size + 5 * rows * hidden + rows * g4)
+               + 4 * (rows * in_size + 2 * rows * hidden + kw * g4 + g4))
+    # dx + dh_prev and the weight gradients: two products over 4H x (I + H)
+    # per row; db and the gate algebra (about 20 flops per row and unit)
+    n_flops = 4 * rows * g4 * kw + rows * g4 + 20 * rows * hidden
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return dict(name="lstm_cell_bwd", shape=dict(B=rows, I=in_size, H=hidden),
+                max_abs_err=err, deterministic=True, ms=ms, wrapper_ms=host_ms,
+                plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
 # ---------------------------------------------------------------------------
@@ -296,25 +510,32 @@ def run_forecast(cfg, params_cpu, params_dev, y, cats, dev):
 
 
 def profile_forecast(cfg, params_dev, y, cats, dev, top: int = 8):
-    """Where one ``esrnn_forecast`` call spends the card's time.
+    """Where one ``esrnn_forecast`` call spends the card's time."""
+    import torch
 
-    torch.profiler (CUPTI) over one warm call: device time by kernel name,
-    and the device-busy share of the call's wall time (the union of kernel
-    and copy intervals over the host-clock wall). ``None`` fields when the
-    profiler saw no device activity.
+    from repro_torch.core.esrnn import esrnn_forecast
+
+    y_d, c_d = torch.from_numpy(y).to(dev), torch.from_numpy(cats).to(dev)
+    return profile_call(lambda: esrnn_forecast(cfg, params_dev, y_d, c_d), top)
+
+
+def profile_call(call, top: int = 8):
+    """Where one warm ``call()`` spends the card's time.
+
+    torch.profiler (CUPTI) over one call after a warm one: device time by
+    kernel name, and the device-busy share of the call's wall time (the
+    union of kernel and copy intervals over the host-clock wall). ``None``
+    fields when the profiler saw no device activity.
     """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.esrnn import esrnn_forecast
-
-    y_d, c_d = torch.from_numpy(y).to(dev), torch.from_numpy(cats).to(dev)
-    esrnn_forecast(cfg, params_dev, y_d, c_d)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        esrnn_forecast(cfg, params_dev, y_d, c_d)
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
@@ -423,6 +644,181 @@ def _t(a):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: training on the card, against the same steps on the CPU
+# ---------------------------------------------------------------------------
+
+
+def run_train(cfg, data, dev):
+    """``train_esrnn`` on the card and on the CPU from the same init and
+    schedule: 10 dense Adam steps (per-step engine) and 8 sparse Adam steps
+    in supersteps of 4. Per-step losses and the final validation sMAPE must
+    agree within TRAIN_RTOL."""
+    import torch
+
+    from repro_torch.core.esrnn import param_leaves
+    from repro_torch.train.trainer import TrainConfig, train_esrnn
+
+    runs = {"dense": dict(n_steps=DENSE_STEPS, scan_steps=1, sparse_adam=False),
+            "sparse": dict(n_steps=SPARSE_STEPS, scan_steps=SPARSE_SCAN, sparse_adam=True)}
+    out = {}
+    for name, kw in runs.items():
+        tcfg = TrainConfig(batch_size=TRAIN_BATCH, eval_every=1000, seed=0, **kw)
+        res, wall = {}, {}
+        for where, device in (("card", dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            res[where] = train_esrnn(cfg, data, tcfg, device=device,
+                                     generator=torch.Generator().manual_seed(0))
+            if where == "card":
+                torch.cuda.synchronize()
+            wall[where] = time.perf_counter() - t0
+        card_h, cpu_h = res["card"]["history"], res["cpu"]["history"]
+        losses = torch.tensor(card_h["loss"], dtype=torch.float64)
+        want = torch.tensor(cpu_h["loss"], dtype=torch.float64)
+        if not torch.isfinite(losses).all() or len(losses) != kw["n_steps"]:
+            raise AssertionError(f"train {name}: losses {card_h['loss']}")
+        check_close(f"train {name} losses", losses, want, rtol=TRAIN_RTOL, atol=0.0)
+        smape = torch.tensor([v for _, v in card_h["val_smape"]])
+        check_close(f"train {name} val sMAPE", smape,
+                    torch.tensor([v for _, v in cpu_h["val_smape"]]),
+                    rtol=TRAIN_RTOL, atol=0.0)
+        param_diff = max(
+            float((a.detach().cpu() - b.detach()).abs().max())
+            for (_, a), (_, b) in zip(param_leaves(res["card"]["params"]),
+                                      param_leaves(res["cpu"]["params"])))
+        out[name] = dict(
+            steps=kw["n_steps"], scan_steps=kw["scan_steps"], losses=card_h["loss"],
+            max_rel_loss_err=max_rel(losses, want), val_smape=card_h["val_smape"],
+            cpu_val_smape=cpu_h["val_smape"], max_abs_param_diff=param_diff,
+            card_wall_s=wall["card"], cpu_wall_s=wall["cpu"])
+    return out
+
+
+class TrainSteps:
+    """One dense or sparse train step on the card at a given batch, over
+    the train cell's data (the step ``train_esrnn`` runs)."""
+
+    def __init__(self, cfg, data, dev, batch: int, sparse: bool):
+        import torch
+
+        from repro_torch.core.esrnn import esrnn_init
+        from repro_torch.data.pipeline import batch_indices
+        from repro_torch.train.engine import make_step_fn
+        from repro_torch.train.optimizer import AdamConfig, adam_init, adam_init_sparse
+
+        n = data.n_series
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        self.params = esrnn_init(torch.Generator().manual_seed(0), cfg, n, device=dev)
+        self.opt = adam_init_sparse(self.params) if sparse else adam_init(self.params)
+        adam = AdamConfig(lr=1e-3, clip_norm=20.0,
+                          group_lr={"per_series": 10.0, "default": 1.0})
+        self.step_fn = make_step_fn(cfg, adam, to_dev(data.train), to_dev(data.cats),
+                                    to_dev(data.mask), sparse=sparse)
+        self.idx = [to_dev(batch_indices(n, batch, s)) for s in range(TIMED_STEPS + 4)]
+        self.k = 0
+
+    def step(self):
+        """One step, then the per-step engine's host sync on its loss."""
+        self.params, self.opt, loss = self.step_fn(
+            self.params, self.opt, self.idx[self.k % len(self.idx)])
+        self.k += 1
+        return float(loss)
+
+
+def time_train_steps(cfg, data, dev):
+    """Steps/s of the per-step engine on the card, and launches per step."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    want = {"hw_scan": 1, "hw_scan_bwd": 1, "lstm_cell": 0,
+            "lstm_cell_fwd": None, "lstm_cell_bwd": None}
+    cells = sum(-(-(TRAIN_T - cfg.input_size + 1) // d)
+                for block in cfg.dilations for d in block)
+    want["lstm_cell_fwd"] = want["lstm_cell_bwd"] = cells
+    rows = []
+    for batch in (TRAIN_BATCH, BIG_BATCH):
+        for sparse in (False, True):
+            bench = TrainSteps(cfg, data, dev, batch, sparse)
+            for _ in range(2):
+                bench.step()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            bench.step()
+            per_step = ops.launch_counts()
+            if per_step != want:
+                raise AssertionError(f"launches per train step {per_step}, want {want}")
+            t0 = time.perf_counter()
+            for _ in range(TIMED_STEPS):
+                bench.step()
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / TIMED_STEPS
+            torch.cuda.reset_peak_memory_stats()
+            bench.step()
+            rows.append(dict(batch=batch, adam="sparse" if sparse else "dense",
+                             ms_per_step=dt * 1e3, steps_per_s=1.0 / dt,
+                             series_per_s=batch / dt,
+                             peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20))
+    return dict(launches_per_step=want, timings=rows)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: a server whose idle fine-tune trains on the card, against the CPU
+# ---------------------------------------------------------------------------
+
+
+def run_finetune(cfg, params_cpu, params_dev, dev, seed: int = 6):
+    """Two ``ForecastServer``s with ``finetune_steps > 0``, on the card and
+    on the CPU, observe the same histories, forecast, fine-tune when the
+    queue drains, and forecast again; card and CPU must agree."""
+    from repro_torch.forecast import ForecastRequest
+    from repro_torch.forecast.server import ForecastServer, ServerConfig
+
+    sc = ServerConfig(finetune_steps=FT_STEPS, finetune_batch=FT_SERIES)
+    kw = dict(length_buckets=LENGTH_BUCKETS, batch_buckets=BATCH_BUCKETS, server_config=sc)
+    servers = {"card": ForecastServer(cfg, params_dev, device=dev, **kw),
+               "cpu": ForecastServer(cfg, params_cpu, device="cpu", **kw)}
+    n_known = params_cpu["hw"].alpha_logit.shape[0]
+    rng = np.random.default_rng(seed)
+    sids = [int(s) for s in rng.choice(n_known, FT_SERIES, replace=False)]
+    m = cfg.seasonality
+    for sid in sids:
+        seas = np.tile(np.exp(rng.normal(0, 0.1, m)), FT_OBS // m + 1)[:FT_OBS]
+        hist = (100.0 * np.exp(rng.normal(0, 0.02, FT_OBS).cumsum()) * seas).astype(np.float32)
+        for srv in servers.values():
+            for v in hist:
+                srv.observe(sid, float(v), category=sid % cfg.n_categories)
+    asks = [ForecastRequest(series_id=sid, category=sid % cfg.n_categories) for sid in sids]
+    waves = {k: [] for k in servers}
+    for _ in range(2):        # each wave ends in a drained queue: one burst each
+        for name, srv in servers.items():
+            waves[name].append(np.stack(srv.forecast_batch(asks)))
+    err = 0.0
+    for w in range(2):
+        err = max(err, check_close(f"fine-tune wave {w}", _t(waves["card"][w]),
+                                   _t(waves["cpu"][w]), rtol=FC_RTOL, atol=FC_ATOL))
+    if np.array_equal(waves["card"][0], waves["card"][1]):
+        raise AssertionError("the fine-tune burst did not change the forecasts")
+    card, cpu = servers["card"], servers["cpu"]
+    if not card.stats.finetunes == cpu.stats.finetunes == 2:
+        raise AssertionError(f"finetunes: card {card.stats.finetunes}, cpu {cpu.stats.finetunes}")
+    # the fine-tuned HW rows are reported, not held to a bound: Adam
+    # normalises each per-series gradient, so a logit whose gradient sits at
+    # rounding level may step by up to ~lr * sqrt(k) either way on each
+    # device. Such a logit barely moves the loss or the forecasts; those two
+    # carry the check of the fine-tuned rows
+    hw_err = max(float(np.abs(getattr(card.dispatcher._hw_table, f)[sids]
+                              - getattr(cpu.dispatcher._hw_table, f)[sids]).max())
+                 for f in ("alpha_logit", "gamma_logit", "init_seas_logit"))
+    check_close("fine-tune loss", _t(np.float64(card.tuner.last_loss)),
+                _t(np.float64(cpu.tuner.last_loss)), rtol=TRAIN_RTOL, atol=0.0)
+    return dict(series=sids, observations=FT_OBS, steps_per_burst=FT_STEPS,
+                bursts=card.stats.finetunes, window=card.tuner.window,
+                last_loss=card.tuner.last_loss, cpu_last_loss=cpu.tuner.last_loss,
+                forecast_max_abs_err=err, hw_rows_max_abs_diff=hw_err,
+                kernel_launches=dict(card.stats.kernel_launches))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -458,61 +854,102 @@ def main() -> int:
                           torch.backends.cudnn.allow_tf32]))
 
     # phase 2: kernels against their plain versions, at the main path's
-    # shapes (the first of each list is the forecast batch's first launch),
-    # plus the m == 1 convention of the yearly and other non-seasonal models
+    # shapes (the first of each list is the first launch of the forecast
+    # batch, for K1/K3, or of a train step at batch 256, for K2/K4/K5), plus
+    # the m == 1 convention of the yearly and other non-seasonal models
     cfg, params_cpu = make_model(N_SERIES)
     k1_shapes, k3_shapes = main_path_shapes(cfg)
+    k2_shapes, k45_shapes = train_path_shapes(cfg, window=max(LENGTH_BUCKETS))
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
         k1 = [check_hw_scan(n, t, m, gen) for n, t, m in k1_shapes]
         k1.append(check_hw_scan(N_SERIES, T_LEN, 1, gen))
         k3 = [check_lstm_cell(rows, width, cfg.hidden_size, gen)
               for rows, width in k3_shapes]
-    for rec in k1 + k3:
+        k2 = [check_hw_scan_bwd(n, t, m, gen) for n, t, m in k2_shapes]
+        k2 += [check_hw_scan_bwd(n, TRAIN_T, 1, gen) for n in (TRAIN_BATCH, BIG_BATCH)]
+        k4 = [check_lstm_cell_fwd(rows, width, cfg.hidden_size, gen)
+              for rows, width in k45_shapes]
+        k5 = [check_lstm_cell_bwd(rows, width, cfg.hidden_size, gen)
+              for rows, width in k45_shapes]
+    for rec in k1 + k3 + k2 + k4 + k5:
         emit(dict(phase="kernel", **rec))
 
-    # phases 3 and 4 are the main path: count launches from zero through both
+    # phases 3 to 6 are the main paths: each counts launches from zero and
+    # must have launched every kernel of its path
+    path_launches = dict.fromkeys(ops.launch_counts(), 0)
+
+    def counted(phase_kernels, what, run):
+        ops.reset_launch_counts()
+        result = run()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        missed = [k for k in phase_kernels if counts[k] == 0]
+        if missed:
+            raise AssertionError(f"{what} missed kernel(s) {missed}: {counts}")
+        for k, v in counts.items():
+            path_launches[k] += v
+        return result, counts
+
+    forecast_kernels = ("hw_scan", "lstm_cell")
+    train_kernels = ("hw_scan", "hw_scan_bwd", "lstm_cell_fwd", "lstm_cell_bwd")
     params_dev = params_to_device(params_cpu, dev)
     y, cats = make_batch(cfg, N_SERIES, T_LEN)
-    ops.reset_launch_counts()
-    fc = run_forecast(cfg, params_cpu, params_dev, y, cats, dev)
-    fc_launches = ops.launch_counts()
-    if min(fc_launches.values()) == 0:
-        raise AssertionError(f"the forecast missed a kernel: {fc_launches}")
+    fc, fc_launches = counted(forecast_kernels, "the forecast", lambda: run_forecast(
+        cfg, params_cpu, params_dev, y, cats, dev))
     emit(dict(phase="forecast", config="quarterly", N=N_SERIES, T=T_LEN,
               hidden=cfg.hidden_size, dilations=cfg.dilations, origins=ORIGINS,
               launches=fc_launches, **fc))
     emit(dict(phase="profile", call="esrnn_forecast", N=N_SERIES, T=T_LEN,
               **profile_forecast(cfg, params_dev, y, cats, dev)))
-    fc_launches = ops.launch_counts()
 
-    serve = run_serve(cfg, params_cpu, params_dev, dev, N_REQUESTS)
-    launches = ops.launch_counts()
-    serve_launches = {k: launches[k] - fc_launches[k] for k in launches}
-    if min(serve_launches.values()) == 0:
-        raise AssertionError(f"serving missed a kernel: {serve_launches}")
+    serve, serve_launches = counted(forecast_kernels, "serving", lambda: run_serve(
+        cfg, params_cpu, params_dev, dev, N_REQUESTS))
     emit(dict(phase="serve", card=smi, launches=serve_launches, **serve))
 
-    # phase 5: summary, one entry per ported kernel; times at the forecast
-    # batch's first launch of each (N = 24,000; K3: layer 0, I = 14)
-    main_k1, main_k3 = k1[0], k3[0]
+    # phase 5: train_esrnn on the card against the CPU, then steps/s
+    from repro_torch.data.pipeline import synthetic_prepared
+
+    data = synthetic_prepared(TRAIN_N, series_length=TRAIN_T)
+    train, train_launches = counted(train_kernels, "training",
+                                    lambda: run_train(cfg, data, dev))
+    emit(dict(phase="train", config="quarterly", N=TRAIN_N, T=TRAIN_T,
+              batch=TRAIN_BATCH, card=smi, launches=train_launches, **train,
+              **time_train_steps(cfg, data, dev)))
+    bench = TrainSteps(cfg, data, dev, TRAIN_BATCH, sparse=False)
+    emit(dict(phase="profile_train", call="one dense train step", N=TRAIN_N, T=TRAIN_T,
+              batch=TRAIN_BATCH, **profile_call(bench.step)))
+
+    # phase 6: the fine-tuning server on the card against the CPU
+    finetune, ft_launches = counted(
+        forecast_kernels + train_kernels, "the fine-tune server",
+        lambda: run_finetune(cfg, params_cpu, params_dev, dev))
+    emit(dict(phase="finetune", card=smi, launches=ft_launches, **finetune))
+
+    # phase 7: summary, one entry per ported kernel. Launches: the main-path
+    # phases 3 to 6. Times at the first listed shape of each (K1, K3: the
+    # forecast batch, N = 24,000, layer 0; K2, K4, K5: a train step at
+    # batch 256, layer 0)
+    def entry(name, source, replaces, recs, library_ms):
+        main_rec = recs[0]
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=path_launches[name],
+                    max_abs_err=max(r["max_abs_err"] for r in recs),
+                    ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
+                    bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
+                    library_ms=library_ms)
+
+    csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
-        dict(name="hw_scan", route="cuda",
-             source="src/repro_torch/kernels/csrc/hw_scan.cu",
-             replaces="src/repro/kernels/hw_scan.py:56",
-             launches=launches["hw_scan"],
-             max_abs_err=max(r["max_abs_err"] for r in k1),
-             ms=main_k1["ms"], plain_ms=main_k1["plain_ms"],
-             bound_ms=main_k1["bound_ms"], bound_by=main_k1["bound_by"],
-             library_ms=None),
-        dict(name="lstm_cell", route="cuda",
-             source="src/repro_torch/kernels/csrc/lstm_cell.cu",
-             replaces="src/repro/kernels/lstm_cell.py:56",
-             launches=launches["lstm_cell"],
-             max_abs_err=max(r["max_abs_err"] for r in k3),
-             ms=main_k3["ms"], plain_ms=main_k3["plain_ms"],
-             bound_ms=main_k3["bound_ms"], bound_by=main_k3["bound_by"],
-             library_ms=main_k3["library_ms"]),
+        entry("hw_scan", csrc + "hw_scan.cu", "src/repro/kernels/hw_scan.py:56", k1, None),
+        entry("lstm_cell", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:56", k3,
+              k3[0]["library_ms"]),
+        entry("hw_scan_bwd", csrc + "hw_scan_bwd.cu", "src/repro/kernels/hw_scan.py:89",
+              k2, None),
+        entry("lstm_cell_fwd", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:72",
+              k4, k4[0]["library_ms"]),
+        entry("lstm_cell_bwd", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:90",
+              k5, None),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

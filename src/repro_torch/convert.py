@@ -21,7 +21,7 @@ from repro_torch.core.heads import Attention, Readout
 from repro_torch.core.holt_winters import HWParams
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_numpy", "params_to_numpy", "params_to_device"]
+__all__ = ["params_from_numpy", "params_to_numpy", "params_to_device", "copy_params"]
 
 _HW_FIELDS = tuple(f.name for f in dataclasses.fields(HWParams))
 _READOUT = ("dense_w", "dense_b", "out_w", "out_b")
@@ -85,3 +85,12 @@ def params_to_device(params, device):
         return copy.deepcopy(v).to(dev)
 
     return {k: move(v) for k, v in params.items()}
+
+
+def copy_params(params, device):
+    """A copy of ``params`` on ``device`` that shares no storage with them:
+    what a trainer or fine-tuner updates in place."""
+    dev = resolve_device(device)
+    return {k: (v.map(lambda a: a.detach().to(dev, copy=True))
+                if isinstance(v, HWParams) else copy.deepcopy(v).to(dev))
+            for k, v in params.items()}

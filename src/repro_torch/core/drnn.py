@@ -14,7 +14,8 @@ Two formulations:
 * :func:`drnn_apply` -- the *interleaved* one: a dilation-d LSTM over T
   steps is d independent LSTMs over the stride-d sub-sequences, folded into
   the batch as ``(B*d, T/d)``. One :func:`lstm_cell` call per step of each
-  layer; on the card each is one launch of the fused-cell kernel K3.
+  layer; on the card each is one launch of the fused-cell kernel K3, or,
+  when a gradient is needed, of K4 forward and K5 backward.
 * :func:`drnn_apply_reference` -- the direct ring-buffer formulation, kept as
   the numerical oracle.
 """
@@ -46,7 +47,8 @@ def lstm_cell(cell: LSTMCell, x, h_prev, c_prev):
     """One fused LSTM step. x:(B,I) h,c:(B,H) -> (h,c):(B,H).
 
     Dispatches by device through ``kernels.ops.lstm_cell``: the CUDA kernel
-    K3 for tensors on the card, its plain version on the CPU.
+    K3 for tensors on the card (K4/K5 when a gradient is needed), its plain
+    version on the CPU.
     """
     return kernel_ops.lstm_cell(cell.wx, cell.wh, cell.b, x, h_prev, c_prev)
 

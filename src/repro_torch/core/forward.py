@@ -8,7 +8,10 @@ the head outputs at every valid window position -- as an
 :func:`forecast_at_origins` reads the forecast from any earlier origin of
 the same pass (rolling-origin backtesting without a re-run).
 
-The loss side (``loss_terms``, ``target_windows``) comes with training.
+The same pass feeds the training loss: :func:`target_windows` builds the
+normalized output windows and their validity mask, and :func:`loss_terms`
+scores the head outputs against them (masked pin-ball sum and count, plus
+the section-8.4 penalties).
 """
 
 from __future__ import annotations
@@ -19,12 +22,13 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import heads as H
+from repro_torch.core import losses as L
 from repro_torch.core.holt_winters import hw_smooth, hw_step
 
 __all__ = [
     "ESRNNStates", "esrnn_states", "smooth", "hw_step", "window_positions",
-    "future_seasonal_idx", "input_windows", "features", "forecast_from_states",
-    "quantile_sigma", "forecast_at_origins",
+    "future_seasonal_idx", "input_windows", "target_windows", "features",
+    "loss_terms", "forecast_from_states", "quantile_sigma", "forecast_at_origins",
 ]
 
 
@@ -93,6 +97,27 @@ def input_windows(cfg, y, levels, seas):
     return x_in, pos
 
 
+def target_windows(cfg, y, levels, seas, pos):
+    """Normalized output windows + the position-validity mask.
+
+    Output windows need y up to t+H, so the last H positions have no
+    complete target; ``out_mask`` (N, P, H) in {0,1} marks real targets.
+    Clamped (out-of-range) entries are masked out of the loss.
+    """
+    n, t_len = y.shape
+    h = cfg.output_size
+    out_idx = pos[:, None] + torch.arange(1, h + 1, device=y.device)[None, :]   # (P, H)
+    out_valid = out_idx < t_len
+    out_idx_c = torch.clamp_max(out_idx, t_len - 1)
+    lvl = levels[:, pos]                                                # (N, P)
+    y_out = y[:, out_idx_c]                                             # (N, P, H)
+    m = max(cfg.seasonality, 1)
+    s_out = seas[:, future_seasonal_idx(out_idx, t_len, m)]
+    y_out_n = torch.log(torch.clamp_min(y_out / (lvl[:, :, None] * s_out), 1e-8))
+    out_mask = out_valid[None, :, :].to(y.dtype).expand(n, -1, -1)
+    return y_out_n, out_mask
+
+
 def features(x_in, cats):
     """Input windows + broadcast one-hot category features (N, P, W + C)."""
     n, p, _ = x_in.shape
@@ -122,6 +147,25 @@ def esrnn_states(cfg, params, y, cats) -> ESRNNStates:
 # ---------------------------------------------------------------------------
 # Consumers: forecasts, rolling origins, quantile spread
 # ---------------------------------------------------------------------------
+
+
+def loss_terms(cfg, states: ESRNNStates, y, mask=None):
+    """Decomposed training-loss terms ``(pinball_sum, valid_count, penalties)``.
+
+    The target windows are scored against the head outputs of the pass;
+    ``mask`` (N, T) excludes window positions whose input overlaps the
+    left-padding of variable-length series.
+    """
+    y_out_n, out_mask = target_windows(cfg, y, states.levels, states.seas,
+                                       states.pos)
+    if mask is not None:
+        valid_in = mask[:, states.pos - cfg.input_size + 1]           # (N, P)
+        out_mask = out_mask * valid_in[:, :, None]
+    pin_sum, pin_cnt = L.pinball_terms(states.yhat_n, y_out_n, tau=cfg.tau,
+                                       mask=out_mask)
+    penalties = (L.level_variability_penalty(states.levels, cfg.level_penalty)
+                 + L.cstate_penalty(states.c_sq, cfg.cstate_penalty))
+    return pin_sum, pin_cnt, penalties
 
 
 def forecast_from_states(cfg, states: ESRNNStates, t_len: int):

@@ -7,19 +7,21 @@ is a registry entry
     HeadSpec(
         init(cfg, generator, device) -> non-hw params subtrees,
         apply(cfg, params, feats)    -> (yhat_n (N, P, H), c_sq scalar),
+        frozen                       -> top-level param keys training leaves
+                                        fixed (empty for lstm),
     )
 
-This slice of the port registers the paper's ``lstm`` head only: the dilated
-residual LSTM (+ optional causal attention) followed by the tanh-dense +
-linear readout. The ``esn`` and ``ssm`` heads, and the ``frozen`` param
-groups training needs, come in later slices.
+The port registers the paper's ``lstm`` head only: the dilated residual
+LSTM (+ optional causal attention) followed by the tanh-dense + linear
+readout. The ``esn`` head (which freezes ``"rnn"``) and the ``ssm`` head
+come in a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, FrozenSet, Tuple
 
 import torch
 from torch import nn
@@ -29,17 +31,19 @@ from repro_torch.device import resolve_device
 
 __all__ = [
     "HeadSpec", "register_head", "get_head", "available_heads", "Readout",
-    "Attention", "lstm_head_init", "lstm_head_apply",
+    "Attention", "frozen_param_groups", "lstm_head_init", "lstm_head_apply",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class HeadSpec:
-    """One pluggable head: its init and apply functions."""
+    """One pluggable head: its init and apply functions, and the top-level
+    param groups training keeps fixed."""
 
     name: str
     init: Callable
     apply: Callable
+    frozen: FrozenSet[str] = frozenset()
 
 
 _HEADS: Dict[str, HeadSpec] = {}
@@ -62,6 +66,11 @@ def get_head(name: str) -> HeadSpec:
         raise KeyError(
             f"unknown forecasting head {name!r}; available heads: "
             f"{list(available_heads())}") from None
+
+
+def frozen_param_groups(cfg) -> FrozenSet[str]:
+    """Top-level param keys the config's head excludes from training."""
+    return get_head(cfg.head).frozen
 
 
 # ---------------------------------------------------------------------------

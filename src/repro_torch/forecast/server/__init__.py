@@ -5,8 +5,11 @@
   ``observe`` write ingestion.
 * :class:`~repro_torch.forecast.server.state.OnlineStateStore` -- host-side
   rolled Holt-Winters state per tracked series.
+* :class:`~repro_torch.forecast.server.finetune.IdleFineTuner` -- sparse-Adam
+  bursts on the freshest observed series when the queue drains.
 """
 
+from repro_torch.forecast.server.finetune import IdleFineTuner
 from repro_torch.forecast.server.engine import (
     ForecastFuture, ForecastServer, QueueFull, ServerConfig,
 )
@@ -17,6 +20,7 @@ from repro_torch.forecast.server.state import (
 __all__ = [
     "ForecastFuture",
     "ForecastServer",
+    "IdleFineTuner",
     "ObserveWrite",
     "OnlineStateStore",
     "QueueFull",

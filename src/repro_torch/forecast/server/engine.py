@@ -17,11 +17,12 @@ nearly the wall time of a batch-64 one through the same kernels), so
   scheduler absorbs the write queue before every dispatch, so a forecast
   submitted after an ``observe`` conditions on the new value
   (read-your-writes).
-
-The idle fine-tune hook of the JAX server needs the optimizer and the
-backward kernels; it comes with the training slice, and
-``ServerConfig.finetune_steps > 0`` raises :class:`NotImplementedError`
-until then.
+* **idle fine-tune** -- with ``ServerConfig.finetune_steps > 0``, once per
+  drained busy period an
+  :class:`~repro_torch.forecast.server.finetune.IdleFineTuner` burst runs a
+  few sparse-Adam steps on the freshest observed series (on the server's
+  device), installs the result in the dispatcher and re-rolls those series'
+  online state under the new parameters.
 
 The scheduler is single-threaded (one dispatching thread, or the caller's
 thread via :meth:`ForecastServer.step`/:meth:`ForecastServer.drain` for
@@ -41,6 +42,7 @@ from repro_torch.core.esrnn import ESRNNConfig
 from repro_torch.forecast.serving import (
     BucketDispatcher, ForecastRequest, ServeStats,
 )
+from repro_torch.forecast.server.finetune import IdleFineTuner
 from repro_torch.forecast.server.state import ObserveWrite, OnlineStateStore
 
 
@@ -57,9 +59,12 @@ class ServerConfig:
     max_batch: Optional[int] = None   # per-dispatch cap (None: largest bucket)
     history_cap: Optional[int] = None  # online store tail (None: largest
                                        # length bucket -- what forecasts use)
-    # idle fine-tune hook: 0 = off; > 0 raises until the training slice
-    # brings the fine-tuner (and its batch/lr knobs)
+    # idle fine-tune hook (0 steps = off)
     finetune_steps: int = 0
+    finetune_batch: int = 32
+    finetune_lr: float = 1e-4
+    finetune_hw_lr_ratio: float = 10.0
+    finetune_min_history: Optional[int] = None
 
 
 class ForecastFuture:
@@ -120,11 +125,6 @@ class ForecastServer:
         self.config = config
         self.server_config = server_config or ServerConfig()
         sc = self.server_config
-        if sc.finetune_steps > 0:
-            raise NotImplementedError(
-                "ServerConfig.finetune_steps > 0: the idle fine-tuner needs "
-                "the optimizer and the backward kernels, which come with the "
-                "training slice of the port")
         self.stats = ServeStats()
         self.dispatcher = BucketDispatcher(
             config, params, length_buckets=length_buckets,
@@ -135,12 +135,22 @@ class ForecastServer:
         self.store = OnlineStateStore(
             config, lambda: self.dispatcher._hw_table,
             self.dispatcher.n_known, history_cap=cap)
+        self.tuner = None
+        if sc.finetune_steps > 0:
+            self.tuner = IdleFineTuner(
+                config, params, steps=sc.finetune_steps,
+                batch=sc.finetune_batch,
+                window=self.dispatcher.length_buckets[-1],
+                lr=sc.finetune_lr, hw_lr_ratio=sc.finetune_hw_lr_ratio,
+                min_history=sc.finetune_min_history,
+                device=self.dispatcher.device)
 
         self._cond = threading.Condition()
         self._pending: List[_Pending] = []
         self._writes: List[ObserveWrite] = []
         self._thread: Optional[threading.Thread] = None
         self._stop = False
+        self._active_since_tune = False
 
     # -- client surface ------------------------------------------------------
 
@@ -235,6 +245,7 @@ class ForecastServer:
         with self._cond:
             pending, self._pending = self._pending, []
         if not pending:
+            self._maybe_finetune()
             return 0, None
 
         # group by length bucket, resolving online histories after the write
@@ -277,6 +288,8 @@ class ForecastServer:
                 completed += len(chunk)
             self.stats.total_s += time.perf_counter() - t0
         self.stats.requests += completed
+        if completed:
+            self._active_since_tune = True
 
         with self._cond:
             # leftover groups go back in arrival order, ahead of anything
@@ -288,6 +301,9 @@ class ForecastServer:
                 self._cond.notify_all()   # wake blocked submitters
             next_deadline = (min(e.arrival for e in self._pending)
                              + max_wait_s if self._pending else None)
+            empty = not self._pending and not self._writes
+        if empty:
+            self._maybe_finetune()
         return completed, next_deadline
 
     def drain(self) -> int:
@@ -299,6 +315,20 @@ class ForecastServer:
                     return total
             done, _ = self.step(force=True)
             total += done
+
+    def _maybe_finetune(self) -> None:
+        """Idle hook: one fine-tune burst per drained busy period."""
+        if self.tuner is None or not self._active_since_tune:
+            return
+        self._active_since_tune = False
+        params, rows = self.tuner.run(self.store, self.dispatcher.n_known)
+        if rows:
+            # the dispatcher snapshots the HW rows to host and shares the
+            # tuner's shared weights; both change only inside a burst, on
+            # this (the scheduler's) thread
+            self.dispatcher.set_params(params)
+            self.store.refresh(rows)
+            self.stats.finetunes += 1
 
     # -- background thread ---------------------------------------------------
 

@@ -66,6 +66,7 @@ class SeriesState:
     t: int = 0                    # total observations absorbed (full history)
     history: List[float] = dataclasses.field(default_factory=list)
     truncated: bool = False       # tail dropped observations beyond the cap
+    last_write: int = -1          # store write counter at last observation
 
     def __post_init__(self):
         if self.s_ring is None:
@@ -94,7 +95,8 @@ class OnlineStateStore:
     """Host-side table of rolled HW states, keyed by series id.
 
     ``table`` returns the current host HW-table snapshot (the dispatcher's
-    extended fitted-plus-primer view), read when a series is first seen.
+    extended fitted-plus-primer view), read when a series is first seen and
+    again on :meth:`refresh` after an idle fine-tune changed the table.
     """
 
     def __init__(
@@ -112,6 +114,7 @@ class OnlineStateStore:
         self._states: Dict[int, SeriesState] = {}
         self._seasonal = config.seasonality > 1
         self._dual = config.seasonality2 > 1
+        self._writes = 0   # monotone write counter (recency ordering)
 
     # -- introspection -------------------------------------------------------
 
@@ -129,6 +132,22 @@ class OnlineStateStore:
         return st.history_array() if st is not None else None
 
     # -- registration --------------------------------------------------------
+
+    def recently_observed(
+        self, *, rows_below: Optional[int] = None, min_history: int = 0,
+    ) -> List[SeriesState]:
+        """Tracked series, most recently written first (fine-tune candidates).
+
+        ``rows_below`` keeps only series with a fitted table row below it
+        (cold-start primer series have no row of their own to fine-tune);
+        ``min_history`` drops series whose stored tail is too short to form
+        a training window.
+        """
+        states = [
+            st for st in self._states.values()
+            if (rows_below is None or st.row < rows_below)
+            and len(st.history) >= min_history]
+        return sorted(states, key=lambda st: st.last_write, reverse=True)
 
     def _constrained_row(self, row: int):
         hw = self._table()
@@ -184,6 +203,8 @@ class OnlineStateStore:
         self._note_obs(st, y32)
 
     def _note_obs(self, st: SeriesState, y32: np.float32) -> None:
+        self._writes += 1
+        st.last_write = self._writes
         st.t += 1
         st.history.append(float(y32))
         if len(st.history) > self.history_cap:
@@ -242,7 +263,7 @@ class OnlineStateStore:
                 self._roll_one(st, w.y)
         return sum(len(ws) for ws in by_sid.values())
 
-    # -- seeding ---------------------------------------------------------------
+    # -- seeding + fine-tune refresh -----------------------------------------
 
     def seed(self, series_id: int, history: Iterable[float], *, row: int,
              category: Optional[int] = None) -> SeriesState:
@@ -256,3 +277,35 @@ class OnlineStateStore:
         for y in np.asarray(history, np.float32):
             self._roll_one(st, y)
         return st
+
+    def refresh(self, rows: Optional[Sequence[int]] = None) -> int:
+        """Re-prime states after the HW table changed under them.
+
+        The idle fine-tune updates per-series smoothing parameters in the
+        fitted table; a state rolled under the OLD parameters no longer
+        matches a fresh pass under the new ones, so affected series re-pull
+        their constrained row and replay their stored history tail. (Post-
+        refresh the invariant is "state == pass over the *stored* history"
+        -- for a truncated tail the pre-truncation prefix is gone, which is
+        exactly what the batched forecast conditions on anyway.)
+        """
+        rows_set = None if rows is None else set(int(r) for r in rows)
+        n = 0
+        for st in self._states.values():
+            if rows_set is not None and st.row not in rows_set:
+                continue
+            alpha, gamma, gamma2, s_ring, s2_ring = self._constrained_row(st.row)
+            st.alpha, st.gamma, st.gamma2 = alpha, gamma, gamma2
+            st.init_s_ring, st.init_s2_ring = s_ring, s2_ring
+            st.level = None
+            st.s_ring = s_ring.copy()
+            st.s2_ring = s2_ring.copy()
+            history, st.history, st.t = st.history, [], 0
+            writes_before, last_write = self._writes, st.last_write
+            for y in history:
+                self._roll_one(st, y)
+            # the replay is not new traffic: keep the write clock and this
+            # series' recency rank exactly where they were
+            self._writes, st.last_write = writes_before, last_write
+            n += 1
+        return n

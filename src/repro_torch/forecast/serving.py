@@ -74,6 +74,7 @@ class ServeStats:
                                      # length bucket (served on the tail)
     observes: int = 0                # online observations absorbed
     write_batches: int = 0           # batched write-absorption passes
+    finetunes: int = 0               # idle incremental fine-tune runs
     queue_depth: int = 0             # gauge: pending requests at last pass
     queue_peak: int = 0              # high-water mark of the request queue
     total_s: float = 0.0
@@ -102,7 +103,7 @@ class ServeStats:
         """Zero every counter and drop the latency window (the budget stays)."""
         self.requests = self.batches = self.compiles = self.cache_hits = 0
         self.padded_series = self.truncated_series = 0
-        self.observes = self.write_batches = 0
+        self.observes = self.write_batches = self.finetunes = 0
         self.queue_depth = self.queue_peak = 0
         self.total_s = 0.0
         self.kernel_launches.clear()

@@ -36,8 +36,11 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 # kernel entry points: name -> (pointer args, int args); each one ends with
 # the stream pointer and returns its cudaError_t as an int
 _SIGNATURES = {
-    "hw_scan_f32": (6, 4),
-    "lstm_cell_f32": (8, 4),
+    "hw_scan_f32": (6, 4),             # K1
+    "hw_scan_bwd_f32": (11, 4),        # K2
+    "lstm_cell_f32": (8, 4),           # K3
+    "lstm_cell_fwd_f32": (9, 4),       # K4
+    "lstm_cell_bwd_f32": (16, 5),      # K5
 }
 
 _lock = threading.Lock()
@@ -137,8 +140,12 @@ def check_inputs(kernel: str, named_shapes, device) -> None:
     """Refuse what a kernel does not take, before any pointer is passed.
 
     ``named_shapes`` is ``[(name, tensor, expected_shape), ...]``; every
-    tensor must be float32, contiguous and on ``device`` (a CUDA device),
-    and none may need a gradient: the kernels have no backward yet.
+    tensor must be float32, contiguous and on ``device`` (a CUDA device).
+    A launch wrapper's outputs are outside autograd, so it refuses a tensor
+    that needs a gradient while grad mode is on: differentiable calls go
+    through the ``torch.autograd.Function``s (``hw_scan.HWScan``,
+    ``lstm_cell.LSTMCell``), which ``kernels.ops`` routes to, and whose
+    forward and backward run with grad mode off.
     """
     if device.type != "cuda":
         raise ValueError(f"{kernel}: the CUDA kernel got a tensor on {device}")
@@ -153,8 +160,9 @@ def check_inputs(kernel: str, named_shapes, device) -> None:
             raise ValueError(f"{kernel}: {name} must be contiguous")
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(
-                f"{kernel}: the CUDA kernel has no backward yet (it comes with "
-                f"the training slice); call it under torch.no_grad()")
+                f"{kernel}: {name} needs a gradient; call the kernel through "
+                f"repro_torch.kernels.ops (its autograd.Function) or under "
+                f"torch.no_grad()")
 
 
 def check(err: int, name: str) -> None:

@@ -1,24 +1,37 @@
-"""K1: the Holt-Winters smoothing scan as a CUDA kernel (``csrc/hw_scan.cu``).
+"""K1 and K2: the Holt-Winters smoothing scan and its adjoint as CUDA kernels.
 
-Replaces the Pallas TPU kernel ``src/repro/kernels/hw_scan.py:_hw_scan_kernel``
-(forward only; its backward, ``_hw_scan_bwd_kernel``, comes with training).
-The kernel runs one thread per series with the time loop in registers and
-the m-slot seasonality ring in shared memory; it is bound by the bytes it
-streams (see the source for the design). Its plain version is
-:func:`repro_torch.kernels.ref.hw_scan_ref`.
+K1 (``csrc/hw_scan.cu``) replaces the Pallas TPU kernel
+``src/repro/kernels/hw_scan.py:_hw_scan_kernel``, K2 (``csrc/hw_scan_bwd.cu``)
+its backward ``_hw_scan_bwd_kernel``. Both run one thread per series with the
+time loop in registers and the m-slot ring (seasonality forward, its
+cotangent backward) in shared memory; both are bound by the bytes they
+stream (see the sources for the design). :class:`HWScan` is the
+``torch.autograd.Function`` around the pair, the counterpart of the JAX
+``custom_vjp``: it saves ``(y, alpha, gamma, levels, seas)`` and its
+backward runs K2. On CPU tensors the same Function runs the plain versions
+:func:`~repro_torch.kernels.ref.hw_scan_ref` and
+:func:`~repro_torch.kernels.ref.hw_scan_bwd_ref`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 BLOCK = 128                      # series per thread block
 _MAX_STATIC_SMEM = 48 * 1024     # the ring must fit without opt-in smem
 
-# launches of the kernel since the last reset (kernels.ops.reset_launch_counts)
-launches = 0
+# launches since the last reset (kernels.ops.reset_launch_counts)
+launches = 0                     # K1
+bwd_launches = 0                 # K2
+
+
+def _check_ring(kernel: str, t_len: int, n: int, m: int) -> None:
+    if t_len < 1 or n < 1 or m < 1:
+        raise ValueError(f"{kernel}: empty problem (T={t_len}, N={n}, M={m})")
+    if m * BLOCK * 4 > _MAX_STATIC_SMEM:
+        raise ValueError(f"{kernel}: a ring of {m} slots does not fit shared memory")
 
 
 def hw_scan_tm(y_tm, alpha, gamma, init_seas_tm):
@@ -34,10 +47,7 @@ def hw_scan_tm(y_tm, alpha, gamma, init_seas_tm):
     build.check_inputs("hw_scan", [
         ("y_tm", y_tm, (t_len, n)), ("alpha", alpha, (n,)), ("gamma", gamma, (n,)),
         ("init_seas_tm", init_seas_tm, (m, n))], dev)
-    if t_len < 1 or n < 1 or m < 1:
-        raise ValueError(f"hw_scan: empty problem (T={t_len}, N={n}, M={m})")
-    if m * BLOCK * 4 > _MAX_STATIC_SMEM:
-        raise ValueError(f"hw_scan: a ring of {m} slots does not fit shared memory")
+    _check_ring("hw_scan", t_len, n, m)
 
     levels = torch.empty((t_len, n), dtype=torch.float32, device=dev)
     seas = torch.empty((t_len + m, n), dtype=torch.float32, device=dev)
@@ -51,3 +61,68 @@ def hw_scan_tm(y_tm, alpha, gamma, init_seas_tm):
     build.check(err, "hw_scan")
     launches += 1
     return levels, seas
+
+
+def hw_scan_bwd_tm(y_tm, alpha, gamma, levels_tm, seas_tm, dlev_tm, dseas_tm):
+    """Launch K2: the adjoint of :func:`hw_scan_tm`.
+
+    y_tm, levels_tm, dlev_tm: (T, N); alpha/gamma: (N,); seas_tm, dseas_tm:
+    (T+M, N); all float32, contiguous, on one CUDA device. Returns dy_tm
+    (T, N), dalpha (N,), dgamma (N,), d init_seas_tm (M, N). Raises on
+    anything else.
+    """
+    global bwd_launches
+    t_len, n = y_tm.shape
+    m = seas_tm.shape[0] - t_len
+    dev = y_tm.device
+    build.check_inputs("hw_scan_bwd", [
+        ("y_tm", y_tm, (t_len, n)), ("alpha", alpha, (n,)), ("gamma", gamma, (n,)),
+        ("levels_tm", levels_tm, (t_len, n)), ("seas_tm", seas_tm, (t_len + m, n)),
+        ("dlev_tm", dlev_tm, (t_len, n)), ("dseas_tm", dseas_tm, (t_len + m, n))], dev)
+    _check_ring("hw_scan_bwd", t_len, n, m)
+
+    dy = torch.empty((t_len, n), dtype=torch.float32, device=dev)
+    dalpha = torch.empty((n,), dtype=torch.float32, device=dev)
+    dgamma = torch.empty((n,), dtype=torch.float32, device=dev)
+    dinit = torch.empty((m, n), dtype=torch.float32, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hw_scan_bwd_f32(
+            y_tm.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
+            levels_tm.data_ptr(), seas_tm.data_ptr(), dlev_tm.data_ptr(),
+            dseas_tm.data_ptr(), dy.data_ptr(), dalpha.data_ptr(),
+            dgamma.data_ptr(), dinit.data_ptr(), t_len, n, m, BLOCK, stream)
+    build.check(err, "hw_scan_bwd")
+    bwd_launches += 1
+    return dy, dalpha, dgamma, dinit
+
+
+class HWScan(torch.autograd.Function):
+    """Differentiable time-major HW scan: K1 forward, K2 backward on the card;
+    the plain versions on the CPU. ``apply(y_tm, alpha, gamma, init_seas_tm)
+    -> (levels_tm, seas_tm)``."""
+
+    @staticmethod
+    def forward(ctx, y_tm, alpha, gamma, init_seas_tm):
+        if y_tm.device.type == "cuda":
+            levels, seas = hw_scan_tm(y_tm, alpha, gamma, init_seas_tm)
+        else:
+            lev, sea = ref.hw_scan_ref(y_tm.t(), alpha, gamma, init_seas_tm.t())
+            levels, seas = lev.t().contiguous(), sea.t().contiguous()
+        # residuals: the inputs plus the (levels, seas) the forward emits
+        # (seas row 0 is init_seas row 0, so the ring itself is not saved)
+        ctx.save_for_backward(y_tm, alpha, gamma, levels, seas)
+        return levels, seas
+
+    @staticmethod
+    def backward(ctx, dlev, dseas):
+        y_tm, alpha, gamma, levels, seas = ctx.saved_tensors
+        # set_materialize_grads is on (the default): an unused output comes
+        # in as zeros, never None
+        if y_tm.device.type == "cuda":
+            return hw_scan_bwd_tm(y_tm, alpha, gamma, levels, seas,
+                                  dlev.contiguous(), dseas.contiguous())
+        dy, da, dg, dinit = ref.hw_scan_bwd_ref(
+            y_tm.t(), alpha, gamma, levels.t(), seas.t(), dlev.t(), dseas.t())
+        return dy.t(), da, dg, dinit.t()

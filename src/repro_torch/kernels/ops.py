@@ -7,6 +7,15 @@ a tensor on the CPU takes the kernel's plain PyTorch version
 and a CUDA tensor never falls back to the plain version -- the kernel
 launches or raises.
 
+Both wrappers are differentiable. The HW scan always runs through the
+``torch.autograd.Function`` :class:`~repro_torch.kernels.hw_scan.HWScan`
+(K1 forward, K2 backward on the card). The LSTM cell runs through
+:class:`~repro_torch.kernels.lstm_cell.LSTMCell` (K4 forward, K5 backward)
+only when a gradient is needed, and through K3 otherwise -- the JAX
+package's ``custom_vjp`` rule, whose primal is the activation-free kernel.
+On CPU tensors the same Functions run the plain forward and backward, so
+the CPU tests exercise the wiring the card uses.
+
 The constrained-space transforms (sigmoid/exp) and the layout changes
 (time-major for the HW scan) run here, outside the kernels, as in the JAX
 package's ``kernels/ops.py``. The CUDA kernels mask their ragged edges
@@ -34,12 +43,14 @@ def _on_cuda(t) -> bool:
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {"hw_scan": _hw.launches, "lstm_cell": _lstm.launches}
+    return {"hw_scan": _hw.launches, "hw_scan_bwd": _hw.bwd_launches,
+            "lstm_cell": _lstm.launches, "lstm_cell_fwd": _lstm.fwd_launches,
+            "lstm_cell_bwd": _lstm.bwd_launches}
 
 
 def reset_launch_counts() -> None:
-    _hw.launches = 0
-    _lstm.launches = 0
+    _hw.launches = _hw.bwd_launches = 0
+    _lstm.launches = _lstm.fwd_launches = _lstm.bwd_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -59,9 +70,8 @@ def hw_scan(y, params, *, seasonality: int):
                  else torch.ones((n, m), dtype=alpha.dtype, device=alpha.device))
     if seasonality <= 1:
         gamma = torch.zeros_like(gamma)
-    if not _on_cuda(y):
-        return ref.hw_scan_ref(y, alpha, gamma, init_seas)
-    levels_tm, seas_tm = _hw.hw_scan_tm(
+    _on_cuda(y)                   # raises on a device other than cuda or cpu
+    levels_tm, seas_tm = _hw.HWScan.apply(
         y.t().contiguous(), alpha.contiguous(), gamma.contiguous(),
         init_seas.t().contiguous())
     return levels_tm.t(), seas_tm.t()
@@ -69,6 +79,10 @@ def hw_scan(y, params, *, seasonality: int):
 
 def lstm_cell(wx, wh, b, x, h, c):
     """Fused LSTM cell; signature mirrors ref.lstm_cell_ref."""
-    if not _on_cuda(x):
+    cuda = _on_cuda(x)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (wx, wh, b, x, h, c)):
+        return _lstm.LSTMCell.apply(wx, wh, b, x, h, c)
+    if not cuda:
         return ref.lstm_cell_ref(wx, wh, b, x, h, c)
     return _lstm.lstm_cell(wx, wh, b, x, h, c)

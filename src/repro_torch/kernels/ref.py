@@ -36,6 +36,60 @@ def hw_scan_ref(y, alpha, gamma, init_seas):
             torch.stack(seas_used + ring, dim=1))
 
 
+def hw_scan_bwd_ref(y, alpha, gamma, levels, seas, dlev, dseas):
+    """Adjoint of :func:`hw_scan_ref`, time-reversed (the plain K2).
+
+    The recurrence of ``src/repro/kernels/hw_scan.py`` (module docstring and
+    ``_hw_scan_bwd_kernel``), with ``lam_t`` the level cotangent and
+    ``sig_t`` the seasonality cotangent, for t = T-1 .. 0:
+
+        lam_t = dl_t + (1 - a) lam_{t+1} - sig_{t+m} g y_t / l_t^2
+        sig_t = ds_t + (1 - g) sig_{t+m} - lam_t a y_t / s_t^2
+        dy_t  = lam_t a / s_t + sig_{t+m} g / l_t
+        da   += lam_t (y_t / s_t - l_{t-1});  dg += sig_{t+m} (y_t / l_t - s_t)
+
+    The sigma ring is seeded with the trailing rows ``dseas[:, T..T+m-1]``
+    and ends holding ``d init_seas``; the primer level ``l_{-1} = y_0 / s_0``
+    adds ``(1 - a) lam_0 / s_0`` to ``dy_0`` and takes
+    ``(1 - a) lam_0 y_0 / s_0^2`` off ring slot 0.
+
+    y, levels, dlev: (N, T); alpha, gamma: (N,); seas, dseas: (N, T+m).
+    Returns dy (N, T), dalpha (N,), dgamma (N,), d init_seas (N, m).
+    """
+    t_len = y.shape[1]
+    m = seas.shape[1] - t_len
+    one_minus_a = 1.0 - alpha
+    one_minus_g = 1.0 - gamma
+    s00 = seas[:, 0]
+    y0 = y[:, 0]
+    ring = [None] * m                         # slot t mod m holds sig_{t+m}
+    for k in range(m):
+        ring[(t_len + k) % m] = dseas[:, t_len + k]
+    lam = torch.zeros_like(alpha)
+    da = torch.zeros_like(alpha)
+    dg = torch.zeros_like(alpha)
+    dy = [None] * t_len
+    for t in range(t_len - 1, -1, -1):
+        slot = t % m
+        y_t, l_t, s_t = y[:, t], levels[:, t], seas[:, t]
+        l_prev = levels[:, t - 1] if t > 0 else y0 / s00
+        sig_tpm = ring[slot]
+        lam = (dlev[:, t] + one_minus_a * lam
+               - sig_tpm * gamma * y_t / (l_t * l_t))
+        sig_t = (dseas[:, t] + one_minus_g * sig_tpm
+                 - lam * alpha * y_t / (s_t * s_t))
+        ring[slot] = sig_t
+        dy_t = lam * alpha / s_t + sig_tpm * gamma / l_t
+        if t == 0:
+            dy_t = dy_t + one_minus_a * lam / s00
+        dy[t] = dy_t
+        da = da + lam * (y_t / s_t - l_prev)
+        dg = dg + sig_tpm * (y_t / l_t - s_t)
+    ring[0] = ring[0] - one_minus_a * lam * y0 / (s00 * s00)
+    return (torch.stack(dy, dim=1).to(y.dtype), da, dg,
+            torch.stack(ring, dim=1))
+
+
 def lstm_cell_ref(wx, wh, b, x, h, c):
     """Fused LSTM cell. wx:(I,4H) wh:(H,4H) b:(4H,) x:(B,I) h,c:(B,H).
 
@@ -45,3 +99,37 @@ def lstm_cell_ref(wx, wh, b, x, h, c):
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new, c_new
+
+
+def lstm_cell_fwd_ref(wx, wh, b, x, h, c):
+    """The plain K4: :func:`lstm_cell_ref` that also returns the gate
+    activations ``act = [sigmoid(i) | sigmoid(f) | tanh(g) | sigmoid(o)]``
+    (B, 4H), the residual :func:`lstm_cell_bwd_ref` consumes."""
+    gates = x @ wx + h @ wh + b
+    i, f, g, o = gates.chunk(4, dim=-1)
+    si, sf, tg, so = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+    c_new = sf * c + si * tg
+    h_new = so * torch.tanh(c_new)
+    return h_new, c_new, torch.cat([si, sf, tg, so], dim=-1)
+
+
+def lstm_cell_bwd_ref(wx, wh, x, h, c, c_new, act, dh, dc):
+    """The plain K5: ``(dh, dc)`` through one cell step.
+
+    The algebra of ``_lstm_bwd_kernel`` (``src/repro/kernels/lstm_cell.py``):
+    pre-activation gate cotangents from the saved activations, then the
+    products that contract 4H (``dx``, ``dh_prev``) and the batch (``dwx``,
+    ``dwh``, ``db``). Returns ``dx (B,I), dh_prev (B,H), dc_prev (B,H),
+    dwx (I,4H), dwh (H,4H), db (4H,)``.
+    """
+    si, sf, tg, so = act.chunk(4, dim=-1)
+    tc = torch.tanh(c_new)
+    # h = so * tanh(c_new); c_new = sf * c + si * tg
+    do_pre = dh * tc * so * (1.0 - so)
+    dct = dc + dh * so * (1.0 - tc * tc)
+    df_pre = dct * c * sf * (1.0 - sf)
+    di_pre = dct * tg * si * (1.0 - si)
+    dg_pre = dct * si * (1.0 - tg * tg)
+    dgates = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=-1)     # (B, 4H)
+    return (dgates @ wx.t(), dgates @ wh.t(), dct * sf,
+            x.t() @ dgates, h.t() @ dgates, dgates.sum(dim=0))

@@ -1,0 +1,193 @@
+"""Training steps and engines for the ES-RNN (PyTorch port of ``repro.train.engine``).
+
+* :func:`make_step_fn` -- one training step ``(params, opt_state, idx) ->
+  (params, opt_state, loss)`` over the batch rows ``idx`` of the full series
+  tensors: the loss (:func:`~repro_torch.core.esrnn.esrnn_loss_fn`; on the
+  card its backward runs the kernels K2 and K5), the gradients, and dense or
+  sparse two-group Adam (:mod:`repro_torch.train.optimizer`).
+* :func:`make_online_step_fn` -- the same step over a batch passed in as
+  tensors (the serving fine-tune hook).
+* :func:`make_superstep_fn` -- K steps whose losses stay on the device and
+  come back as one ``(K,)`` tensor, so the caller syncs with the host once
+  per K steps. The trainer's per-step engine is the superstep at K = 1, so
+  both walk the same trajectory. (Capturing a superstep into a CUDA
+  graph, the counterpart of the reference's one ``lax.scan`` dispatch, is
+  later speed work.)
+* :func:`segment_steps` -- chops ``[start, n_steps)`` into superstep
+  segments that end on every eval/checkpoint boundary.
+
+Steps update ``params`` and ``opt_state`` in place and return them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, FrozenSet, Iterator, List, Tuple
+
+import torch
+
+from repro_torch.core.esrnn import (
+    ESRNNConfig, combine_series, esrnn_loss_fn, gather_series, param_leaves,
+    partition_series, value_and_grad,
+)
+from repro_torch.train.optimizer import (
+    AdamConfig, adam_update, adam_update_sparse, esrnn_group_fn,
+)
+
+StepFn = Callable
+
+
+def split_frozen(params, frozen: FrozenSet[str]):
+    """Split a params dict by top-level key into (trainable, frozen).
+
+    The head registry (``heads.frozen_param_groups``) names the groups a
+    head keeps fixed; steps differentiate and update the trainable part
+    only, and optimizer state covers exactly that part.
+    """
+    return ({k: v for k, v in params.items() if k not in frozen},
+            {k: v for k, v in params.items() if k in frozen})
+
+
+def _value_and_grad(loss_fn: Callable[[], torch.Tensor],
+                    leaves: List[torch.Tensor]):
+    """:func:`~repro_torch.core.esrnn.value_and_grad`, marking the leaves as
+    requiring a gradient first (the HW table is drawn without)."""
+    for t in leaves:
+        t.requires_grad_(True)
+    return value_and_grad(loss_fn, leaves)
+
+
+def _refuse(mesh, compress: bool) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: series-data-parallel training comes with the series data "
+            "parallelism slice of the port (ROADMAP.md, section 1)")
+    if compress:
+        raise NotImplementedError(
+            "compress: int8 gradient compression comes with the series data "
+            "parallelism slice of the port (ROADMAP.md, section 1)")
+
+
+def _sparse_update(mcfg, cfg_adam, params, opt_state, frozen, rows, loss_args):
+    """Gradients w.r.t. the gathered rows ``rows``; segment Adam on them."""
+    p_train, p_froz = split_frozen(params, frozen)
+    hw_rows, shared = partition_series(params, rows)
+    sh_train, sh_froz = split_frozen(shared, frozen)
+    batch_train = combine_series(hw_rows, sh_train)
+    loss, grads = _value_and_grad(
+        lambda: esrnn_loss_fn(mcfg, {**batch_train, **sh_froz}, *loss_args),
+        [t for _, t in param_leaves(batch_train)])
+    p_train, opt_state = adam_update_sparse(
+        grads, opt_state, p_train, cfg_adam, idx=rows, group_fn=esrnn_group_fn)
+    return {**p_train, **p_froz}, opt_state, loss
+
+
+def _dense_update(mcfg, cfg_adam, params, opt_state, frozen, rows, loss_args):
+    """Gradients through the row gather (a full-table gradient); dense Adam."""
+    p_train, p_froz = split_frozen(params, frozen)
+    loss, grads = _value_and_grad(
+        lambda: esrnn_loss_fn(mcfg, gather_series(params, rows), *loss_args),
+        [t for _, t in param_leaves(p_train)])
+    p_train, opt_state = adam_update(grads, opt_state, p_train, cfg_adam,
+                                     group_fn=esrnn_group_fn)
+    return {**p_train, **p_froz}, opt_state, loss
+
+
+def make_step_fn(
+    mcfg: ESRNNConfig,
+    cfg_adam: AdamConfig,
+    y_all,
+    cats_all,
+    mask_all,
+    *,
+    mesh=None,
+    sparse: bool = False,
+    frozen: FrozenSet[str] = frozenset(),
+    compress: bool = False,
+) -> StepFn:
+    """Build the training step the per-step loop and the superstep share.
+
+    ``y_all``/``cats_all``/``mask_all`` are the full series tensors on the
+    training device; the step receives only the batch's row indices.
+    ``sparse`` takes the gradients w.r.t. the gathered rows and updates only
+    those rows (:func:`~repro_torch.train.optimizer.adam_update_sparse`);
+    otherwise the gradient scatters over the full table and dense Adam runs
+    over it. ``frozen`` names top-level groups left untrained; ``opt_state``
+    must cover exactly the rest. ``mesh`` and ``compress`` belong to slices
+    of the port that have not landed, and raise.
+    """
+    _refuse(mesh, compress)
+    update = _sparse_update if sparse else _dense_update
+
+    def step(params, opt_state, idx):
+        loss_args = (y_all[idx], cats_all[idx], mask_all[idx])
+        return update(mcfg, cfg_adam, params, opt_state, frozen, idx, loss_args)
+
+    return step
+
+
+def make_online_step_fn(
+    mcfg: ESRNNConfig,
+    cfg_adam: AdamConfig,
+    *,
+    sparse: bool = True,
+    frozen: FrozenSet[str] = frozenset(),
+) -> StepFn:
+    """Training step over an ad-hoc batch: the serving fine-tune hook.
+
+    ``step(params, opt_state, y, cats, mask, rows)``: the batch arrives as
+    tensors and ``rows`` names the HW-table rows its series belong to. With
+    ``sparse`` (the serving shape) Adam touches exactly those rows.
+    """
+    update = _sparse_update if sparse else _dense_update
+
+    def step(params, opt_state, y, cats, mask, rows):
+        return update(mcfg, cfg_adam, params, opt_state, frozen, rows,
+                      (y, cats, mask))
+
+    return step
+
+
+def make_superstep_fn(step_fn: StepFn) -> StepFn:
+    """K steps with the losses kept on the device.
+
+    ``(params, opt_state, idx_schedule (K, B)) -> (params, opt_state,
+    losses (K,))``: the same steps in the same order as K calls of
+    ``step_fn``, with no host sync inside; the caller reads ``losses`` once.
+    """
+    def superstep(params, opt_state, idx_schedule):
+        losses = []
+        for idx in idx_schedule:
+            params, opt_state, loss = step_fn(params, opt_state, idx)
+            losses.append(loss)
+        return params, opt_state, torch.stack(losses)
+
+    return superstep
+
+
+def next_boundary(step: int, n_steps: int, *everys: int) -> int:
+    """First step strictly after ``step`` where eval/ckpt may fire."""
+    cands = [n_steps]
+    for e in everys:
+        if e and e > 0:
+            cands.append((step // e + 1) * e)
+    return min(c for c in cands if c > step)
+
+
+def segment_steps(
+    start_step: int,
+    n_steps: int,
+    scan_steps: int,
+    *everys: int,
+) -> Iterator[Tuple[int, int]]:
+    """Yield ``(step, K)`` superstep segments covering [start_step, n_steps).
+
+    Every eval/checkpoint boundary (multiples of the ``everys``, plus
+    ``n_steps``) is a segment end, so host-side work fires at the same
+    global steps as in the per-step loop.
+    """
+    step = start_step
+    while step < n_steps:
+        limit = next_boundary(step, n_steps, *everys)
+        k = min(max(1, scan_steps), limit - step)
+        yield step, k
+        step += k

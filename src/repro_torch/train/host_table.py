@@ -24,7 +24,9 @@ def _host(a):
     if a is None or isinstance(a, np.ndarray):
         return a
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        # a copy even on the CPU: the snapshot must not alias a tensor a
+        # fine-tuner updates in place
+        return a.detach().to("cpu", copy=True).numpy()
     return np.asarray(a)
 
 
@@ -42,7 +44,8 @@ class HostStateTable:
 
     @classmethod
     def from_hw(cls, hw: HWParams) -> "HostStateTable":
-        """Inference-only table over existing HW rows (zero-copy if numpy)."""
+        """Inference-only table over existing HW rows (zero-copy if numpy,
+        a host copy of tensors)."""
         return cls(_host_hw(hw))
 
     def extended(self, primer: HWParams) -> "ExtendedHWView":

@@ -7,15 +7,19 @@ host, where the repo's ``tests/conftest.py`` (which imports JAX) is left out:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: K1 rtol 1e-5 (same operations, same order, IEEE rounding);
-K3 atol 1e-5 (the gate dots sum in another order than the plain matmul).
+Tolerances: K1 and K2 rtol 1e-5 (same operations, same order, IEEE
+rounding; K2's atol 1e-6 covers cotangents that cancel to near zero);
+K3, K4 and K5 atol 1e-5 (the gate dots and the products over 4H sum in
+another order than the plain matmuls); K5's weight gradients, which sum B
+rows, atol 1e-5 * sqrt(B). K5's weight gradients must be
+bit-identical across two launches on the same inputs.
 """
 
 import pytest
 import torch
 
 from repro_torch import strict_fp32
-from repro_torch.kernels import hw_scan, lstm_cell, ref
+from repro_torch.kernels import hw_scan, lstm_cell, ops, ref
 
 
 @pytest.fixture
@@ -60,3 +64,70 @@ def test_kernels_raise_on_other_dtypes_on_card(card):
     x = torch.ones((2, 3), dtype=torch.float64, device=card)
     with pytest.raises(TypeError, match="float32 only"):
         hw_scan.hw_scan_tm(x, x[0], x[0], x)
+
+
+def _hw_inputs(n, t_len, m, seed):
+    g = torch.Generator().manual_seed(seed)
+    y = torch.rand((n, t_len), generator=g) * 50 + 1
+    alpha, gamma = torch.rand(n, generator=g), torch.rand(n, generator=g)
+    init_seas = torch.rand((n, m), generator=g) + 0.5
+    lev, seas = ref.hw_scan_ref(y, alpha, gamma, init_seas)
+    dlev = torch.randn((n, t_len), generator=g)
+    dseas = torch.randn((n, t_len + m), generator=g)
+    return y, alpha, gamma, lev, seas, dlev, dseas
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t_len,m", [(300, 40, 4), (129, 9, 1), (5, 3, 12)])
+def test_hw_scan_bwd_kernel_matches_plain_on_card(card, n, t_len, m):
+    args = _hw_inputs(n, t_len, m, n)
+    want = ref.hw_scan_bwd_ref(*args)
+    tm = [a.t().contiguous() if a.dim() == 2 else a for a in args]
+    got = hw_scan.hw_scan_bwd_tm(*(a.to(card) for a in tm))
+    for gt, w in zip(got, want):
+        gt = gt.cpu()
+        torch.testing.assert_close(gt.t() if gt.dim() == 2 else gt, w,
+                                   rtol=1e-5, atol=1e-6)
+
+
+def _cell_inputs(rows, in_size, hidden, seed):
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: torch.rand(s, generator=g) * 2 - 1
+    return [u(in_size, 4 * hidden) * 0.2, u(hidden, 4 * hidden) * 0.2, u(4 * hidden),
+            u(rows, in_size), u(rows, hidden), u(rows, hidden)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,in_size,hidden", [(1, 14, 40), (333, 40, 40), (70, 62, 50)])
+def test_lstm_cell_fwd_bwd_kernels_match_plain_on_card(card, rows, in_size, hidden):
+    wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, rows)
+    h_new, c_new, act = ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
+    got = lstm_cell.lstm_cell_fwd(*(a.to(card) for a in (wx, wh, b, x, h, c)))
+    for gt, w in zip(got, (h_new, c_new, act)):
+        torch.testing.assert_close(gt.cpu(), w, rtol=0, atol=1e-5)
+    g = torch.Generator().manual_seed(rows + 1)
+    dh, dc = torch.randn((rows, hidden), generator=g), torch.randn((rows, hidden), generator=g)
+    bwd_args = (wx, wh, x, h, c, c_new, act, dh, dc)
+    want = ref.lstm_cell_bwd_ref(*bwd_args)
+    on_card = [a.to(card) for a in bwd_args]
+    got = lstm_cell.lstm_cell_bwd(*on_card)
+    for k, (gt, w) in enumerate(zip(got, want)):
+        # dx, dh_prev, dc_prev sum 4H terms; the weight gradients sum B rows
+        atol = 1e-5 if k < 3 else 1e-5 * max(1.0, rows ** 0.5)
+        torch.testing.assert_close(gt.cpu(), w, rtol=0, atol=atol)
+    again = lstm_cell.lstm_cell_bwd(*on_card)
+    for gt, rerun in zip(got[3:], again[3:]):
+        assert torch.equal(gt, rerun), "K5 weight gradients differ between launches"
+
+
+@pytest.mark.cuda
+def test_autograd_functions_launch_the_kernels_on_card(card):
+    wx, wh, b, x, h, c = (a.to(card).requires_grad_(True)
+                          for a in _cell_inputs(64, 14, 40, 3))
+    ops.reset_launch_counts()
+    h_new, c_new = ops.lstm_cell(wx, wh, b, x, h, c)
+    (h_new.square().sum() + c_new.sum()).backward()
+    with torch.no_grad():
+        ops.lstm_cell(wx, wh, b, x, h, c)
+    counts = ops.launch_counts()
+    assert (counts["lstm_cell_fwd"], counts["lstm_cell_bwd"], counts["lstm_cell"]) == (1, 1, 1)

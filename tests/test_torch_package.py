@@ -4,8 +4,8 @@
   package ``repro`` (an AST scan, and an import with ``jax`` blocked);
 * entry points run on the card unless told otherwise, and on a host without
   one they raise instead of running on the CPU;
-* CPU tensors take the plain versions: the kernel launch counters stay 0,
-  and the CUDA wrappers refuse CPU tensors;
+* CPU tensors take the plain versions, forward and backward: the kernel
+  launch counters stay 0, and the CUDA wrappers refuse CPU tensors;
 * ``convert`` round-trips the JAX params pytree bitwise;
 * a kernel build without nvcc raises.
 
@@ -27,11 +27,15 @@ import torch
 from repro.core import esrnn as jes
 from repro_torch.convert import params_from_numpy, params_to_device, params_to_numpy
 from repro_torch.core import esrnn as tes
+from repro_torch.data.pipeline import synthetic_prepared
 from repro_torch.forecast import BucketDispatcher
-from repro_torch.forecast.server import ForecastServer
+from repro_torch.forecast.server import ForecastServer, IdleFineTuner
 from repro_torch.kernels import build, hw_scan, lstm_cell, ops
+from repro_torch.train.trainer import TrainConfig, train_esrnn
 
 ROOT = Path(__file__).resolve().parents[1]
+NO_LAUNCHES = {"hw_scan": 0, "hw_scan_bwd": 0, "lstm_cell": 0, "lstm_cell_fwd": 0,
+               "lstm_cell_bwd": 0}
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -77,6 +81,11 @@ def test_entry_points_default_to_the_card():
         ForecastServer(cfg, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_to_device(params, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_esrnn(cfg, synthetic_prepared(3, series_length=20),
+                    TrainConfig(n_steps=1, batch_size=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IdleFineTuner(cfg, params)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -87,7 +96,10 @@ def test_cpu_tensors_take_the_plain_versions():
     ops.reset_launch_counts()
     fc = tes.esrnn_forecast(cfg, params, y, cats)
     assert torch.isfinite(fc).all()
-    assert ops.launch_counts() == {"hw_scan": 0, "lstm_cell": 0}
+    out = train_esrnn(cfg, synthetic_prepared(4, series_length=20),
+                      TrainConfig(n_steps=2, batch_size=2), device="cpu")
+    assert np.isfinite(out["history"]["loss"]).all()
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -97,7 +109,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
         lstm_cell.lstm_cell(torch.ones((3, 8)), torch.ones((2, 8)), torch.ones(8),
                             x, torch.ones((2, 2)), torch.ones((2, 2)))
-    assert ops.launch_counts() == {"hw_scan": 0, "lstm_cell": 0}
+    with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
+        hw_scan.hw_scan_bwd_tm(x, x[0], x[0], x, torch.ones((3, 3)), x, torch.ones((3, 3)))
+    with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
+        lstm_cell.lstm_cell_fwd(torch.ones((3, 8)), torch.ones((2, 8)), torch.ones(8),
+                                x, torch.ones((2, 2)), torch.ones((2, 2)))
+    h = torch.ones((2, 2))
+    with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
+        lstm_cell.lstm_cell_bwd(torch.ones((3, 8)), torch.ones((2, 8)), x, h, h, h,
+                                torch.ones((2, 8)), h, h)
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 @pytest.mark.parametrize("attention", [False, True])

@@ -5,7 +5,10 @@ go through ``repro.forecast`` and ``repro_torch.forecast``: the request
 stream must be bitwise the same, every forecast must agree to rtol 1e-4 /
 atol 1e-5, and the serving counters both packages keep must be equal. The
 JAX server's XLA compile counter has no counterpart; the port records
-kernel launches instead, which stay 0 on the CPU.
+kernel launches instead, which stay 0 on the CPU. The idle fine-tune
+(a few sparse-Adam steps when the queue drains) must move the same HW rows
+to the same values (atol 1e-5: two sign-like Adam steps from float32
+gradients summed in other orders) and leave the same forecasts.
 """
 
 import jax
@@ -25,7 +28,8 @@ from repro_torch.forecast import (
     BucketDispatcher, ForecastRequest, synthetic_request_stream,
 )
 from repro_torch.forecast.server import (
-    ForecastServer, ObserveWrite, OnlineStateStore, QueueFull, ServerConfig,
+    ForecastServer, IdleFineTuner, ObserveWrite, OnlineStateStore, QueueFull,
+    ServerConfig,
 )
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -33,7 +37,9 @@ N_KNOWN = 6
 LENGTHS, BATCHES = (16, 32), (2, 4)
 SHARED_COUNTERS = ("requests", "batches", "compiles", "cache_hits",
                    "padded_series", "truncated_series", "observes",
-                   "write_batches", "compile_budget")
+                   "write_batches", "finetunes", "compile_budget")
+NO_LAUNCHES = {"hw_scan": 0, "hw_scan_bwd": 0, "lstm_cell": 0, "lstm_cell_fwd": 0,
+               "lstm_cell_bwd": 0}
 
 
 @pytest.fixture(scope="module")
@@ -100,7 +106,7 @@ def test_dispatcher_forecast_batch_matches_jax(model):
     _same_counters(got_d.stats, want_d.stats)
     assert got_d.stats.cache_hits > 0
     assert got_d.stats.compiles <= got_d.compile_budget == len(LENGTHS) * len(BATCHES)
-    assert got_d.stats.kernel_launches == {"hw_scan": 0, "lstm_cell": 0}
+    assert got_d.stats.kernel_launches == NO_LAUNCHES
 
 
 def test_server_submit_observe_step_matches_jax(model):
@@ -179,9 +185,56 @@ def test_queue_bound_backpressure(model):
 
 
 def test_finetune_is_not_ported(model):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ForecastServer(model[2], model[3], device="cpu",
-                       server_config=ServerConfig(finetune_steps=2))
+    """The name dates from the serving slice, when ``finetune_steps > 0``
+    raised; the server now builds the fine-tuner on its own device and a
+    copy of the params, and leaves the caller's params untouched."""
+    tp = model[3]
+    before = tp["rnn"][0][0].wx.detach().clone()
+    srv = ForecastServer(model[2], tp, device="cpu",
+                         server_config=ServerConfig(finetune_steps=2))
+    assert isinstance(srv.tuner, IdleFineTuner)
+    assert srv.tuner.device == torch.device("cpu")
+    assert srv.tuner.params["rnn"][0][0].wx is not tp["rnn"][0][0].wx
+    for k, v in enumerate(_series(30, 11)):
+        srv.observe(3, float(v), category=1)
+    srv.submit(ForecastRequest(series_id=3, category=1))
+    srv.drain()
+    assert srv.stats.finetunes == 1
+    torch.testing.assert_close(tp["rnn"][0][0].wx.detach(), before, rtol=0, atol=0)
+
+
+def test_idle_finetune_matches_jax(model):
+    jsrv, tsrv = _servers(model, finetune_steps=2, finetune_batch=4)
+    sids = (0, 2, 3, 5)
+    for srv in (jsrv, tsrv):
+        for sid in sids:
+            for v in _series(24 + sid, 20 + sid):
+                srv.observe(sid, float(v), category=sid % 6)
+        srv.observe(N_KNOWN + 3, 70.0)             # a cold start: not tuned
+    asks = [ForecastRequest(series_id=sid, category=sid % 6) for sid in sids]
+    # the first busy period: served before the burst, which fires on drain
+    t_before, j_before = tsrv.submit(asks[0]), jsrv.submit(asks[0])
+    tsrv.drain()
+    jsrv.drain()
+    _close(t_before.result(timeout=30), j_before.result(timeout=30))
+    assert jsrv.stats.finetunes == tsrv.stats.finetunes == 1
+    np.testing.assert_allclose(tsrv.tuner.last_loss, jsrv.tuner.last_loss, rtol=1e-5)
+    for name in ("alpha_logit", "gamma_logit", "init_seas_logit"):
+        got = getattr(tsrv.dispatcher._hw_table, name)
+        want = getattr(jsrv.dispatcher._hw_table, name)
+        np.testing.assert_allclose(got[np.arange(N_KNOWN)], want[np.arange(N_KNOWN)],
+                                   rtol=0, atol=1e-5, err_msg=name)
+    untouched = [r for r in range(N_KNOWN) if r not in sids]
+    np.testing.assert_array_equal(tsrv.dispatcher._hw_table.alpha_logit[untouched],
+                                  model[1]["hw"].alpha_logit[untouched])
+    t_fut = [tsrv.submit(r) for r in asks]
+    j_fut = [jsrv.submit(r) for r in asks]
+    tsrv.drain()
+    jsrv.drain()
+    for g, w in zip(t_fut, j_fut):
+        _close(g.result(timeout=30), w.result(timeout=30))
+    assert not np.array_equal(t_fut[0].result(), t_before.result())
+    _same_counters(tsrv.stats, jsrv.stats)
 
 
 @pytest.mark.parametrize("freq,t_len", [("yearly", 21), ("quarterly", 33), ("hourly", 200)])
