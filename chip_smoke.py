@@ -12,7 +12,11 @@ serves requests through ``ForecastServer`` on the card. It then trains the
 same model on the card (``train_esrnn``: 24,000 quarterly series of length
 72, dense and sparse Adam) against the same steps on the CPU, times train
 steps, profiles one, and runs a server whose idle fine-tune trains on the
-card against a CPU server. Each phase prints one JSON line; any failed check
+card against a CPU server. Last, the LM serving path: yi-6b at full width
+and two layers in fp32 on the card against the CPU (``lm_parity``), then at
+full width and depth in bf16 (``lm_serve``: batch 8, prompt 2048, 32
+generated tokens; K6 once per layer in the prefill), and one profiled
+prefill and decode step. Each phase prints one JSON line; any failed check
 raises and the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -76,9 +80,33 @@ K45_ATOL = 1e-5
 # moves only at second order, and 10 steps stay well inside rtol 1e-4.
 TRAIN_RTOL = 1e-4
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 CUDA-core flop/s
+# K6 in fp32: the JAX kernel test's rtol = atol = 2e-5 (sums in another
+# order). K6 in bf16, against the plain version in fp32 on the same bf16
+# inputs: rtol = atol = 1e-2, for the output's rounding to bf16 (half an
+# ulp, 2**-9 relative) and the probabilities rounded to bf16 before the
+# product with V, as the JAX kernel does (its test allows 0.05).
+K6_F32_TOL, K6_BF16_TOL = 2e-5, 1e-2
+# the LM card-vs-CPU parity (fp32, TF32 off): the forecast's rtol 1e-4, and
+# atol 5e-5 instead of its 1e-5. The logits sum 4096- and 11008-wide
+# products through two layers, in another order on each device: each
+# device's prefill logits (up to |5.7|) sit 0.9e-5 (CPU) and 1.4e-5 (card)
+# from a prefill with float64 products, and 1.5e-5 from each other (on an
+# H100 80GB HBM3 at 700 W); the phase checks both against float64 as well
+LM_RTOL, LM_ATOL = 1e-4, 5e-5
+
+# the LM serve cell: yi-6b (the JAX serve launcher's own example), bf16, at
+# full width and depth; batch and prompt cut from the reference's
+# prefill_32k cell (32 x 32,768) to one card and a smoke run's time
+LM_ARCH = "yi-6b"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
+# the LM parity cell: full width, depth cut to 2 layers for the CPU's sake
+LM_PARITY_LAYERS, LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_GEN = 2, 2, 128, 8
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 CUDA-core flop/s and
+# dense bf16 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def emit(obj) -> None:
@@ -151,10 +179,10 @@ def wrapper_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, peak_flops: float = FP32_FLOPS):
     """Least time on the card: the larger of the byte and the flop term."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOPS * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -414,6 +442,78 @@ def check_lstm_cell_bwd(rows, in_size, hidden, gen):
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def k6_shapes():
+    """K6's checks: (B, Hq, Hkv, Tq, Tk, D, dtype, causal). The first is the
+    LM serve path's own (one launch per layer of the yi-6b prefill); the
+    others cover fp32, ragged tiles, decode-append, non-causal, D = 64 and
+    MHA."""
+    return [
+        (LM_BATCH, 32, 4, LM_PROMPT, LM_PROMPT, 128, "bfloat16", True),
+        (2, 32, 4, LM_PROMPT, LM_PROMPT, 128, "float32", True),
+        (2, 32, 4, 1000, 1000, 128, "bfloat16", True),
+        (LM_BATCH, 32, 4, 33, 1024, 128, "bfloat16", True),
+        (LM_BATCH, 32, 4, 33, 1024, 128, "float32", True),
+        (2, 32, 4, 512, 1024, 128, "bfloat16", False),
+        (2, 16, 16, 1024, 1024, 64, "bfloat16", True),
+        (2, 16, 16, 300, 300, 64, "float32", False),
+    ]
+
+
+def k6_work(b, hq, hkv, tq, tk, d, elem_bytes, causal):
+    """Bytes K6 must move (q, k, v read once, o written once) and flops it
+    must do: 4 D per visible (query, key) pair, which the causal mask cuts
+    to sum_i min(Tk, i + Tk - Tq + 1) pairs."""
+    if causal:
+        pairs = sum(min(tk, i + tk - tq + 1) for i in range(tq))
+    else:
+        pairs = tq * tk
+    n_bytes = elem_bytes * (2 * b * hq * tq * d + 2 * b * hkv * tk * d)
+    return n_bytes, 4.0 * b * hq * d * pairs
+
+
+def check_flash_attention(b, hq, hkv, tq, tk, d, dtype_name, causal, gen, qkv=None):
+    """K6 against its plain version on the card; SDPA (timed only) as the
+    library yardstick, with an explicit end-aligned mask where Tq != Tk
+    (its ``is_causal`` aligns the starts)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+
+    dtype = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    if qkv is None:
+        qkv = [torch.randn(shape, generator=gen).to(dev, dtype)
+               for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))]
+    q, k, v = qkv
+    kernel = lambda: flash_attention.flash_attention(q, k, v, causal=causal)
+    plain = lambda: ref.attention_ref(q, k, v, causal=causal)
+    mask = None
+    if causal and tq != tk:
+        mask = (torch.arange(tk, device=dev)[None, :]
+                <= torch.arange(tq, device=dev)[:, None] + (tk - tq))
+    library = lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    tol = K6_F32_TOL if dtype == torch.float32 else K6_BF16_TOL
+    err = check_close(f"flash_attention {tuple(q.shape)} x {tuple(k.shape)}", got, want,
+                      rtol=tol, atol=tol)
+    check_close("scaled_dot_product_attention", library(), want, rtol=tol, atol=tol)
+    del want
+    ms, host_ms, library_ms = time_ms(kernel), wrapper_ms(kernel), time_ms(library)
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    n_bytes, n_flops = k6_work(b, hq, hkv, tq, tk, d, q.element_size(), causal)
+    bound_ms, bound_by = bound(n_bytes, n_flops,
+                               FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+    return dict(name="flash_attention",
+                shape=dict(B=b, Hq=hq, Hkv=hkv, Tq=tq, Tk=tk, D=d, causal=causal),
+                dtype=dtype_name, max_abs_err=err, tol=tol, ms=ms, wrapper_ms=host_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, tflops=n_flops / ms / 1e9)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the forecast entry points at full quarterly width
 # ---------------------------------------------------------------------------
@@ -523,9 +623,10 @@ def profile_call(call, top: int = 8):
     """Where one warm ``call()`` spends the card's time.
 
     torch.profiler (CUPTI) over one call after a warm one: device time by
-    kernel name, and the device-busy share of the call's wall time (the
-    union of kernel and copy intervals over the host-clock wall). ``None``
-    fields when the profiler saw no device activity.
+    kernel name, the number of device activities (kernels and copies), and
+    the device-busy share of the call's wall time (the union of kernel and
+    copy intervals over the host-clock wall). ``None`` fields when the
+    profiler saw no device activity.
     """
     import torch
     from torch.autograd import DeviceType
@@ -547,7 +648,8 @@ def profile_call(call, top: int = 8):
         calls, us = by_name.get(evt.name, (0, 0.0))
         by_name[evt.name] = (calls + 1, us + (end - start))
     if not spans:
-        return dict(wall_ms=wall_ms, device_busy_ms=None, busy_share=None, kernels=None)
+        return dict(wall_ms=wall_ms, device_busy_ms=None, busy_share=None,
+                    device_calls=0, kernels=None)
     busy_us, cur_start, cur_end = 0.0, None, None
     for start, end in sorted(spans):
         if cur_end is None or start > cur_end:
@@ -558,7 +660,7 @@ def profile_call(call, top: int = 8):
     busy_us += cur_end - cur_start
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
-                busy_share=busy_us / 1e3 / wall_ms,
+                busy_share=busy_us / 1e3 / wall_ms, device_calls=len(spans),
                 kernels=[dict(name=name[:90], calls=calls, ms=us / 1e3)
                          for name, (calls, us) in ranked])
 
@@ -731,7 +833,7 @@ def time_train_steps(cfg, data, dev):
     from repro_torch.kernels import ops
 
     want = {"hw_scan": 1, "hw_scan_bwd": 1, "lstm_cell": 0,
-            "lstm_cell_fwd": None, "lstm_cell_bwd": None}
+            "lstm_cell_fwd": None, "lstm_cell_bwd": None, "flash_attention": 0}
     cells = sum(-(-(TRAIN_T - cfg.input_size + 1) // d)
                 for block in cfg.dilations for d in block)
     want["lstm_cell_fwd"] = want["lstm_cell_bwd"] = cells
@@ -819,6 +921,199 @@ def run_finetune(cfg, params_cpu, params_dev, dev, seed: int = 6):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the LM serving path (yi-6b prefill + greedy decode)
+# ---------------------------------------------------------------------------
+
+
+def lm_config(n_layers=None, dtype=None):
+    """yi-6b's config, its depth and dtype optionally cut."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    changes = {k: v for k, v in (("n_layers", n_layers), ("dtype", dtype)) if v is not None}
+    return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+def lm_prompts(cfg, batch: int, prompt_len: int, seed: int):
+    """Token ids as the serve launcher draws them: numpy's generator."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt_len)))
+
+
+def _params_to(params, dev):
+    if isinstance(params, dict):
+        return {k: _params_to(v, dev) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_params_to(v, dev) for v in params]
+    return params.to(dev)
+
+
+def run_lm_parity(dev, n_layers=LM_PARITY_LAYERS, batch=LM_PARITY_BATCH,
+                  prompt_len=LM_PARITY_PROMPT, gen=LM_PARITY_GEN, seed=7):
+    """yi-6b at full width, ``n_layers`` deep, fp32: the prefill (K6 on the
+    card, the plain chunked path on the CPU) and every decode step's logits,
+    card against CPU. Both decode the CPU's greedy tokens, so a near-tie
+    that flips one token on one device cannot derail the comparison; whether
+    the card's own greedy tokens agree is reported."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    cfg = lm_config(n_layers=n_layers, dtype="float32")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params_cpu = model.init(torch.Generator().manual_seed(seed))
+    params_dev = _params_to(params_cpu, dev)
+    init_s = time.perf_counter() - t0
+    prompts = lm_prompts(cfg, batch, prompt_len, seed)
+    max_len = prompt_len + gen
+    errs, agree = [], []
+    with torch.no_grad():
+        before = ops.launch_counts()["flash_attention"]
+        log_c, cache_c = model.prefill(params_cpu, {"tokens": prompts}, max_len)
+        log_d, cache_d = model.prefill(params_dev, {"tokens": prompts.to(dev)}, max_len)
+        torch.cuda.synchronize()
+        prefill_launches = ops.launch_counts()["flash_attention"] - before
+        if prefill_launches != n_layers:
+            raise AssertionError(f"lm_parity: {prefill_launches} K6 launches in a "
+                                 f"{n_layers}-layer prefill")
+        # how far each fp32 prefill is from one with float64 weights and
+        # products (norms, RoPE and softmax stay fp32, as the model casts)
+        params64 = _params_to(params_cpu, torch.float64)
+        log64, _ = build_model(lm_config(n_layers=n_layers, dtype="float64")).prefill(
+            params64, {"tokens": prompts}, max_len)
+        del params64
+        fp64_err = {"card": check_close("lm_parity card vs float64", log_d, log64,
+                                        rtol=LM_RTOL, atol=LM_ATOL),
+                    "cpu": check_close("lm_parity cpu vs float64", log_c, log64,
+                                       rtol=LM_RTOL, atol=LM_ATOL)}
+        for step in range(gen):
+            errs.append(check_close(f"lm_parity logits, step {step}", log_d, log_c,
+                                    rtol=LM_RTOL, atol=LM_ATOL))
+            tok = log_c[:, -1].argmax(dim=-1)
+            agree.append(bool((log_d[:, -1].argmax(dim=-1).cpu() == tok).all()))
+            if step == gen - 1:
+                break
+            pos = torch.full((batch, 1), prompt_len + step, dtype=torch.int64)
+            log_c, cache_c = model.decode(
+                params_cpu, {"tokens": tok[:, None], "positions": pos}, cache_c)
+            log_d, cache_d = model.decode(
+                params_dev, {"tokens": tok[:, None].to(dev), "positions": pos.to(dev)},
+                cache_d)
+    del params_dev, cache_d
+    torch.cuda.empty_cache()
+    return dict(arch=LM_ARCH, n_layers=n_layers, dtype="float32", batch=batch,
+                prompt_len=prompt_len, steps=gen, init_s=init_s,
+                k6_launches_prefill=prefill_launches, max_abs_err_per_step=errs,
+                prefill_max_abs_err_vs_fp64=fp64_err,
+                max_abs_err=max(errs), logits_scale=float(log_c.abs().max()),
+                greedy_tokens_agree=all(agree), tokens_agree_per_step=agree,
+                rtol=LM_RTOL, atol=LM_ATOL)
+
+
+class LMServe:
+    """The LM serve cell on the card: the model the serve launcher builds
+    (random weights from a seeded CUDA generator) and its prompts."""
+
+    def __init__(self, dev, cfg=None, batch=LM_BATCH, prompt_len=LM_PROMPT, seed=0):
+        import torch
+
+        from repro_torch.models.model import build_model
+
+        self.cfg = cfg or lm_config()
+        self.model = build_model(self.cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.params = self.model.init(torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        self.init_s = time.perf_counter() - t0
+        self.prompts = lm_prompts(self.cfg, batch, prompt_len, seed).to(dev)
+
+    def prefill(self, gen=LM_GEN):
+        return self.model.prefill(self.params, {"tokens": self.prompts},
+                                  self.prompts.shape[1] + gen)
+
+    def decode_step(self, gen=LM_GEN):
+        """A call that runs one decode step after a prefill: each call
+        rewrites the same cache slot, so it can repeat."""
+        import torch
+
+        logits, caches = self.prefill(gen)
+        batch, prompt_len = self.prompts.shape
+        step = {"tokens": logits[:, -1].argmax(dim=-1)[:, None],
+                "positions": torch.full((batch, 1), prompt_len, dtype=torch.int64,
+                                        device=logits.device)}
+        return lambda: self.model.decode(self.params, step, caches)
+
+    def layer0_qkv(self):
+        """Layer 0's own q, k, v of this prefill, (B, H, T, D) contiguous."""
+        import torch
+
+        from repro_torch.models.attention import gqa_qkv
+        from repro_torch.models.layers import apply_norm
+        from repro_torch.models.transformer import _embed_h
+
+        layer = self.params["layers"][0]
+        with torch.no_grad():
+            h = _embed_h(self.cfg, self.params, self.prompts)
+            x = apply_norm(h, layer["attn_norm"], self.cfg.norm)
+            pos = torch.arange(h.shape[1], device=h.device)[None, :]
+            return [t.transpose(1, 2).contiguous()
+                    for t in gqa_qkv(layer["attn"], self.cfg, x, pos)]
+
+
+def run_lm_serve(lm, gen=LM_GEN):
+    """Prefill + ``gen - 1`` greedy decode steps through the serve
+    launcher's ``generate``, after one untimed warm-up call."""
+    import torch
+
+    from repro_torch.launch.serve import generate
+
+    cfg = lm.cfg
+    generate(lm.model, lm.params, lm.prompts, 2)                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = generate(lm.model, lm.params, lm.prompts, gen)
+    peak = torch.cuda.max_memory_allocated()
+    k6 = (out["kernel_launches"]["prefill"]["flash_attention"],
+          out["kernel_launches"]["decode"]["flash_attention"])
+    if k6 != (cfg.n_layers, 0):
+        raise AssertionError(f"lm_serve: K6 launches (prefill, decode) {k6}, want "
+                             f"({cfg.n_layers}, 0)")
+    if not out["logits_finite"]:
+        raise AssertionError("lm_serve: non-finite logits")
+    generated = out["generated"]
+    batch, prompt_len = lm.prompts.shape
+    if generated.shape != (batch, gen) or not ((0 <= generated) & (generated < cfg.vocab_size)).all():
+        raise AssertionError(f"lm_serve: generated {generated.shape}, ids out of range")
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype, batch=batch,
+                prompt_len=prompt_len, gen=gen, init_s=lm.init_s,
+                prefill_ms=out["prefill_s"] * 1e3,
+                prefill_tokens_per_s=batch * prompt_len / out["prefill_s"],
+                decode_ms_per_token=out["decode_s_per_tok"] * 1e3,
+                decode_tokens_per_s=batch / out["decode_s_per_tok"],
+                k6_launches_per_prefill=k6[0], k6_launches_per_decode_step=k6[1],
+                peak_mem_gb=peak / 1e9,
+                param_gb=sum(t.numel() * t.element_size() for t in _leaves(lm.params)) / 1e9,
+                logits_finite=True, sample=generated[0, :8].tolist())
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -872,10 +1167,12 @@ def main() -> int:
               for rows, width in k45_shapes]
         k5 = [check_lstm_cell_bwd(rows, width, cfg.hidden_size, gen)
               for rows, width in k45_shapes]
-    for rec in k1 + k3 + k2 + k4 + k5:
+        k6 = [check_flash_attention(*shape, gen) for shape in k6_shapes()]
+    torch.cuda.empty_cache()
+    for rec in k1 + k3 + k2 + k4 + k5 + k6:
         emit(dict(phase="kernel", **rec))
 
-    # phases 3 to 6 are the main paths: each counts launches from zero and
+    # phases 3 to 7 are the main paths: each counts launches from zero and
     # must have launched every kernel of its path
     path_launches = dict.fromkeys(ops.launch_counts(), 0)
 
@@ -926,10 +1223,34 @@ def main() -> int:
         lambda: run_finetune(cfg, params_cpu, params_dev, dev))
     emit(dict(phase="finetune", card=smi, launches=ft_launches, **finetune))
 
-    # phase 7: summary, one entry per ported kernel. Launches: the main-path
-    # phases 3 to 6. Times at the first listed shape of each (K1, K3: the
+    # phase 7: the LM serving path. Card against CPU at full width, two
+    # layers, fp32; then the full yi-6b in bf16 through the serve launcher's
+    # generate, K6 held against its plain version on layer 0's own q, k, v,
+    # and one profiled prefill
+    lm_kernels = ("flash_attention",)
+    parity, parity_launches = counted(lm_kernels, "the LM parity run",
+                                      lambda: run_lm_parity(dev))
+    emit(dict(phase="lm_parity", card=smi, launches=parity_launches, **parity))
+    lm = LMServe(dev)
+    serve_lm, lm_launches = counted(lm_kernels, "LM serving", lambda: run_lm_serve(lm))
+    with torch.no_grad():
+        layer0 = check_flash_attention(*k6_shapes()[0], gen, qkv=lm.layer0_qkv())
+    emit(dict(phase="lm_serve", card=smi, launches=lm_launches, k6_layer0=layer0,
+              **serve_lm))
+    with torch.no_grad():
+        prefill = profile_call(lambda: lm.prefill(), top=12)
+        decode = profile_call(lm.decode_step(), top=12)
+    emit(dict(phase="profile_lm", call="one yi-6b prefill", batch=LM_BATCH,
+              prompt_len=LM_PROMPT, **prefill))
+    emit(dict(phase="profile_lm_decode", call="one yi-6b decode step", batch=LM_BATCH,
+              cache_len=LM_PROMPT + LM_GEN, **decode))
+    del lm
+    torch.cuda.empty_cache()
+
+    # phase 8: summary, one entry per ported kernel. Launches: the main-path
+    # phases 3 to 7. Times at the first listed shape of each (K1, K3: the
     # forecast batch, N = 24,000, layer 0; K2, K4, K5: a train step at
-    # batch 256, layer 0)
+    # batch 256, layer 0; K6: one layer of the yi-6b prefill)
     def entry(name, source, replaces, recs, library_ms):
         main_rec = recs[0]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -950,6 +1271,8 @@ def main() -> int:
               k4, k4[0]["library_ms"]),
         entry("lstm_cell_bwd", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:90",
               k5, None),
+        entry("flash_attention", csrc + "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:28", k6, k6[0]["library_ms"]),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

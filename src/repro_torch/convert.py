@@ -1,6 +1,6 @@
-"""Convert between the JAX package's params pytree and the port's params.
+"""Convert between the JAX package's params pytrees and the port's params.
 
-The JAX tree (with numpy leaves, e.g. after ``jax.tree_util.tree_map(
+ES-RNN (:func:`params_from_numpy`, :func:`params_to_numpy`): the JAX tree (with numpy leaves, e.g. after ``jax.tree_util.tree_map(
 np.asarray, params)``) is ``{"hw": HWParams, "rnn": [[{wx, wh, b}]],
 "head": {dense_w, dense_b, out_w, out_b}, "attn"?: {wq, wk, wv}}``. The port
 keeps the same keys and the same orientation, so the mapping is leaf by
@@ -21,7 +21,8 @@ from repro_torch.core.heads import Attention, Readout
 from repro_torch.core.holt_winters import HWParams
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_numpy", "params_to_numpy", "params_to_device", "copy_params"]
+__all__ = ["params_from_numpy", "params_to_numpy", "params_to_device", "copy_params",
+           "lm_params_from_numpy", "lm_params_to_numpy"]
 
 _HW_FIELDS = tuple(f.name for f in dataclasses.fields(HWParams))
 _READOUT = ("dense_w", "dense_b", "out_w", "out_b")
@@ -94,3 +95,60 @@ def copy_params(params, device):
     return {k: (v.map(lambda a: a.detach().to(dev, copy=True))
                 if isinstance(v, HWParams) else copy.deepcopy(v).to(dev))
             for k, v in params.items()}
+
+
+def _tensor_from_numpy(a, dev) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # the dtype numpy gives JAX's bf16 arrays
+
+        return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(tree, device=None):
+    """The port's LM params from a numpy-leaved JAX ``lm_init`` tree, on
+    ``device``: ``tree["layers"]``'s stacked leaves become one dict per layer."""
+    dev = resolve_device(device)
+    stacked = tree["layers"]
+    n_layers = len(next(iter(_leaves(stacked))))
+    out = {k: _map(v, lambda a: _tensor_from_numpy(a, dev))
+           for k, v in tree.items() if k != "layers"}
+    out["layers"] = [_map(stacked, lambda a, i=i: _tensor_from_numpy(a[i], dev))
+                     for i in range(n_layers)]
+    return out
+
+
+def lm_params_to_numpy(params):
+    """The JAX-shaped tree of numpy arrays: per-layer leaves stacked on (L, ...)."""
+    out = {k: _map(v, _tensor_to_numpy) for k, v in params.items() if k != "layers"}
+    layers = [_map(layer, _tensor_to_numpy) for layer in params["layers"]]
+    out["layers"] = _stack(layers)
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in layers[0]}
+    return np.stack(layers)

@@ -33,14 +33,17 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel entry points: name -> (pointer args, int args); each one ends with
-# the stream pointer and returns its cudaError_t as an int
+# kernel entry points: name -> (pointer args, int args, float args), in that
+# order; each one ends with the stream pointer and returns its cudaError_t
+# as an int
 _SIGNATURES = {
-    "hw_scan_f32": (6, 4),             # K1
-    "hw_scan_bwd_f32": (11, 4),        # K2
-    "lstm_cell_f32": (8, 4),           # K3
-    "lstm_cell_fwd_f32": (9, 4),       # K4
-    "lstm_cell_bwd_f32": (16, 5),      # K5
+    "hw_scan_f32": (6, 4, 0),              # K1
+    "hw_scan_bwd_f32": (11, 4, 0),         # K2
+    "lstm_cell_f32": (8, 4, 0),            # K3
+    "lstm_cell_fwd_f32": (9, 4, 0),        # K4
+    "lstm_cell_bwd_f32": (16, 5, 0),       # K5
+    "flash_attention_f32": (4, 7, 1),      # K6, fp32
+    "flash_attention_bf16": (4, 7, 1),     # K6, bf16
 }
 
 _lock = threading.Lock()
@@ -125,10 +128,10 @@ def library() -> ctypes.CDLL:
         else:
             _build(target)
         lib = ctypes.CDLL(str(target))
-        for name, (n_ptr, n_int) in _SIGNATURES.items():
+        for name, (n_ptr, n_int, n_float) in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                           + [ctypes.c_void_p])
+                           + [ctypes.c_float] * n_float + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -136,11 +139,12 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def check_inputs(kernel: str, named_shapes, device) -> None:
+def check_inputs(kernel: str, named_shapes, device, dtypes=(torch.float32,)) -> None:
     """Refuse what a kernel does not take, before any pointer is passed.
 
     ``named_shapes`` is ``[(name, tensor, expected_shape), ...]``; every
-    tensor must be float32, contiguous and on ``device`` (a CUDA device).
+    tensor must be of one of ``dtypes`` (float32 unless the kernel takes
+    more), contiguous and on ``device`` (a CUDA device).
     A launch wrapper's outputs are outside autograd, so it refuses a tensor
     that needs a gradient while grad mode is on: differentiable calls go
     through the ``torch.autograd.Function``s (``hw_scan.HWScan``,
@@ -152,8 +156,10 @@ def check_inputs(kernel: str, named_shapes, device) -> None:
     for name, t, shape in named_shapes:
         if t.device != device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: {name} is {t.dtype}; the kernel takes float32 only")
+        if t.dtype not in dtypes:
+            takes = " or ".join(str(dt).removeprefix("torch.") for dt in dtypes)
+            only = " only" if len(dtypes) == 1 else ""
+            raise TypeError(f"{kernel}: {name} is {t.dtype}; the kernel takes {takes}{only}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():

@@ -1,0 +1,82 @@
+"""K6: GQA flash attention as a CUDA kernel (``csrc/flash_attention.cu``).
+
+Replaces the Pallas TPU kernel
+``src/repro/kernels/flash_attention.py:_flash_kernel``: online-softmax
+attention with fp32 ``(m, l, acc)``, an end-aligned causal mask and GQA as
+an index map. One block owns one (batch x query head, query tile) and walks
+the key tiles itself (the TPU's sequential grid axis becomes a loop in the
+block); bf16 runs both products on the tensor cores (``mma.sync``), fp32 on
+the CUDA cores. The kernel masks ragged Tq and Tk itself, so nothing is
+padded. See the source for the design and the bound. The plain version is
+:func:`~repro_torch.kernels.ref.attention_ref`, which
+:func:`repro_torch.kernels.ops.flash_attention` takes for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+MMA_BQ = 64                      # query rows per block, bf16 (tensor cores)
+SIMT_BQ = 16                     # query rows per block, fp32
+SIMT_MAX_D = 128
+MMA_HEAD_DIMS = (64, 128)
+_MAX_GRID_Y = 65535
+
+# launches since the last reset (kernels.ops.reset_launch_counts)
+launches = 0
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+    """Launch K6. q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D) -> (B, Hq, Tq, D).
+
+    All three contiguous, of one dtype (bfloat16 with D in 64 or 128, or
+    float32 with D <= 128), on one CUDA device; Hq % Hkv == 0; under the
+    causal mask Tq <= Tk (queries sit at the end of the key timeline).
+    ``scale`` defaults to 1/sqrt(D). Raises on anything else -- it never
+    computes on the CPU.
+    """
+    global launches
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q and k must be 4-D, got {q.dim()}-D and {k.dim()}-D")
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    dtype = q.dtype
+    build.check_inputs("flash_attention", [
+        ("q", q, (b, hq, tq, d)), ("k", k, (b, hkv, tk, d)), ("v", v, (b, hkv, tk, d))],
+        q.device, dtypes=(torch.bfloat16, torch.float32))
+    if k.dtype != dtype or v.dtype != dtype:
+        raise TypeError(f"flash_attention: q, k, v are {dtype}, {k.dtype}, {v.dtype}; "
+                        f"the kernel takes one dtype")
+    if min(b, hq, hkv, tq, tk, d) < 1:
+        raise ValueError(f"flash_attention: empty problem {tuple(q.shape)} x {tuple(k.shape)}")
+    if hq % hkv:
+        raise ValueError(f"flash_attention: Hq={hq} is not a multiple of Hkv={hkv}")
+    if causal and tq > tk:
+        raise ValueError(f"flash_attention: causal with Tq={tq} > Tk={tk} leaves rows "
+                         f"with no visible key")
+    if dtype == torch.bfloat16:
+        if d not in MMA_HEAD_DIMS:
+            raise ValueError(f"flash_attention: bf16 head dim {d} not in {MMA_HEAD_DIMS}")
+        block_q, entry = MMA_BQ, "flash_attention_bf16"
+    else:
+        if d > SIMT_MAX_D:
+            raise ValueError(f"flash_attention: fp32 head dim {d} > {SIMT_MAX_D}")
+        block_q, entry = SIMT_BQ, "flash_attention_f32"
+    if -(-tq // block_q) > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention: Tq={tq} needs more than {_MAX_GRID_Y} query tiles")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must start 16-byte aligned")
+    scale = float(d ** -0.5 if scale is None else scale)
+
+    out = torch.empty_like(q)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, hq, hkv, tq, tk, d, int(causal), scale, stream)
+    build.check(err, "flash_attention")
+    launches += 1
+    return out

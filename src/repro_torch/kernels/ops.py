@@ -1,7 +1,8 @@
 """Public wrappers around the port's kernels: dispatch by device.
 
 A tensor on a CUDA device launches the hand-written kernel
-(:mod:`~repro_torch.kernels.hw_scan`, :mod:`~repro_torch.kernels.lstm_cell`);
+(:mod:`~repro_torch.kernels.hw_scan`, :mod:`~repro_torch.kernels.lstm_cell`,
+:mod:`~repro_torch.kernels.flash_attention`);
 a tensor on the CPU takes the kernel's plain PyTorch version
 (:mod:`~repro_torch.kernels.ref`). That is the only rule: there is no flag,
 and a CUDA tensor never falls back to the plain version -- the kernel
@@ -28,6 +29,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hw_scan as _hw
 from repro_torch.kernels import lstm_cell as _lstm
 from repro_torch.kernels import ref
@@ -45,12 +47,13 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {"hw_scan": _hw.launches, "hw_scan_bwd": _hw.bwd_launches,
             "lstm_cell": _lstm.launches, "lstm_cell_fwd": _lstm.fwd_launches,
-            "lstm_cell_bwd": _lstm.bwd_launches}
+            "lstm_cell_bwd": _lstm.bwd_launches, "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
     _hw.launches = _hw.bwd_launches = 0
     _lstm.launches = _lstm.fwd_launches = _lstm.bwd_launches = 0
+    _fa.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -86,3 +89,16 @@ def lstm_cell(wx, wh, b, x, h, c):
     if not cuda:
         return ref.lstm_cell_ref(wx, wh, b, x, h, c)
     return _lstm.lstm_cell(wx, wh, b, x, h, c)
+
+
+def flash_attention(q, k, v, *, causal: bool, scale=None):
+    """GQA attention, end-aligned causal; signature mirrors ref.attention_ref.
+
+    q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D). A CUDA tensor launches K6 (no
+    gradient: the JAX kernel has none either); a CPU tensor takes the plain
+    version. Unlike the JAX wrapper nothing is padded: the kernel masks
+    ragged Tq and Tk itself.
+    """
+    if not _on_cuda(q):
+        return ref.attention_ref(q, k, v, causal=causal, scale=scale)
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale)

@@ -133,3 +133,31 @@ def lstm_cell_bwd_ref(wx, wh, x, h, c, c_new, act, dh, dc):
     dgates = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=-1)     # (B, 4H)
     return (dgates @ wx.t(), dgates @ wh.t(), dct * sf,
             x.t() @ dgates, h.t() @ dgates, dgates.sum(dim=0))
+
+
+def attention_ref(q, k, v, *, causal: bool = True, scale=None):
+    """The plain K6: multi-head attention with GQA head grouping.
+
+    q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D); Hq % Hkv == 0. The causal
+    offset aligns the *ends* of q and k (decode-append: key j is visible to
+    query i iff ``j <= i + Tk - Tq``). ``scale`` defaults to 1/sqrt(D).
+
+    The port of ``src/repro/kernels/ref.py:attention_ref`` with the kernel's
+    arithmetic: K/V heads repeated, logits in fp32 from the inputs' values,
+    softmax in fp32, probabilities cast to ``v.dtype`` before the product
+    with V. Masked logits are -inf (a row always sees key 0 when Tq <= Tk).
+    """
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        ki = torch.arange(tk, device=q.device)[None, :]
+        logits = logits.masked_fill(ki > qi, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(v.dtype), v)

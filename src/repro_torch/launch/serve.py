@@ -1,0 +1,113 @@
+"""Serving launcher: batched prefill + greedy decode with KV caches.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
+        --device cpu --batch 2 --prompt-len 8 --gen 4
+
+The port of the JAX package's ``launch/serve.py``. Weights are random, from
+a ``torch.Generator`` seeded with ``seed`` on the serving device; prompts
+come from ``np.random.default_rng(seed)`` as in the reference. The first
+token comes from the prefill, then ``gen - 1`` greedy decode steps. On the
+card the prefill runs K6 once per layer and decode runs no kernel of the
+port. Runs on the card unless ``--device cpu``; one device only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models.model import Model, build_model
+
+def _launches_between(before, after):
+    return {name: after[name] - before[name] for name in after}
+
+
+def generate(model: Model, params, prompts: torch.Tensor, gen: int):
+    """Prefill ``prompts`` (B, P) and decode ``gen - 1`` more tokens greedily.
+
+    Returns ``generated`` (B, gen) int32, ``prefill_s`` and
+    ``decode_s_per_tok`` (host clock around work that ends in a device
+    synchronize), ``kernel_launches`` of the prefill and of all decode steps,
+    and ``logits_finite`` (every step's logits).
+    """
+    batch, prompt_len = prompts.shape
+    dev = prompts.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    with torch.no_grad():
+        before = kernel_ops.launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, {"tokens": prompts}, prompt_len + gen)
+        sync()
+        t_prefill = time.perf_counter() - t0
+        after_prefill = kernel_ops.launch_counts()
+
+        finite = torch.isfinite(logits).all()
+        tokens = [logits[:, -1, :].argmax(dim=-1)]
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            pos = torch.full((batch, 1), prompt_len + i, dtype=torch.int64, device=dev)
+            logits, caches = model.decode(
+                params, {"tokens": tokens[-1][:, None], "positions": pos}, caches)
+            finite &= torch.isfinite(logits).all()
+            tokens.append(logits[:, -1, :].argmax(dim=-1))
+        sync()
+        t_decode = time.perf_counter() - t0
+        after = kernel_ops.launch_counts()
+
+    return {
+        "generated": torch.stack(tokens, dim=1).to(torch.int32).cpu().numpy(),
+        "prefill_s": t_prefill,
+        "decode_s_per_tok": t_decode / max(gen - 1, 1),
+        "kernel_launches": {"prefill": _launches_between(before, after_prefill),
+                            "decode": _launches_between(after_prefill, after)},
+        "logits_finite": bool(finite),
+    }
+
+
+def serve(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
+          seed: int = 0, device=None, model_parallel: int = 1):
+    if model_parallel != 1:
+        raise NotImplementedError(
+            "model_parallel > 1: sharded serving is not ported yet (ROADMAP.md, "
+            "section 1, series data parallelism and the LM stack)")
+    dev = resolve_device(device)
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    model = build_model(cfg)
+    rng = np.random.default_rng(seed)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, prompt_len))).to(dev)
+    return generate(model, params, prompts, gen)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    args = ap.parse_args()
+    out = serve(args.arch, smoke=args.smoke, batch=args.batch,
+                prompt_len=args.prompt_len, gen=args.gen, device=args.device,
+                model_parallel=args.model_parallel)
+    print(f"prefill {out['prefill_s']*1e3:.1f} ms; "
+          f"decode {out['decode_s_per_tok']*1e3:.2f} ms/token")
+    print("sample:", out["generated"][0][:16])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,52 @@
+"""Unified model API: ``build_model(config) -> Model`` with init/prefill/decode.
+
+The port of the JAX package's ``models/model.py``. This slice runs the dense
+family (serving: prefill + decode); every other family raises, naming the
+part of ``ROADMAP.md`` that brings it. ``lm_loss`` (and with it the
+``loss`` entry) comes with LM training. There is no ``use_pallas`` switch:
+as everywhere in the port, a CUDA tensor runs the kernels and a CPU tensor
+the plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.models import transformer as TF
+from repro_torch.models.config import ArchConfig
+
+# the ROADMAP.md queue item that brings each family not yet ported
+_LATER = {
+    "moe": "the LM stack's MoE slice (models/moe.py)",
+    "vlm": "the LM stack's vlm slice (the image-embedding prefix)",
+    "hybrid": "the LM stack's hybrid/ssm slice (models/hybrid.py)",
+    "ssm": "the LM stack's hybrid/ssm slice (models/ssm_lm.py)",
+    "encdec": "the LM stack's encdec slice (models/encdec.py)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+    init: Callable[..., Any]                  # (generator) -> params
+    prefill: Callable[..., Any]               # (params, batch, max_len) -> (logits, caches)
+    decode: Callable[..., Any]                # (params, batch, caches) -> (logits, caches)
+    make_caches: Callable[..., Any]           # (batch, max_len, dtype, device) -> caches
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    fam = cfg.family
+    if fam == "dense":
+        return Model(
+            cfg=cfg,
+            init=lambda gen: TF.lm_init(cfg, gen),
+            prefill=lambda p, b, max_len: TF.lm_prefill(cfg, p, b, max_len=max_len),
+            decode=lambda p, b, c: TF.lm_decode(cfg, p, b, c),
+            make_caches=lambda bs, ml, dt, dev=None: TF.lm_make_caches(cfg, bs, ml, dt, dev),
+        )
+    if fam in _LATER:
+        raise NotImplementedError(
+            f"{cfg.name}: the {fam} family is not ported yet; it comes with "
+            f"{_LATER[fam]} (ROADMAP.md, section 1)")
+    raise ValueError(f"unknown family {fam}")

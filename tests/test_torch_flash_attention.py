@@ -1,0 +1,95 @@
+"""The port's attention (K6's plain version) against the JAX package's.
+
+``repro_torch.kernels.ops.flash_attention`` on CPU tensors runs the plain
+version ``ref.attention_ref``; it is held against the JAX
+``repro.kernels.ops.flash_attention`` (the Pallas kernel in interpret mode on
+the CPU) and the JAX oracle ``repro.kernels.ref.attention_ref``, on the same
+numpy inputs. The CUDA kernel itself is held against the plain version on
+the card (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
+
+Tolerances: fp32 rtol = atol = 2e-5, the JAX kernel test's (sums in another
+order). bf16: the port's plain version and the JAX kernel both take fp32
+logits from the bf16 inputs and cast the probabilities to bf16 before the
+product with V, but the JAX kernel divides by the row sum after that
+product and the plain version before it (and the JAX oracle rounds the
+logits themselves to bf16): the outputs differ by one bf16 rounding. Early
+rows see few keys, so |o| reaches 2-4, where one rounding is 2**-6: atol
+2e-2 against both (the JAX test's bound is 0.05).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _qkv(b, hq, hkv, tq, tk, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (b, hq, tq, d)).astype(np.float32),
+            rng.normal(0, 1, (b, hkv, tk, d)).astype(np.float32),
+            rng.normal(0, 1, (b, hkv, tk, d)).astype(np.float32))
+
+
+def _port(qkv, causal, dtype=torch.float32, **kw):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in qkv)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal, **kw)
+    assert ops.launch_counts()["flash_attention"] == 0       # the plain version ran
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tq,tk", [(64, 64), (64, 128), (1, 96), (33, 96)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (16, 1)])
+def test_attention_matches_jax_kernel_and_oracle(hq, hkv, tq, tk, causal, d):
+    qkv = _qkv(1, hq, hkv, tq, tk, d, seed=hq * tq + tk + d + causal)
+    got = _port(qkv, causal)
+    jq, jk, jv = (jnp.asarray(a) for a in qkv)
+    np.testing.assert_allclose(
+        got, np.asarray(jops.flash_attention(jq, jk, jv, causal=causal)), **TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(jref.attention_ref(jq, jk, jv, causal=causal)), **TOL)
+
+
+def test_bf16_matches_jax_kernel_and_oracle():
+    qkv = _qkv(2, 8, 2, 64, 64, 64, seed=0)
+    got = _port(qkv, True, torch.bfloat16)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in qkv)
+    kern = np.asarray(jops.flash_attention(jq, jk, jv, causal=True).astype(jnp.float32))
+    oracle = np.asarray(jref.attention_ref(jq, jk, jv, causal=True).astype(jnp.float32))
+    np.testing.assert_allclose(got, kern, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(48, 80, True), (20, 20, False)])
+def test_explicit_scale_matches_jax_oracle(tq, tk, causal):
+    """The model's own scale (granite's attention_multiplier, 2**-7) reaches
+    the plain version; the JAX Pallas path would drop it (ROADMAP F4)."""
+    qkv = _qkv(2, 4, 2, tq, tk, 64, seed=tq)
+    got = _port(qkv, causal, scale=0.0078125)
+    want = jref.attention_ref(*(jnp.asarray(a) for a in qkv), causal=causal, scale=0.0078125)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_chunked_attention_matches_jax_chunked():
+    """The model's CPU path (query chunks, grouped scores) against the JAX
+    ``chunked_attention`` with ``use_pallas=False``, across a chunk border."""
+    from repro.models.attention import chunked_attention as jchunked
+    from repro_torch.models.attention import chunked_attention
+
+    q, k, v = _qkv(2, 8, 4, 80, 80, 32, seed=9)
+    got = chunked_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=True,
+                            scale=32 ** -0.5, q_chunk=32)
+    want = jchunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                    scale=32 ** -0.5, q_chunk=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(
+        got.numpy(), ref.attention_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                       causal=True).numpy(), **TOL)

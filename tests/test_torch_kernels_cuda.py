@@ -12,14 +12,18 @@ rounding; K2's atol 1e-6 covers cotangents that cancel to near zero);
 K3, K4 and K5 atol 1e-5 (the gate dots and the products over 4H sum in
 another order than the plain matmuls); K5's weight gradients, which sum B
 rows, atol 1e-5 * sqrt(B). K5's weight gradients must be
-bit-identical across two launches on the same inputs.
+bit-identical across two launches on the same inputs. K6 in fp32 within the
+JAX kernel test's rtol = atol = 2e-5 (sums in another order); in bf16
+against the plain version in fp32 on the same bf16 inputs, rtol = atol =
+1e-2: the output's rounding (half a bf16 ulp, 2**-9 relative) and the
+probabilities rounded to bf16 before the product with V.
 """
 
 import pytest
 import torch
 
 from repro_torch import strict_fp32
-from repro_torch.kernels import hw_scan, lstm_cell, ops, ref
+from repro_torch.kernels import flash_attention, hw_scan, lstm_cell, ops, ref
 
 
 @pytest.fixture
@@ -131,3 +135,62 @@ def test_autograd_functions_launch_the_kernels_on_card(card):
         ops.lstm_cell(wx, wh, b, x, h, c)
     counts = ops.launch_counts()
     assert (counts["lstm_cell_fwd"], counts["lstm_cell_bwd"], counts["lstm_cell"]) == (1, 1, 1)
+
+
+def _attn_inputs(b, hq, hkv, tq, tk, d, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dev, dtype)
+            for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal", [
+    (2, 8, 2, 256, 256, 128, True),       # GQA prefill
+    (1, 4, 4, 1000, 1000, 64, True),      # MHA, ragged Tq = Tk
+    (2, 8, 1, 33, 300, 128, True),        # decode-append, ragged tiles
+    (1, 8, 2, 1, 77, 64, True),           # one query
+    (2, 4, 2, 70, 130, 128, False),       # non-causal, Tq < Tk
+    (1, 4, 2, 150, 40, 64, False),        # non-causal, Tq > Tk
+])
+def test_flash_attention_kernel_matches_plain_on_card(card, dtype, b, hq, hkv, tq, tk, d,
+                                                      causal):
+    q, k, v = _attn_inputs(b, hq, hkv, tq, tk, d, dtype, seed=tq + tk, dev=card)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_the_models_scale_on_card(card):
+    q, k, v = _attn_inputs(2, 4, 2, 64, 96, 64, torch.float32, seed=1, dev=card)
+    want = ref.attention_ref(q, k, v, causal=True, scale=0.0078125)
+    got = flash_attention.flash_attention(q, k, v, causal=True, scale=0.0078125)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_chunked_attention_launches_k6_on_card(card):
+    from repro_torch.models.attention import chunked_attention
+
+    q, k, v = _attn_inputs(2, 8, 4, 80, 80, 64, torch.float32, seed=2, dev="cpu")
+    want = chunked_attention(q, k, v, causal=True, scale=0.125, q_chunk=32)
+    ops.reset_launch_counts()
+    got = chunked_attention(*(t.to(card).transpose(1, 2).contiguous().transpose(1, 2)
+                              for t in (q, k, v)), causal=True, scale=0.125)
+    assert ops.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_does_not_take_on_card(card):
+    q, k, v = _attn_inputs(1, 4, 2, 8, 8, 32, torch.bfloat16, seed=3, dev=card)
+    with pytest.raises(ValueError, match="bf16 head dim 32"):
+        flash_attention.flash_attention(q, k, v, causal=True)
+    q, k, v = _attn_inputs(1, 4, 2, 9, 8, 64, torch.float32, seed=3, dev=card)
+    with pytest.raises(ValueError, match="no visible key"):
+        flash_attention.flash_attention(q, k, v, causal=True)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        flash_attention.flash_attention(q.double(), k.double(), v.double(), causal=False)

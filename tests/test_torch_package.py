@@ -30,12 +30,12 @@ from repro_torch.core import esrnn as tes
 from repro_torch.data.pipeline import synthetic_prepared
 from repro_torch.forecast import BucketDispatcher
 from repro_torch.forecast.server import ForecastServer, IdleFineTuner
-from repro_torch.kernels import build, hw_scan, lstm_cell, ops
+from repro_torch.kernels import build, flash_attention, hw_scan, lstm_cell, ops
 from repro_torch.train.trainer import TrainConfig, train_esrnn
 
 ROOT = Path(__file__).resolve().parents[1]
 NO_LAUNCHES = {"hw_scan": 0, "hw_scan_bwd": 0, "lstm_cell": 0, "lstm_cell_fwd": 0,
-               "lstm_cell_bwd": 0}
+               "lstm_cell_bwd": 0, "flash_attention": 0}
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -118,6 +118,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
         lstm_cell.lstm_cell_bwd(torch.ones((3, 8)), torch.ones((2, 8)), x, h, h, h,
                                 torch.ones((2, 8)), h, h)
+    qkv = torch.ones((1, 2, 4, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
+        flash_attention.flash_attention(qkv, qkv, qkv, causal=True)
     assert ops.launch_counts() == NO_LAUNCHES
 
 
