@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, holds every kernel against its plain PyTorch version on the card,
-drives the forecast-serving path at the full width of the paper's quarterly
-model (hidden 40, dilations ((1, 2), (4, 8)), 6 categories; random weights
+nvcc (printing the build seconds and ptxas's report on the attention and
+LSTM-cell sources), holds every kernel against its plain PyTorch version on
+the card, drives the forecast-serving path at the full width of the paper's
+quarterly model (hidden 40, dilations ((1, 2), (4, 8)), 6 categories; random weights
 from a fixed seed) and checks it against the same calls on the CPU, then
 serves requests through ``ForecastServer`` on the card. It then trains the
 same model on the card (``train_esrnn``: 24,000 quarterly series of length
@@ -184,6 +185,15 @@ def bound(n_bytes: float, n_flops: float, peak_flops: float = FP32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_summary(report: str):
+    """The lines of an ``nvcc -Xptxas -v`` report that name an entry
+    function, its registers, shared memory and spills, or a warning (such
+    as wgmma serialised or setmaxnreg ignored)."""
+    keep = ("Compiling entry", "Used", "spill", "arning", "Potential")
+    return [line.split(":", 1)[-1].strip() for line in report.splitlines()
+            if any(k in line for k in keep)]
 
 
 def max_rel(a, b) -> float:
@@ -1140,13 +1150,20 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     build_s = time.perf_counter() - t0
+    reports = build.build_info.get("ptxas", {})
     regs = {name: [int(r) for r in re.findall(r"Used (\d+) registers", rep)]
-            for name, rep in build.build_info.get("ptxas", {}).items()}
+            for name, rep in reports.items()}
     emit(dict(phase="device", nvidia_smi=smi, name=kind,
               count=torch.cuda.device_count(), torch=torch.__version__,
               cuda=torch.version.cuda, build_s=build_s, registers=regs,
               allow_tf32=[torch.backends.cuda.matmul.allow_tf32,
                           torch.backends.cudnn.allow_tf32]))
+    # what ptxas made of the two redesigned kernels' sources: per entry
+    # function its registers, shared memory, spills and any warning (an
+    # empty report: the library was built by an earlier process)
+    emit(dict(phase="ptxas", build_s=build_s, report={
+        name: ptxas_summary(reports.get(name, ""))
+        for name in ("flash_attention.cu", "lstm_cell.cu")}))
 
     # phase 2: kernels against their plain versions, at the main path's
     # shapes (the first of each list is the first launch of the forecast
@@ -1161,6 +1178,9 @@ def main() -> int:
         k1.append(check_hw_scan(N_SERIES, T_LEN, 1, gen))
         k3 = [check_lstm_cell(rows, width, cfg.hidden_size, gen)
               for rows, width in k3_shapes]
+        # the monthly model's widths (H = 50): K3's largest shared-memory
+        # footprint among the presets, (18 + 50) x 200 and (50 + 50) x 200 weights
+        k3 += [check_lstm_cell(N_SERIES, width, 50, gen) for width in (18, 50)]
         k2 = [check_hw_scan_bwd(n, t, m, gen) for n, t, m in k2_shapes]
         k2 += [check_hw_scan_bwd(n, TRAIN_T, 1, gen) for n in (TRAIN_BATCH, BIG_BATCH)]
         k4 = [check_lstm_cell_fwd(rows, width, cfg.hidden_size, gen)

@@ -23,28 +23,34 @@
 // Design. On the TPU the key loop is the sequential third grid axis; CUDA
 // blocks run in no order, so here one block owns one (batch * q head, query
 // tile) and walks the key tiles itself, carrying (m, l, acc) in registers:
-// the (Tq, Tk) scores never reach device memory. Key tiles are staged in
-// shared memory and shared by the block's warps. Ragged Tq and Tk are
-// masked in the kernel (rows past Tq are not stored; keys past Tk load as
-// zeros and score -1e30), so nothing is padded. Under the causal mask the
+// the (Tq, Tk) scores never reach device memory. Ragged Tq and Tk are
+// masked in the kernel, so nothing is padded. Under the causal mask the
 // block stops after the last key tile its last row can see (the skipped
 // tiles would add exactly nothing), and tiles are issued longest first.
-// * bf16 (D = 64 or 128): 4 warps x 16 query rows, 64-key tiles. Both
-//   products run on mma.sync.m16n8k16 (bf16 in, fp32 accumulate). Each
-//   warp keeps its Q fragments in registers for the whole key loop; the
-//   score accumulators become, after the softmax and the cast to bf16, the
-//   A fragments of the P.V product without leaving registers (the
-//   accumulator layout of m16n8 matches the A layout of m16n8k16). K and V
-//   tiles sit row-major in shared memory with rows padded by 16 bytes, so
-//   the fragment loads are free of bank conflicts.
+// * bf16 (D = 64 or 128), flash_tc_bf16: 128 query rows per block, 128-key
+//   tiles, three warpgroups. The producer warpgroup gives up registers
+//   (setmaxnreg) and one of its threads issues TMA loads: Q once, then K
+//   and V tiles into a 2-stage ring guarded by full/empty mbarriers. The
+//   two consumer warpgroups (64 query rows each, registers raised) run
+//   S = Q . K^T as wgmma m64n128k16 with both operands in shared memory,
+//   then the online softmax in registers, then O += P . V as wgmma with P
+//   in registers: the fp32 score accumulators, cast to bf16x2 in place,
+//   are the A fragments (the m64nN accumulator layout is the register-A
+//   layout), and V is read in its [key][d] layout through the descriptor's
+//   transpose bit. The tensor maps are 3-D (D, T, B * H), so TMA zero-fills
+//   keys past Tk and query rows past Tq per head; all tiles use the 128-byte
+//   swizzle (a D = 128 row is two 64-element boxes), and the wgmma
+//   descriptors describe the same layout. The mask runs only on tiles that
+//   cross the diagonal or Tk; exp2 with scale * log2(e) folded in.
 // * fp32 (D <= 128): 4 warps x 4 query rows, 32-key tiles; lane j scores
 //   key j against the warp's rows (the K tile padded to D + 1 floats a row),
 //   the row max and sum go through warp shuffles, and each lane accumulates
 //   D / 32 output columns. fp32 products stay off the tensor cores (TF32
 //   would cost digits the fp32 path is held to).
-// No --use_fast_math: expf and the division are IEEE, as in the plain
-// version.
+// No --use_fast_math: the fp32 path's expf and the divisions are IEEE, as
+// in the plain version.
 
+#include <cuda.h>            // CUtensorMap; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,20 +61,173 @@ constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync)
+// bf16: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BQ = 64;     // query rows per block (16 per warp)
-constexpr int MMA_BK = 64;     // keys per tile
-constexpr int MMA_THREADS = 128;
+constexpr int TC_BQ = 128;          // query rows per block (64 per consumer)
+constexpr int TC_BK = 128;          // keys per tile
+constexpr int TC_STAGES = 2;        // depth of the K/V ring
+constexpr int WG = 128;             // threads per warpgroup
+constexpr int TC_THREADS = 3 * WG;  // producer + two consumers
+constexpr int BOX = 64;             // bf16 per TMA box row: 128 B, the swizzle width
+constexpr int BOX_BYTES = 128 * BOX * 2;   // one box: 128 rows x 128 B
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int CONSUMER_WARPS = 8;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// dynamic shared memory: Q | K ring | V ring | mbarriers, 1024-byte aligned
+template <int D>
+struct TcSmem {
+    static constexpr int TILE = 128 * D * 2;                 // 128 rows x D
+    static constexpr int Q = 0;
+    static constexpr int K = TILE;
+    static constexpr int V = K + TC_STAGES * TILE;
+    static constexpr int BAR = V + TC_STAGES * TILE;
+    static constexpr int BYTES = BAR + 64 + 1024;            // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// one box of a 3-D tensor map into shared memory; completes on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
     asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+           "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// wgmma shared-memory matrix descriptor for the 128-byte swizzle: start
+// address, leading and stride byte offsets (in 16-byte units), layout type
+// 1 (B128) in bits 62-63; base offset 0 (every tile is 1024-byte aligned)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+           | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
+           | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
+           | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep registers that an asynchronous wgmma reads or writes in place
+// across its issue and its wait (the compiler sees the asm as instantaneous)
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][M]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// d (+)= A . B, m64n128k16, A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A . B, m64n128k16, A from registers, B from shared memory, MN-major
+// (the transpose bit: B is stored [k][n] with n contiguous)
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, m64n64k16, A from registers, B from shared memory, MN-major
+// (the transpose bit: B is stored [k][n] with n contiguous)
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // two floats -> bf16x2, round to nearest even; `lo` in the low half
@@ -77,157 +236,190 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-    return static_cast<uint32_t>(__bfloat16_as_ushort(lo))
-           | (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// Fragment layouts of mma.m16n8k16 (PTX ISA), with g = lane / 4, t = lane % 4:
-//   A (16 x 16, row): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
-//                     a3 = (g+8, 2t+8..)
-//   B (16 x 8, col):  b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
-//   C (16 x 8):       c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
+// Accumulator layout of wgmma m64nN (fp32), for thread t of a warpgroup
+// with w = t / 32, g = (t % 32) / 4, t4 = t % 4: d[4 i + 2 hr + e] holds row
+// 16 w + g + 8 hr, column 8 i + 2 t4 + e. The register-A fragment of
+// m64k16 for k-step kk is {P(g, 16kk + 2t4..), P(g + 8, ..), P(g, 16kk + 8
+// + 2t4..), P(g + 8, ..)}: chunks 2kk and 2kk + 1 of the score accumulators.
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_mma_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-               int hq, int hkv, int tq, int tk, float scale, int causal) {
-    constexpr int LD = D + 8;                 // shared row stride, in bf16
-    constexpr int KSTEPS = D / 16;            // k-steps of the Q.K^T product
-    constexpr int NT_S = MMA_BK / 8;          // 8-key column tiles of a score tile
-    constexpr int NT_O = D / 8;               // 8-wide column tiles of the output
-    __shared__ __align__(16) __nv_bfloat16 ks[MMA_BK * LD];
-    __shared__ __align__(16) __nv_bfloat16 vs[MMA_BK * LD];
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_tc_bf16(const __grid_constant__ CUtensorMap q_map,
+              const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map,
+              __nv_bfloat16* __restrict__ o, int hq, int hkv, int tq, int tk,
+              float scale_log2, int causal) {
+    using L = TcSmem<D>;
+    constexpr int BOXES = D / BOX;             // 64-element boxes per tile row
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t q_full = base + L::BAR;     // then K full [2], V full [2], empty [2]
+    auto k_full = [&](int s) { return base + L::BAR + 8 * (1 + s); };
+    auto v_full = [&](int s) { return base + L::BAR + 8 * (1 + TC_STAGES + s); };
+    auto empty = [&](int s) { return base + L::BAR + 8 * (1 + 2 * TC_STAGES + s); };
 
-    const int bh = blockIdx.x;                              // b * hq + h
+    const int bh = blockIdx.x;                                // b * hq + h
     const int b = bh / hq, h = bh % hq;
-    const int kvh = h / (hq / hkv);
-    const int q0 = (gridDim.y - 1 - blockIdx.y) * MMA_BQ;  // longest tiles first
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t4 = lane & 3;
+    const int kv_bh = b * hkv + h / (hq / hkv);
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;     // longest tiles first
     const int offset = tk - tq;
-    const __nv_bfloat16* qp = q + static_cast<long>(bh) * tq * D;
-    const __nv_bfloat16* kp = k + (static_cast<long>(b) * hkv + kvh) * tk * D;
-    const __nv_bfloat16* vp = v + (static_cast<long>(b) * hkv + kvh) * tk * D;
-    const int row0 = q0 + warp * 16 + g;                    // and row0 + 8
+    const int kv_end = causal ? min(tk, q0 + TC_BQ + offset) : tk;
+    const int n_tiles = (kv_end + TC_BK - 1) / TC_BK;
+    const int wg = threadIdx.x / WG;
 
-    // this thread's Q fragments, for the whole key loop (rows past Tq: 0)
-    uint32_t qf[KSTEPS][4];
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int row = row0 + (r & 1) * 8;
-            const int col = kk * 16 + t4 * 2 + (r >> 1) * 8;
-            qf[kk][r] = row < tq
-                ? *reinterpret_cast<const uint32_t*>(qp + static_cast<long>(row) * D + col)
-                : 0u;
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < TC_STAGES; ++s) {
+            mbar_init(k_full(s), 1);
+            mbar_init(v_full(s), 1);
+            mbar_init(empty(s), CONSUMER_WARPS);
         }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
+    __syncthreads();
 
-    float acc[NT_O][4];
+    if (wg == 0) {
+        // producer: one thread keeps the ring full
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+        if (threadIdx.x == 0) {
+            mbar_expect_tx(q_full, TC_BQ * D * 2);
 #pragma unroll
-    for (int i = 0; i < NT_O; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    float m[2] = {NEG_INF, NEG_INF};
-    float l[2] = {0.f, 0.f};
-
-    const int kv_end = causal ? min(tk, q0 + MMA_BQ + offset) : tk;
-    for (int kv0 = 0; kv0 < kv_end; kv0 += MMA_BK) {
-        __syncthreads();                      // the previous tile is consumed
-        for (int c = threadIdx.x; c < MMA_BK * D / 8; c += MMA_THREADS) {
-            const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-            uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-            if (kv0 + r < tk) {
-                const long at = static_cast<long>(kv0 + r) * D + col;
-                kv4 = *reinterpret_cast<const uint4*>(kp + at);
-                vv4 = *reinterpret_cast<const uint4*>(vp + at);
-            }
-            *reinterpret_cast<uint4*>(ks + r * LD + col) = kv4;
-            *reinterpret_cast<uint4*>(vs + r * LD + col) = vv4;
-        }
-        __syncthreads();
-
-        // s = q . k^T for this warp's 16 rows x 64 keys
-        float s[NT_S][4];
+            for (int x = 0; x < BOXES; ++x)
+                tma_load_3d(base + L::Q + x * BOX_BYTES, &q_map, q_full, x * BOX, q0, bh);
+            for (int j = 0; j < n_tiles; ++j) {
+                const int s = j % TC_STAGES;
+                if (j >= TC_STAGES) mbar_wait(empty(s), (j / TC_STAGES - 1) & 1);
+                const uint32_t kt = base + L::K + s * L::TILE, vt = base + L::V + s * L::TILE;
+                mbar_expect_tx(k_full(s), TC_BK * D * 2);
 #pragma unroll
-        for (int nt = 0; nt < NT_S; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+                for (int x = 0; x < BOXES; ++x)
+                    tma_load_3d(kt + x * BOX_BYTES, &k_map, k_full(s), x * BOX, j * TC_BK, kv_bh);
+                mbar_expect_tx(v_full(s), TC_BK * D * 2);
 #pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-            for (int nt = 0; nt < NT_S; ++nt) {
-                const __nv_bfloat16* kr = ks + (nt * 8 + g) * LD + kk * 16 + t4 * 2;
-                mma_bf16(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                         *reinterpret_cast<const uint32_t*>(kr + 8));
+                for (int x = 0; x < BOXES; ++x)
+                    tma_load_3d(vt + x * BOX_BYTES, &v_map, v_full(s), x * BOX, j * TC_BK, kv_bh);
             }
         }
+    } else {
+        // consumers: 64 query rows each
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+        const int ci = wg - 1;
+        const int t = threadIdx.x % WG;
+        const int warp = t / 32, lane = t % 32;
+        const int g = lane / 4, t4 = lane % 4;
+        const int first_row = q0 + ci * 64;               // this warpgroup's first row
+        const int row0 = first_row + warp * 16 + g;        // this thread's rows: row0, row0 + 8
+        const uint32_t q_at = base + L::Q + ci * 64 * 128; // row ci * 64 of each Q box
 
-        // scale, mask, online softmax; rows g (e = 0, 1) and g + 8 (e = 2, 3)
+        float acc[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        float m[2] = {NEG_INF, NEG_INF};
+        float l[2] = {0.f, 0.f};
+        float s[64];
+        uint32_t p[TC_BK / 16][4];
+
+        mbar_wait(q_full, 0);
+        for (int j = 0; j < n_tiles; ++j) {
+            const int st = j % TC_STAGES, parity = (j / TC_STAGES) & 1;
+            const int kv0 = j * TC_BK;
+            const uint32_t kt = base + L::K + st * L::TILE, vt = base + L::V + st * L::TILE;
+
+            // S = Q . K^T: D / 16 k-steps, 32 bytes apart inside a box
+            mbar_wait(k_full(st), parity);
+            hold(s);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+                wgmma_ss_m64n128(s, gmma_desc(q_at + off, 16, 1024),
+                                 gmma_desc(kt + off, 16, 1024), kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            hold(s);
+
+            // scale (log2 units), mask where the tile crosses the diagonal or
+            // Tk, online softmax; rows row0 (hr = 0) and row0 + 8 (hr = 1)
+            const bool edge = kv0 + TC_BK > tk || (causal && kv0 + TC_BK - 1 > first_row + offset);
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+                const int row = row0 + hr * 8;
+                float mx = NEG_INF;
+#pragma unroll
+                for (int i = 0; i < TC_BK / 8; ++i) {
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        float x = s[4 * i + 2 * hr + e] * scale_log2;
+                        if (edge) {
+                            const int key = kv0 + 8 * i + 2 * t4 + e;
+                            if (key >= tk || (causal && key > row + offset)) x = NEG_INF;
+                        }
+                        s[4 * i + 2 * hr + e] = x;
+                        mx = fmaxf(mx, x);
+                    }
+                }
+                mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+                mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+                const float m_new = fmaxf(m[hr], mx);
+                const float corr = exp2f(m[hr] - m_new);
+                float sum = 0.f;
+#pragma unroll
+                for (int i = 0; i < TC_BK / 8; ++i) {
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const float pv = exp2f(s[4 * i + 2 * hr + e] - m_new);
+                        s[4 * i + 2 * hr + e] = pv;
+                        sum += pv;
+                    }
+                }
+                sum += __shfl_xor_sync(FULL, sum, 1);
+                sum += __shfl_xor_sync(FULL, sum, 2);
+                l[hr] = corr * l[hr] + sum;
+                m[hr] = m_new;
+#pragma unroll
+                for (int i = 0; i < D / 8; ++i) {
+                    acc[4 * i + 2 * hr] *= corr;
+                    acc[4 * i + 2 * hr + 1] *= corr;
+                }
+            }
+#pragma unroll
+            for (int kk = 0; kk < TC_BK / 16; ++kk) {
+                p[kk][0] = pack_f32(s[8 * kk + 0], s[8 * kk + 1]);
+                p[kk][1] = pack_f32(s[8 * kk + 2], s[8 * kk + 3]);
+                p[kk][2] = pack_f32(s[8 * kk + 4], s[8 * kk + 5]);
+                p[kk][3] = pack_f32(s[8 * kk + 6], s[8 * kk + 7]);
+            }
+
+            // O += P . V: 16 keys per k-step (2,048 B of V rows); the second
+            // 64 columns of d sit one box (LBO) further, 8 keys one SBO
+            mbar_wait(v_full(st), parity);
+            hold(acc);
+            hold(p);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < TC_BK / 16; ++kk) {
+                const uint64_t db = gmma_desc(vt + kk * 16 * 128, BOX_BYTES, 1024);
+                if constexpr (D == 128) wgmma_rs_m64n128(acc, p[kk], db);
+                else wgmma_rs_m64n64(acc, p[kk], db);
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            hold(acc);
+            hold(p);
+            if (lane == 0) mbar_arrive(empty(st));
+        }
+
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
             const int row = row0 + hr * 8;
-            float mx = NEG_INF;
+            if (row >= tq) continue;
+            const float denom = fmaxf(l[hr], 1e-30f);
+            __nv_bfloat16* orow = o + (static_cast<long>(bh) * tq + row) * D + t4 * 2;
 #pragma unroll
-            for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int key = kv0 + nt * 8 + t4 * 2 + e;
-                    const bool ok = key < tk && (!causal || key <= row + offset);
-                    const float x = ok ? s[nt][hr * 2 + e] * scale : NEG_INF;
-                    s[nt][hr * 2 + e] = x;
-                    mx = fmaxf(mx, x);
-                }
+            for (int i = 0; i < D / 8; ++i) {
+                *reinterpret_cast<uint32_t*>(orow + i * 8) =
+                    pack_f32(acc[4 * i + 2 * hr] / denom, acc[4 * i + 2 * hr + 1] / denom);
             }
-            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-            const float m_new = fmaxf(m[hr], mx);
-            const float corr = expf(m[hr] - m_new);
-            float sum = 0.f;
-#pragma unroll
-            for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const float p = expf(s[nt][hr * 2 + e] - m_new);
-                    s[nt][hr * 2 + e] = p;
-                    sum += p;
-                }
-            }
-            sum += __shfl_xor_sync(FULL, sum, 1);
-            sum += __shfl_xor_sync(FULL, sum, 2);
-            l[hr] = corr * l[hr] + sum;
-            m[hr] = m_new;
-#pragma unroll
-            for (int i = 0; i < NT_O; ++i) {
-                acc[i][hr * 2] *= corr;
-                acc[i][hr * 2 + 1] *= corr;
-            }
-        }
-
-        // acc += bf16(p) . v: the score accumulators are the A fragments
-#pragma unroll
-        for (int kk = 0; kk < MMA_BK / 16; ++kk) {
-            const uint32_t a[4] = {
-                pack_f32(s[2 * kk][0], s[2 * kk][1]), pack_f32(s[2 * kk][2], s[2 * kk][3]),
-                pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-            for (int i = 0; i < NT_O; ++i) {
-                const __nv_bfloat16* vr = vs + (kk * 16 + t4 * 2) * LD + i * 8 + g;
-                mma_bf16(acc[i], a, pack_bf16(vr[0], vr[LD]),
-                         pack_bf16(vr[8 * LD], vr[9 * LD]));
-            }
-        }
-    }
-
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-        const int row = row0 + hr * 8;
-        if (row >= tq) continue;
-        const float denom = fmaxf(l[hr], 1e-30f);
-        __nv_bfloat16* orow = o + (static_cast<long>(bh) * tq + row) * D + t4 * 2;
-#pragma unroll
-        for (int i = 0; i < NT_O; ++i) {
-            *reinterpret_cast<uint32_t*>(orow + i * 8) =
-                pack_f32(acc[i][hr * 2] / denom, acc[i][hr * 2 + 1] / denom);
         }
     }
 }
@@ -348,27 +540,79 @@ flash_simt_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: look it up
+// once through the runtime's entry-point query, so the library needs no -lcuda
+EncodeTiled tensor_map_encoder() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                  cudaEnableDefault, &found);
+#endif
+        if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+        fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+    return fn;
+}
+
+// a (D, T, heads) bf16 tensor, boxes of 64 x 128 x 1, 128-byte swizzle; reads
+// past T (per head) fill with zeros
+bool tile_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d, int t, int heads) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
+                                static_cast<cuuint64_t>(heads)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                   static_cast<cuuint64_t>(t) * d * 2};
+    const cuuint32_t box[3] = {BOX, 128, 1};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int batch, int hq,
+              int hkv, int tq, int tk, int causal, float scale, cudaStream_t stream) {
+    static bool opted = false;
+    constexpr int smem = TcSmem<D>::BYTES;
+    if (!opted) {
+        cudaError_t err = cudaFuncSetAttribute(
+            flash_tc_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        opted = true;
+    }
+    EncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+    CUtensorMap qm, km, vm;
+    if (!tile_map(encode, &qm, q, D, tq, batch * hq) || !tile_map(encode, &km, k, D, tk, batch * hkv)
+        || !tile_map(encode, &vm, v, D, tk, batch * hkv))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(batch * hq, (tq + TC_BQ - 1) / TC_BQ);
+    const float scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
+    flash_tc_bf16<D><<<grid, TC_THREADS, smem, stream>>>(
+        qm, km, vm, static_cast<__nv_bfloat16*>(o), hq, hkv, tq, tk, scale_log2, causal);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                     int batch, int hq, int hkv, int tq, int tk, int d,
                                     int causal, float scale, void* stream) {
-    const dim3 grid(batch * hq, (tq + MMA_BQ - 1) / MMA_BQ);
-    const auto* qb = static_cast<const __nv_bfloat16*>(q);
-    const auto* kb = static_cast<const __nv_bfloat16*>(k);
-    const auto* vb = static_cast<const __nv_bfloat16*>(v);
-    auto* ob = static_cast<__nv_bfloat16*>(o);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (d == 128) {
-        flash_mma_bf16<128><<<grid, MMA_THREADS, 0, s>>>(qb, kb, vb, ob, hq, hkv, tq, tk,
-                                                       scale, causal);
-    } else if (d == 64) {
-        flash_mma_bf16<64><<<grid, MMA_THREADS, 0, s>>>(qb, kb, vb, ob, hq, hkv, tq, tk,
-                                                      scale, causal);
-    } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
+    if (d == 128) return launch_tc<128>(q, k, v, o, batch, hq, hkv, tq, tk, causal, scale, s);
+    if (d == 64) return launch_tc<64>(q, k, v, o, batch, hq, hkv, tq, tk, causal, scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o,

@@ -5,8 +5,9 @@ Replaces the Pallas TPU kernel
 attention with fp32 ``(m, l, acc)``, an end-aligned causal mask and GQA as
 an index map. One block owns one (batch x query head, query tile) and walks
 the key tiles itself (the TPU's sequential grid axis becomes a loop in the
-block); bf16 runs both products on the tensor cores (``mma.sync``), fp32 on
-the CUDA cores. The kernel masks ragged Tq and Tk itself, so nothing is
+block). bf16 is warp-specialised: a producer warpgroup feeds Q and a ring of
+K/V tiles by TMA, two consumer warpgroups run both products as ``wgmma``;
+fp32 runs on the CUDA cores. The kernel masks ragged Tq and Tk itself, so nothing is
 padded. See the source for the design and the bound. The plain version is
 :func:`~repro_torch.kernels.ref.attention_ref`, which
 :func:`repro_torch.kernels.ops.flash_attention` takes for CPU tensors.
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.kernels import build
 
-MMA_BQ = 64                      # query rows per block, bf16 (tensor cores)
+MMA_BQ = 128                     # query rows per block, bf16 (tensor cores)
 SIMT_BQ = 16                     # query rows per block, fp32
 SIMT_MAX_D = 128
 MMA_HEAD_DIMS = (64, 128)

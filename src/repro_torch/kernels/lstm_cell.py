@@ -4,11 +4,12 @@ All three live in ``csrc/lstm_cell.cu`` and replace the Pallas TPU kernels
 of ``src/repro/kernels/lstm_cell.py``: K3 ``_lstm_kernel`` (the inference
 forward), K4 ``_lstm_fwd_kernel`` (the same forward, also writing the gate
 activations ``(B, 4H)`` the backward needs) and K5 ``_lstm_bwd_kernel``.
-K3/K4 run one thread per (row, hidden unit) and keep the ``(B, 4H)`` gates
-out of device memory; K5 forms the gate cotangents, ``dx``, ``dh_prev`` and
-``dc_prev`` per row tile and sums the weight gradients over the batch in a
-fixed order (two passes, no float atomics), so it is deterministic. See the
-source for the design and bounds.
+K3 and K4 are one kernel: the weights in shared memory, each thread one
+hidden unit of 8 rows, a persistent grid over row tiles; both keep the
+``(B, 4H)`` gates out of device memory. K5 forms the gate cotangents,
+``dx``, ``dh_prev`` and ``dc_prev`` per row tile and sums the weight
+gradients over the batch in a fixed order (two passes, no float atomics),
+so it is deterministic. See the source for the design and bounds.
 
 :class:`LSTMCell` is the ``torch.autograd.Function`` around K4/K5 (the
 counterpart of the JAX ``custom_vjp``); the plain versions are
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-BLOCK = 256                      # threads per block
+BLOCK = 256                      # threads per block of K5 (K3/K4 pick their own)
 ROWS_PER_TILE = 32               # K5's row tile (one block each)
 _MAX_STATIC_SMEM = 48 * 1024     # K5's tile must fit without opt-in smem
 

@@ -11,9 +11,9 @@ Tolerances: K1 and K2 rtol 1e-5 (same operations, same order, IEEE
 rounding; K2's atol 1e-6 covers cotangents that cancel to near zero);
 K3, K4 and K5 atol 1e-5 (the gate dots and the products over 4H sum in
 another order than the plain matmuls); K5's weight gradients, which sum B
-rows, atol 1e-5 * sqrt(B). K5's weight gradients must be
-bit-identical across two launches on the same inputs. K6 in fp32 within the
-JAX kernel test's rtol = atol = 2e-5 (sums in another order); in bf16
+rows, atol 1e-5 * sqrt(B). K3's outputs and K5's weight gradients must
+be bit-identical across two launches on the same inputs. K6 in fp32 within
+the JAX kernel test's rtol = atol = 2e-5 (sums in another order); in bf16
 against the plain version in fp32 on the same bf16 inputs, rtol = atol =
 1e-2: the output's rounding (half a bf16 ulp, 2**-9 relative) and the
 probabilities rounded to bf16 before the product with V.
@@ -49,8 +49,15 @@ def test_hw_scan_kernel_matches_plain_on_card(card, n, t_len, m):
     torch.testing.assert_close(seas.t().cpu(), want[1], rtol=1e-5, atol=0)
 
 
+_PRESET_WIDTHS = [          # (I, H) of every preset's layers: yearly, quarterly,
+    (10, 30), (30, 30),     # monthly, hourly (input window + 6 categories, then H)
+    (14, 40), (40, 40), (18, 50), (50, 50), (30, 40), (62, 50),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,in_size,hidden", [(1, 14, 40), (333, 40, 40), (70, 62, 50)])
+@pytest.mark.parametrize("in_size,hidden", _PRESET_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 31, 333, 24_001])      # across the row tiles
 def test_lstm_cell_kernel_matches_plain_on_card(card, rows, in_size, hidden):
     g = torch.Generator().manual_seed(rows)
     u = lambda *s: torch.rand(s, generator=g) * 2 - 1
@@ -102,7 +109,9 @@ def _cell_inputs(rows, in_size, hidden, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,in_size,hidden", [(1, 14, 40), (333, 40, 40), (70, 62, 50)])
+@pytest.mark.parametrize("rows,in_size,hidden", [
+    (1, 14, 40), (333, 40, 40), (70, 62, 50), (256, 14, 40), (2_049, 40, 40),
+    (257, 18, 50), (31, 10, 30)])
 def test_lstm_cell_fwd_bwd_kernels_match_plain_on_card(card, rows, in_size, hidden):
     wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, rows)
     h_new, c_new, act = ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
@@ -161,6 +170,48 @@ def test_flash_attention_kernel_matches_plain_on_card(card, dtype, b, hq, hkv, t
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+_TILE_EDGES = [              # (Tq, Tk, causal) across K6's 128-row/128-key tiles
+    (1000, 1000, True), (1000, 1000, False), (70, 130, True), (70, 130, False),
+    (33, 1024, True), (1, 77, True), (150, 40, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk,causal", _TILE_EDGES)
+def test_flash_attention_bf16_tile_edges_on_card(card, tq, tk, causal, d, group):
+    hkv = 2
+    q, k, v = _attn_inputs(1, hkv * group, hkv, tq, tk, d, torch.bfloat16,
+                           seed=tq * 7 + tk + d + group, dev=card)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bf16_takes_the_models_scale_on_card(card, d):
+    # granite's 2**-7, which the bf16 kernel folds into its exp2 with log2(e)
+    q, k, v = _attn_inputs(2, 8, 2, 200, 260, d, torch.bfloat16, seed=d, dev=card)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=True, scale=0.0078125)
+    got = flash_attention.flash_attention(q, k, v, causal=True, scale=0.0078125)
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,in_size,hidden", [(24_001, 14, 40), (333, 50, 50)])
+def test_lstm_cell_is_bit_identical_across_launches_on_card(card, rows, in_size, hidden):
+    args = [a.to(card) for a in _cell_inputs(rows, in_size, hidden, 5)]
+    with torch.no_grad():
+        first = lstm_cell.lstm_cell(*args)
+        second = lstm_cell.lstm_cell(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b), "K3 differs between two launches on the same inputs"
 
 
 @pytest.mark.cuda
