@@ -11,9 +11,10 @@ quarterly model (hidden 40, dilations ((1, 2), (4, 8)), 6 categories; random wei
 from a fixed seed) and checks it against the same calls on the CPU, then
 serves requests through ``ForecastServer`` on the card. It then trains the
 same model on the card (``train_esrnn``: 24,000 quarterly series of length
-72, dense and sparse Adam) against the same steps on the CPU, times train
-steps, profiles one, and runs a server whose idle fine-tune trains on the
-card against a CPU server. Last, the LM serving path: yi-6b at full width
+72, dense and sparse Adam) against the same steps on the CPU, trains it at
+``hidden_size=64`` (the width of the reference's own spec example) the
+same way, times train steps, profiles one, and runs a server whose idle
+fine-tune trains on the card against a CPU server. Last, the LM serving path: yi-6b at full width
 and two layers in fp32 on the card against the CPU (``lm_parity``), then at
 full width and depth in bf16 (``lm_serve``: batch 8, prompt 2048, 32
 generated tokens; K6 once per layer in the prefill), and one profiled
@@ -56,6 +57,9 @@ TRAIN_N, TRAIN_T = 24_000, 72
 TRAIN_BATCH, BIG_BATCH = 256, 2048
 DENSE_STEPS, SPARSE_STEPS, SPARSE_SCAN = 10, 8, 4
 TIMED_STEPS = 10
+# the wide train cell: the quarterly model at hidden_size=64
+# (src/repro/forecast/spec.py's example), batch 256, dense steps
+WIDE_HIDDEN, WIDE_STEPS = 64, 3
 # the fine-tune server: known series observed, observations each, steps per burst
 FT_SERIES, FT_OBS, FT_STEPS = 8, 40, 2
 
@@ -230,6 +234,16 @@ def _layers(cfg):
     return layers
 
 
+# widths past the presets', which every kernel must also take: K3/K4 at
+# (rows, I, H) with the weights in k-chunks (H = 128, 256) and in unit
+# slices (H = 1,030); K5 at the same and H = 64; K1/K2 at (N, T, m) with the
+# ring in opted-in shared memory (m = 168, 400) and in device memory
+# (m = 2,000)
+WIDE_CELL = [(rows, hid, hid) for hid in (128, 256, 1030) for rows in (1, 333)]
+WIDE_BWD = [(256, 64, 64), (256, 128, 128), (256, 256, 256), (33, 1030, 1030)]
+WIDE_RING = [(300, 208, 168), (130, 440, 400), (64, 2040, 2000)]
+
+
 def main_path_shapes(cfg):
     """The shapes the forecast and serve phases hand each kernel.
 
@@ -270,7 +284,9 @@ def _cell_inputs(rows, in_size, hidden, gen, dev):
     return wx, wh, b, u(rows, in_size), u(rows, hidden), u(rows, hidden) * 2
 
 
-def check_hw_scan(n, t_len, m, gen):
+def check_hw_scan(n, t_len, m, gen, timed=True):
+    """K1 against its plain version; ``timed=False`` skips the plain
+    version's timing (a loop of T small launches at the wide rings)."""
     import torch
 
     from repro_torch.kernels import hw_scan, ref
@@ -285,14 +301,25 @@ def check_hw_scan(n, t_len, m, gen):
     err = max(check_close("hw_scan levels", lev_k.t(), lev_p, rtol=K1_RTOL, atol=0.0),
               check_close("hw_scan seas", seas_k.t(), seas_p, rtol=K1_RTOL, atol=0.0))
     rel = max(max_rel(lev_k.t(), lev_p), max_rel(seas_k.t(), seas_p))
-    ms, plain_ms, host_ms = time_ms(kernel), time_ms(plain, iters=5), wrapper_ms(kernel)
+    ms, host_ms = time_ms(kernel), wrapper_ms(kernel)
+    plain_ms = time_ms(plain, iters=5) if timed else None
     n_bytes = 4 * n * (t_len + 2 + m) + 4 * n * (t_len + t_len + m)
     n_flops = 8 * n * t_len
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return dict(name="hw_scan", shape=dict(N=n, T=t_len, m=m), max_abs_err=err,
+    return dict(name="hw_scan", shape=dict(N=n, T=t_len, m=m), ring=ring_where(m),
+                max_abs_err=err,
                 max_rel_err=rel, ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms,
                 library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def ring_where(m):
+    """Where K1/K2 keep an m-slot ring on this card (hw_scan.ring_plan)."""
+    import torch
+
+    from repro_torch.kernels import build, hw_scan
+
+    return hw_scan.ring_plan(m, build.device_limits(torch.device("cuda")).smem_optin)[1]
 
 
 def check_lstm_cell(rows, in_size, hidden, gen):
@@ -321,9 +348,19 @@ def check_lstm_cell(rows, in_size, hidden, gen):
     n_flops = 2 * rows * (in_size + hidden) * g4
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return dict(name="lstm_cell", shape=dict(B=rows, I=in_size, H=hidden),
-                max_abs_err=err, ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms,
-                library_ms=library_ms,
+                plan=cell_plan_of(rows, in_size, hidden)._asdict(), max_abs_err=err, ms=ms,
+                wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def cell_plan_of(rows, in_size, hidden):
+    """K3/K4's launch plan for this shape on this card."""
+    import torch
+
+    from repro_torch.kernels import build, lstm_cell
+
+    lim = build.device_limits(torch.device("cuda"))
+    return lstm_cell.cell_plan(rows, in_size, hidden, lim.smem_optin, lim.sm_count)
 
 
 def train_path_shapes(cfg, window: int):
@@ -340,10 +377,11 @@ def train_path_shapes(cfg, window: int):
     return k2, k45
 
 
-def check_hw_scan_bwd(n, t_len, m, gen):
+def check_hw_scan_bwd(n, t_len, m, gen, timed=True):
     """K2 against the plain adjoint on the card. No single PyTorch call
     computes the adjoint of this recurrence (autograd of the plain scan is
-    one small launch per operation per step), so ``library_ms`` is None."""
+    one small launch per operation per step), so ``library_ms`` is None.
+    ``timed=False`` skips the plain version's timing."""
     import torch
 
     from repro_torch.kernels import hw_scan, ref
@@ -364,15 +402,16 @@ def check_hw_scan_bwd(n, t_len, m, gen):
     err = max(check_close(f"hw_scan_bwd {name}", g.t() if g.dim() == 2 else g, w,
                           rtol=K2_RTOL, atol=K2_ATOL)
               for name, g, w in zip(names, got, want))
-    ms, plain_ms = time_ms(kernel), time_ms(plain, iters=3, warmup=1)
-    host_ms = wrapper_ms(kernel)
+    ms, host_ms = time_ms(kernel), wrapper_ms(kernel)
+    plain_ms = time_ms(plain, iters=3, warmup=1) if timed else None
     # reads y, levels, dlev, seas (T N: the kernel reads seas rows 0..T-1
     # only), dseas ((T+m) N), alpha, gamma; writes dy (T N), dalpha, dgamma,
     # dinit (m N); 27 flops per (t, series)
     n_bytes = 4 * n * (3 * t_len + t_len + (t_len + m) + 2) + 4 * n * (t_len + 2 + m)
     n_flops = 27 * n * t_len
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return dict(name="hw_scan_bwd", shape=dict(N=n, T=t_len, m=m), max_abs_err=err,
+    return dict(name="hw_scan_bwd", shape=dict(N=n, T=t_len, m=m), ring=ring_where(m),
+                max_abs_err=err,
                 ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -404,8 +443,8 @@ def check_lstm_cell_fwd(rows, in_size, hidden, gen):
     n_flops = 2 * rows * (in_size + hidden) * g4
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return dict(name="lstm_cell_fwd", shape=dict(B=rows, I=in_size, H=hidden),
-                max_abs_err=err, ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms,
-                library_ms=library_ms,
+                plan=cell_plan_of(rows, in_size, hidden)._asdict(), max_abs_err=err, ms=ms,
+                wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -417,7 +456,7 @@ def check_lstm_cell_bwd(rows, in_size, hidden, gen):
     is None."""
     import torch
 
-    from repro_torch.kernels import lstm_cell, ref
+    from repro_torch.kernels import build, lstm_cell, ref
 
     dev = torch.device("cuda")
     wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, gen, dev)
@@ -446,7 +485,9 @@ def check_lstm_cell_bwd(rows, in_size, hidden, gen):
     # per row; db and the gate algebra (about 20 flops per row and unit)
     n_flops = 4 * rows * g4 * kw + rows * g4 + 20 * rows * hidden
     bound_ms, bound_by = bound(n_bytes, n_flops)
+    plan = lstm_cell.bwd_plan(rows, in_size, hidden, build.device_limits(dev).smem_optin)
     return dict(name="lstm_cell_bwd", shape=dict(B=rows, I=in_size, H=hidden),
+                plan=dict(plan._asdict(), blocks=plan.blocks),
                 max_abs_err=err, deterministic=True, ms=ms, wrapper_ms=host_ms,
                 plain_ms=plain_ms,
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
@@ -629,14 +670,15 @@ def profile_forecast(cfg, params_dev, y, cats, dev, top: int = 8):
     return profile_call(lambda: esrnn_forecast(cfg, params_dev, y_d, c_d), top)
 
 
-def profile_call(call, top: int = 8):
+def profile_call(call, top: int = 8, match=None):
     """Where one warm ``call()`` spends the card's time.
 
     torch.profiler (CUPTI) over one call after a warm one: device time by
     kernel name, the number of device activities (kernels and copies), and
     the device-busy share of the call's wall time (the union of kernel and
-    copy intervals over the host-clock wall). ``None`` fields when the
-    profiler saw no device activity.
+    copy intervals over the host-clock wall); with ``match`` (a substring of
+    kernel names) also the calls and device ms of the kernels it names.
+    ``None`` fields when the profiler saw no device activity.
     """
     import torch
     from torch.autograd import DeviceType
@@ -657,9 +699,14 @@ def profile_call(call, top: int = 8):
         spans.append((start, end))
         calls, us = by_name.get(evt.name, (0, 0.0))
         by_name[evt.name] = (calls + 1, us + (end - start))
+    matched = None
+    if match is not None:
+        hits = [v for name, v in by_name.items() if match in name]
+        matched = dict(name=match, calls=sum(c for c, _ in hits),
+                       ms=sum(us for _, us in hits) / 1e3)
     if not spans:
         return dict(wall_ms=wall_ms, device_busy_ms=None, busy_share=None,
-                    device_calls=0, kernels=None)
+                    device_calls=0, kernels=None, matched=matched)
     busy_us, cur_start, cur_end = 0.0, None, None
     for start, end in sorted(spans):
         if cur_end is None or start > cur_end:
@@ -672,7 +719,7 @@ def profile_call(call, top: int = 8):
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                 busy_share=busy_us / 1e3 / wall_ms, device_calls=len(spans),
                 kernels=[dict(name=name[:90], calls=calls, ms=us / 1e3)
-                         for name, (calls, us) in ranked])
+                         for name, (calls, us) in ranked], matched=matched)
 
 
 # ---------------------------------------------------------------------------
@@ -803,6 +850,38 @@ def run_train(cfg, data, dev):
             cpu_val_smape=cpu_h["val_smape"], max_abs_param_diff=param_diff,
             card_wall_s=wall["card"], cpu_wall_s=wall["cpu"])
     return out
+
+
+def run_train_wide(data, dev):
+    """The quarterly model at ``hidden_size=64``: WIDE_STEPS dense Adam
+    steps of ``train_esrnn`` at batch 256 on the card against the CPU, per-step
+    losses within TRAIN_RTOL. At this width every LSTM layer after the first
+    has I = H = 64: K4 and K5 with (I + H) x 4H weights of 128 KB."""
+    import torch
+
+    from repro_torch.core.esrnn import make_config
+    from repro_torch.train.trainer import TrainConfig, train_esrnn
+
+    cfg = make_config("quarterly", hidden_size=WIDE_HIDDEN)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, eval_every=1000, seed=0, n_steps=WIDE_STEPS,
+                       scan_steps=1, sparse_adam=False)
+    res, wall = {}, {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        res[where] = train_esrnn(cfg, data, tcfg, device=device,
+                                 generator=torch.Generator().manual_seed(0))
+        if where == "card":
+            torch.cuda.synchronize()
+        wall[where] = time.perf_counter() - t0
+    card_l, cpu_l = res["card"]["history"]["loss"], res["cpu"]["history"]["loss"]
+    losses = torch.tensor(card_l, dtype=torch.float64)
+    want = torch.tensor(cpu_l, dtype=torch.float64)
+    if not torch.isfinite(losses).all() or len(losses) != WIDE_STEPS:
+        raise AssertionError(f"train_wide: losses {card_l}")
+    check_close("train_wide losses", losses, want, rtol=TRAIN_RTOL, atol=0.0)
+    return dict(hidden=cfg.hidden_size, dilations=cfg.dilations, steps=WIDE_STEPS,
+                losses=card_l, cpu_losses=cpu_l, max_rel_loss_err=max_rel(losses, want),
+                card_wall_s=wall["card"], cpu_wall_s=wall["cpu"])
 
 
 class TrainSteps:
@@ -1176,17 +1255,22 @@ def main() -> int:
     with torch.no_grad():
         k1 = [check_hw_scan(n, t, m, gen) for n, t, m in k1_shapes]
         k1.append(check_hw_scan(N_SERIES, T_LEN, 1, gen))
+        k1 += [check_hw_scan(n, t, m, gen, timed=False) for n, t, m in WIDE_RING]
         k3 = [check_lstm_cell(rows, width, cfg.hidden_size, gen)
               for rows, width in k3_shapes]
         # the monthly model's widths (H = 50): K3's largest shared-memory
         # footprint among the presets, (18 + 50) x 200 and (50 + 50) x 200 weights
         k3 += [check_lstm_cell(N_SERIES, width, 50, gen) for width in (18, 50)]
+        k3 += [check_lstm_cell(*shape, gen) for shape in WIDE_CELL]
         k2 = [check_hw_scan_bwd(n, t, m, gen) for n, t, m in k2_shapes]
         k2 += [check_hw_scan_bwd(n, TRAIN_T, 1, gen) for n in (TRAIN_BATCH, BIG_BATCH)]
+        k2 += [check_hw_scan_bwd(n, t, m, gen, timed=False) for n, t, m in WIDE_RING]
         k4 = [check_lstm_cell_fwd(rows, width, cfg.hidden_size, gen)
               for rows, width in k45_shapes]
+        k4 += [check_lstm_cell_fwd(*shape, gen) for shape in WIDE_CELL]
         k5 = [check_lstm_cell_bwd(rows, width, cfg.hidden_size, gen)
               for rows, width in k45_shapes]
+        k5 += [check_lstm_cell_bwd(*shape, gen) for shape in WIDE_BWD]
         k6 = [check_flash_attention(*shape, gen) for shape in k6_shapes()]
     torch.cuda.empty_cache()
     for rec in k1 + k3 + k2 + k4 + k5 + k6:
@@ -1233,9 +1317,14 @@ def main() -> int:
     emit(dict(phase="train", config="quarterly", N=TRAIN_N, T=TRAIN_T,
               batch=TRAIN_BATCH, card=smi, launches=train_launches, **train,
               **time_train_steps(cfg, data, dev)))
+    wide, wide_launches = counted(train_kernels, "training at hidden 64",
+                                  lambda: run_train_wide(data, dev))
+    emit(dict(phase="train_wide", config="quarterly", N=TRAIN_N, T=TRAIN_T,
+              batch=TRAIN_BATCH, card=smi, launches=wide_launches, **wide))
     bench = TrainSteps(cfg, data, dev, TRAIN_BATCH, sparse=False)
+    # K5's device time per step is the profile's "lstm_bwd" entry
     emit(dict(phase="profile_train", call="one dense train step", N=TRAIN_N, T=TRAIN_T,
-              batch=TRAIN_BATCH, **profile_call(bench.step)))
+              batch=TRAIN_BATCH, **profile_call(bench.step, match="lstm_bwd")))
 
     # phase 6: the fine-tuning server on the card against the CPU
     finetune, ft_launches = counted(

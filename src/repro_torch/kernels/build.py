@@ -24,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -37,11 +37,11 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 # order; each one ends with the stream pointer and returns its cudaError_t
 # as an int
 _SIGNATURES = {
-    "hw_scan_f32": (6, 4, 0),              # K1
-    "hw_scan_bwd_f32": (11, 4, 0),         # K2
-    "lstm_cell_f32": (8, 4, 0),            # K3
-    "lstm_cell_fwd_f32": (9, 4, 0),        # K4
-    "lstm_cell_bwd_f32": (16, 5, 0),       # K5
+    "hw_scan_f32": (7, 4, 0),              # K1
+    "hw_scan_bwd_f32": (12, 4, 0),         # K2
+    "lstm_cell_f32": (9, 4, 0),            # K3 (the last pointer and first int: its plan)
+    "lstm_cell_fwd_f32": (10, 4, 0),       # K4
+    "lstm_cell_bwd_f32": (18, 4, 0),       # K5
     "flash_attention_f32": (4, 7, 1),      # K6, fp32
     "flash_attention_bf16": (4, 7, 1),     # K6, bf16
 }
@@ -71,7 +71,7 @@ def _sources():
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):       # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -135,8 +135,36 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_device_limits.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                            ctypes.POINTER(ctypes.c_int)]
+        lib.repro_device_limits.restype = ctypes.c_int
+        lib.repro_lstm_cell_constants.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        lib.repro_lstm_cell_constants.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+class DeviceLimits(NamedTuple):
+    sm_count: int
+    smem_optin: int      # dynamic shared memory one block may opt in to, bytes
+
+
+_limits: Dict[int, DeviceLimits] = {}
+
+
+def device_limits(device) -> DeviceLimits:
+    """The SM count and opt-in shared memory of a CUDA device, which the
+    kernels' launch plans are made for; kept per device index."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    found = _limits.get(index)
+    if found is None:
+        sm, optin = ctypes.c_int(), ctypes.c_int()
+        check(library().repro_device_limits(index, ctypes.byref(sm), ctypes.byref(optin)),
+              "device limits")
+        found = _limits[index] = DeviceLimits(sm.value, optin.value)
+    return found
 
 
 def check_inputs(kernel: str, named_shapes, device, dtypes=(torch.float32,)) -> None:

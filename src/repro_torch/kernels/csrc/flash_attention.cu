@@ -55,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -583,14 +585,10 @@ bool tile_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d, int 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int batch, int hq,
               int hkv, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-    static bool opted = false;
+    static repro::SmemOptIn opt_in;          // per device (common.cuh)
     constexpr int smem = TcSmem<D>::BYTES;
-    if (!opted) {
-        cudaError_t err = cudaFuncSetAttribute(
-            flash_tc_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        opted = true;
-    }
+    cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(flash_tc_bf16<D>), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     EncodeTiled encode = tensor_map_encoder();
     if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
     CUtensorMap qm, km, vm;

@@ -25,8 +25,10 @@
 // * one thread per series walking t = T-1 .. 0 with lam, da, dg in registers;
 // * time-major arrays, so each step's loads and stores are coalesced across
 //   the warp;
-// * the m-slot sigma ring in shared memory as [m][blockDim] floats, one
-//   column per thread (a register array indexed by t mod m would spill);
+// * the m-slot sigma ring, one column per thread (a register array indexed
+//   by t mod m would spill), placed as K1 places its ring
+//   (kernels/hw_scan.py:ring_plan): shared memory as [m][blockDim] floats,
+//   opted in above 48 KB, or past the opt-in limit a [m][N] device buffer;
 // * the ragged last block is masked (threads past N return at once).
 //
 // Rounding: every product and sum goes through __fmul_rn / __fadd_rn in the
@@ -36,12 +38,15 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
+template <bool GLOBAL_RING>
 __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
                                    const float* __restrict__ alpha,
                                    const float* __restrict__ gamma,
@@ -53,13 +58,15 @@ __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
                                    float* __restrict__ dalpha,
                                    float* __restrict__ dgamma,
                                    float* __restrict__ dinit,
+                                   float* __restrict__ ring_buf,
                                    int t_len, int n, int m) {
-    extern __shared__ float ring[];   // [m][blockDim.x]
-    const int lane = threadIdx.x;
-    const int bd = blockDim.x;
-    const long col = static_cast<long>(blockIdx.x) * bd + lane;
+    extern __shared__ float smem_ring[];   // [m][blockDim.x], unless GLOBAL_RING
+    const long col = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (col >= n) return;
     const long ln = n;
+    // slot k of this series' ring is ring[k * bd] (as in K1)
+    float* ring = GLOBAL_RING ? ring_buf + col : smem_ring + threadIdx.x;
+    const long bd = GLOBAL_RING ? ln : static_cast<long>(blockDim.x);
 
     const float a = alpha[col];
     const float g = gamma[col];
@@ -68,7 +75,7 @@ __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
     const float s00 = seas[col];
     const float y0 = y[col];
     for (int k = 0; k < m; ++k) {
-        ring[((t_len + k) % m) * bd + lane] = dseas[(t_len + k) * ln + col];
+        ring[((t_len + k) % m) * bd] = dseas[(t_len + k) * ln + col];
     }
 
     float lam = 0.0f, da = 0.0f, dg = 0.0f;
@@ -79,12 +86,12 @@ __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
         const float l_t = levels[at];
         const float s_t = seas[at];
         const float l_prev = t > 0 ? levels[at - ln] : y0 / s00;
-        const float sig_tpm = ring[slot * bd + lane];
+        const float sig_tpm = ring[slot * bd];
         lam = sub(add(dlev[at], mul(one_minus_a, lam)),
                   mul(mul(sig_tpm, g), y_t) / mul(l_t, l_t));
         const float sig_t = sub(add(dseas[at], mul(one_minus_g, sig_tpm)),
                                 mul(mul(lam, a), y_t) / mul(s_t, s_t));
-        ring[slot * bd + lane] = sig_t;
+        ring[slot * bd] = sig_t;
         float dy_t = add(mul(lam, a) / s_t, mul(sig_tpm, g) / l_t);
         if (t == 0) dy_t = add(dy_t, mul(one_minus_a, lam) / s00);
         dy[at] = dy_t;
@@ -96,26 +103,39 @@ __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
     dgamma[col] = dg;
     const float corr = mul(mul(one_minus_a, lam), y0) / mul(s00, s00);
     for (int k = 0; k < m; ++k) {
-        const float v = ring[k * bd + lane];
+        const float v = ring[k * bd];
         dinit[k * ln + col] = k == 0 ? sub(v, corr) : v;
     }
 }
 
 }  // namespace
 
+// ring: as in hw_scan_f32 (null: shared memory; else a [m][n] buffer)
 extern "C" int hw_scan_bwd_f32(const void* y, const void* alpha, const void* gamma,
                                const void* levels, const void* seas,
                                const void* dlev, const void* dseas,
-                               void* dy, void* dalpha, void* dgamma, void* dinit,
+                               void* dy, void* dalpha, void* dgamma, void* dinit, void* ring,
                                int t_len, int n, int m, int block, void* stream) {
     const int grid = (n + block - 1) / block;
-    const size_t smem = static_cast<size_t>(m) * block * sizeof(float);
-    hw_scan_bwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(y), static_cast<const float*>(alpha),
-        static_cast<const float*>(gamma), static_cast<const float*>(levels),
-        static_cast<const float*>(seas), static_cast<const float*>(dlev),
-        static_cast<const float*>(dseas), static_cast<float*>(dy),
-        static_cast<float*>(dalpha), static_cast<float*>(dgamma),
-        static_cast<float*>(dinit), t_len, n, m);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const auto args = [&](auto kernel, size_t smem) {
+        kernel<<<grid, block, smem, st>>>(
+            static_cast<const float*>(y), static_cast<const float*>(alpha),
+            static_cast<const float*>(gamma), static_cast<const float*>(levels),
+            static_cast<const float*>(seas), static_cast<const float*>(dlev),
+            static_cast<const float*>(dseas), static_cast<float*>(dy),
+            static_cast<float*>(dalpha), static_cast<float*>(dgamma),
+            static_cast<float*>(dinit), static_cast<float*>(ring), t_len, n, m);
+    };
+    if (ring != nullptr) {
+        args(hw_scan_bwd_kernel<true>, 0);
+    } else {
+        static repro::SmemOptIn opt_in;      // per device (common.cuh)
+        const size_t smem = static_cast<size_t>(m) * block * sizeof(float);
+        cudaError_t err =
+            opt_in.ensure(reinterpret_cast<const void*>(hw_scan_bwd_kernel<false>), smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        args(hw_scan_bwd_kernel<false>, smem);
+    }
     return static_cast<int>(cudaGetLastError());
 }

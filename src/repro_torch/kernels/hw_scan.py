@@ -3,9 +3,11 @@
 K1 (``csrc/hw_scan.cu``) replaces the Pallas TPU kernel
 ``src/repro/kernels/hw_scan.py:_hw_scan_kernel``, K2 (``csrc/hw_scan_bwd.cu``)
 its backward ``_hw_scan_bwd_kernel``. Both run one thread per series with the
-time loop in registers and the m-slot ring (seasonality forward, its
-cotangent backward) in shared memory; both are bound by the bytes they
-stream (see the sources for the design). :class:`HWScan` is the
+time loop in registers and an m-slot ring (seasonality forward, its
+cotangent backward) that :func:`ring_plan` places by its size: shared
+memory, opted-in shared memory with fewer series per block, or a device
+buffer. Both are bound by the bytes they stream (see the sources for the
+design). :class:`HWScan` is the
 ``torch.autograd.Function`` around the pair, the counterpart of the JAX
 ``custom_vjp``: it saves ``(y, alpha, gamma, levels, seas)`` and its
 backward runs K2. On CPU tensors the same Function runs the plain versions
@@ -20,18 +22,46 @@ import torch
 from repro_torch.kernels import build, ref
 
 BLOCK = 128                      # series per thread block
-_MAX_STATIC_SMEM = 48 * 1024     # the ring must fit without opt-in smem
+MIN_BLOCK = 32                   # the fewest series per block an opted-in ring takes
+DEFAULT_SMEM = 48 * 1024         # dynamic shared memory without an opt-in
 
 # launches since the last reset (kernels.ops.reset_launch_counts)
 launches = 0                     # K1
 bwd_launches = 0                 # K2
 
 
-def _check_ring(kernel: str, t_len: int, n: int, m: int) -> None:
+def ring_plan(m: int, smem_optin: int):
+    """Where K1/K2 keep an m-slot ring of fp32 per series, and how many
+    series a block takes: ``(block, where)``.
+
+    * ``"shared"``: 128 series per block while the m x 128 ring fits 48 KB
+      (m <= 96, every preset);
+    * ``"optin"``: the most series per block, 128 down to 32 by halving,
+      whose ring fits the device's opt-in shared memory ``smem_optin``
+      (232,448 bytes on an H100: m <= 1,816 at 32 series);
+    * ``"global"``: past that, 128 series per block and the ring in a
+      ``(m, N)`` device buffer the wrapper allocates.
+
+    The arithmetic is the same in all three.
+    """
+    if m * BLOCK * 4 <= DEFAULT_SMEM:
+        return BLOCK, "shared"
+    block = BLOCK
+    while block >= MIN_BLOCK:
+        if m * block * 4 <= smem_optin:
+            return block, "optin"
+        block //= 2
+    return BLOCK, "global"
+
+
+def _ring(kernel: str, t_len: int, n: int, m: int, dev):
+    """The launch's block and ring buffer (None: the ring is in shared memory)."""
     if t_len < 1 or n < 1 or m < 1:
         raise ValueError(f"{kernel}: empty problem (T={t_len}, N={n}, M={m})")
-    if m * BLOCK * 4 > _MAX_STATIC_SMEM:
-        raise ValueError(f"{kernel}: a ring of {m} slots does not fit shared memory")
+    block, where = ring_plan(m, build.device_limits(dev).smem_optin)
+    if where != "global":
+        return block, None
+    return block, torch.empty((m, n), dtype=torch.float32, device=dev)
 
 
 def hw_scan_tm(y_tm, alpha, gamma, init_seas_tm):
@@ -47,7 +77,7 @@ def hw_scan_tm(y_tm, alpha, gamma, init_seas_tm):
     build.check_inputs("hw_scan", [
         ("y_tm", y_tm, (t_len, n)), ("alpha", alpha, (n,)), ("gamma", gamma, (n,)),
         ("init_seas_tm", init_seas_tm, (m, n))], dev)
-    _check_ring("hw_scan", t_len, n, m)
+    block, ring = _ring("hw_scan", t_len, n, m, dev)
 
     levels = torch.empty((t_len, n), dtype=torch.float32, device=dev)
     seas = torch.empty((t_len + m, n), dtype=torch.float32, device=dev)
@@ -57,7 +87,7 @@ def hw_scan_tm(y_tm, alpha, gamma, init_seas_tm):
         err = lib.hw_scan_f32(
             y_tm.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
             init_seas_tm.data_ptr(), levels.data_ptr(), seas.data_ptr(),
-            t_len, n, m, BLOCK, stream)
+            None if ring is None else ring.data_ptr(), t_len, n, m, block, stream)
     build.check(err, "hw_scan")
     launches += 1
     return levels, seas
@@ -79,7 +109,7 @@ def hw_scan_bwd_tm(y_tm, alpha, gamma, levels_tm, seas_tm, dlev_tm, dseas_tm):
         ("y_tm", y_tm, (t_len, n)), ("alpha", alpha, (n,)), ("gamma", gamma, (n,)),
         ("levels_tm", levels_tm, (t_len, n)), ("seas_tm", seas_tm, (t_len + m, n)),
         ("dlev_tm", dlev_tm, (t_len, n)), ("dseas_tm", dseas_tm, (t_len + m, n))], dev)
-    _check_ring("hw_scan_bwd", t_len, n, m)
+    block, ring = _ring("hw_scan_bwd", t_len, n, m, dev)
 
     dy = torch.empty((t_len, n), dtype=torch.float32, device=dev)
     dalpha = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -92,7 +122,8 @@ def hw_scan_bwd_tm(y_tm, alpha, gamma, levels_tm, seas_tm, dlev_tm, dseas_tm):
             y_tm.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
             levels_tm.data_ptr(), seas_tm.data_ptr(), dlev_tm.data_ptr(),
             dseas_tm.data_ptr(), dy.data_ptr(), dalpha.data_ptr(),
-            dgamma.data_ptr(), dinit.data_ptr(), t_len, n, m, BLOCK, stream)
+            dgamma.data_ptr(), dinit.data_ptr(),
+            None if ring is None else ring.data_ptr(), t_len, n, m, block, stream)
     build.check(err, "hw_scan_bwd")
     bwd_launches += 1
     return dy, dalpha, dgamma, dinit

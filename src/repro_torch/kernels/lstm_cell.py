@@ -4,12 +4,19 @@ All three live in ``csrc/lstm_cell.cu`` and replace the Pallas TPU kernels
 of ``src/repro/kernels/lstm_cell.py``: K3 ``_lstm_kernel`` (the inference
 forward), K4 ``_lstm_fwd_kernel`` (the same forward, also writing the gate
 activations ``(B, 4H)`` the backward needs) and K5 ``_lstm_bwd_kernel``.
-K3 and K4 are one kernel: the weights in shared memory, each thread one
-hidden unit of 8 rows, a persistent grid over row tiles; both keep the
-``(B, 4H)`` gates out of device memory. K5 forms the gate cotangents,
-``dx``, ``dh_prev`` and ``dc_prev`` per row tile and sums the weight
-gradients over the batch in a fixed order (two passes, no float atomics),
-so it is deterministic. See the source for the design and bounds.
+K3 and K4 are one kernel (with a second for widths past the presets'):
+the weights in shared memory, each thread one hidden unit of 4 or 8 rows, a
+persistent grid over row tiles; both keep the ``(B, 4H)`` gates out of
+device memory. K5 is one launch of two kinds of
+block: row blocks form ``dx``, ``dh_prev`` and ``dc_prev`` per row tile,
+column blocks sum the weight gradients over the batch in an order fixed by
+the shape (no float atomics), so it is deterministic. See the source for
+the design and bounds.
+
+Every width runs: :func:`cell_plan` and :func:`bwd_plan` size each launch
+from the shape and the device's limits (:func:`~repro_torch.kernels.build.device_limits`)
+-- k-chunks of the weights and unit slices where they do not fit one block
+-- and pass the plan to the kernel.
 
 :class:`LSTMCell` is the ``torch.autograd.Function`` around K4/K5 (the
 counterpart of the JAX ``custom_vjp``); the plain versions are
@@ -21,18 +28,187 @@ runs on CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import build, ref
 
-BLOCK = 256                      # threads per block of K5 (K3/K4 pick their own)
-ROWS_PER_TILE = 32               # K5's row tile (one block each)
-_MAX_STATIC_SMEM = 48 * 1024     # K5's tile must fit without opt-in smem
+# K3/K4's geometry (csrc/lstm_cell.cu, lstm_cell_smem)
+CELL_GROUPS = 8          # row groups of threads per block, at most
+CELL_BIG_TILES = 3       # 64-row tiles per SM from which 8 rows per thread pay
+CELL_PAD = 4             # floats of padding per staged input row
+CELL_MAX_THREADS = 512   # threads per block, at most (86 registers each at 8 rows)
+CELL_WIDE_UNITS = 32     # units per block of the wide kernel
+CELL_WIDE_R = 4          # rows per thread of the wide kernel
+CELL_SUM_BLOCK = 128     # k per block of the gate sums, above I + H = 128
+
+# K5's geometry (csrc/lstm_cell.cu, lstm_bwd)
+BWD_THREADS = 256        # threads per block, both kinds
+BWD_ROW_TARGET = 128     # row tiles aimed at (tiles shrink to 4 rows for it)
+BWD_ROW_BLOCKS = 128     # row blocks at most; they loop over the tiles
+BWD_COL_TARGET = 128     # column blocks aimed at
+BWD_CHUNK_ROWS = 32      # rows per chunk of the weight-gradient sums ...
+BWD_MAX_CHUNKS = 32      # ... up to this many chunks
+BWD_SUB_ROWS = 128       # rows a column block stages at once, at most
+BWD_SMEM = 100 * 1024    # shared memory per K5 block, at most (two blocks per SM)
+
+# the constants above that csrc/lstm_cell.cu also uses, and the lengths of the
+# two plans, in the order its repro_lstm_cell_constants reports them
+_C_CONSTANTS = ("CELL_PAD", "CELL_SUM_BLOCK", "CELL_WIDE_R", "BWD_THREADS",
+                "CellPlan", "BwdPlan")
 
 # launches since the last reset (kernels.ops.reset_launch_counts)
 launches = 0                     # K3
 fwd_launches = 0                 # K4
 bwd_launches = 0                 # K5
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class CellPlan(NamedTuple):
+    """A K3/K4 launch; the kernel takes these ints in this order."""
+    cell_r: int      # rows per thread (4 or 8)
+    groups: int      # row groups that compute; a tile is groups * cell_r rows
+    units: int       # hidden units per block: all H, or a slice
+    slices: int      # unit slices (the grid's second dimension)
+    threads: int     # threads per block, a multiple of units
+    k_chunk: int     # rows of [Wx; Wh] staged at once (I + H: all, once per block)
+    wide: int        # 1: the lstm_cell_wide kernel (slices, k-chunks or I + H > 128)
+    smem: int        # dynamic shared memory, bytes
+
+
+@functools.lru_cache(maxsize=4096)
+def cell_plan(rows: int, in_size: int, hidden: int, smem_optin: int,
+              sm_count: int) -> CellPlan:
+    """K3/K4's geometry for one shape on a device with ``sm_count`` SMs and
+    ``smem_optin`` bytes of opt-in shared memory per block.
+
+    * all H units in one block, 4 rows per thread up to three 64-row tiles
+      per SM and 8 above, 8 row groups (fewer if a block would pass 512
+      threads, and fewer still below a full tile per SM, so small batches
+      spread out), all of ``[Wx; Wh]`` staged once: the ``lstm_cell_smem``
+      kernel, which every preset's width takes;
+    * else (H > 512, I + H > 128, or weights past the opt-in limit) the
+      wide kernel: unit slices of 32 (the grid's second dimension), 8
+      groups of 4 rows, the gate sums in blocks of 128 k, and the weights
+      in k-chunks, the most k rows that fit, where they do not fit whole.
+
+    Within each kernel the sums run in the same order in every geometry.
+    """
+    kw = in_size + hidden
+
+    cell_r = 4 if rows <= CELL_BIG_TILES * 64 * sm_count else 8
+    units = hidden
+    block_groups = min(CELL_GROUPS, CELL_MAX_THREADS // units) if units <= CELL_MAX_THREADS else 0
+    groups = min(block_groups, max(1, _cdiv(rows, cell_r * sm_count)))
+    per_k = 4 * (4 * units + groups * cell_r + CELL_PAD)   # a k row: weights + tile
+    wide = block_groups == 0 or kw > CELL_SUM_BLOCK or kw * per_k > smem_optin
+    if wide:
+        # slices of CELL_WIDE_UNITS units, 8 groups of 4 rows: the weights
+        # spread over more blocks, and a k row of them stays small, so they
+        # are staged whole wherever I + H <= 354
+        cell_r, units = CELL_WIDE_R, min(hidden, CELL_WIDE_UNITS)
+        block_groups = CELL_GROUPS
+        groups = min(block_groups, _cdiv(rows, cell_r))
+        per_k = 4 * (4 * units + groups * cell_r + CELL_PAD)
+    slices = _cdiv(hidden, units)
+    threads = block_groups * units
+    k_chunk = kw if kw * per_k <= smem_optin else smem_optin // per_k
+    return CellPlan(cell_r, groups, units, slices, threads, k_chunk, int(wide), k_chunk * per_k)
+
+
+class BwdPlan(NamedTuple):
+    """A K5 launch; the kernel takes these ints in this order."""
+    tile_rows: int   # rows per row tile (a multiple of 4)
+    row_k: int       # inputs of dx | dh_prev per row block
+    row_kparts: int
+    row_units: int   # units whose weights and cotangents are staged at once
+    row_blocks: int  # row blocks (the first of the grid)
+    col_k: int       # rows of [x | h | 1] per column block (a multiple of 4)
+    col_kparts: int
+    col_units: int   # units per column block
+    slices: int      # unit slices of the column blocks
+    chunks: int      # row chunks of the weight-gradient sums
+    chunk_rows: int
+    sub_rows: int    # rows a column block stages at once
+    smem: int        # dynamic shared memory, bytes
+
+    @property
+    def blocks(self) -> int:
+        return self.row_blocks + self.col_kparts * self.slices * self.chunks
+
+
+@functools.lru_cache(maxsize=4096)
+def bwd_plan(rows: int, in_size: int, hidden: int, smem_optin: int) -> BwdPlan:
+    """K5's geometry for one shape (and the device's opt-in shared memory,
+    which only caps the staging sizes).
+
+    Row blocks: a thread owns one k and 4 rows, so a tile has up to
+    ``4 * (256 // (I + H))`` rows (16 at most; above I + H = 256, 16 rows
+    and k-parts of 64), cut to 4 at small batches for more tiles; weights
+    and cotangents are staged for as many units as fit BWD_SMEM. Column
+    blocks: a thread owns 4 k and one unit; k-parts of 64 above
+    I + H + 1 = 128, unit slices sized for about BWD_COL_TARGET blocks.
+
+    The row chunks of the weight-gradient sums, and with them the order of
+    every sum, depend on ``rows`` alone: chunks of 32 rows, at most 32 of
+    them. Nothing here depends on the SM count.
+    """
+    kw = in_size + hidden
+    budget = min(smem_optin, BWD_SMEM)
+    # row blocks
+    if kw <= BWD_THREADS:
+        row_k, r_max = kw, 4 * min(4, BWD_THREADS // kw)
+    else:
+        row_k, r_max = BWD_THREADS // 4, 16
+    tile_rows = min(r_max, max(4, 4 * _cdiv(_cdiv(rows, BWD_ROW_TARGET), 4)))
+    row_kparts = _cdiv(kw, row_k)
+    per_unit = 16 * (row_k | 1) + 16 * tile_rows      # weights of a unit + its cotangents
+    row_units = min(hidden, budget // per_unit)
+    row_blocks = min(_cdiv(rows, tile_rows) * row_kparts, BWD_ROW_BLOCKS)
+    # column blocks
+    col_k = 4 * _cdiv(kw + 1, 4) if kw + 1 <= 128 else 64
+    col_kparts = _cdiv(kw + 1, col_k)
+    chunk_rows = _cdiv(rows, min(BWD_MAX_CHUNKS, _cdiv(rows, BWD_CHUNK_ROWS)))
+    chunks = _cdiv(rows, chunk_rows)
+    max_units = BWD_THREADS // (col_k // 4)
+    want_slices = _cdiv(BWD_COL_TARGET, chunks * col_kparts)
+    col_units = min(max_units, _cdiv(hidden, want_slices))
+    slices = _cdiv(hidden, col_units)
+    per_row = 4 * col_k + 16 * col_units              # a row of inputs + its cotangents
+    sub_rows = min(chunk_rows, BWD_SUB_ROWS, budget // per_row)
+    smem = max(row_units * per_unit, sub_rows * per_row)
+    return BwdPlan(tile_rows, row_k, row_kparts, row_units, row_blocks, col_k, col_kparts,
+                   col_units, slices, chunks, chunk_rows, sub_rows, smem)
+
+
+@functools.cache
+def _kernel_library() -> ctypes.CDLL:
+    """The kernel library, once it has shown that ``csrc/lstm_cell.cu`` was
+    built with the constants and plan lengths this module sizes launches by
+    (a mismatch would overrun shared memory or change the sum order)."""
+    lib = build.library()
+    want = {"CELL_PAD": CELL_PAD, "CELL_SUM_BLOCK": CELL_SUM_BLOCK,
+            "CELL_WIDE_R": CELL_WIDE_R, "BWD_THREADS": BWD_THREADS,
+            "CellPlan": len(CellPlan._fields), "BwdPlan": len(BwdPlan._fields)}
+    got = (ctypes.c_int * len(_C_CONSTANTS))()
+    count = lib.repro_lstm_cell_constants(got, len(got))
+    have = dict(zip(_C_CONSTANTS, got))
+    if count != len(_C_CONSTANTS) or have != want:
+        raise RuntimeError(f"csrc/lstm_cell.cu was built with {have} ({count} values); "
+                           f"kernels/lstm_cell.py expects {want}")
+    return lib
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_ints(plan) -> ctypes.Array:
+    """A plan as the C array the kernel's entry point reads."""
+    return (ctypes.c_int * len(plan))(*plan)
 
 
 def _cell_shapes(kernel, wx, wh, b, x, h, c):
@@ -48,6 +224,11 @@ def _cell_shapes(kernel, wx, wh, b, x, h, c):
     return rows, in_size, hidden, dev
 
 
+def _cell_plan_ints(dev, rows, in_size, hidden):
+    limits = build.device_limits(dev)
+    return _plan_ints(cell_plan(rows, in_size, hidden, limits.smem_optin, limits.sm_count))
+
+
 def lstm_cell(wx, wh, b, x, h, c):
     """Launch K3. wx:(I,4H) wh:(H,4H) b:(4H,) x:(B,I) h,c:(B,H) -> h', c'.
 
@@ -58,13 +239,14 @@ def lstm_cell(wx, wh, b, x, h, c):
     rows, in_size, hidden, dev = _cell_shapes("lstm_cell", wx, wh, b, x, h, c)
     h_out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
     c_out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
-    lib = build.library()
+    plan = _cell_plan_ints(dev, rows, in_size, hidden)
+    lib = _kernel_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lstm_cell_f32(
             wx.data_ptr(), wh.data_ptr(), b.data_ptr(), x.data_ptr(),
             h.data_ptr(), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-            rows, in_size, hidden, BLOCK, stream)
+            ctypes.addressof(plan), len(plan), rows, in_size, hidden, stream)
     build.check(err, "lstm_cell")
     launches += 1
     return h_out, c_out
@@ -78,24 +260,46 @@ def lstm_cell_fwd(wx, wh, b, x, h, c):
     h_out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
     c_out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
     act = torch.empty((rows, 4 * hidden), dtype=torch.float32, device=dev)
-    lib = build.library()
+    plan = _cell_plan_ints(dev, rows, in_size, hidden)
+    lib = _kernel_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lstm_cell_fwd_f32(
             wx.data_ptr(), wh.data_ptr(), b.data_ptr(), x.data_ptr(),
             h.data_ptr(), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-            act.data_ptr(), rows, in_size, hidden, BLOCK, stream)
+            act.data_ptr(), ctypes.addressof(plan), len(plan), rows, in_size, hidden, stream)
     build.check(err, "lstm_cell_fwd")
     fwd_launches += 1
     return h_out, c_out, act
+
+
+_tickets = {}                    # (device index, stream) -> K5's ticket counters
+
+
+def _ticket_counters(dev, stream: int, n: int) -> torch.Tensor:
+    """K5's integer tickets, all 0 between launches (the kernel resets the
+    ones it takes), one set per device and stream so that launches on two
+    streams never share one. Launches on one stream run one after another;
+    a CUDA graph keeps the set of the stream it was captured on, so its
+    replays must not overlap eager K5 calls on that stream or each other."""
+    key = (dev.index, stream)
+    found = _tickets.get(key)
+    if found is None or found.numel() < n:
+        found = _tickets[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+    return found
 
 
 def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
     """Launch K5: ``(dh, dc)`` -> ``dx (B,I), dh_prev (B,H), dc_prev (B,H),
     dwx (I,4H), dwh (H,4H), db (4H,)``, all float32 on the card.
 
-    The weight gradients are summed over B deterministically: per-tile
-    partials in a scratch buffer, then a fixed-order second pass.
+    One launch; the weight gradients are summed over B in an order fixed by
+    the shape (:func:`bwd_plan`), so two launches on the same inputs give
+    the same bits. The launch takes integer tickets kept per device and
+    stream (:func:`_ticket_counters`): two K5 launches that run at the same
+    time must never share them, so a captured CUDA graph may not be
+    replayed concurrently with K5 calls on its capture stream, nor twice at
+    once. A set per launch would need a memset, a device call per call.
     """
     global bwd_launches
     rows, in_size = x.shape
@@ -109,10 +313,7 @@ def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
         ("dh", dh, (rows, hidden)), ("dc", dc, (rows, hidden))], dev)
     if rows < 1 or hidden < 1:
         raise ValueError(f"lstm_cell_bwd: empty problem (B={rows}, H={hidden})")
-    if ROWS_PER_TILE * (g4 + 1 + in_size + hidden) * 4 > _MAX_STATIC_SMEM:
-        raise ValueError(
-            f"lstm_cell_bwd: a tile of I={in_size}, H={hidden} does not fit shared memory")
-    tiles = -(-rows // ROWS_PER_TILE)
+    plan = bwd_plan(rows, in_size, hidden, build.device_limits(dev).smem_optin)
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((rows, in_size), **f32)
     dh_prev = torch.empty((rows, hidden), **f32)
@@ -120,16 +321,20 @@ def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
     dwx = torch.empty((in_size, g4), **f32)
     dwh = torch.empty((hidden, g4), **f32)
     db = torch.empty((g4,), **f32)
-    scratch = torch.empty((tiles, in_size + hidden + 1, g4), **f32)
-    lib = build.library()
+    scratch = (torch.empty((plan.chunks, in_size + hidden + 1, g4), **f32)
+               if plan.chunks > 1 else None)
+    lib = _kernel_library()
+    plan_ints = _plan_ints(plan)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        tickets = _ticket_counters(dev, stream, plan.col_kparts * plan.slices)
         err = lib.lstm_cell_bwd_f32(
             wx.data_ptr(), wh.data_ptr(), x.data_ptr(), h.data_ptr(), c.data_ptr(),
             c_new.data_ptr(), act.data_ptr(), dh.data_ptr(), dc.data_ptr(),
             dx.data_ptr(), dh_prev.data_ptr(), dc_prev.data_ptr(), dwx.data_ptr(),
-            dwh.data_ptr(), db.data_ptr(), scratch.data_ptr(),
-            rows, in_size, hidden, ROWS_PER_TILE, BLOCK, stream)
+            dwh.data_ptr(), db.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            tickets.data_ptr(), ctypes.addressof(plan_ints), len(plan_ints),
+            rows, in_size, hidden, stream)
     build.check(err, "lstm_cell_bwd")
     bwd_launches += 1
     return dx, dh_prev, dc_prev, dwx, dwh, db

@@ -57,7 +57,8 @@ def test_hw_scan_bwd_ref_matches_autograd(n, t_len, m):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
 
 
-@pytest.mark.parametrize("n,t_len,m", [(5, 16, 4), (131, 10, 1), (4, 6, 12)])
+@pytest.mark.parametrize("n,t_len,m", [(5, 16, 4), (131, 10, 1), (4, 6, 12),
+                                       (3, 340, 168)])    # two weekly seasons, hourly data
 def test_hw_scan_grad_matches_jax(n, t_len, m):
     y, logits, w_lev, w_seas = _hw_case(n, t_len, m, seed=10 + n)
 
@@ -94,7 +95,8 @@ def _cell_case(rows, in_size, hidden, seed, dtype=np.float32):
     return args, u(rows, hidden), u(rows, hidden)
 
 
-@pytest.mark.parametrize("rows,in_size,hidden", [(6, 14, 8), (33, 8, 8), (4, 5, 3)])
+@pytest.mark.parametrize("rows,in_size,hidden", [(6, 14, 8), (33, 8, 8), (4, 5, 3),
+                                                 (5, 64, 64), (3, 18, 128)])
 def test_lstm_cell_grads_match_jax_pallas(rows, in_size, hidden):
     args, w_h, w_c = _cell_case(rows, in_size, hidden, seed=rows)
 

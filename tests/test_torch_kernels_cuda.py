@@ -19,6 +19,8 @@ against the plain version in fp32 on the same bf16 inputs, rtol = atol =
 probabilities rounded to bf16 before the product with V.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -34,8 +36,13 @@ def card():
     return torch.device("cuda")
 
 
+# rings past 48 KB of shared memory: m = 168 and 400 opt in to more (at 128
+# series per block), m = 2,000 lives in device memory (hw_scan.ring_plan)
+_WIDE_RINGS = [(300, 208, 168), (130, 440, 400), (40, 2030, 2000)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t_len,m", [(300, 40, 4), (129, 9, 1), (5, 3, 12)])
+@pytest.mark.parametrize("n,t_len,m", [(300, 40, 4), (129, 9, 1), (5, 3, 12)] + _WIDE_RINGS)
 def test_hw_scan_kernel_matches_plain_on_card(card, n, t_len, m):
     g = torch.Generator().manual_seed(n)
     y = torch.rand((n, t_len), generator=g) * 50 + 1
@@ -55,9 +62,17 @@ _PRESET_WIDTHS = [          # (I, H) of every preset's layers: yearly, quarterly
 ]
 
 
+# widths past the presets': K3/K4 stage the weights whole (64), in k-chunks
+# (128, 256) and in unit slices (1,030); K5 stages in unit chunks and k-parts
+_WIDE_WIDTHS = [(64, 64), (128, 128), (18, 256), (1030, 1030)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("in_size,hidden", _PRESET_WIDTHS)
-@pytest.mark.parametrize("rows", [1, 31, 333, 24_001])      # across the row tiles
+@pytest.mark.parametrize("rows,in_size,hidden", [
+    (rows, in_size, hidden) for in_size, hidden in _PRESET_WIDTHS
+    for rows in (1, 31, 333, 24_001)]                       # across the row tiles
+    + [(rows, in_size, hidden) for in_size, hidden in _WIDE_WIDTHS for rows in (1, 31, 333)]
+    + [(30_000, 128, 128)])             # the wide kernel past 8 rows per thread's threshold
 def test_lstm_cell_kernel_matches_plain_on_card(card, rows, in_size, hidden):
     g = torch.Generator().manual_seed(rows)
     u = lambda *s: torch.rand(s, generator=g) * 2 - 1
@@ -89,7 +104,7 @@ def _hw_inputs(n, t_len, m, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t_len,m", [(300, 40, 4), (129, 9, 1), (5, 3, 12)])
+@pytest.mark.parametrize("n,t_len,m", [(300, 40, 4), (129, 9, 1), (5, 3, 12)] + _WIDE_RINGS)
 def test_hw_scan_bwd_kernel_matches_plain_on_card(card, n, t_len, m):
     args = _hw_inputs(n, t_len, m, n)
     want = ref.hw_scan_bwd_ref(*args)
@@ -111,7 +126,11 @@ def _cell_inputs(rows, in_size, hidden, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,in_size,hidden", [
     (1, 14, 40), (333, 40, 40), (70, 62, 50), (256, 14, 40), (2_049, 40, 40),
-    (257, 18, 50), (31, 10, 30)])
+    (257, 18, 50), (31, 10, 30),
+    # the other batch-256 train-step shapes (rows = 256 x dilation) and the
+    # largest at batch 2048: K5's row chunks of 32 rows and of 512
+    (512, 40, 40), (1_024, 40, 40), (2_048, 40, 40), (16_384, 40, 40)]
+    + [(rows, in_size, hidden) for in_size, hidden in _WIDE_WIDTHS for rows in (1, 33, 256)])
 def test_lstm_cell_fwd_bwd_kernels_match_plain_on_card(card, rows, in_size, hidden):
     wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, rows)
     h_new, c_new, act = ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
@@ -204,7 +223,8 @@ def test_flash_attention_bf16_takes_the_models_scale_on_card(card, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,in_size,hidden", [(24_001, 14, 40), (333, 50, 50)])
+@pytest.mark.parametrize("rows,in_size,hidden", [(24_001, 14, 40), (333, 50, 50),
+                                                 (333, 128, 128)])
 def test_lstm_cell_is_bit_identical_across_launches_on_card(card, rows, in_size, hidden):
     args = [a.to(card) for a in _cell_inputs(rows, in_size, hidden, 5)]
     with torch.no_grad():
@@ -212,6 +232,33 @@ def test_lstm_cell_is_bit_identical_across_launches_on_card(card, rows, in_size,
         second = lstm_cell.lstm_cell(*args)
     for a, b in zip(first, second):
         assert torch.equal(a, b), "K3 differs between two launches on the same inputs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["short", "smem"])
+def test_lstm_cell_kernels_refuse_a_plan_the_source_does_not_take_on_card(
+        card, monkeypatch, fault):
+    # the constants and plan lengths that kernels/lstm_cell.py shares with
+    # csrc/lstm_cell.cu agree (checked when the library is first used) ...
+    lstm_cell._kernel_library()
+    # ... and the C entry points refuse a plan one int short, or one whose
+    # shared memory is 4 bytes short of the layout the source computes
+    if fault == "short":
+        monkeypatch.setattr(lstm_cell, "_plan_ints",
+                            lambda plan: (ctypes.c_int * (len(plan) - 1))(*plan[:-1]))
+    else:
+        for name in ("cell_plan", "bwd_plan"):
+            real = getattr(lstm_cell, name)
+            monkeypatch.setattr(lstm_cell, name,
+                                lambda *a, real=real: real(*a)._replace(smem=real(*a).smem - 4))
+    wx, wh, b, x, h, c = (a.to(card) for a in _cell_inputs(33, 14, 40, 5))
+    with torch.no_grad():
+        for call in (lambda: lstm_cell.lstm_cell(wx, wh, b, x, h, c),
+                     lambda: lstm_cell.lstm_cell_fwd(wx, wh, b, x, h, c),
+                     lambda: lstm_cell.lstm_cell_bwd(wx, wh, x, h, c, c, torch.zeros(
+                         (33, 160), device=card), h, c)):
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                call()
 
 
 @pytest.mark.cuda

@@ -1,0 +1,144 @@
+"""The launch plans of the port's CUDA kernels, on the CPU.
+
+Each kernel wrapper sizes its launch with a pure function of the shape and
+the device's limits, and passes the plan to the kernel:
+``hw_scan.ring_plan`` (where K1/K2 keep their m-slot ring),
+``lstm_cell.cell_plan`` (K3/K4: rows per thread, row groups, unit slices,
+k-chunks of the weights) and ``lstm_cell.bwd_plan`` (K5: row tiles, column
+slices, row chunks of the weight-gradient sums). These tests sweep the
+widths and batches the reference runs and hold every plan to the H100's
+limits: 232,448 bytes of opt-in shared memory and 1,024 threads per block.
+The kernels themselves are held against their plain versions on the card
+(``test_torch_kernels_cuda.py``, ``chip_smoke.py``).
+"""
+
+import pytest
+
+from repro_torch.kernels import hw_scan, lstm_cell
+
+H100_SMEM_OPTIN = 232_448        # cudaDevAttrMaxSharedMemoryPerBlockOptin
+H100_SMS = 132
+MAX_THREADS = 1024
+
+_PRESET_WIDTHS = [          # (I, H) of every preset's layers: yearly, quarterly,
+    (10, 30), (30, 30),     # monthly, hourly (input window + 6 categories, then H)
+    (14, 40), (40, 40), (18, 50), (50, 50), (30, 40), (62, 50),
+]
+_WIDE_WIDTHS = [(in_size, hidden) for hidden in (64, 128, 256, 1030)
+                for in_size in (hidden, 18)]
+_ROWS = [1, 2, 7, 31, 32, 33, 64, 256, 333, 512, 1024, 2048, 2049, 4096, 8192, 16384]
+_K3_ROWS = _ROWS + [24_000, 25_344, 25_345, 48_000, 192_000]   # K3: the forecast's too
+
+
+@pytest.mark.parametrize("m,want", [
+    (1, (128, "shared")), (4, (128, "shared")), (96, (128, "shared")),
+    (97, (128, "optin")), (168, (128, "optin")), (1816, (32, "optin")),
+    (1817, (128, "global")), (8760, (128, "global"))])
+def test_ring_plan_places_the_ring_by_its_size(m, want):
+    block, where = hw_scan.ring_plan(m, H100_SMEM_OPTIN)
+    assert (block, where) == want
+    assert hw_scan.MIN_BLOCK <= block <= MAX_THREADS
+    if where == "shared":
+        assert m * block * 4 <= 48 * 1024
+    elif where == "optin":
+        assert 48 * 1024 < m * block * 4 <= H100_SMEM_OPTIN
+        # the most series per block that fit: twice as many would not
+        assert block == hw_scan.BLOCK or m * 2 * block * 4 > H100_SMEM_OPTIN
+    else:
+        assert m * hw_scan.MIN_BLOCK * 4 > H100_SMEM_OPTIN
+
+
+def _preset_geometry(rows, in_size, hidden, sm_count):
+    """K3/K4's launch of ``lstm_cell_smem`` at a preset width, written out:
+    4 or 8 rows per thread, min(8, 1,024 / H) row groups (fewer below a
+    full tile per SM), all weights and the tile in shared memory."""
+    cell_r = 4 if rows <= 3 * 64 * sm_count else 8
+    block_groups = min(8, 1024 // hidden)
+    groups = min(block_groups, max(1, -(-rows // (cell_r * sm_count))))
+    kw = in_size + hidden
+    smem = 4 * (kw * 4 * hidden + kw * (groups * cell_r + 4))
+    return cell_r, groups, block_groups * hidden, smem
+
+
+@pytest.mark.parametrize("in_size,hidden", _PRESET_WIDTHS)
+@pytest.mark.parametrize("sm_count", [H100_SMS, 114])
+def test_cell_plan_keeps_the_geometry_at_es_rnn_widths(in_size, hidden, sm_count):
+    for rows in _K3_ROWS:
+        plan = lstm_cell.cell_plan(rows, in_size, hidden, H100_SMEM_OPTIN, sm_count)
+        assert (plan.cell_r, plan.groups, plan.threads, plan.smem) == _preset_geometry(
+            rows, in_size, hidden, sm_count), rows
+        assert (plan.units, plan.slices, plan.k_chunk, plan.wide) == (
+            hidden, 1, in_size + hidden, 0)
+
+
+@pytest.mark.parametrize("in_size,hidden", _PRESET_WIDTHS + _WIDE_WIDTHS)
+def test_cell_plan_fits_a_block(in_size, hidden):
+    kw = in_size + hidden
+    for rows in _K3_ROWS:
+        p = lstm_cell.cell_plan(rows, in_size, hidden, H100_SMEM_OPTIN, H100_SMS)
+        assert p.threads <= lstm_cell.CELL_MAX_THREADS <= MAX_THREADS
+        # registers (ptxas, sm_90a): lstm_cell_smem 86 a thread at 8 rows
+        # and 64 at 4, the wide one 96 (it runs 4 rows only)
+        regs = 96 if p.wide else (86 if p.cell_r == 8 else 64)
+        assert p.cell_r in (4, 8) and not (p.wide and p.cell_r == 8)
+        assert p.threads * regs <= 65_536
+        assert p.threads % p.units == 0 and 1 <= p.groups <= p.threads // p.units
+        assert p.slices * p.units >= hidden > (p.slices - 1) * p.units
+        assert p.smem <= H100_SMEM_OPTIN
+        assert 1 <= p.k_chunk <= kw
+        per_k = 4 * (4 * p.units + p.groups * p.cell_r + lstm_cell.CELL_PAD)
+        assert p.smem == p.k_chunk * per_k
+        if p.k_chunk < kw:                  # the most k rows that fit
+            assert (p.k_chunk + 1) * per_k > H100_SMEM_OPTIN
+        assert p.wide == (p.slices > 1 or p.k_chunk < kw or kw > lstm_cell.CELL_SUM_BLOCK)
+
+
+def test_cell_plan_chunks_and_slices_past_the_presets():
+    assert lstm_cell.cell_plan(333, 64, 64, H100_SMEM_OPTIN, H100_SMS).k_chunk == 128
+    wide = lstm_cell.cell_plan(1, 1030, 1030, H100_SMEM_OPTIN, H100_SMS)
+    assert (wide.slices, wide.units, wide.threads) == (33, 32, 256) and wide.k_chunk < 2060
+    # slices of 32 units keep [Wx; Wh] whole up to I + H = 354
+    assert lstm_cell.cell_plan(30_000, 128, 128, H100_SMEM_OPTIN, H100_SMS).k_chunk == 256
+    assert lstm_cell.cell_plan(333, 256, 256, H100_SMEM_OPTIN, H100_SMS).k_chunk < 512
+
+
+@pytest.mark.parametrize("in_size,hidden", _PRESET_WIDTHS + _WIDE_WIDTHS)
+def test_bwd_plan_fits_a_block(in_size, hidden):
+    kw = in_size + hidden
+    for rows in _ROWS:
+        p = lstm_cell.bwd_plan(rows, in_size, hidden, H100_SMEM_OPTIN)
+        assert p.smem <= min(H100_SMEM_OPTIN, lstm_cell.BWD_SMEM)
+        # row blocks: a thread per (k, 4 rows); column blocks: per (4 k, unit)
+        assert p.tile_rows % 4 == 0 and p.row_k * (p.tile_rows // 4) <= lstm_cell.BWD_THREADS
+        assert p.col_k % 4 == 0 and (p.col_k // 4) * p.col_units <= lstm_cell.BWD_THREADS
+        assert lstm_cell.BWD_THREADS <= MAX_THREADS
+        assert p.row_kparts * p.row_k >= kw > (p.row_kparts - 1) * p.row_k
+        assert p.col_kparts * p.col_k >= kw + 1 > (p.col_kparts - 1) * p.col_k
+        assert p.slices * p.col_units >= hidden > (p.slices - 1) * p.col_units
+        assert 1 <= p.row_units <= hidden and 1 <= p.sub_rows <= p.chunk_rows
+        assert p.row_units * (16 * (p.row_k | 1) + 16 * p.tile_rows) <= p.smem
+        assert p.sub_rows * (4 * p.col_k + 16 * p.col_units) <= p.smem
+        # every chunk holds rows; every row block has a tile to take
+        assert p.chunks * p.chunk_rows >= rows > (p.chunks - 1) * p.chunk_rows
+        assert 1 <= p.row_blocks <= -(-rows // p.tile_rows) * p.row_kparts
+        assert p.blocks < 2 ** 31
+
+
+@pytest.mark.parametrize("rows", _ROWS)
+def test_bwd_row_chunks_depend_on_the_row_count_alone(rows):
+    # the chunks fix the order of the weight-gradient sums, so they may not
+    # move with the widths or the device
+    splits = {(p.chunks, p.chunk_rows) for p in (
+        lstm_cell.bwd_plan(rows, in_size, hidden, optin)
+        for in_size, hidden in _PRESET_WIDTHS + _WIDE_WIDTHS
+        for optin in (H100_SMEM_OPTIN, 166_912, 101_376))}
+    assert len(splits) == 1
+    (chunks, chunk_rows), = splits
+    assert chunks <= lstm_cell.BWD_MAX_CHUNKS
+    assert chunk_rows <= lstm_cell.BWD_CHUNK_ROWS or chunks == lstm_cell.BWD_MAX_CHUNKS
+
+
+@pytest.mark.parametrize("in_size", [14, 40])
+def test_bwd_plan_covers_the_sms_at_the_train_batch(in_size):
+    # at batch 256 (the esrnn-quarterly spec's) a launch has a block per SM
+    assert lstm_cell.bwd_plan(256, in_size, 40, H100_SMEM_OPTIN).blocks >= H100_SMS
