@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc (printing the build seconds and ptxas's report on the attention and
-LSTM-cell sources), holds every kernel against its plain PyTorch version on
-the card, drives the forecast-serving path at the full width of the paper's
+nvcc (printing the build seconds and ptxas's report on the attention,
+LSTM-cell and HW-scan sources), holds every kernel against its plain
+PyTorch version on the card (K1/K2 records carry their launch plan),
+drives the forecast-serving path at the full width of the paper's
 quarterly model (hidden 40, dilations ((1, 2), (4, 8)), 6 categories; random weights
 from a fixed seed) and checks it against the same calls on the CPU, then
 serves requests through ``ForecastServer`` on the card. It then trains the
@@ -237,8 +238,8 @@ def _layers(cfg):
 # widths past the presets', which every kernel must also take: K3/K4 at
 # (rows, I, H) with the weights in k-chunks (H = 128, 256) and in unit
 # slices (H = 1,030); K5 at the same and H = 64; K1/K2 at (N, T, m) with the
-# ring in opted-in shared memory (m = 168, 400) and in device memory
-# (m = 2,000)
+# ring beside the staged tiles in shared memory (m = 168 in K1), in opted-in
+# shared memory (m = 400; m = 168 in K2) and in device memory (m = 2,000)
 WIDE_CELL = [(rows, hid, hid) for hid in (128, 256, 1030) for rows in (1, 333)]
 WIDE_BWD = [(256, 64, 64), (256, 128, 128), (256, 256, 256), (33, 1030, 1030)]
 WIDE_RING = [(300, 208, 168), (130, 440, 400), (64, 2040, 2000)]
@@ -306,20 +307,26 @@ def check_hw_scan(n, t_len, m, gen, timed=True):
     n_bytes = 4 * n * (t_len + 2 + m) + 4 * n * (t_len + t_len + m)
     n_flops = 8 * n * t_len
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return dict(name="hw_scan", shape=dict(N=n, T=t_len, m=m), ring=ring_where(m),
-                max_abs_err=err,
+    return dict(name="hw_scan", shape=dict(N=n, T=t_len, m=m),
+                plan=scan_plan_of([y_tm], n, t_len, m, "fwd"), max_abs_err=err,
                 max_rel_err=rel, ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms,
                 library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def ring_where(m):
-    """Where K1/K2 keep an m-slot ring on this card (hw_scan.ring_plan)."""
+def scan_plan_of(staged, n, t_len, m, direction):
+    """K1's (``direction="fwd"``) or K2's (``"bwd"``) launch plan for this
+    shape on this card (hw_scan.scan_plan) and the tensors the kernel
+    stages, with the ring's place by name."""
     import torch
 
     from repro_torch.kernels import build, hw_scan
 
-    return hw_scan.ring_plan(m, build.device_limits(torch.device("cuda")).smem_optin)[1]
+    lim = build.device_limits(torch.device("cuda"))
+    streams = hw_scan.FWD_STREAMS if direction == "fwd" else hw_scan.BWD_STREAMS
+    plan = hw_scan.scan_plan(n, t_len, m, lim.smem_optin, lim.sm_count, streams,
+                             all(t.data_ptr() % 16 == 0 for t in staged))
+    return dict(plan._asdict(), ring=hw_scan.RING_PLACES[plan.ring])
 
 
 def check_lstm_cell(rows, in_size, hidden, gen):
@@ -410,7 +417,8 @@ def check_hw_scan_bwd(n, t_len, m, gen, timed=True):
     n_bytes = 4 * n * (3 * t_len + t_len + (t_len + m) + 2) + 4 * n * (t_len + 2 + m)
     n_flops = 27 * n * t_len
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return dict(name="hw_scan_bwd", shape=dict(N=n, T=t_len, m=m), ring=ring_where(m),
+    return dict(name="hw_scan_bwd", shape=dict(N=n, T=t_len, m=m),
+                plan=scan_plan_of([args_tm[i] for i in (0, 3, 4, 5, 6)], n, t_len, m, "bwd"),
                 max_abs_err=err,
                 ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms,
@@ -559,6 +567,7 @@ def check_flash_attention(b, hq, hkv, tq, tk, d, dtype_name, causal, gen, qkv=No
     bound_ms, bound_by = bound(n_bytes, n_flops,
                                FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
     return dict(name="flash_attention",
+                kernel="flash_tc_bf16" if dtype == torch.bfloat16 else "flash_simt_f32",
                 shape=dict(B=b, Hq=hq, Hkv=hkv, Tq=tq, Tk=tk, D=d, causal=causal),
                 dtype=dtype_name, max_abs_err=err, tol=tol, ms=ms, wrapper_ms=host_ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
@@ -1237,12 +1246,12 @@ def main() -> int:
               cuda=torch.version.cuda, build_s=build_s, registers=regs,
               allow_tf32=[torch.backends.cuda.matmul.allow_tf32,
                           torch.backends.cudnn.allow_tf32]))
-    # what ptxas made of the two redesigned kernels' sources: per entry
+    # what ptxas made of the redesigned kernels' sources: per entry
     # function its registers, shared memory, spills and any warning (an
     # empty report: the library was built by an earlier process)
     emit(dict(phase="ptxas", build_s=build_s, report={
         name: ptxas_summary(reports.get(name, ""))
-        for name in ("flash_attention.cu", "lstm_cell.cu")}))
+        for name in ("flash_attention.cu", "lstm_cell.cu", "hw_scan.cu", "hw_scan_bwd.cu")}))
 
     # phase 2: kernels against their plain versions, at the main path's
     # shapes (the first of each list is the first launch of the forecast

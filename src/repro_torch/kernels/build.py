@@ -17,6 +17,7 @@ falls back to another path.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -37,8 +38,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 # order; each one ends with the stream pointer and returns its cudaError_t
 # as an int
 _SIGNATURES = {
-    "hw_scan_f32": (7, 4, 0),              # K1
-    "hw_scan_bwd_f32": (12, 4, 0),         # K2
+    "hw_scan_f32": (8, 4, 0),              # K1 (the last pointer and first int: its plan)
+    "hw_scan_bwd_f32": (13, 4, 0),         # K2 (likewise)
     "lstm_cell_f32": (9, 4, 0),            # K3 (the last pointer and first int: its plan)
     "lstm_cell_fwd_f32": (10, 4, 0),       # K4
     "lstm_cell_bwd_f32": (18, 4, 0),       # K5
@@ -142,6 +143,13 @@ def library() -> ctypes.CDLL:
         lib.repro_lstm_cell_constants.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_ints(plan) -> ctypes.Array:
+    """A launch plan (a NamedTuple of ints) as the C array a kernel's entry
+    point reads."""
+    return (ctypes.c_int * len(plan))(*plan)
 
 
 class DeviceLimits(NamedTuple):

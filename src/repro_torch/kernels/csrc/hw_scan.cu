@@ -11,36 +11,81 @@
 //
 // Bound on the card: bytes. Each step does a handful of flops per series and
 // moves 12 bytes (y_t in, l_t and s_t out), so the kernel can at best stream
-// its 4 * N * (3T + 2m + 2) bytes at the HBM rate. Design for that:
-// * one thread per series, the time loop in registers; series are independent
-//   so nothing is shared between threads;
-// * time-major (T, N) arrays make each step's loads and stores coalesced
-//   across the warp (neighbouring threads touch neighbouring series);
+// its 4 * N * (3T + 2m + 2) bytes at the HBM rate: 37.8 MB, 0.0113 ms at
+// the forecast's N = 24,000, T = 128, m = 4. That rate needs about 20 KB in
+// flight per SM (3.35 TB/s x ~0.8 us of latency, over 132 SMs). A thread
+// that loads y_t when it reaches step t has 4 bytes in flight and pays a
+// round trip per step; at small N (a serve bucket, B <= 64) nothing but the
+// chain of steps is left. So the design moves the loads ahead of the walk
+// and shortens the chain:
+// * one thread per series walks t = 0 .. T-1 with the state in registers
+//   (the order of every operation is fixed; series are independent);
+// * a block of `block` series (32, one warp) stages `tile` x block tiles
+//   of y in shared memory by cp.async, through a pipeline of up to
+//   SCAN_PIPE = 3 tiles (hw_scan.cuh): while it walks tile j, tiles j + 1
+//   and j + 2 are on their way. The plan (kernels/hw_scan.py:scan_plan)
+//   takes the longest tile, up to 128 rows, with which every block is
+//   resident: at the forecast's shape one 128-row tile, 16 KB a block, 750
+//   blocks, 5-6 per SM in one wave, so about 100 KB of y is requested per
+//   SM at once. Rows 16-byte aligned (N a multiple of 4) copy 16 bytes at a
+//   time; other rows (N = 1, 3, ...) 4 bytes per series and row, never
+//   through a padded copy;
+// * the walk takes groups of steps (repro::by_group: 8 at m = 4 and at
+//   m >= 8, 4 at m = 1 and 5..7): it reads their y_t and the ring slots
+//   written m or more steps earlier, carries in registers the s_{t+m} a
+//   step of the group hands a later one, and runs the group as one
+//   straight block, dividing by repro::FastDiv (hw_scan.cuh): the
+//   five-FFMA fast path of IEEE division without its per-division branch,
+//   so the divisions of a group overlap and the range checks and the ring's
+//   round trip through shared memory come once a group. An operand outside
+//   FastDiv's range sends the group back through IEEE division; either way
+//   each quotient is IEEE's;
+// * levels and seas rows are stored straight from the thread: neighbouring
+//   threads write neighbouring series, so each step's stores are coalesced;
 // * the m-slot seasonality ring is indexed by a rotating slot (a register
 //   array indexed by t mod m would spill to local memory). Where it lives
-//   is the wrapper's choice (kernels/hw_scan.py:ring_plan, by m and the
-//   device's opt-in limit): in shared memory as [m][blockDim] floats, 128
-//   series per block while that fits 48 KB (m <= 96; the presets' m <= 24
-//   take 12 KB at most), fewer series (down to 32) and opted-in shared
-//   memory above that; past the opt-in limit in a [m][N] device buffer the
-//   wrapper allocates, where neighbouring threads touch neighbouring
-//   series, so each step's ring access is coalesced like y's. The
-//   arithmetic is the same in all three;
-// * the ragged last block is masked (threads past N return at once; no
-//   thread reads another's ring column, so no barrier is needed).
+//   is the plan's choice, by m and the device's opt-in limit: in shared
+//   memory after the tiles as [m][block] floats, opted in past 48 KB, or
+//   past the opt-in limit in a [m][N] device buffer the wrapper allocates
+//   (coalesced like y);
+// * threads past N stay for the copies and barriers and compute nothing.
 //
 // Rounding: the additions and products go through __fmul_rn / __fadd_rn so
 // that nvcc cannot contract them into FMAs; with IEEE division (no
-// --use_fast_math) every step then rounds exactly as the plain PyTorch
-// version does, operation for operation.
+// --use_fast_math; FastDiv gives the same quotients) every step then rounds
+// exactly as the plain PyTorch version does, operation for operation. Only
+// where y sits, when it is read and how the divisions are scheduled changed
+// from the one-load-per-step kernel before this design: the outputs are the
+// same bits.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "hw_scan.cuh"
 
 namespace {
 
-template <bool GLOBAL_RING>
+using repro::SCAN_PIPE;
+
+// U steps of the recurrence from `level`, with the y_t of each and the s_t
+// of the first F (F = 0: of all): writes each step's l_t and s_{t+m}, and
+// the s_t of steps k >= F, which step k - F wrote (F = m). The operations
+// and their order are the plain version's; Div is the division
+// (repro::FastDiv, which checks each operand, or IeeeDiv).
+template <int U, int F, class Div>
+__device__ __forceinline__ void hw_steps(const float (&y)[U], float (&s)[U], float level,
+                                         float a, float g, float one_minus_a, float one_minus_g,
+                                         float (&l_out)[U], float (&s_new)[U], Div& div) {
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+        if (F > 0 && k >= F) s[k] = s_new[k - F];
+        level = __fadd_rn(div(__fmul_rn(a, y[k]), s[k]), __fmul_rn(one_minus_a, level));
+        l_out[k] = level;
+        s_new[k] = __fadd_rn(div(__fmul_rn(g, y[k]), level), __fmul_rn(one_minus_g, s[k]));
+    }
+}
+
+template <bool GLOBAL_RING, int COPY>
 __global__ void hw_scan_kernel(const float* __restrict__ y,
                                const float* __restrict__ alpha,
                                const float* __restrict__ gamma,
@@ -48,65 +93,127 @@ __global__ void hw_scan_kernel(const float* __restrict__ y,
                                float* __restrict__ levels,
                                float* __restrict__ seas,
                                float* __restrict__ ring_buf,
-                               int t_len, int n, int m) {
-    extern __shared__ float smem_ring[];   // [m][blockDim.x], unless GLOBAL_RING
-    const long col = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (col >= n) return;
-    // slot k of this series' ring is ring[k * bd]: a shared-memory column,
-    // or a column of the [m][N] device buffer
-    float* ring = GLOBAL_RING ? ring_buf + col : smem_ring + threadIdx.x;
-    const long bd = GLOBAL_RING ? static_cast<long>(n) : static_cast<long>(blockDim.x);
+                               int t_len, int n, int m, int tile) {
+    extern __shared__ __align__(16) float smem[];   // [stages][tile][bs], then the ring
+    const int bs = blockDim.x;
+    const long ln = n;
+    const long col0 = static_cast<long>(blockIdx.x) * bs;
+    const long col = col0 + threadIdx.x;
+    const bool live = col < n;
+    const int tiles = (t_len + tile - 1) / tile;
+    const int tile_floats = tile * bs;
+    const repro::Stager copier = repro::Stager::make<COPY>();
+    const auto stage = [&](int j) {
+        const int t0 = j * tile;
+        repro::stage_rows<COPY>(copier, smem + (j % SCAN_PIPE) * tile_floats, y, t0,
+                                min(tile, t_len - t0), n, col0);
+    };
+    for (int j = 0; j < SCAN_PIPE - 1; ++j) {
+        if (j < tiles) stage(j);
+        __pipeline_commit();
+    }
 
-    const float a = alpha[col];
-    const float g = gamma[col];
-    const float one_minus_a = __fadd_rn(1.0f, -a);
-    const float one_minus_g = __fadd_rn(1.0f, -g);
-    for (int k = 0; k < m; ++k) ring[k * bd] = init_seas[k * static_cast<long>(n) + col];
+    // slot k of this series' ring is ring[k * bd]: a shared-memory column
+    // after the tile buffers, or a column of the [m][N] device buffer
+    const int stages = min(SCAN_PIPE, tiles);
+    float* ring = GLOBAL_RING ? ring_buf + col : smem + stages * tile_floats + threadIdx.x;
+    const long bd = GLOBAL_RING ? ln : static_cast<long>(bs);
+    float a = 0.0f, g = 0.0f, one_minus_a = 0.0f, one_minus_g = 0.0f, level = 0.0f;
+    if (live) {
+        a = alpha[col];
+        g = gamma[col];
+        one_minus_a = __fadd_rn(1.0f, -a);
+        one_minus_g = __fadd_rn(1.0f, -g);
+        for (int k = 0; k < m; ++k) ring[k * bd] = init_seas[k * ln + col];
+        level = y[col] / ring[0];   // primer l_{-1} = y_0 / s_0
+    }
 
-    float level = y[col] / ring[0];   // primer l_{-1} = y_0 / s_0
     int slot = 0;
-    for (int t = 0; t < t_len; ++t) {
-        const long at = t * static_cast<long>(n) + col;
-        const float y_t = y[at];
-        const float s_t = ring[slot * bd];
-        const float l_t = __fadd_rn(__fmul_rn(a, y_t) / s_t, __fmul_rn(one_minus_a, level));
-        const float s_new = __fadd_rn(__fmul_rn(g, y_t) / l_t, __fmul_rn(one_minus_g, s_t));
-        ring[slot * bd] = s_new;
-        levels[at] = l_t;
-        seas[at] = s_t;
-        level = l_t;
-        slot = (slot + 1 == m) ? 0 : slot + 1;
+    // a group of steps from tile row r (time t): read y_t and the ring
+    // slots (repro::Group), run the steps with FastDiv, redo them with IEEE
+    // division if an operand was out of its range (hw_scan.cuh), then write
+    // the ring (in step order, so a slot keeps its latest value), levels
+    // and seas
+    const auto walk = [&](auto group, const float* yt, int r, long t) {
+        constexpr int U = decltype(group)::U;
+        constexpr int F = decltype(group)::F;
+        float yv[U], sv[U], lv[U], sn[U];
+        int sl[U];
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+            sl[k] = slot;
+            yv[k] = yt[(r + k) * bs];
+            if (F == 0 || k < F) sv[k] = ring[slot * bd];
+            slot = slot + 1 == m ? 0 : slot + 1;
+        }
+        repro::FastDiv fast;
+        hw_steps<U, F>(yv, sv, level, a, g, one_minus_a, one_minus_g, lv, sn, fast);
+        if (fast.bad) {
+            repro::IeeeDiv ieee;
+            hw_steps<U, F>(yv, sv, level, a, g, one_minus_a, one_minus_g, lv, sn, ieee);
+        }
+        level = lv[U - 1];
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+            ring[sl[k] * bd] = sn[k];
+            levels[(t + k) * ln + col] = lv[k];
+            seas[(t + k) * ln + col] = sv[k];
+        }
+    };
+    for (int j = 0; j < tiles; ++j) {
+        __pipeline_wait_prior(SCAN_PIPE - 2);   // tile j has landed (this thread's copies)
+        __syncthreads();                        // ... everyone's; tile j - 1 is walked
+        if (j + SCAN_PIPE - 1 < tiles) stage(j + SCAN_PIPE - 1);
+        __pipeline_commit();
+        if (!live) continue;
+        const float* yt = smem + (j % SCAN_PIPE) * tile_floats + threadIdx.x;
+        const int t0 = j * tile;
+        const int rows = min(tile, t_len - t0);
+        int r = 0;
+        repro::by_group(m, [&](auto group) {
+            constexpr int U = decltype(group)::U;
+            for (; r + U <= rows; r += U) walk(group, yt, r, t0 + r);
+        });
+        for (; r < rows; ++r) walk(repro::Group<1, 0>{}, yt, r, t0 + r);
     }
+    if (!live) return;
     // future factors s_T .. s_{T+m-1} sit in ring slots (T + k) mod m
-    for (int k = 0; k < m; ++k) {
-        seas[(t_len + k) * static_cast<long>(n) + col] = ring[((t_len + k) % m) * bd];
-    }
+    for (int k = 0; k < m; ++k) seas[(t_len + k) * ln + col] = ring[((t_len + k) % m) * bd];
+}
+
+// one launch; each instantiation keeps its own opt-in table (common.cuh)
+template <bool GLOBAL_RING, int COPY>
+int launch(const repro::ScanPlan& p, cudaStream_t st, const float* y, const float* alpha,
+           const float* gamma, const float* init_seas, float* levels, float* seas, float* ring,
+           int t_len, int n, int m) {
+    static repro::SmemOptIn opt_in;
+    const auto kernel = hw_scan_kernel<GLOBAL_RING, COPY>;
+    cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(kernel), p.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<p.blocks, p.block, p.smem, st>>>(y, alpha, gamma, init_seas, levels, seas, ring,
+                                              t_len, n, m, p.tile);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// ring: null for a shared-memory ring of m x block floats (opted in above
-// 48 KB), else a [m][n] float buffer; the block is the wrapper's ring_plan
+// plan: kernels/hw_scan.py:scan_plan's ints (hw_scan.cuh:ScanPlan); ring:
+// null unless the plan puts the ring in a [m][n] device buffer
 extern "C" int hw_scan_f32(const void* y, const void* alpha, const void* gamma,
                            const void* init_seas, void* levels, void* seas, void* ring,
-                           int t_len, int n, int m, int block, void* stream) {
-    const int grid = (n + block - 1) / block;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const auto args = [&](auto kernel, size_t smem) {
-        kernel<<<grid, block, smem, st>>>(
-            static_cast<const float*>(y), static_cast<const float*>(alpha),
-            static_cast<const float*>(gamma), static_cast<const float*>(init_seas),
-            static_cast<float*>(levels), static_cast<float*>(seas), static_cast<float*>(ring),
-            t_len, n, m);
+                           const int* plan, int plan_len, int t_len, int n, int m,
+                           void* stream) {
+    repro::ScanPlan p;
+    const void* staged[] = {y};
+    cudaError_t err = repro::read_scan_plan(plan, plan_len, n, t_len, m, 1, ring, staged, 1, &p);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const auto go = [&](auto run) {
+        return run(p, static_cast<cudaStream_t>(stream), static_cast<const float*>(y),
+                   static_cast<const float*>(alpha), static_cast<const float*>(gamma),
+                   static_cast<const float*>(init_seas), static_cast<float*>(levels),
+                   static_cast<float*>(seas), static_cast<float*>(ring), t_len, n, m);
     };
-    if (ring != nullptr) {
-        args(hw_scan_kernel<true>, 0);
-    } else {
-        static repro::SmemOptIn opt_in;      // per device (common.cuh)
-        const size_t smem = static_cast<size_t>(m) * block * sizeof(float);
-        cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(hw_scan_kernel<false>), smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        args(hw_scan_kernel<false>, smem);
-    }
-    return static_cast<int>(cudaGetLastError());
+    const bool global_ring = p.ring == repro::RING_GLOBAL;
+    if (p.copy == 16) return global_ring ? go(launch<true, 16>) : go(launch<false, 16>);
+    return global_ring ? go(launch<true, 4>) : go(launch<false, 4>);
 }

@@ -3,11 +3,16 @@
 K1 (``csrc/hw_scan.cu``) replaces the Pallas TPU kernel
 ``src/repro/kernels/hw_scan.py:_hw_scan_kernel``, K2 (``csrc/hw_scan_bwd.cu``)
 its backward ``_hw_scan_bwd_kernel``. Both run one thread per series with the
-time loop in registers and an m-slot ring (seasonality forward, its
-cotangent backward) that :func:`ring_plan` places by its size: shared
-memory, opted-in shared memory with fewer series per block, or a device
-buffer. Both are bound by the bytes they stream (see the sources for the
-design). :class:`HWScan` is the
+time loop in registers, blocks of 32 series that stage time tiles of their
+input streams in shared memory by ``cp.async`` ahead of the walk (K2 from
+the end backwards), and an m-slot ring (seasonality forward, its cotangent
+backward) in shared memory, opted-in shared memory or a device buffer. They
+walk groups of four or eight steps, dividing by IEEE division's fast path
+without its per-division branch and redoing a group with ``/`` when an
+operand is out of that path's range, so the outputs are the same bits as
+one operation at a time. :func:`scan_plan` sizes each launch; both are bound by
+the bytes they stream at large N and by the chain of steps at small N (see
+the sources for the design). :class:`HWScan` is the
 ``torch.autograd.Function`` around the pair, the counterpart of the JAX
 ``custom_vjp``: it saves ``(y, alpha, gamma, levels, seas)`` and its
 backward runs K2. On CPU tensors the same Function runs the plain versions
@@ -17,51 +22,102 @@ backward runs K2. On CPU tensors the same Function runs the plain versions
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import build, ref
 
-BLOCK = 128                      # series per thread block
-MIN_BLOCK = 32                   # the fewest series per block an opted-in ring takes
+SCAN_BLOCK = 32                  # series per block: one warp, a thread per series
+SCAN_TILES = (128, 64, 32, 16, 8)   # rows per staged tile, the plan takes the largest that fits
+SCAN_PIPE = 3                    # tiles in flight or walked (csrc/hw_scan.cuh)
 DEFAULT_SMEM = 48 * 1024         # dynamic shared memory without an opt-in
+BLOCK_RESERVED = 1024            # shared memory an SM keeps per resident block
+FWD_STREAMS = 1                  # K1 stages y
+BWD_STREAMS = 5                  # K2 stages y, levels, seas, dlev, dseas
+RING_PLACES = ("shared", "optin", "global")   # ScanPlan.ring, by index
 
 # launches since the last reset (kernels.ops.reset_launch_counts)
 launches = 0                     # K1
 bwd_launches = 0                 # K2
 
 
-def ring_plan(m: int, smem_optin: int):
-    """Where K1/K2 keep an m-slot ring of fp32 per series, and how many
-    series a block takes: ``(block, where)``.
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
-    * ``"shared"``: 128 series per block while the m x 128 ring fits 48 KB
-      (m <= 96, every preset);
-    * ``"optin"``: the most series per block, 128 down to 32 by halving,
-      whose ring fits the device's opt-in shared memory ``smem_optin``
-      (232,448 bytes on an H100: m <= 1,816 at 32 series);
-    * ``"global"``: past that, 128 series per block and the ring in a
-      ``(m, N)`` device buffer the wrapper allocates.
 
-    The arithmetic is the same in all three.
+class ScanPlan(NamedTuple):
+    """A K1/K2 launch; the kernel takes these ints in this order
+    (``csrc/hw_scan.cuh``, ``ScanPlan``)."""
+    block: int       # series per block, one thread each
+    tile: int        # rows per staged tile
+    stages: int      # tile buffers: min(SCAN_PIPE, tiles of T)
+    copy: int        # bytes per cp.async: 16 where rows are 16-byte aligned, else 4
+    ring: int        # where the m-slot ring lives: an index of RING_PLACES
+    smem: int        # dynamic shared memory, bytes
+    blocks: int      # the grid
+
+
+@functools.lru_cache(maxsize=4096)
+def scan_plan(n: int, t_len: int, m: int, smem_optin: int, sm_count: int,
+              streams: int = FWD_STREAMS, aligned: bool = True) -> ScanPlan:
+    """K1's (``streams=FWD_STREAMS``) or K2's (``BWD_STREAMS``) launch for
+    ``n`` series of ``t_len`` steps and an ``m``-slot ring, on a device with
+    ``sm_count`` SMs and ``smem_optin`` bytes of opt-in shared memory per
+    block (an SM holds that and 1 KB per block).
+
+    * 32 series per block, so that large batches spread over every SM in
+      one even wave (750 blocks at the forecast's 24,000 series) and small
+      ones over as many SMs as they have warps;
+    * ``min(SCAN_PIPE, tiles)`` tile buffers of ``streams`` tiles each;
+    * the ring after the tiles in shared memory wherever it fits beside the
+      smallest tiles: without an opt-in up to 48 KB, opted in above;
+      else in an ``(m, N)`` device buffer the wrapper allocates;
+    * tiles of the most rows of SCAN_TILES, no more than T needs, with which
+      every block of the grid is resident at once (each tile boundary costs
+      the walk a wait and a barrier, so fewer tiles are faster);
+    * 16-byte copies where every staged row is 16-byte aligned (``N`` a
+      multiple of 4 and ``aligned`` base pointers), else 4-byte copies.
+
+    The arithmetic and its order are the same in every plan.
     """
-    if m * BLOCK * 4 <= DEFAULT_SMEM:
-        return BLOCK, "shared"
-    block = BLOCK
-    while block >= MIN_BLOCK:
-        if m * block * 4 <= smem_optin:
-            return block, "optin"
-        block //= 2
-    return BLOCK, "global"
+    block = SCAN_BLOCK
+    blocks = _cdiv(n, block)
+    per_sm = _cdiv(blocks, sm_count)
+    ring_bytes = 4 * m * block
+
+    def layout(tile):
+        stages = min(SCAN_PIPE, _cdiv(t_len, tile))
+        return stages, 4 * stages * streams * tile * block
+
+    ring_shared = layout(SCAN_TILES[-1])[1] + ring_bytes <= smem_optin
+    cap = next((t for t in reversed(SCAN_TILES) if t >= t_len), SCAN_TILES[0])
+    for tile in SCAN_TILES:
+        stages, tiles_bytes = layout(tile)
+        smem = tiles_bytes + (ring_bytes if ring_shared else 0)
+        resident = per_sm * (smem + BLOCK_RESERVED) <= smem_optin + BLOCK_RESERVED
+        if tile <= cap and smem <= smem_optin and resident:
+            break
+    where = "global" if not ring_shared else ("shared" if smem <= DEFAULT_SMEM else "optin")
+    copy = 16 if aligned and n % 4 == 0 else 4
+    return ScanPlan(block, tile, stages, copy, RING_PLACES.index(where), smem, blocks)
 
 
-def _ring(kernel: str, t_len: int, n: int, m: int, dev):
-    """The launch's block and ring buffer (None: the ring is in shared memory)."""
+_plan_ints = build.plan_ints
+
+
+def _launch_plan(kernel: str, t_len: int, n: int, m: int, dev, streams: int, staged):
+    """The launch's plan and ring buffer (None: the ring is in shared memory)."""
     if t_len < 1 or n < 1 or m < 1:
         raise ValueError(f"{kernel}: empty problem (T={t_len}, N={n}, M={m})")
-    block, where = ring_plan(m, build.device_limits(dev).smem_optin)
-    if where != "global":
-        return block, None
-    return block, torch.empty((m, n), dtype=torch.float32, device=dev)
+    limits = build.device_limits(dev)
+    aligned = all(t.data_ptr() % 16 == 0 for t in staged)
+    plan = scan_plan(n, t_len, m, limits.smem_optin, limits.sm_count, streams, aligned)
+    ring = (torch.empty((m, n), dtype=torch.float32, device=dev)
+            if RING_PLACES[plan.ring] == "global" else None)
+    return plan, ring
 
 
 def hw_scan_tm(y_tm, alpha, gamma, init_seas_tm):
@@ -77,17 +133,19 @@ def hw_scan_tm(y_tm, alpha, gamma, init_seas_tm):
     build.check_inputs("hw_scan", [
         ("y_tm", y_tm, (t_len, n)), ("alpha", alpha, (n,)), ("gamma", gamma, (n,)),
         ("init_seas_tm", init_seas_tm, (m, n))], dev)
-    block, ring = _ring("hw_scan", t_len, n, m, dev)
+    plan, ring = _launch_plan("hw_scan", t_len, n, m, dev, FWD_STREAMS, [y_tm])
 
     levels = torch.empty((t_len, n), dtype=torch.float32, device=dev)
     seas = torch.empty((t_len + m, n), dtype=torch.float32, device=dev)
+    plan_ints = _plan_ints(plan)
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hw_scan_f32(
             y_tm.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
             init_seas_tm.data_ptr(), levels.data_ptr(), seas.data_ptr(),
-            None if ring is None else ring.data_ptr(), t_len, n, m, block, stream)
+            None if ring is None else ring.data_ptr(), ctypes.addressof(plan_ints),
+            len(plan_ints), t_len, n, m, stream)
     build.check(err, "hw_scan")
     launches += 1
     return levels, seas
@@ -109,12 +167,14 @@ def hw_scan_bwd_tm(y_tm, alpha, gamma, levels_tm, seas_tm, dlev_tm, dseas_tm):
         ("y_tm", y_tm, (t_len, n)), ("alpha", alpha, (n,)), ("gamma", gamma, (n,)),
         ("levels_tm", levels_tm, (t_len, n)), ("seas_tm", seas_tm, (t_len + m, n)),
         ("dlev_tm", dlev_tm, (t_len, n)), ("dseas_tm", dseas_tm, (t_len + m, n))], dev)
-    block, ring = _ring("hw_scan_bwd", t_len, n, m, dev)
+    plan, ring = _launch_plan("hw_scan_bwd", t_len, n, m, dev, BWD_STREAMS,
+                              [y_tm, levels_tm, seas_tm, dlev_tm, dseas_tm])
 
     dy = torch.empty((t_len, n), dtype=torch.float32, device=dev)
     dalpha = torch.empty((n,), dtype=torch.float32, device=dev)
     dgamma = torch.empty((n,), dtype=torch.float32, device=dev)
     dinit = torch.empty((m, n), dtype=torch.float32, device=dev)
+    plan_ints = _plan_ints(plan)
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -123,7 +183,8 @@ def hw_scan_bwd_tm(y_tm, alpha, gamma, levels_tm, seas_tm, dlev_tm, dseas_tm):
             levels_tm.data_ptr(), seas_tm.data_ptr(), dlev_tm.data_ptr(),
             dseas_tm.data_ptr(), dy.data_ptr(), dalpha.data_ptr(),
             dgamma.data_ptr(), dinit.data_ptr(),
-            None if ring is None else ring.data_ptr(), t_len, n, m, block, stream)
+            None if ring is None else ring.data_ptr(), ctypes.addressof(plan_ints),
+            len(plan_ints), t_len, n, m, stream)
     build.check(err, "hw_scan_bwd")
     bwd_launches += 1
     return dy, dalpha, dgamma, dinit

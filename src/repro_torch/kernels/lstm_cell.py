@@ -205,10 +205,7 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=4096)
-def _plan_ints(plan) -> ctypes.Array:
-    """A plan as the C array the kernel's entry point reads."""
-    return (ctypes.c_int * len(plan))(*plan)
+_plan_ints = build.plan_ints
 
 
 def _cell_shapes(kernel, wx, wh, b, x, h, c):

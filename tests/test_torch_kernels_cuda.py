@@ -36,8 +36,9 @@ def card():
     return torch.device("cuda")
 
 
-# rings past 48 KB of shared memory: m = 168 and 400 opt in to more (at 128
-# series per block), m = 2,000 lives in device memory (hw_scan.ring_plan)
+# wide rings: m = 168 fits 48 KB of shared memory beside K1's tiles and opts
+# in beside K2's, m = 400 opts in, m = 2,000 lives in device memory
+# (hw_scan.scan_plan)
 _WIDE_RINGS = [(300, 208, 168), (130, 440, 400), (40, 2030, 2000)]
 
 
@@ -54,6 +55,101 @@ def test_hw_scan_kernel_matches_plain_on_card(card, n, t_len, m):
             y.t().contiguous(), alpha, gamma, init_seas.t().contiguous())))
     torch.testing.assert_close(lev.t().cpu(), want[0], rtol=1e-5, atol=0)
     torch.testing.assert_close(seas.t().cpu(), want[1], rtol=1e-5, atol=0)
+
+
+def _scan_case(n, t_len, m, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    y = torch.rand((n, t_len), generator=g) * 400 + 50
+    alpha, gamma = torch.rand(n, generator=g), torch.rand(n, generator=g)
+    init_seas = torch.rand((n, m), generator=g) + 0.5
+    dlev = torch.randn((n, t_len), generator=g)
+    dseas = torch.randn((n, t_len + m), generator=g)
+    return [a.to(dev) for a in (y, alpha, gamma, init_seas, dlev, dseas)]
+
+
+def _scan_bits(y, alpha, gamma, init_seas, dlev, dseas):
+    """K1 and K2 on the card, each against its plain version on the same
+    card: the same operations in the same order with IEEE rounding give the
+    same bits (as chip_smoke.py reasons for K1_RTOL), so torch.equal."""
+    tm = lambda a: a.t().contiguous()
+    lev_p, seas_p = ref.hw_scan_ref(y, alpha, gamma, init_seas)
+    bwd_p = ref.hw_scan_bwd_ref(y, alpha, gamma, lev_p, seas_p, dlev, dseas)
+    with torch.no_grad():
+        fwd = hw_scan.hw_scan_tm(tm(y), alpha, gamma, tm(init_seas))
+        bwd = hw_scan.hw_scan_bwd_tm(tm(y), alpha, gamma, tm(lev_p), tm(seas_p), tm(dlev),
+                                     tm(dseas))
+    for name, got, want in zip(("levels", "seas"), fwd, (lev_p, seas_p)):
+        assert torch.equal(got.t(), want), f"K1 {name} differs from the plain version"
+    for name, got, want in zip(("dy", "dalpha", "dgamma", "dinit"), bwd, bwd_p):
+        assert torch.equal(got.t() if got.dim() == 2 else got, want), \
+            f"K2 {name} differs from the plain version"
+    return fwd + bwd
+
+
+# the edges of hw_scan.scan_plan and of the walk: N not a multiple of 4
+# and N = 1 (4-byte copies), T not a multiple of the 128-row tile (200,
+# 333) nor of the step groups (70, 45, 9), T under one tile, the
+# forecast's shape, every group of csrc/hw_scan.cuh:by_group (m = 4 and
+# 8, 12: 8 steps; m = 1 and 5: 4 steps; m = 2, 3: single steps), and every
+# ring placement (shared memory, opted in, device memory)
+_PLAN_EDGES = [(3, 40, 4), (33, 70, 4), (1, 9, 4), (1, 256, 4), (64, 45, 4), (40, 9, 4),
+               (64, 200, 4), (3, 333, 4), (5, 3, 12), (24_000, 128, 4), (33, 41, 1),
+               (36, 41, 2), (35, 41, 3), (33, 41, 5), (40, 70, 8), (300, 208, 168),
+               (130, 440, 400), (40, 2030, 2000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t_len,m", _PLAN_EDGES)
+def test_hw_scan_kernels_equal_plain_bit_for_bit_on_card(card, n, t_len, m):
+    first = _scan_bits(*_scan_case(n, t_len, m, n + t_len, card))
+    second = _scan_bits(*_scan_case(n, t_len, m, n + t_len, card))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b), "two launches on the same inputs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t_len,m", [(64, 40, 4), (33, 41, 1), (40, 70, 12)])
+def test_hw_scan_kernels_redo_out_of_range_divisions_on_card(card, n, t_len, m):
+    # operands outside [2^-60, 2^60] (alpha * y near 1e-23, a spike of y at
+    # 5e18, cotangents of 1e-30) send a group of steps to IEEE division;
+    # zero numerators (alpha 0, dlev 0, dseas -0) take the signed-zero path
+    y, alpha, gamma, init_seas, dlev, dseas = _scan_case(n, t_len, m, 7, card)
+    alpha[::3] = 1e-25
+    alpha[1::7] = 0.0
+    y[::2, 5] = 5e18
+    dlev[:, ::4] = 0.0
+    dlev[:, 1::5] = 1e-30
+    dseas[:, 2::3] = -0.0
+    _scan_bits(y, alpha, gamma, init_seas, dlev, dseas)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["short", "smem", "copy"])
+def test_hw_scan_kernels_refuse_a_plan_the_source_does_not_take_on_card(
+        card, monkeypatch, fault):
+    # the C entry points check the plan against the layout csrc/hw_scan.cuh
+    # computes: one int short, shared memory 4 bytes short, or 16-byte
+    # copies of rows that are not 16-byte aligned (N = 33)
+    if fault == "short":
+        monkeypatch.setattr(hw_scan, "_plan_ints",
+                            lambda plan: (ctypes.c_int * (len(plan) - 1))(*plan[:-1]))
+    else:
+        real = hw_scan.scan_plan
+
+        def broken(*args, **kwargs):
+            plan = real(*args, **kwargs)
+            return (plan._replace(smem=plan.smem - 4) if fault == "smem"
+                    else plan._replace(copy=16))
+        monkeypatch.setattr(hw_scan, "scan_plan", broken)
+    y, alpha, gamma, init_seas, dlev, dseas = _scan_case(33, 40, 4, 3, card)
+    tm = lambda a: a.t().contiguous()
+    lev, seas = ref.hw_scan_ref(y, alpha, gamma, init_seas)
+    with torch.no_grad():
+        for call in (lambda: hw_scan.hw_scan_tm(tm(y), alpha, gamma, tm(init_seas)),
+                     lambda: hw_scan.hw_scan_bwd_tm(tm(y), alpha, gamma, tm(lev), tm(seas),
+                                                    tm(dlev), tm(dseas))):
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                call()
 
 
 _PRESET_WIDTHS = [          # (I, H) of every preset's layers: yearly, quarterly,

@@ -2,7 +2,8 @@
 
 Each kernel wrapper sizes its launch with a pure function of the shape and
 the device's limits, and passes the plan to the kernel:
-``hw_scan.ring_plan`` (where K1/K2 keep their m-slot ring),
+``hw_scan.scan_plan`` (K1/K2: series per block, staged time tiles, copy
+width and where the m-slot ring lives),
 ``lstm_cell.cell_plan`` (K3/K4: rows per thread, row groups, unit slices,
 k-chunks of the weights) and ``lstm_cell.bwd_plan`` (K5: row tiles, column
 slices, row chunks of the weight-gradient sums). These tests sweep the
@@ -30,22 +31,111 @@ _ROWS = [1, 2, 7, 31, 32, 33, 64, 256, 333, 512, 1024, 2048, 2049, 4096, 8192, 1
 _K3_ROWS = _ROWS + [24_000, 25_344, 25_345, 48_000, 192_000]   # K3: the forecast's too
 
 
-@pytest.mark.parametrize("m,want", [
-    (1, (128, "shared")), (4, (128, "shared")), (96, (128, "shared")),
-    (97, (128, "optin")), (168, (128, "optin")), (1816, (32, "optin")),
-    (1817, (128, "global")), (8760, (128, "global"))])
-def test_ring_plan_places_the_ring_by_its_size(m, want):
-    block, where = hw_scan.ring_plan(m, H100_SMEM_OPTIN)
-    assert (block, where) == want
-    assert hw_scan.MIN_BLOCK <= block <= MAX_THREADS
-    if where == "shared":
-        assert m * block * 4 <= 48 * 1024
-    elif where == "optin":
-        assert 48 * 1024 < m * block * 4 <= H100_SMEM_OPTIN
-        # the most series per block that fit: twice as many would not
-        assert block == hw_scan.BLOCK or m * 2 * block * 4 > H100_SMEM_OPTIN
-    else:
-        assert m * hw_scan.MIN_BLOCK * 4 > H100_SMEM_OPTIN
+_SCAN_N = [1, 2, 3, 4, 8, 31, 32, 33, 64, 129, 256, 300, 2048, 24_000, 24_001, 100_000]
+_SCAN_T = [1, 3, 9, 31, 32, 33, 40, 72, 128, 208, 256, 440, 2040]
+_SCAN_M = [1, 4, 12, 24, 168, 400, 1700, 2000, 8760]
+_STREAMS = [hw_scan.FWD_STREAMS, hw_scan.BWD_STREAMS]
+
+
+def _scan_plans(streams, sm_count=H100_SMS):
+    for n in _SCAN_N:
+        for t_len in _SCAN_T:
+            for m in _SCAN_M:
+                yield (n, t_len, m), hw_scan.scan_plan(n, t_len, m, H100_SMEM_OPTIN, sm_count,
+                                                       streams)
+
+
+@pytest.mark.parametrize("streams,n,t_len,m,want", [
+    # K1 (y staged): 32 series a block; the most rows a tile that T needs
+    # and the SMs hold, the ring after the tiles
+    (1, 24_000, 128, 4, ("shared", 128, 1, 16_896)),
+    (1, 64, 256, 12, ("shared", 128, 2, 34_304)),
+    (1, 300, 208, 168, ("optin", 128, 2, 54_272)),
+    (1, 130, 440, 400, ("optin", 128, 3, 100_352)),
+    (1, 1_700, 128, 1_700, ("optin", 32, 3, 229_888)),     # the ring leaves 12 KB of tiles
+    (1, 64, 2040, 2_000, ("global", 128, 3, 49_152)),
+    (1, 1, 9, 4, ("shared", 16, 1, 2_560)),
+    # K2 (five streams staged): one block an SM at the train batches ...
+    (5, 256, 72, 4, ("optin", 128, 1, 82_432)),
+    (5, 8, 256, 4, ("optin", 128, 2, 164_352)),
+    (5, 300, 208, 168, ("optin", 128, 2, 185_344)),
+    (5, 130, 440, 400, ("optin", 64, 3, 174_080)),
+    (5, 64, 2040, 2_000, ("global", 64, 3, 122_880)),
+    (5, 3, 40, 4, ("shared", 64, 1, 41_472)),
+    # ... and smaller tiles where six blocks share an SM
+    (5, 24_000, 128, 4, ("shared", 16, 3, 31_232)),
+])
+def test_scan_plan_places_the_ring_and_sizes_the_tiles(streams, n, t_len, m, want):
+    p = hw_scan.scan_plan(n, t_len, m, H100_SMEM_OPTIN, H100_SMS, streams)
+    assert (hw_scan.RING_PLACES[p.ring], p.tile, p.stages, p.smem) == want
+    assert p.block == hw_scan.SCAN_BLOCK
+
+
+def _tiles_bytes(p, streams):
+    return 4 * p.stages * streams * p.tile * p.block
+
+
+@pytest.mark.parametrize("streams", _STREAMS)
+def test_scan_plan_fits_the_opt_in_shared_memory(streams):
+    smallest = hw_scan.SCAN_TILES[-1]
+    for (n, t_len, m), p in _scan_plans(streams):
+        ring = 4 * m * p.block
+        where = hw_scan.RING_PLACES[p.ring]
+        assert p.smem == _tiles_bytes(p, streams) + (0 if where == "global" else ring)
+        assert p.smem <= H100_SMEM_OPTIN and p.block <= MAX_THREADS, (n, t_len, m)
+        if where == "shared":
+            assert p.smem <= 48 * 1024
+        elif where == "optin":
+            assert 48 * 1024 < p.smem
+        else:                   # the ring goes to device memory only when it must
+            small = 4 * min(hw_scan.SCAN_PIPE, -(-t_len // smallest)) * streams * smallest
+            assert small * p.block + ring > H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("streams", _STREAMS)
+def test_scan_plan_covers_every_series_and_step_once(streams):
+    for (n, t_len, m), p in _scan_plans(streams):
+        assert p.blocks * p.block >= n > (p.blocks - 1) * p.block, (n, t_len, m)
+        assert p.tile in hw_scan.SCAN_TILES and p.block % 4 == 0
+        assert p.stages == min(hw_scan.SCAN_PIPE, -(-t_len // p.tile)) >= 1
+        # no more rows a tile than T needs
+        assert p.tile == hw_scan.SCAN_TILES[-1] or p.tile // 2 < t_len
+
+
+@pytest.mark.parametrize("streams", _STREAMS)
+def test_scan_plan_keeps_every_block_resident_where_a_tile_allows(streams):
+    for sm_count in (H100_SMS, 114):
+        for (n, t_len, m), p in _scan_plans(streams, sm_count):
+            per_sm = -(-p.blocks // sm_count)
+            if p.tile != hw_scan.SCAN_TILES[-1]:
+                assert per_sm * (p.smem + 1024) <= H100_SMEM_OPTIN + 1024, (n, t_len, m)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 31, 33, 129, 24_001])
+def test_scan_plan_copies_4_bytes_where_rows_are_not_16_byte_aligned(n):
+    for streams in _STREAMS:
+        assert hw_scan.scan_plan(n, 72, 4, H100_SMEM_OPTIN, H100_SMS, streams).copy == 4
+        assert hw_scan.scan_plan(n + (4 - n % 4), 72, 4, H100_SMEM_OPTIN, H100_SMS,
+                                 streams).copy == 16
+        # a base pointer off 16 bytes takes 4-byte copies at any N
+        assert hw_scan.scan_plan(4 * n, 72, 4, H100_SMEM_OPTIN, H100_SMS, streams,
+                                 aligned=False).copy == 4
+
+
+@pytest.mark.parametrize("streams", _STREAMS)
+@pytest.mark.parametrize("sm_count", [H100_SMS, 114])
+def test_scan_plan_fills_the_sms_at_the_forecast(streams, sm_count):
+    n = 24_000                  # M4's quarterly count, the forecast's batch
+    p = hw_scan.scan_plan(n, 128, 4, H100_SMEM_OPTIN, sm_count, streams)
+    per_sm = -(-p.blocks // sm_count)
+    assert p.blocks >= sm_count
+    # one even wave: every block resident at once (32 blocks and 228 KB of
+    # shared memory an SM, 1 KB of it reserved per block), and the busiest
+    # SM holds under 10 % more series than the mean
+    assert per_sm <= 32 and per_sm * (p.smem + 1024) <= H100_SMEM_OPTIN + 1024
+    assert per_sm * p.block <= 1.1 * n / sm_count
+    # and each SM has over 20 KB of the streams staged at once
+    assert per_sm * _tiles_bytes(p, streams) >= 20 * 1024
 
 
 def _preset_geometry(rows, in_size, hidden, sm_count):
