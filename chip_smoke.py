@@ -19,9 +19,12 @@ fine-tune trains on the card against a CPU server. Last, the LM serving path: yi
 and two layers in fp32 on the card against the CPU (``lm_parity``), then at
 full width and depth in bf16 (``lm_serve``: batch 8, prompt 2048, 32
 generated tokens; K6 once per layer in the prefill), and one profiled
-prefill and decode step. Each phase prints one JSON line; any failed check
-raises and the script exits non-zero. The last line is
-``{"ok": true, "device": {...}}``.
+prefill and decode step. Between the fp32 serving phases and training, the
+same forecast and server run under the bf16 policy (``precision="bf16"``:
+K1 with a bf16 y, K3 in bf16; phases ``forecast_bf16``, ``profile_bf16``
+and ``serve_bf16``), against the CPU and the card's fp32 forecast. Each
+phase prints one JSON line; any failed check raises and the script exits
+non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the ``src/`` tree beside it, and imports
 nothing of the JAX package. fp32 parity: TF32 is switched off for matmuls
@@ -30,6 +33,7 @@ and convolutions before anything runs.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -72,6 +76,18 @@ K1_RTOL = 1e-5
 K3_ATOL = 1e-5
 # the whole forecast, card against CPU (sums in other orders, through exp)
 FC_RTOL, FC_ATOL = 1e-4, 1e-5
+# bf16: K1 with a bf16 y gives the plain version's bits (y_t widened
+# exactly, then the fp32 walk); K3 in bf16 rounds h' and c' once from float32
+# sums taken in another order than the plain matmul, so at most 1 bf16 ulp
+# apart, or, where an output is so near zero that float32's sum-order error
+# spans more than one bf16 ulp, within K3's fp32 atol
+K3_BF16_ULPS = 1
+# the bf16 forecast and server, card against CPU: a 1-ulp bf16 difference
+# (2**-8 relative) carried through 229 cell steps and the exp, the bound the
+# CPU tests hold the port to against the JAX package; and the bf16 forecast
+# against the card's fp32 one: tests/core/test_precision.py's rtol 0.05
+FC16_RTOL, FC16_ATOL = 2e-2, 1e-3
+FC16_VS_FP32_RTOL, FC16_VS_FP32_ATOL = 0.05, 1e-3
 # K2 runs the plain adjoint's operations in the same order, IEEE rounding:
 # rtol 1e-5; atol 1e-6 for cotangents that cancel to near zero.
 K2_RTOL, K2_ATOL = 1e-5, 1e-6
@@ -285,14 +301,18 @@ def _cell_inputs(rows, in_size, hidden, gen, dev):
     return wx, wh, b, u(rows, in_size), u(rows, hidden), u(rows, hidden) * 2
 
 
-def check_hw_scan(n, t_len, m, gen, timed=True):
+def check_hw_scan(n, t_len, m, gen, timed=True, bf16=False):
     """K1 against its plain version; ``timed=False`` skips the plain
-    version's timing (a loop of T small launches at the wide rings)."""
+    version's timing (a loop of T small launches at the wide rings);
+    ``bf16`` streams y in bf16 (record ``hw_scan_bf16``), where the outputs
+    must be the plain version's bits."""
     import torch
 
     from repro_torch.kernels import hw_scan, ref
 
     y, alpha, gamma, init_seas = _hw_inputs(n, t_len, m, gen, torch.device("cuda"))
+    if bf16:
+        y = y.to(torch.bfloat16)
     y_tm, s_tm = y.t().contiguous(), init_seas.t().contiguous()
     kernel = lambda: hw_scan.hw_scan_tm(y_tm, alpha, gamma, s_tm)
     plain = lambda: ref.hw_scan_ref(y, alpha, gamma, init_seas)
@@ -301,13 +321,16 @@ def check_hw_scan(n, t_len, m, gen, timed=True):
     lev_p, seas_p = plain()
     err = max(check_close("hw_scan levels", lev_k.t(), lev_p, rtol=K1_RTOL, atol=0.0),
               check_close("hw_scan seas", seas_k.t(), seas_p, rtol=K1_RTOL, atol=0.0))
+    if bf16 and not (torch.equal(lev_k.t(), lev_p) and torch.equal(seas_k.t(), seas_p)):
+        raise AssertionError(f"hw_scan_bf16 {(n, t_len, m)}: not the plain version's bits")
     rel = max(max_rel(lev_k.t(), lev_p), max_rel(seas_k.t(), seas_p))
     ms, host_ms = time_ms(kernel), wrapper_ms(kernel)
     plain_ms = time_ms(plain, iters=5) if timed else None
-    n_bytes = 4 * n * (t_len + 2 + m) + 4 * n * (t_len + t_len + m)
+    # y in, alpha, gamma and the ring in, levels and seas out
+    n_bytes = y.element_size() * n * t_len + 4 * n * (2 + m) + 4 * n * (t_len + t_len + m)
     n_flops = 8 * n * t_len
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return dict(name="hw_scan", shape=dict(N=n, T=t_len, m=m),
+    return dict(name="hw_scan_bf16" if bf16 else "hw_scan", shape=dict(N=n, T=t_len, m=m),
                 plan=scan_plan_of([y_tm], n, t_len, m, "fwd"), max_abs_err=err,
                 max_rel_err=rel, ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms,
                 library_ms=None,
@@ -325,16 +348,22 @@ def scan_plan_of(staged, n, t_len, m, direction):
     lim = build.device_limits(torch.device("cuda"))
     streams = hw_scan.FWD_STREAMS if direction == "fwd" else hw_scan.BWD_STREAMS
     plan = hw_scan.scan_plan(n, t_len, m, lim.smem_optin, lim.sm_count, streams,
-                             all(t.data_ptr() % 16 == 0 for t in staged))
+                             all(t.data_ptr() % 16 == 0 for t in staged),
+                             staged[0].element_size())
     return dict(plan._asdict(), ring=hw_scan.RING_PLACES[plan.ring])
 
 
-def check_lstm_cell(rows, in_size, hidden, gen):
+def check_lstm_cell(rows, in_size, hidden, gen, bf16=False):
+    """K3 against its plain version; ``bf16``: every input in bf16 (record
+    ``lstm_cell_bf16``), held to K3_BF16_ULPS, its bound taken at the
+    card's bf16 rate."""
     import torch
 
     from repro_torch.kernels import lstm_cell, ref
 
     wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, gen, torch.device("cuda"))
+    if bf16:
+        wx, wh, b, x, h, c = (t.to(torch.bfloat16) for t in (wx, wh, b, x, h, c))
     kernel = lambda: lstm_cell.lstm_cell(wx, wh, b, x, h, c)
     plain = lambda: ref.lstm_cell_ref(wx, wh, b, x, h, c)
     # one PyTorch call computing the same function (timed only, never used by
@@ -344,20 +373,41 @@ def check_lstm_cell(rows, in_size, hidden, gen):
     h_k, c_k = kernel()
     torch.cuda.synchronize()
     h_p, c_p = plain()
-    err = max(check_close("lstm_cell h", h_k, h_p, rtol=0.0, atol=K3_ATOL),
-              check_close("lstm_cell c", c_k, c_p, rtol=0.0, atol=K3_ATOL))
-    h_l, c_l = library()
-    check_close("torch.lstm_cell h", h_l, h_p, rtol=0.0, atol=K3_ATOL)
+    if bf16:
+        pairs = ((h_k, h_p), (c_k, c_p))
+        ulps = [ref.bf16_ulps(a, b) for a, b in pairs]
+        diffs = [(a.float() - b.float()).abs() for a, b in pairs]
+        past = sum(int(((u > K3_BF16_ULPS) & (d > K3_ATOL)).sum()) for u, d in zip(ulps, diffs))
+        if past:
+            raise AssertionError(f"lstm_cell_bf16 {(rows, in_size, hidden)}: {past} outputs "
+                                 f"past {K3_BF16_ULPS} bf16 ulp and atol {K3_ATOL}")
+        err = max(float(d.max()) for d in diffs)
+        # how far the near-zero outputs went in ulps, and how many passed one
+        over = [u > K3_BF16_ULPS for u in ulps]
+        ulp_stats = dict(max_ulps=max(int(u.max()) for u in ulps),
+                         past_1_ulp=sum(int(o.sum()) for o in over),
+                         past_1_ulp_max_abs=max((float(d[o].max()) for d, o in zip(diffs, over)
+                                                 if o.any()), default=0.0))
+    else:
+        err = max(check_close("lstm_cell h", h_k, h_p, rtol=0.0, atol=K3_ATOL),
+                  check_close("lstm_cell c", c_k, c_p, rtol=0.0, atol=K3_ATOL))
+        h_l, c_l = library()
+        check_close("torch.lstm_cell h", h_l, h_p, rtol=0.0, atol=K3_ATOL)
     ms, plain_ms, library_ms = time_ms(kernel), time_ms(plain), time_ms(library)
     host_ms = wrapper_ms(kernel)
     g4 = 4 * hidden
-    n_bytes = 4 * (rows * in_size + 4 * rows * hidden + (in_size + hidden) * g4 + g4)
+    n_bytes = x.element_size() * (rows * in_size + 4 * rows * hidden
+                                  + (in_size + hidden) * g4 + g4)
     n_flops = 2 * rows * (in_size + hidden) * g4
-    bound_ms, bound_by = bound(n_bytes, n_flops)
-    return dict(name="lstm_cell", shape=dict(B=rows, I=in_size, H=hidden),
-                plan=cell_plan_of(rows, in_size, hidden)._asdict(), max_abs_err=err, ms=ms,
-                wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    bound_ms, bound_by = bound(n_bytes, n_flops, BF16_FLOPS if bf16 else FP32_FLOPS)
+    rec = dict(name="lstm_cell_bf16" if bf16 else "lstm_cell",
+               shape=dict(B=rows, I=in_size, H=hidden),
+               plan=cell_plan_of(rows, in_size, hidden)._asdict(), max_abs_err=err, ms=ms,
+               wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    if bf16:
+        rec.update(ulp_stats)
+    return rec
 
 
 def cell_plan_of(rows, in_size, hidden):
@@ -669,6 +719,41 @@ def run_forecast(cfg, params_cpu, params_dev, y, cats, dev):
     return dict(ms=ms, max_abs_err=errs, cpu_reference_s=cpu_s)
 
 
+def forecast_steps(cfg, t_len: int) -> int:
+    """LSTM-cell launches of one forward pass over T steps: each layer of
+    dilation d walks ceil(P / d) steps over the P = T - W + 1 window
+    positions."""
+    positions = t_len - cfg.input_size + 1
+    return sum(-(-positions // d) for block in cfg.dilations for d in block)
+
+
+def run_forecast_bf16(cfg, params_cpu, params_dev, y, cats, dev, want_fp32):
+    """One ``esrnn_forecast`` under the bf16 policy on the card (the caller
+    has made a warm one), against the same call on the CPU and against the
+    card's fp32 forecast ``want_fp32``."""
+    import torch
+
+    from repro_torch.core.esrnn import esrnn_forecast
+
+    y_d, c_d = torch.from_numpy(y).to(dev), torch.from_numpy(cats).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = esrnn_forecast(cfg, params_dev, y_d, c_d)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = esrnn_forecast(cfg, params_cpu, torch.from_numpy(y), torch.from_numpy(cats))
+    cpu_s = time.perf_counter() - t0
+    if got.dtype != torch.float32 or tuple(got.shape) != (y.shape[0], cfg.output_size):
+        raise AssertionError(f"bf16 forecast {got.dtype} {tuple(got.shape)}")
+    err = check_close("forecast_bf16 vs the CPU", got, want, rtol=FC16_RTOL, atol=FC16_ATOL)
+    err32 = check_close("forecast_bf16 vs the card's fp32 forecast", got, want_fp32,
+                        rtol=FC16_VS_FP32_RTOL, atol=FC16_VS_FP32_ATOL)
+    return dict(ms=ms, series_per_s=y.shape[0] / ms * 1e3, max_abs_err=err,
+                max_abs_err_vs_fp32=err32, max_rel_err_vs_fp32=max_rel(got.cpu(), want_fp32.cpu()),
+                cpu_reference_s=cpu_s)
+
+
 def profile_forecast(cfg, params_dev, y, cats, dev, top: int = 8):
     """Where one ``esrnn_forecast`` call spends the card's time."""
     import torch
@@ -736,7 +821,11 @@ def profile_call(call, top: int = 8, match=None):
 # ---------------------------------------------------------------------------
 
 
-def run_serve(cfg, params_cpu, params_dev, dev, n_requests: int, seed: int = 2):
+def run_serve(cfg, params_cpu, params_dev, dev, n_requests: int, seed: int = 2,
+              rtol: float = FC_RTOL, atol: float = FC_ATOL):
+    """``n_requests`` through ``ForecastServer`` on the card and observe
+    round trips, against a CPU dispatcher of the same config within
+    ``rtol``/``atol``."""
     from repro_torch.forecast import (
         BucketDispatcher, ForecastRequest, synthetic_request_stream,
     )
@@ -768,7 +857,7 @@ def run_serve(cfg, params_cpu, params_dev, dev, n_requests: int, seed: int = 2):
     stats = server.stats
     if stats.requests != n_requests:
         raise AssertionError(f"served {stats.requests} of {n_requests} requests")
-    err = max(check_close(f"serve request {i}", _t(g), _t(w), rtol=FC_RTOL, atol=FC_ATOL)
+    err = max(check_close(f"serve request {i}", _t(g), _t(w), rtol=rtol, atol=atol)
               for i, (g, w) in enumerate(zip(got, want)))
     lat = stats.latency_percentiles()
 
@@ -789,8 +878,7 @@ def run_serve(cfg, params_cpu, params_dev, dev, n_requests: int, seed: int = 2):
             want_fc = reference.forecast_batch([ForecastRequest(
                 y=seen, category=cat, series_id=sid)])[0]
             obs_err = max(obs_err, check_close(
-                f"observe series {sid}", _t(got_fc), _t(want_fc),
-                rtol=FC_RTOL, atol=FC_ATOL))
+                f"observe series {sid}", _t(got_fc), _t(want_fc), rtol=rtol, atol=atol))
         if np.array_equal(first, second):
             raise AssertionError(f"observe on series {sid} did not change its forecast")
         if server.store.get(sid).t != OBS_LEN + 1:
@@ -930,11 +1018,9 @@ def time_train_steps(cfg, data, dev):
 
     from repro_torch.kernels import ops
 
-    want = {"hw_scan": 1, "hw_scan_bwd": 1, "lstm_cell": 0,
-            "lstm_cell_fwd": None, "lstm_cell_bwd": None, "flash_attention": 0}
-    cells = sum(-(-(TRAIN_T - cfg.input_size + 1) // d)
-                for block in cfg.dilations for d in block)
-    want["lstm_cell_fwd"] = want["lstm_cell_bwd"] = cells
+    cells = forecast_steps(cfg, TRAIN_T)              # a train step walks the same cells
+    want = dict.fromkeys(ops.launch_counts(), 0)     # every kernel and stream dtype
+    want.update(hw_scan=1, hw_scan_bwd=1, lstm_cell_fwd=cells, lstm_cell_bwd=cells)
     rows = []
     for batch in (TRAIN_BATCH, BIG_BATCH):
         for sparse in (False, True):
@@ -1249,9 +1335,14 @@ def main() -> int:
     # what ptxas made of the redesigned kernels' sources: per entry
     # function its registers, shared memory, spills and any warning (an
     # empty report: the library was built by an earlier process)
-    emit(dict(phase="ptxas", build_s=build_s, report={
-        name: ptxas_summary(reports.get(name, ""))
-        for name in ("flash_attention.cu", "lstm_cell.cu", "hw_scan.cu", "hw_scan_bwd.cu")}))
+    report = {name: ptxas_summary(reports.get(name, ""))
+              for name in ("flash_attention.cu", "lstm_cell.cu", "hw_scan.cu", "hw_scan_bwd.cu")}
+    # the bf16 instantiations of K1 and K3: each entry and the two lines
+    # ptxas prints after it (stack and spills, registers and shared memory)
+    bf16 = {name: [line for i, entry in enumerate(report[name]) if "bfloat16" in entry
+                   for line in report[name][i:i + 3]]
+            for name in ("hw_scan.cu", "lstm_cell.cu")}
+    emit(dict(phase="ptxas", build_s=build_s, report=report, bf16_entries=bf16))
 
     # phase 2: kernels against their plain versions, at the main path's
     # shapes (the first of each list is the first launch of the forecast
@@ -1281,8 +1372,15 @@ def main() -> int:
               for rows, width in k45_shapes]
         k5 += [check_lstm_cell_bwd(*shape, gen) for shape in WIDE_BWD]
         k6 = [check_flash_attention(*shape, gen) for shape in k6_shapes()]
+        # the bf16 streams of K1 and K3 at the bf16 forecast's and serve
+        # buckets' shapes, and the widths past the presets
+        k1b = [check_hw_scan(n, t, m, gen, bf16=True) for n, t, m in k1_shapes]
+        k1b += [check_hw_scan(n, t, m, gen, timed=False, bf16=True) for n, t, m in WIDE_RING]
+        k3b = [check_lstm_cell(rows, width, cfg.hidden_size, gen, bf16=True)
+               for rows, width in k3_shapes]
+        k3b += [check_lstm_cell(*shape, gen, bf16=True) for shape in WIDE_CELL]
     torch.cuda.empty_cache()
-    for rec in k1 + k3 + k2 + k4 + k5 + k6:
+    for rec in k1 + k3 + k2 + k4 + k5 + k6 + k1b + k3b:
         emit(dict(phase="kernel", **rec))
 
     # phases 3 to 7 are the main paths: each counts launches from zero and
@@ -1316,6 +1414,33 @@ def main() -> int:
     serve, serve_launches = counted(forecast_kernels, "serving", lambda: run_serve(
         cfg, params_cpu, params_dev, dev, N_REQUESTS))
     emit(dict(phase="serve", card=smi, launches=serve_launches, **serve))
+
+    # phase 4b: the same forecast and server under the bf16 policy: K1 with a
+    # bf16 y once and K3 in bf16 once a step, and no fp32 K1 or K3 launch
+    from repro_torch.core.esrnn import esrnn_forecast
+
+    cfg16 = dataclasses.replace(cfg, precision="bf16")
+    bf16_kernels = ("hw_scan_bf16", "lstm_cell_bf16")
+    y_d, c_d = torch.from_numpy(y).to(dev), torch.from_numpy(cats).to(dev)
+    fc32_card = esrnn_forecast(cfg, params_dev, y_d, c_d)
+    esrnn_forecast(cfg16, params_dev, y_d, c_d)              # warm-up
+    fc16, fc16_launches = counted(bf16_kernels, "the bf16 forecast", lambda: run_forecast_bf16(
+        cfg16, params_cpu, params_dev, y, cats, dev, fc32_card))
+    want = dict(hw_scan_bf16=1, lstm_cell_bf16=forecast_steps(cfg16, T_LEN), hw_scan=0,
+                lstm_cell=0)
+    if {k: fc16_launches[k] for k in want} != want:
+        raise AssertionError(f"the bf16 forecast launched {fc16_launches}, want {want}")
+    emit(dict(phase="forecast_bf16", config="quarterly", precision="bf16", N=N_SERIES,
+              T=T_LEN, hidden=cfg.hidden_size, card=smi, launches=fc16_launches, **fc16))
+    emit(dict(phase="profile_bf16", call="esrnn_forecast, precision bf16", N=N_SERIES,
+              T=T_LEN, **profile_forecast(cfg16, params_dev, y, cats, dev)))
+    del fc32_card, y_d, c_d
+    serve16, serve16_launches = counted(bf16_kernels, "bf16 serving", lambda: run_serve(
+        cfg16, params_cpu, params_dev, dev, N_REQUESTS, rtol=FC16_RTOL, atol=FC16_ATOL))
+    if serve16_launches["hw_scan"] or serve16_launches["lstm_cell"]:
+        raise AssertionError(f"bf16 serving launched fp32 kernels: {serve16_launches}")
+    emit(dict(phase="serve_bf16", precision="bf16", card=smi, launches=serve16_launches,
+              **serve16))
 
     # phase 5: train_esrnn on the card against the CPU, then steps/s
     from repro_torch.data.pipeline import synthetic_prepared
@@ -1365,10 +1490,11 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    # phase 8: summary, one entry per ported kernel. Launches: the main-path
-    # phases 3 to 7. Times at the first listed shape of each (K1, K3: the
-    # forecast batch, N = 24,000, layer 0; K2, K4, K5: a train step at
-    # batch 256, layer 0; K6: one layer of the yi-6b prefill)
+    # phase 8: summary, one entry per ported kernel and stream dtype.
+    # Launches: the main-path phases 3 to 7. Times at the first listed shape
+    # of each (K1, K3 and their bf16 streams: the forecast batch, N = 24,000,
+    # layer 0; K2, K4, K5: a train step at batch 256, layer 0; K6: one layer
+    # of the yi-6b prefill)
     def entry(name, source, replaces, recs, library_ms):
         main_rec = recs[0]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1391,6 +1517,10 @@ def main() -> int:
               k5, None),
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:28", k6, k6[0]["library_ms"]),
+        entry("hw_scan_bf16", csrc + "hw_scan.cu", "src/repro/kernels/hw_scan.py:56", k1b,
+              None),
+        entry("lstm_cell_bf16", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:56",
+              k3b, k3b[0]["library_ms"]),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -59,7 +59,15 @@ class ESRNNConfig:
     use_pallas: bool = False       # JAX-only switch; ignored by the port
     head: str = "lstm"             # repro_torch.core.heads registry name
     dtype: str = "float32"
-    precision: str = "fp32"        # "fp32" only in this slice of the port
+    precision: str = "fp32"        # compute policy: "fp32" | "bf16". Master
+                                   # params, the per-series HW table, levels
+                                   # and seasonality stay in ``dtype``; "bf16"
+                                   # streams y into the HW scan, and the
+                                   # features, the recurrent stack and the
+                                   # readout's hidden activations, in bf16
+                                   # with fp32 accumulation. The port serves
+                                   # under bf16; training under bf16 comes
+                                   # with a later slice and raises.
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -67,12 +75,11 @@ class ESRNNConfig:
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        """Dtype activations and shared weights compute in."""
+        """Dtype activations and shared weights are cast to in the forward."""
+        if self.precision == "bf16":
+            return torch.bfloat16
         if self.precision == "fp32":
             return self.tdtype
-        if self.precision == "bf16":
-            raise NotImplementedError(
-                "the bf16 policy is not ported yet; use precision='fp32'")
         raise ValueError(
             f"unknown precision policy {self.precision!r} (want fp32|bf16)")
 

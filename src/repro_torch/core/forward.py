@@ -58,7 +58,12 @@ class ESRNNStates:
 
 
 def smooth(cfg, params, y):
-    """HW smoothing of ``y`` (N, T) with the per-series table ``params["hw"]``."""
+    """HW smoothing of ``y`` (N, T) with the per-series table ``params["hw"]``.
+
+    Under the bf16 policy y streams into the scan in bf16; the recurrence,
+    the table and the returned levels and seasonality stay in the table's
+    dtype (float32).
+    """
     if y.dtype != cfg.compute_dtype:
         y = y.to(cfg.compute_dtype)
     return hw_smooth(y, params["hw"], seasonality=cfg.seasonality,
@@ -134,11 +139,16 @@ def esrnn_states(cfg, params, y, cats) -> ESRNNStates:
     """Run the full forward pass once: smoothing, windows, head.
 
     ``y`` (N, T) strictly positive, ``cats`` (N, C) one-hot, both on the
-    device of ``params``; the kernels run wherever the tensors are.
+    device of ``params``; the kernels run wherever the tensors are. The head
+    computes in the policy's dtype (bf16 halves the tensors it streams) and
+    re-emits ``yhat_n`` in float32, so the loss and the forecasts' ``exp``
+    never see bf16 rounding.
     """
     levels, seas = smooth(cfg, params, y)
     x_in, pos = input_windows(cfg, y, levels, seas)
     feats = features(x_in, cats)
+    if feats.dtype != cfg.compute_dtype:
+        feats = feats.to(cfg.compute_dtype)
     yhat_n, c_sq = H.get_head(cfg.head).apply(cfg, params, feats)
     return ESRNNStates(levels=levels, seas=seas, pos=pos, x_in=x_in,
                        yhat_n=yhat_n, c_sq=c_sq)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 from typing import Callable, Dict, FrozenSet, Tuple
 
 import torch
@@ -28,6 +29,7 @@ from torch import nn
 
 from repro_torch.core.drnn import drnn_apply, drnn_init, uniform_init
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ref import widen
 
 __all__ = [
     "HeadSpec", "register_head", "get_head", "available_heads", "Readout",
@@ -109,10 +111,31 @@ def _readout_init(cfg, generator, dev) -> Readout:
                    out_w.to(dev, dt), torch.zeros(out, dtype=dt, device=dev))
 
 
+def _policy_cast(mod, dtype):
+    """A shared-weight subtree with its parameters in the compute dtype.
+
+    Identity under the fp32 policy. Under bf16 the modules are mirrored by
+    plain objects (lists for ``nn.ModuleList``s) whose tensors are the
+    parameters cast with ``.to``: an autograd op, so a gradient flows back
+    to the float32 master weights, which never round.
+    """
+    if dtype == torch.float32:
+        return mod
+    if isinstance(mod, nn.ModuleList):
+        return [_policy_cast(m, dtype) for m in mod]
+    return types.SimpleNamespace(**{name: p.to(dtype) for name, p
+                                    in mod.named_parameters(recurse=False)})
+
+
 def _readout_apply(params, hid):
-    head = params["head"]
-    z = torch.tanh(hid @ head.dense_w + head.dense_b)
-    return z @ head.out_w + head.out_b
+    """tanh dense -> linear, with float32 accumulation whatever the stream
+    dtype: under bf16 the dense pre-activation (float32 sum plus float32
+    bias) rounds to bf16 before the tanh, and the output product re-emits
+    ``yhat_n`` in float32 (reference ``heads.py:137-147``). Under fp32 every
+    ``widen`` and cast is the identity."""
+    head = _policy_cast(params["head"], hid.dtype)
+    z = torch.tanh((widen(hid) @ widen(head.dense_w) + widen(head.dense_b)).to(hid.dtype))
+    return widen(z) @ widen(head.out_w) + widen(head.out_b)
 
 
 # ---------------------------------------------------------------------------
@@ -138,20 +161,28 @@ def lstm_head_init(cfg, generator: torch.Generator, device=None):
 def lstm_head_apply(cfg, params, feats):
     """Dilated residual LSTM -> (causal attention) -> tanh dense -> linear.
 
-    The attention variant (``heads.py:192-204`` in the JAX package) is a
-    plain einsum with a softmax; it has no kernel of its own.
+    ``feats`` arrives in the policy's compute dtype; the recurrent stack and
+    the attention weights are cast to match (:func:`_policy_cast`). The
+    attention variant (``heads.py:192-204`` in the JAX package) is a plain
+    einsum with a softmax and has no kernel of its own; its products
+    accumulate in float32 and its scores and softmax stay float32 under
+    bf16, the probabilities rounded to the stream dtype before the product
+    with v.
     """
-    hid, c_sq = drnn_apply(params["rnn"], feats, dilations=cfg.dilations)
+    dt = feats.dtype
+    hid, c_sq = drnn_apply(_policy_cast(params["rnn"], dt), feats, dilations=cfg.dilations)
     if cfg.attention:
-        ap = params["attn"]
-        q = hid @ ap.wq
-        k = hid @ ap.wk
-        v = hid @ ap.wv
-        s = torch.einsum("nph,nqh->npq", q, k) / math.sqrt(cfg.hidden_size)
+        ap = _policy_cast(params["attn"], dt)
+        wide_hid = widen(hid)
+        q = (wide_hid @ widen(ap.wq)).to(dt)
+        k = (wide_hid @ widen(ap.wk)).to(dt)
+        v = (wide_hid @ widen(ap.wv)).to(dt)
+        s = torch.einsum("nph,nqh->npq", widen(q), widen(k)) / math.sqrt(cfg.hidden_size)
         p_idx = torch.arange(hid.shape[1], device=hid.device)
         mask = p_idx[:, None] >= p_idx[None, :]
         s = s.masked_fill(~mask[None], float("-inf"))
-        hid = hid + torch.einsum("npq,nqh->nph", torch.softmax(s, dim=-1), v)
+        probs = torch.softmax(s, dim=-1).to(dt)
+        hid = hid + torch.einsum("npq,nqh->nph", widen(probs), widen(v)).to(dt)
     return _readout_apply(params, hid), c_sq
 
 

@@ -1,4 +1,5 @@
-// Helpers shared by the kernel sources: per-device launch state.
+// Helpers shared by the kernel sources: per-device launch state, and the
+// conversions of a bf16 stream to and from the float its kernels compute in.
 //
 // A CUDA function attribute such as the dynamic shared-memory opt-in is set
 // per device, and a process may launch on several cards; so every cache of
@@ -7,11 +8,26 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 namespace repro {
+
+// an element widened to float (exact for bf16), and a float rounded to the
+// element type (to nearest even for bf16: one rounding, as the reference's
+// astype)
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <class T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+    return __float2bfloat16_rn(v);
+}
 
 constexpr int MAX_DEVICES = 64;          // devices past this are not cached
 constexpr size_t DEFAULT_SMEM = 48 * 1024;  // dynamic shared memory without opt-in

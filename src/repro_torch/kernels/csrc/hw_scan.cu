@@ -1,4 +1,5 @@
-// K1: batched Holt-Winters smoothing scan (forward), fp32, sm_90a.
+// K1: batched Holt-Winters smoothing scan (forward), sm_90a; y in fp32 or
+// bf16, the state and the outputs in fp32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/hw_scan.py:_hw_scan_kernel.
 //
@@ -57,7 +58,18 @@
 // where y sits, when it is read and how the divisions are scheduled changed
 // from the one-load-per-step kernel before this design: the outputs are the
 // same bits.
+//
+// bf16 y (the bf16 policy's observation stream; the reference kernel widens
+// each loaded row, hw_scan.py:60-63): the kernel is templated on y's element
+// type. The tiles stage bf16 rows (half the bytes; 16-byte copies take 8
+// series where N is a multiple of 8, else each thread loads its own 2-byte
+// element), each y_t is widened to float as the walk reads it, and the
+// ring, levels and seas stay float. Widening is exact, so the outputs are
+// the plain version's on the same bf16 y (torch promotes bf16 x fp32 to
+// fp32 the same way), bit for bit. The bytes fall to 2N(T) + 4N(2T + 2m +
+// 2): 31.7 MB at the forecast's shape, 0.0094 ms at the HBM rate.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -85,8 +97,8 @@ __device__ __forceinline__ void hw_steps(const float (&y)[U], float (&s)[U], flo
     }
 }
 
-template <bool GLOBAL_RING, int COPY>
-__global__ void hw_scan_kernel(const float* __restrict__ y,
+template <bool GLOBAL_RING, int COPY, class T>
+__global__ void hw_scan_kernel(const T* __restrict__ y,
                                const float* __restrict__ alpha,
                                const float* __restrict__ gamma,
                                const float* __restrict__ init_seas,
@@ -94,18 +106,19 @@ __global__ void hw_scan_kernel(const float* __restrict__ y,
                                float* __restrict__ seas,
                                float* __restrict__ ring_buf,
                                int t_len, int n, int m, int tile) {
-    extern __shared__ __align__(16) float smem[];   // [stages][tile][bs], then the ring
+    extern __shared__ __align__(16) unsigned char smem_bytes[];
+    T* smem = reinterpret_cast<T*>(smem_bytes);     // [stages][tile][bs] of y, then the ring
     const int bs = blockDim.x;
     const long ln = n;
     const long col0 = static_cast<long>(blockIdx.x) * bs;
     const long col = col0 + threadIdx.x;
     const bool live = col < n;
     const int tiles = (t_len + tile - 1) / tile;
-    const int tile_floats = tile * bs;
-    const repro::Stager copier = repro::Stager::make<COPY>();
+    const int tile_elems = tile * bs;
+    const repro::Stager copier = repro::Stager::make<COPY, T>();
     const auto stage = [&](int j) {
         const int t0 = j * tile;
-        repro::stage_rows<COPY>(copier, smem + (j % SCAN_PIPE) * tile_floats, y, t0,
+        repro::stage_rows<COPY>(copier, smem + (j % SCAN_PIPE) * tile_elems, y, t0,
                                 min(tile, t_len - t0), n, col0);
     };
     for (int j = 0; j < SCAN_PIPE - 1; ++j) {
@@ -116,7 +129,8 @@ __global__ void hw_scan_kernel(const float* __restrict__ y,
     // slot k of this series' ring is ring[k * bd]: a shared-memory column
     // after the tile buffers, or a column of the [m][N] device buffer
     const int stages = min(SCAN_PIPE, tiles);
-    float* ring = GLOBAL_RING ? ring_buf + col : smem + stages * tile_floats + threadIdx.x;
+    float* ring = GLOBAL_RING ? ring_buf + col
+                              : reinterpret_cast<float*>(smem + stages * tile_elems) + threadIdx.x;
     const long bd = GLOBAL_RING ? ln : static_cast<long>(bs);
     float a = 0.0f, g = 0.0f, one_minus_a = 0.0f, one_minus_g = 0.0f, level = 0.0f;
     if (live) {
@@ -125,7 +139,7 @@ __global__ void hw_scan_kernel(const float* __restrict__ y,
         one_minus_a = __fadd_rn(1.0f, -a);
         one_minus_g = __fadd_rn(1.0f, -g);
         for (int k = 0; k < m; ++k) ring[k * bd] = init_seas[k * ln + col];
-        level = y[col] / ring[0];   // primer l_{-1} = y_0 / s_0
+        level = repro::widen(y[col]) / ring[0];   // primer l_{-1} = y_0 / s_0
     }
 
     int slot = 0;
@@ -134,7 +148,7 @@ __global__ void hw_scan_kernel(const float* __restrict__ y,
     // division if an operand was out of its range (hw_scan.cuh), then write
     // the ring (in step order, so a slot keeps its latest value), levels
     // and seas
-    const auto walk = [&](auto group, const float* yt, int r, long t) {
+    const auto walk = [&](auto group, const T* yt, int r, long t) {
         constexpr int U = decltype(group)::U;
         constexpr int F = decltype(group)::F;
         float yv[U], sv[U], lv[U], sn[U];
@@ -142,7 +156,7 @@ __global__ void hw_scan_kernel(const float* __restrict__ y,
 #pragma unroll
         for (int k = 0; k < U; ++k) {
             sl[k] = slot;
-            yv[k] = yt[(r + k) * bs];
+            yv[k] = repro::widen(yt[(r + k) * bs]);
             if (F == 0 || k < F) sv[k] = ring[slot * bd];
             slot = slot + 1 == m ? 0 : slot + 1;
         }
@@ -166,7 +180,7 @@ __global__ void hw_scan_kernel(const float* __restrict__ y,
         if (j + SCAN_PIPE - 1 < tiles) stage(j + SCAN_PIPE - 1);
         __pipeline_commit();
         if (!live) continue;
-        const float* yt = smem + (j % SCAN_PIPE) * tile_floats + threadIdx.x;
+        const T* yt = smem + (j % SCAN_PIPE) * tile_elems + threadIdx.x;
         const int t0 = j * tile;
         const int rows = min(tile, t_len - t0);
         int r = 0;
@@ -182,12 +196,12 @@ __global__ void hw_scan_kernel(const float* __restrict__ y,
 }
 
 // one launch; each instantiation keeps its own opt-in table (common.cuh)
-template <bool GLOBAL_RING, int COPY>
-int launch(const repro::ScanPlan& p, cudaStream_t st, const float* y, const float* alpha,
+template <bool GLOBAL_RING, int COPY, class T>
+int launch(const repro::ScanPlan& p, cudaStream_t st, const T* y, const float* alpha,
            const float* gamma, const float* init_seas, float* levels, float* seas, float* ring,
            int t_len, int n, int m) {
     static repro::SmemOptIn opt_in;
-    const auto kernel = hw_scan_kernel<GLOBAL_RING, COPY>;
+    const auto kernel = hw_scan_kernel<GLOBAL_RING, COPY, T>;
     cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(kernel), p.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<p.blocks, p.block, p.smem, st>>>(y, alpha, gamma, init_seas, levels, seas, ring,
@@ -195,25 +209,45 @@ int launch(const repro::ScanPlan& p, cudaStream_t st, const float* y, const floa
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
 // plan: kernels/hw_scan.py:scan_plan's ints (hw_scan.cuh:ScanPlan); ring:
 // null unless the plan puts the ring in a [m][n] device buffer
-extern "C" int hw_scan_f32(const void* y, const void* alpha, const void* gamma,
-                           const void* init_seas, void* levels, void* seas, void* ring,
-                           const int* plan, int plan_len, int t_len, int n, int m,
-                           void* stream) {
+template <class T>
+int hw_scan_entry(const void* y, const void* alpha, const void* gamma, const void* init_seas,
+                  void* levels, void* seas, void* ring, const int* plan, int plan_len, int t_len,
+                  int n, int m, void* stream) {
+    constexpr int ELEM = sizeof(T);
     repro::ScanPlan p;
     const void* staged[] = {y};
-    cudaError_t err = repro::read_scan_plan(plan, plan_len, n, t_len, m, 1, ring, staged, 1, &p);
+    cudaError_t err =
+        repro::read_scan_plan(plan, plan_len, n, t_len, m, 1, ring, staged, 1, &p, ELEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     const auto go = [&](auto run) {
-        return run(p, static_cast<cudaStream_t>(stream), static_cast<const float*>(y),
+        return run(p, static_cast<cudaStream_t>(stream), static_cast<const T*>(y),
                    static_cast<const float*>(alpha), static_cast<const float*>(gamma),
                    static_cast<const float*>(init_seas), static_cast<float*>(levels),
                    static_cast<float*>(seas), static_cast<float*>(ring), t_len, n, m);
     };
     const bool global_ring = p.ring == repro::RING_GLOBAL;
-    if (p.copy == 16) return global_ring ? go(launch<true, 16>) : go(launch<false, 16>);
-    return global_ring ? go(launch<true, 4>) : go(launch<false, 4>);
+    if (p.copy == 16)
+        return global_ring ? go(launch<true, 16, T>) : go(launch<false, 16, T>);
+    return global_ring ? go(launch<true, ELEM, T>) : go(launch<false, ELEM, T>);
+}
+
+}  // namespace
+
+extern "C" int hw_scan_f32(const void* y, const void* alpha, const void* gamma,
+                           const void* init_seas, void* levels, void* seas, void* ring,
+                           const int* plan, int plan_len, int t_len, int n, int m,
+                           void* stream) {
+    return hw_scan_entry<float>(y, alpha, gamma, init_seas, levels, seas, ring, plan, plan_len,
+                                t_len, n, m, stream);
+}
+
+// y in bf16; alpha, gamma, init_seas and the outputs float, as above
+extern "C" int hw_scan_bf16(const void* y, const void* alpha, const void* gamma,
+                            const void* init_seas, void* levels, void* seas, void* ring,
+                            const int* plan, int plan_len, int t_len, int n, int m,
+                            void* stream) {
+    return hw_scan_entry<__nv_bfloat16>(y, alpha, gamma, init_seas, levels, seas, ring, plan,
+                                        plan_len, t_len, n, m, stream);
 }

@@ -1,5 +1,6 @@
 // K3: fused LSTM cell (inference forward), K4: the same forward that also
-// writes the gate activations, and K5: its backward; fp32, sm_90a.
+// writes the gate activations, and K5: its backward; sm_90a. K3 in fp32 and
+// bf16, K4 and K5 in fp32.
 //
 // Replace the Pallas TPU kernels src/repro/kernels/lstm_cell.py:_lstm_kernel
 // (K3), _lstm_fwd_kernel (K4) and _lstm_bwd_kernel (K5).
@@ -72,6 +73,20 @@
 // one block per SM, 25-30 % of its time at the forecast's largest shapes,
 // so the presets do not take them.
 //
+// K3 in bf16 (the bf16 policy; the reference kernel's contract,
+// src/repro/kernels/lstm_cell.py:48-69): x, h, c, Wx, Wh and b all bf16.
+// Both kernels are templated on that element type. The weights are widened
+// to float as they are staged, so the shared-memory layout and cell_plan's
+// arithmetic are the fp32 kernel's; the input tile, c and the bias are
+// widened as they are loaded. The gate sums (products of bf16 values are
+// exact in float), the activations and the state update run in float, and
+// h' and c' are rounded to bf16 once (__float2bfloat16_rn); h' uses the
+// float c'. Its bound is the bytes: half the fp32 kernel's, 8.4 MB at
+// B = 24,000, I = 14, H = 40 (0.0025 ms), since bf16 operands could run the
+// products on the tensor cores (0.0004 ms at 989 TFLOP/s). This simple
+// form runs them as float FMAs on the CUDA cores, as the fp32 kernel does,
+// so its own ceiling is that kernel's (0.0062 ms at 67 TFLOP/s).
+//
 // K5 is described above its kernel, further down.
 
 #include <cuda_pipeline.h>
@@ -104,15 +119,19 @@ struct CellPlan {
     int smem;       // dynamic shared memory, bytes
 };
 
-template <bool WITH_ACT, int CELL_R>
-__global__ void lstm_cell_smem(const float* __restrict__ wx,
-                               const float* __restrict__ wh,
-                               const float* __restrict__ b,
-                               const float* __restrict__ x,
-                               const float* __restrict__ h,
-                               const float* __restrict__ c,
-                               float* __restrict__ h_out,
-                               float* __restrict__ c_out,
+// an element of a K3 input read through the read-only cache, as float
+template <class T>
+__device__ __forceinline__ float ldf(const T* p) { return repro::widen(__ldg(p)); }
+
+template <bool WITH_ACT, int CELL_R, class T>
+__global__ void lstm_cell_smem(const T* __restrict__ wx,
+                               const T* __restrict__ wh,
+                               const T* __restrict__ b,
+                               const T* __restrict__ x,
+                               const T* __restrict__ h,
+                               const T* __restrict__ c,
+                               T* __restrict__ h_out,
+                               T* __restrict__ c_out,
                                float* __restrict__ act,
                                int rows, int in_size, int hidden, int tile_groups) {
     extern __shared__ float4 smem4[];
@@ -135,10 +154,10 @@ __global__ void lstm_cell_smem(const float* __restrict__ wx,
             const int e = e0 + u * blockDim.x;
             if (e < n_w) {
                 const int k = e / hidden, j = e - k * hidden;
-                const float* src = k < in_size ? wx + static_cast<long>(k) * g4 + j
-                                               : wh + static_cast<long>(k - in_size) * g4 + j;
-                w[u] = make_float4(__ldg(src), __ldg(src + hidden), __ldg(src + 2 * hidden),
-                                   __ldg(src + 3 * hidden));
+                const T* src = k < in_size ? wx + static_cast<long>(k) * g4 + j
+                                           : wh + static_cast<long>(k - in_size) * g4 + j;
+                w[u] = make_float4(ldf(src), ldf(src + hidden), ldf(src + 2 * hidden),
+                                   ldf(src + 3 * hidden));
             }
         }
 #pragma unroll
@@ -151,8 +170,8 @@ __global__ void lstm_cell_smem(const float* __restrict__ wx,
     const int grp = threadIdx.x / hidden;      // blockDim.x is a multiple of hidden
     const int j = threadIdx.x - grp * hidden;
     const bool computes = grp < tile_groups;
-    const float bi = __ldg(b + j), bf = __ldg(b + hidden + j);
-    const float bg = __ldg(b + 2 * hidden + j), bo = __ldg(b + 3 * hidden + j);
+    const float bi = ldf(b + j), bf = ldf(b + hidden + j);
+    const float bg = ldf(b + 2 * hidden + j), bo = ldf(b + 3 * hidden + j);
     const long n_tiles = (static_cast<long>(rows) + tile - 1) / tile;
 
     for (long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -164,7 +183,7 @@ __global__ void lstm_cell_smem(const float* __restrict__ wx,
 #pragma unroll
         for (int r = 0; r < CELL_R; ++r) {
             const int lr = grp * CELL_R + r;
-            c_in[r] = active && lr < nr ? __ldg(c + (row0 + lr) * hidden + j) : 0.0f;
+            c_in[r] = active && lr < nr ? ldf(c + (row0 + lr) * hidden + j) : 0.0f;
         }
         __syncthreads();                       // weights stored / last tile consumed
         const int n_in = tile * kw;
@@ -176,8 +195,8 @@ __global__ void lstm_cell_smem(const float* __restrict__ wx,
                 const int r = e / kw, k = e - r * kw;
                 v[u] = 0.0f;
                 if (e < n_in && r < nr) {
-                    v[u] = k < in_size ? __ldg(x + (row0 + r) * in_size + k)
-                                       : __ldg(h + (row0 + r) * hidden + (k - in_size));
+                    v[u] = k < in_size ? ldf(x + (row0 + r) * in_size + k)
+                                       : ldf(h + (row0 + r) * hidden + (k - in_size));
                 }
             }
 #pragma unroll
@@ -224,8 +243,8 @@ __global__ void lstm_cell_smem(const float* __restrict__ wx,
             const float si = sigmoidf(acc[r][0] + bi), sf = sigmoidf(acc[r][1] + bf);
             const float tg = tanhf(acc[r][2] + bg), so = sigmoidf(acc[r][3] + bo);
             const float c_new = sf * c_in[r] + si * tg;
-            c_out[idx] = c_new;
-            h_out[idx] = so * tanhf(c_new);
+            c_out[idx] = repro::narrow<T>(c_new);
+            h_out[idx] = repro::narrow<T>(so * tanhf(c_new));
             if (WITH_ACT) {
                 float* ar = act + (row0 + lr) * g4 + j;
                 ar[0] = si;
@@ -240,15 +259,15 @@ __global__ void lstm_cell_smem(const float* __restrict__ wx,
 // lstm_cell_smem for any width: unit slices (the grid's y), k-chunks of the
 // weights, and the gate sums in blocks of CELL_SUM_BLOCK k; CELL_WIDE_R rows
 // per thread
-template <bool WITH_ACT>
-__global__ void lstm_cell_wide(const float* __restrict__ wx,
-                               const float* __restrict__ wh,
-                               const float* __restrict__ b,
-                               const float* __restrict__ x,
-                               const float* __restrict__ h,
-                               const float* __restrict__ c,
-                               float* __restrict__ h_out,
-                               float* __restrict__ c_out,
+template <bool WITH_ACT, class T>
+__global__ void lstm_cell_wide(const T* __restrict__ wx,
+                               const T* __restrict__ wh,
+                               const T* __restrict__ b,
+                               const T* __restrict__ x,
+                               const T* __restrict__ h,
+                               const T* __restrict__ c,
+                               T* __restrict__ h_out,
+                               T* __restrict__ c_out,
                                float* __restrict__ act,
                                int rows, int in_size, int hidden, int tile_groups,
                                int units, int k_chunk) {
@@ -279,10 +298,10 @@ __global__ void lstm_cell_wide(const float* __restrict__ wx,
                 const int kk = e / units, jl = e - kk * units;
                 if (e < n_w && jl < nu) {
                     const int k = k0 + kk, j = j0 + jl;
-                    const float* src = k < in_size ? wx + static_cast<long>(k) * g4 + j
-                                                   : wh + static_cast<long>(k - in_size) * g4 + j;
-                    w[u] = make_float4(__ldg(src), __ldg(src + hidden), __ldg(src + 2 * hidden),
-                                       __ldg(src + 3 * hidden));
+                    const T* src = k < in_size ? wx + static_cast<long>(k) * g4 + j
+                                               : wh + static_cast<long>(k - in_size) * g4 + j;
+                    w[u] = make_float4(ldf(src), ldf(src + hidden), ldf(src + 2 * hidden),
+                                       ldf(src + 3 * hidden));
                 } else {
                     w[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
                 }
@@ -301,8 +320,8 @@ __global__ void lstm_cell_wide(const float* __restrict__ wx,
     const int j = j0 + jl;
     const bool computes = grp < tile_groups && jl < nu;
     const int jb = jl < nu ? j : j0;           // a valid unit for the bias loads
-    const float bi = __ldg(b + jb), bf = __ldg(b + hidden + jb);
-    const float bg = __ldg(b + 2 * hidden + jb), bo = __ldg(b + 3 * hidden + jb);
+    const float bi = ldf(b + jb), bf = ldf(b + hidden + jb);
+    const float bg = ldf(b + 2 * hidden + jb), bo = ldf(b + 3 * hidden + jb);
     const long n_tiles = (static_cast<long>(rows) + tile - 1) / tile;
 
     for (long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -314,7 +333,7 @@ __global__ void lstm_cell_wide(const float* __restrict__ wx,
 #pragma unroll
         for (int r = 0; r < CELL_R; ++r) {
             const int lr = grp * CELL_R + r;
-            c_in[r] = active && lr < nr ? __ldg(c + (row0 + lr) * hidden + j) : 0.0f;
+            c_in[r] = active && lr < nr ? ldf(c + (row0 + lr) * hidden + j) : 0.0f;
         }
         float acc[CELL_R][4], tot[CELL_R][4];
 #pragma unroll
@@ -335,8 +354,8 @@ __global__ void lstm_cell_wide(const float* __restrict__ wx,
                     const int r = e / kc, k = k0 + e - r * kc;
                     v[u] = 0.0f;
                     if (e < n_in && r < nr) {
-                        v[u] = k < in_size ? __ldg(x + (row0 + r) * in_size + k)
-                                           : __ldg(h + (row0 + r) * hidden + (k - in_size));
+                        v[u] = k < in_size ? ldf(x + (row0 + r) * in_size + k)
+                                           : ldf(h + (row0 + r) * hidden + (k - in_size));
                     }
                 }
 #pragma unroll
@@ -394,8 +413,8 @@ __global__ void lstm_cell_wide(const float* __restrict__ wx,
             const float si = sigmoidf(gs[0] + bi), sf = sigmoidf(gs[1] + bf);
             const float tg = tanhf(gs[2] + bg), so = sigmoidf(gs[3] + bo);
             const float c_new = sf * c_in[r] + si * tg;
-            c_out[idx] = c_new;
-            h_out[idx] = so * tanhf(c_new);
+            c_out[idx] = repro::narrow<T>(c_new);
+            h_out[idx] = repro::narrow<T>(so * tanhf(c_new));
             if (WITH_ACT) {
                 float* ar = act + (row0 + lr) * g4 + j;
                 ar[0] = si;
@@ -407,14 +426,14 @@ __global__ void lstm_cell_wide(const float* __restrict__ wx,
     }
 }
 
-template <bool WITH_ACT, int CELL_R, bool WIDE>
+template <bool WITH_ACT, int CELL_R, bool WIDE, class T>
 int launch_cell_tiles(const void* wx, const void* wh, const void* b, const void* x,
                       const void* h, const void* c, void* h_out, void* c_out, void* act,
                       int rows, int in_size, int hidden, const CellPlan& p, cudaStream_t stream) {
     static repro::SmemOptIn opt_in;            // per device (common.cuh)
     const void* kernel;
-    if constexpr (WIDE) kernel = reinterpret_cast<const void*>(lstm_cell_wide<WITH_ACT>);
-    else kernel = reinterpret_cast<const void*>(lstm_cell_smem<WITH_ACT, CELL_R>);
+    if constexpr (WIDE) kernel = reinterpret_cast<const void*>(lstm_cell_wide<WITH_ACT, T>);
+    else kernel = reinterpret_cast<const void*>(lstm_cell_smem<WITH_ACT, CELL_R, T>);
     cudaError_t err = opt_in.ensure(kernel, p.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     int sms = 0, per_sm = 0;
@@ -429,16 +448,16 @@ int launch_cell_tiles(const void* wx, const void* wh, const void* b, const void*
     const long n_tiles = (rows + tile - 1) / tile;
     const long fit = std::max(1L, static_cast<long>(per_sm) * sms / p.slices);
     const dim3 grid(static_cast<unsigned>(std::min(n_tiles, fit)), static_cast<unsigned>(p.slices));
-    const auto f = [](const void* v) { return static_cast<const float*>(v); };
+    const auto f = [](const void* v) { return static_cast<const T*>(v); };
     if constexpr (WIDE) {
-        lstm_cell_wide<WITH_ACT><<<grid, p.threads, p.smem, stream>>>(
-            f(wx), f(wh), f(b), f(x), f(h), f(c), static_cast<float*>(h_out),
-            static_cast<float*>(c_out), static_cast<float*>(act), rows, in_size, hidden,
+        lstm_cell_wide<WITH_ACT, T><<<grid, p.threads, p.smem, stream>>>(
+            f(wx), f(wh), f(b), f(x), f(h), f(c), static_cast<T*>(h_out),
+            static_cast<T*>(c_out), static_cast<float*>(act), rows, in_size, hidden,
             p.groups, p.units, p.k_chunk);
     } else {
-        lstm_cell_smem<WITH_ACT, CELL_R><<<grid, p.threads, p.smem, stream>>>(
-            f(wx), f(wh), f(b), f(x), f(h), f(c), static_cast<float*>(h_out),
-            static_cast<float*>(c_out), static_cast<float*>(act), rows, in_size, hidden,
+        lstm_cell_smem<WITH_ACT, CELL_R, T><<<grid, p.threads, p.smem, stream>>>(
+            f(wx), f(wh), f(b), f(x), f(h), f(c), static_cast<T*>(h_out),
+            static_cast<T*>(c_out), static_cast<float*>(act), rows, in_size, hidden,
             p.groups);
     }
     return static_cast<int>(cudaGetLastError());
@@ -460,8 +479,8 @@ bool cell_plan_fits(const CellPlan& p, int in_size, int hidden) {
 
 // 4 rows per thread up to three 64-row tiles per SM (more blocks, shorter
 // chains), 8 above (fewer shared-memory reads per FMA); the sums, and so
-// the results, are the same either way
-template <bool WITH_ACT>
+// the results, are the same either way. T: the inputs' and outputs' type.
+template <bool WITH_ACT, class T = float>
 int launch_cell_smem(const void* wx, const void* wh, const void* b, const void* x,
                      const void* h, const void* c, void* h_out, void* c_out, void* act,
                      const void* plan, int plan_len, int rows, int in_size, int hidden,
@@ -473,8 +492,8 @@ int launch_cell_smem(const void* wx, const void* wh, const void* b, const void* 
     if (!cell_plan_fits(p, in_size, hidden)) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_CELL(R, WIDE) \
-    launch_cell_tiles<WITH_ACT, R, WIDE>(wx, wh, b, x, h, c, h_out, c_out, act, rows, in_size, \
-                                         hidden, p, st)
+    launch_cell_tiles<WITH_ACT, R, WIDE, T>(wx, wh, b, x, h, c, h_out, c_out, act, rows, \
+                                            in_size, hidden, p, st)
     if (p.wide) return REPRO_CELL(CELL_WIDE_R, true);
     if (p.cell_r == 4) return REPRO_CELL(4, false);
     if (p.cell_r == 8) return REPRO_CELL(8, false);
@@ -931,6 +950,15 @@ extern "C" int lstm_cell_f32(const void* wx, const void* wh, const void* b,
                              int rows, int in_size, int hidden, void* stream) {
     return launch_cell_smem<false>(wx, wh, b, x, h, c, h_out, c_out, nullptr, plan, plan_len,
                                    rows, in_size, hidden, stream);
+}
+
+// K3 with x, h, c, wx, wh, b, h_out and c_out all bf16
+extern "C" int lstm_cell_bf16(const void* wx, const void* wh, const void* b,
+                              const void* x, const void* h, const void* c,
+                              void* h_out, void* c_out, const void* plan, int plan_len,
+                              int rows, int in_size, int hidden, void* stream) {
+    return launch_cell_smem<false, __nv_bfloat16>(wx, wh, b, x, h, c, h_out, c_out, nullptr,
+                                                  plan, plan_len, rows, in_size, hidden, stream);
 }
 
 extern "C" int lstm_cell_fwd_f32(const void* wx, const void* wh, const void* b,

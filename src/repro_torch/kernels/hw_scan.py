@@ -18,6 +18,11 @@ the sources for the design). :class:`HWScan` is the
 backward runs K2. On CPU tensors the same Function runs the plain versions
 :func:`~repro_torch.kernels.ref.hw_scan_ref` and
 :func:`~repro_torch.kernels.ref.hw_scan_bwd_ref`.
+
+K1 also takes y in bf16 (the bf16 policy's observation stream): the same
+kernel, templated on y's element type, stages half-width tiles and widens
+each y_t; alpha, gamma, the ring and the outputs stay float32. The bf16
+backward (K2 with a bf16 y) belongs to the bf16 training slice and raises.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ BWD_STREAMS = 5                  # K2 stages y, levels, seas, dlev, dseas
 RING_PLACES = ("shared", "optin", "global")   # ScanPlan.ring, by index
 
 # launches since the last reset (kernels.ops.reset_launch_counts)
-launches = 0                     # K1
+launches = 0                     # K1, float32 y
+bf16_launches = 0                # K1, bf16 y
 bwd_launches = 0                 # K2
 
 
@@ -54,7 +60,7 @@ class ScanPlan(NamedTuple):
     block: int       # series per block, one thread each
     tile: int        # rows per staged tile
     stages: int      # tile buffers: min(SCAN_PIPE, tiles of T)
-    copy: int        # bytes per cp.async: 16 where rows are 16-byte aligned, else 4
+    copy: int        # bytes per copy: 16 where rows are 16-byte aligned, else the element's
     ring: int        # where the m-slot ring lives: an index of RING_PLACES
     smem: int        # dynamic shared memory, bytes
     blocks: int      # the grid
@@ -62,11 +68,12 @@ class ScanPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=4096)
 def scan_plan(n: int, t_len: int, m: int, smem_optin: int, sm_count: int,
-              streams: int = FWD_STREAMS, aligned: bool = True) -> ScanPlan:
+              streams: int = FWD_STREAMS, aligned: bool = True, elem: int = 4) -> ScanPlan:
     """K1's (``streams=FWD_STREAMS``) or K2's (``BWD_STREAMS``) launch for
     ``n`` series of ``t_len`` steps and an ``m``-slot ring, on a device with
     ``sm_count`` SMs and ``smem_optin`` bytes of opt-in shared memory per
-    block (an SM holds that and 1 KB per block).
+    block (an SM holds that and 1 KB per block). ``elem`` is the bytes of a
+    staged element: 4, or 2 for K1's bf16 y (the ring is float either way).
 
     * 32 series per block, so that large batches spread over every SM in
       one even wave (750 blocks at the forecast's 24,000 series) and small
@@ -79,7 +86,8 @@ def scan_plan(n: int, t_len: int, m: int, smem_optin: int, sm_count: int,
       every block of the grid is resident at once (each tile boundary costs
       the walk a wait and a barrier, so fewer tiles are faster);
     * 16-byte copies where every staged row is 16-byte aligned (``N`` a
-      multiple of 4 and ``aligned`` base pointers), else 4-byte copies.
+      multiple of 4, of 8 for bf16, and ``aligned`` base pointers), else
+      one element per copy.
 
     The arithmetic and its order are the same in every plan.
     """
@@ -90,7 +98,7 @@ def scan_plan(n: int, t_len: int, m: int, smem_optin: int, sm_count: int,
 
     def layout(tile):
         stages = min(SCAN_PIPE, _cdiv(t_len, tile))
-        return stages, 4 * stages * streams * tile * block
+        return stages, elem * stages * streams * tile * block
 
     ring_shared = layout(SCAN_TILES[-1])[1] + ring_bytes <= smem_optin
     cap = next((t for t in reversed(SCAN_TILES) if t >= t_len), SCAN_TILES[0])
@@ -101,7 +109,7 @@ def scan_plan(n: int, t_len: int, m: int, smem_optin: int, sm_count: int,
         if tile <= cap and smem <= smem_optin and resident:
             break
     where = "global" if not ring_shared else ("shared" if smem <= DEFAULT_SMEM else "optin")
-    copy = 16 if aligned and n % 4 == 0 else 4
+    copy = 16 if aligned and (n * elem) % 16 == 0 else elem
     return ScanPlan(block, tile, stages, copy, RING_PLACES.index(where), smem, blocks)
 
 
@@ -114,7 +122,8 @@ def _launch_plan(kernel: str, t_len: int, n: int, m: int, dev, streams: int, sta
         raise ValueError(f"{kernel}: empty problem (T={t_len}, N={n}, M={m})")
     limits = build.device_limits(dev)
     aligned = all(t.data_ptr() % 16 == 0 for t in staged)
-    plan = scan_plan(n, t_len, m, limits.smem_optin, limits.sm_count, streams, aligned)
+    plan = scan_plan(n, t_len, m, limits.smem_optin, limits.sm_count, streams, aligned,
+                     staged[0].element_size())
     ring = (torch.empty((m, n), dtype=torch.float32, device=dev)
             if RING_PLACES[plan.ring] == "global" else None)
     return plan, ring
@@ -123,16 +132,20 @@ def _launch_plan(kernel: str, t_len: int, n: int, m: int, dev, streams: int, sta
 def hw_scan_tm(y_tm, alpha, gamma, init_seas_tm):
     """Launch K1. y_tm: (T, N); alpha/gamma: (N,); init_seas_tm: (M, N).
 
-    All float32, contiguous, on one CUDA device. Returns levels_tm (T, N) and
-    seas_tm (T+M, N). Raises on anything else -- it never computes on the CPU.
+    y float32 or bfloat16, the rest float32; all contiguous, on one CUDA
+    device. Returns float32 levels_tm (T, N) and seas_tm (T+M, N). Raises on
+    anything else -- it never computes on the CPU.
     """
-    global launches
+    global launches, bf16_launches
     t_len, n = y_tm.shape
     m = init_seas_tm.shape[0]
     dev = y_tm.device
+    build.check_inputs("hw_scan", [("y_tm", y_tm, (t_len, n))], dev,
+                       dtypes=(torch.float32, torch.bfloat16))
     build.check_inputs("hw_scan", [
-        ("y_tm", y_tm, (t_len, n)), ("alpha", alpha, (n,)), ("gamma", gamma, (n,)),
+        ("alpha", alpha, (n,)), ("gamma", gamma, (n,)),
         ("init_seas_tm", init_seas_tm, (m, n))], dev)
+    bf16 = y_tm.dtype == torch.bfloat16
     plan, ring = _launch_plan("hw_scan", t_len, n, m, dev, FWD_STREAMS, [y_tm])
 
     levels = torch.empty((t_len, n), dtype=torch.float32, device=dev)
@@ -141,13 +154,16 @@ def hw_scan_tm(y_tm, alpha, gamma, init_seas_tm):
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hw_scan_f32(
+        err = (lib.hw_scan_bf16 if bf16 else lib.hw_scan_f32)(
             y_tm.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
             init_seas_tm.data_ptr(), levels.data_ptr(), seas.data_ptr(),
             None if ring is None else ring.data_ptr(), ctypes.addressof(plan_ints),
             len(plan_ints), t_len, n, m, stream)
     build.check(err, "hw_scan")
-    launches += 1
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return levels, seas
 
 
@@ -210,6 +226,9 @@ class HWScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dlev, dseas):
         y_tm, alpha, gamma, levels, seas = ctx.saved_tensors
+        if y_tm.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                f"the HW scan's backward with a bf16 y comes with {build.BF16_TRAINING}")
         # set_materialize_grads is on (the default): an unused output comes
         # in as zeros, never None
         if y_tm.device.type == "cuda":

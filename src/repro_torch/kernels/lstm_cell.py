@@ -24,6 +24,11 @@ counterpart of the JAX ``custom_vjp``); the plain versions are
 :func:`~repro_torch.kernels.ref.lstm_cell_fwd_ref` and
 :func:`~repro_torch.kernels.ref.lstm_cell_bwd_ref`, which the same Function
 runs on CPU tensors.
+
+K3 also takes bf16 (the bf16 policy's stream, every input in bf16): both
+plans, templated on the element type, widen as they load, compute in
+float32 and round h' and c' to bf16 once. K4 and K5 in bf16 belong to the
+bf16 training slice: :class:`LSTMCell` raises on bf16 inputs.
 """
 
 from __future__ import annotations
@@ -61,7 +66,8 @@ _C_CONSTANTS = ("CELL_PAD", "CELL_SUM_BLOCK", "CELL_WIDE_R", "BWD_THREADS",
                 "CellPlan", "BwdPlan")
 
 # launches since the last reset (kernels.ops.reset_launch_counts)
-launches = 0                     # K3
+launches = 0                     # K3, float32
+bf16_launches = 0                # K3, bf16
 fwd_launches = 0                 # K4
 bwd_launches = 0                 # K5
 
@@ -208,14 +214,19 @@ def _kernel_library() -> ctypes.CDLL:
 _plan_ints = build.plan_ints
 
 
-def _cell_shapes(kernel, wx, wh, b, x, h, c):
+def _cell_shapes(kernel, wx, wh, b, x, h, c, dtypes=(torch.float32,)):
+    """Check a K3/K4 call: every input of one of ``dtypes``, all of one
+    dtype (the JAX kernel's one stream dtype)."""
     rows, in_size = x.shape
     hidden = h.shape[1]
     dev = x.device
     build.check_inputs(kernel, [
         ("wx", wx, (in_size, 4 * hidden)), ("wh", wh, (hidden, 4 * hidden)),
         ("b", b, (4 * hidden,)), ("x", x, (rows, in_size)),
-        ("h", h, (rows, hidden)), ("c", c, (rows, hidden))], dev)
+        ("h", h, (rows, hidden)), ("c", c, (rows, hidden))], dev, dtypes)
+    mixed = {str(t.dtype) for t in (wx, wh, b, x, h, c)}
+    if len(mixed) > 1:
+        raise TypeError(f"{kernel}: the inputs mix {sorted(mixed)}; the kernel takes one dtype")
     if rows < 1 or hidden < 1:
         raise ValueError(f"{kernel}: empty problem (B={rows}, H={hidden})")
     return rows, in_size, hidden, dev
@@ -229,23 +240,29 @@ def _cell_plan_ints(dev, rows, in_size, hidden):
 def lstm_cell(wx, wh, b, x, h, c):
     """Launch K3. wx:(I,4H) wh:(H,4H) b:(4H,) x:(B,I) h,c:(B,H) -> h', c'.
 
-    All float32, contiguous, on one CUDA device; gate order (i, f, g, o).
-    Raises on anything else -- it never computes on the CPU.
+    All float32 or all bfloat16, contiguous, on one CUDA device; gate order
+    (i, f, g, o); h' and c' in the inputs' dtype. Raises on anything else --
+    it never computes on the CPU.
     """
-    global launches
-    rows, in_size, hidden, dev = _cell_shapes("lstm_cell", wx, wh, b, x, h, c)
-    h_out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
-    c_out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
+    global launches, bf16_launches
+    rows, in_size, hidden, dev = _cell_shapes("lstm_cell", wx, wh, b, x, h, c,
+                                              (torch.float32, torch.bfloat16))
+    bf16 = x.dtype == torch.bfloat16
+    h_out = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
+    c_out = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
     plan = _cell_plan_ints(dev, rows, in_size, hidden)
     lib = _kernel_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lstm_cell_f32(
+        err = (lib.lstm_cell_bf16 if bf16 else lib.lstm_cell_f32)(
             wx.data_ptr(), wh.data_ptr(), b.data_ptr(), x.data_ptr(),
             h.data_ptr(), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
             ctypes.addressof(plan), len(plan), rows, in_size, hidden, stream)
     build.check(err, "lstm_cell")
-    launches += 1
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return h_out, c_out
 
 
@@ -343,6 +360,9 @@ class LSTMCell(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, wx, wh, b, x, h, c):
+        if torch.bfloat16 in {t.dtype for t in (wx, wh, b, x, h, c)}:
+            raise NotImplementedError(
+                f"a differentiable LSTM cell in bf16 (K4 and K5) comes with {build.BF16_TRAINING}")
         if x.device.type == "cuda":
             h_new, c_new, act = lstm_cell_fwd(wx, wh, b, x, h, c)
         else:

@@ -17,6 +17,11 @@ def hw_scan_ref(y, alpha, gamma, init_seas):
 
     y: (N, T) > 0; alpha, gamma: (N,) in (0,1); init_seas: (N, M) > 0.
     Returns levels (N, T), seas (N, T+M)  [seas[:, t] = s_t applied to y_t].
+
+    A bf16 y (the bf16 policy's stream) with float32 parameters: torch
+    promotes each ``alpha * y_t`` and ``y_0 / s_0`` to float32, widening
+    y_t exactly, so the ring, levels and seas stay in the parameters' dtype
+    -- the reference kernel's contract and K1's arithmetic.
     """
     t_len = y.shape[1]
     ring = list(init_seas.unbind(1))          # ring[0] is the current s_t
@@ -90,15 +95,40 @@ def hw_scan_bwd_ref(y, alpha, gamma, levels, seas, dlev, dseas):
             torch.stack(ring, dim=1))
 
 
+def widen(t):
+    """``t`` in float32 if it is a narrower float (a bf16 stream), else as
+    it is. A product of two widened bf16 values is exact in float32, so a
+    matmul of widened operands accumulates in float32 -- what the reference
+    asks with ``preferred_element_type=float32``. A bf16 matmul would round
+    its output to bf16 instead, on the CPU and in cuBLAS alike."""
+    return t.float() if t.is_floating_point() and t.element_size() < 4 else t
+
+
 def lstm_cell_ref(wx, wh, b, x, h, c):
     """Fused LSTM cell. wx:(I,4H) wh:(H,4H) b:(4H,) x:(B,I) h,c:(B,H).
 
-    Gate order (i, f, g, o)."""
+    Gate order (i, f, g, o). In bf16 (all six inputs) this is the reference
+    kernel's contract (``src/repro/kernels/lstm_cell.py:48-69``): the
+    inputs widened to float32, the gate sums, activations and state update
+    in float32, h' and c' rounded to bf16 once (h' from the float32 c')."""
+    out_dtype = x.dtype
+    wx, wh, b, x, h, c = (widen(t) for t in (wx, wh, b, x, h, c))
     gates = x @ wx + h @ wh + b
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
-    return h_new, c_new
+    return h_new.to(out_dtype), c_new.to(out_dtype)
+
+
+def bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors in bf16 units in the last
+    place: how many bf16 values lie between them, counted across zero (the
+    bit patterns ordered by value; +0 and -0 are one point). The bf16
+    kernels are held to 1 against their plain versions."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
 
 
 def lstm_cell_fwd_ref(wx, wh, b, x, h, c):

@@ -134,8 +134,10 @@ def test_config_matches_jax_field_for_field():
     tf = [(f.name, f.default) for f in dataclasses.fields(tes.ESRNNConfig)]
     assert jf == tf
     assert jes.PRESETS == tes.PRESETS
-    with pytest.raises(NotImplementedError):
-        _ = tes.make_config("quarterly", precision="bf16").compute_dtype
+    for precision in ("fp32", "bf16"):        # the compute dtype of both policies
+        got = tes.make_config("quarterly", precision=precision).compute_dtype
+        want = jes.make_config("quarterly", precision=precision).compute_dtype
+        assert str(got).removeprefix("torch.") == str(want)
 
 
 def test_init_structure_matches_jax():

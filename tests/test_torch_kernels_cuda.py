@@ -16,7 +16,14 @@ be bit-identical across two launches on the same inputs. K6 in fp32 within
 the JAX kernel test's rtol = atol = 2e-5 (sums in another order); in bf16
 against the plain version in fp32 on the same bf16 inputs, rtol = atol =
 1e-2: the output's rounding (half a bf16 ulp, 2**-9 relative) and the
-probabilities rounded to bf16 before the product with V.
+probabilities rounded to bf16 before the product with V. The bf16 streams
+of the forecast path: K1 with a bf16 y gives its plain version's bits
+(``torch.equal``: y_t is widened exactly, the rest is the fp32 walk); K3 in
+bf16 is within 1 bf16 ulp of its plain version (the float32 gate sums run
+in another order, and one rounding to bf16 can fall on either side), or,
+where the output is so near zero that float32's sum-order error spans more
+than one bf16 ulp (around |v| < 1e-4; float32 against float64 sums differ
+there by up to 10 ulps on the CPU too), within the fp32 kernel's atol 1e-5.
 """
 
 import ctypes
@@ -184,8 +191,11 @@ def test_lstm_cell_kernel_matches_plain_on_card(card, rows, in_size, hidden):
 @pytest.mark.cuda
 def test_kernels_raise_on_other_dtypes_on_card(card):
     x = torch.ones((2, 3), dtype=torch.float64, device=card)
-    with pytest.raises(TypeError, match="float32 only"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         hw_scan.hw_scan_tm(x, x[0], x[0], x)
+    y = torch.ones((2, 3), dtype=torch.bfloat16, device=card)
+    with pytest.raises(TypeError, match="alpha is torch.float64; the kernel takes float32 only"):
+        hw_scan.hw_scan_tm(y, x[0], x[0], x)
 
 
 def _hw_inputs(n, t_len, m, seed):
@@ -388,3 +398,127 @@ def test_flash_attention_refuses_what_it_does_not_take_on_card(card):
         flash_attention.flash_attention(q, k, v, causal=True)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         flash_attention.flash_attention(q.double(), k.double(), v.double(), causal=False)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 streams of K1 and K3 (the bf16 forecast and serve path)
+
+
+def _scan_bf16_case(n, t_len, m, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    y = (torch.rand((n, t_len), generator=g) * 400 + 50).to(torch.bfloat16)
+    alpha, gamma = torch.rand(n, generator=g), torch.rand(n, generator=g)
+    init_seas = torch.rand((n, m), generator=g) + 0.5
+    if m == 1:                  # the m == 1 convention of kernels/ops.py
+        gamma, init_seas = torch.zeros(n), torch.ones((n, 1))
+    return [a.to(dev) for a in (y, alpha, gamma, init_seas)]
+
+
+# the forecast's shape, every serve bucket (B x T, m = 4), m = 1, the wide
+# rings (shared, opted-in, device memory) and N off a multiple of 8 (2-byte
+# element copies)
+_BF16_SCANS = ([(24_000, 128, 4), (24_000, 128, 1)]
+               + [(b, t, 4) for b in (1, 4, 16, 64) for t in (32, 64, 128, 256)]
+               + [(300, 208, 168), (130, 440, 400), (64, 2040, 2000)]
+               + [(3, 40, 4), (33, 70, 4), (12, 333, 4), (24_001, 128, 4), (36, 41, 2)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t_len,m", _BF16_SCANS)
+def test_hw_scan_bf16_equals_plain_bit_for_bit_on_card(card, n, t_len, m):
+    y, alpha, gamma, init_seas = _scan_bf16_case(n, t_len, m, n + m, card)
+    want = ref.hw_scan_ref(y, alpha, gamma, init_seas)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = hw_scan.hw_scan_tm(y.t().contiguous(), alpha, gamma, init_seas.t().contiguous())
+    counts = ops.launch_counts()
+    assert (counts["hw_scan_bf16"], counts["hw_scan"]) == (1, 0)
+    for name, g, w in zip(("levels", "seas"), got, want):
+        assert g.dtype == torch.float32
+        assert torch.equal(g.t(), w), f"K1 bf16 {name} differs from the plain version"
+
+
+def _cell_bf16_args(rows, in_size, hidden, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s, scale=1.0: ((torch.rand(s, generator=g) * 2 - 1) * scale).to(torch.bfloat16)
+    return [a.to(dev) for a in (u(in_size, 4 * hidden, scale=in_size ** -0.5),
+                                u(hidden, 4 * hidden, scale=hidden ** -0.5),
+                                u(4 * hidden, scale=0.1), u(rows, in_size), u(rows, hidden),
+                                u(rows, hidden, scale=2.0))]
+
+
+# the forecast's first layer (B = 24,000, I = 14), every serve batch folded
+# by the quarterly dilations (rows = B * d, I = 14 then 40), and the widths
+# past the presets (H = 128, 256: k-chunks; 1,030: unit slices)
+_BF16_CELLS = ([(24_000, 14, 40), (192_000, 40, 40)]
+               + sorted({(b * d, i, 40) for b in (1, 4, 16, 64) for d, i in
+                         ((1, 14), (2, 40), (4, 40), (8, 40))})
+               + [(rows, hid, hid) for hid in (128, 256, 1030) for rows in (1, 333)]
+               + [(30_000, 18, 256)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,in_size,hidden", _BF16_CELLS)
+def test_lstm_cell_bf16_within_one_ulp_or_fp32_atol_of_plain_on_card(card, rows, in_size,
+                                                                      hidden):
+    args = _cell_bf16_args(rows, in_size, hidden, rows + hidden, card)
+    want = ref.lstm_cell_ref(*args)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = lstm_cell.lstm_cell(*args)
+        again = lstm_cell.lstm_cell(*args)
+    counts = ops.launch_counts()
+    assert (counts["lstm_cell_bf16"], counts["lstm_cell"]) == (2, 0)
+    for g, w, a in zip(got, want, again):
+        assert g.dtype == torch.bfloat16
+        past = (ref.bf16_ulps(g, w) > 1) & ((g.float() - w.float()).abs() > 1e-5)
+        assert not past.any(), f"{int(past.sum())} outputs past 1 bf16 ulp and atol 1e-5"
+        assert torch.equal(g, a), "two launches on the same inputs differ"
+
+
+@pytest.mark.cuda
+def test_bf16_forecast_launches_only_the_bf16_kernels_on_card(card):
+    from repro_torch.convert import params_to_device
+    from repro_torch.core import esrnn
+
+    cfg = esrnn.make_config("quarterly", precision="bf16")
+    params = esrnn.esrnn_init(torch.Generator().manual_seed(0), cfg, 40, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    y = torch.rand((40, 32), generator=g) * 100 + 50
+    cats = torch.eye(6)[torch.randint(0, 6, (40,), generator=g)]
+    want = esrnn.esrnn_forecast(cfg, params, y, cats)
+    ops.reset_launch_counts()
+    got = esrnn.esrnn_forecast(cfg, params_to_device(params, card), y.to(card), cats.to(card))
+    counts = ops.launch_counts()
+    positions = 32 - cfg.input_size + 1             # the window positions the stack walks
+    steps = sum(-(-positions // d) for block in cfg.dilations for d in block)
+    assert counts == dict(counts, hw_scan_bf16=1, lstm_cell_bf16=steps, hw_scan=0,
+                          lstm_cell=0, lstm_cell_fwd=0, lstm_cell_bwd=0)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-2, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_bf16_stays_off_the_training_kernels_on_card(card):
+    # K2, K4 and K5 take float32 only: a bf16 tensor raises, nothing widens
+    h = torch.ones((2, 2), dtype=torch.bfloat16, device=card)
+    w = torch.ones((3, 8), dtype=torch.bfloat16, device=card)
+    wh = torch.ones((2, 8), dtype=torch.bfloat16, device=card)
+    x = torch.ones((2, 3), dtype=torch.bfloat16, device=card)
+    with pytest.raises(TypeError, match="float32 only"):
+        lstm_cell.lstm_cell_fwd(w, wh, torch.ones(8, dtype=torch.bfloat16, device=card),
+                                x, h, h)
+    with pytest.raises(TypeError, match="float32 only"):
+        lstm_cell.lstm_cell_bwd(w, wh, x, h, h, h, torch.ones((2, 8), dtype=torch.bfloat16,
+                                                                 device=card), h, h)
+    f = torch.ones(3, device=card)
+    with pytest.raises(TypeError, match="float32 only"):
+        hw_scan.hw_scan_bwd_tm(x, f, f, x.float(), torch.ones((3, 3), device=card), x.float(),
+                               torch.ones((3, 3), device=card))
+    # K3 takes one dtype for all six inputs, as the reference kernel
+    with pytest.raises(TypeError, match="mix"):
+        lstm_cell.lstm_cell(w.float(), wh, torch.ones(8, dtype=torch.bfloat16, device=card),
+                            x, h, h)
+    with pytest.raises(NotImplementedError, match="bf16 training slice"):
+        lstm_cell.LSTMCell.apply(w.requires_grad_(True), wh, torch.ones(8, dtype=torch.bfloat16,
+                                                                        device=card), x, h, h)

@@ -138,6 +138,56 @@ def test_scan_plan_fills_the_sms_at_the_forecast(streams, sm_count):
     assert per_sm * _tiles_bytes(p, streams) >= 20 * 1024
 
 
+
+# K1 with a bf16 y (the bf16 policy): the plan takes the staged element's
+# size, 2 bytes; the ring stays float
+BF16 = 2
+
+
+@pytest.mark.parametrize("n,t_len,m,want", [
+    (24_000, 128, 4, ("shared", 128, 1, 8_704, 16)),    # the forecast: half of 16,384 + ring
+    (64, 256, 4, ("shared", 128, 2, 16_896, 16)),       # a serve bucket
+    (4, 32, 4, ("shared", 32, 1, 2_560, 2)),            # B = 4: 8-byte rows, one element a copy
+    (1, 9, 4, ("shared", 16, 1, 1_536, 2)),
+    (1_700, 128, 1_700, ("optin", 128, 1, 225_792, 2)),  # one 8 KB tile beside the ring
+    (64, 2040, 2_000, ("global", 128, 3, 24_576, 16)),
+])
+def test_scan_plan_stages_bf16_tiles(n, t_len, m, want):
+    p = hw_scan.scan_plan(n, t_len, m, H100_SMEM_OPTIN, H100_SMS, hw_scan.FWD_STREAMS,
+                          elem=BF16)
+    assert (hw_scan.RING_PLACES[p.ring], p.tile, p.stages, p.smem, p.copy) == want
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 12, 31, 33, 129, 24_001, 24_004])
+def test_scan_plan_copies_16_bytes_of_bf16_only_where_rows_align(n):
+    # a 16-byte copy moves 8 bf16 series: N must be a multiple of 8
+    assert hw_scan.scan_plan(n, 72, 4, H100_SMEM_OPTIN, H100_SMS, elem=BF16).copy == BF16
+    n8 = n + (8 - n % 8)
+    assert hw_scan.scan_plan(n8, 72, 4, H100_SMEM_OPTIN, H100_SMS, elem=BF16).copy == 16
+    assert hw_scan.scan_plan(n8, 72, 4, H100_SMEM_OPTIN, H100_SMS, aligned=False,
+                             elem=BF16).copy == BF16
+
+
+def test_scan_plan_fits_covers_and_keeps_resident_with_bf16_y():
+    for n in _SCAN_N:
+        for t_len in _SCAN_T:
+            for m in _SCAN_M:
+                p = hw_scan.scan_plan(n, t_len, m, H100_SMEM_OPTIN, H100_SMS,
+                                      hw_scan.FWD_STREAMS, elem=BF16)
+                where = hw_scan.RING_PLACES[p.ring]
+                ring = 0 if where == "global" else 4 * m * p.block
+                assert p.smem == BF16 * p.stages * p.tile * p.block + ring, (n, t_len, m)
+                assert p.smem <= H100_SMEM_OPTIN
+                assert p.blocks * p.block >= n > (p.blocks - 1) * p.block
+                assert p.stages == min(hw_scan.SCAN_PIPE, -(-t_len // p.tile)) >= 1
+                assert p.block % (16 // BF16) == 0          # whole 16-byte chunks a row
+                if p.tile != hw_scan.SCAN_TILES[-1]:
+                    per_sm = -(-p.blocks // H100_SMS)
+                    assert per_sm * (p.smem + 1024) <= H100_SMEM_OPTIN + 1024
+                # the float32 plan of the same shape never stages fewer rows
+                assert p.tile >= hw_scan.scan_plan(n, t_len, m, H100_SMEM_OPTIN,
+                                                   H100_SMS).tile
+
 def _preset_geometry(rows, in_size, hidden, sm_count):
     """K3/K4's launch of ``lstm_cell_smem`` at a preset width, written out:
     4 or 8 rows per thread, min(8, 1,024 / H) row groups (fewer below a
