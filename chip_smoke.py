@@ -22,7 +22,12 @@ generated tokens; K6 once per layer in the prefill), and one profiled
 prefill and decode step. Between the fp32 serving phases and training, the
 same forecast and server run under the bf16 policy (``precision="bf16"``:
 K1 with a bf16 y, K3 in bf16; phases ``forecast_bf16``, ``profile_bf16``
-and ``serve_bf16``), against the CPU and the card's fp32 forecast. Each
+and ``serve_bf16``), against the CPU and the card's fp32 forecast. After
+the fine-tune, training and the fine-tune run under bf16 too (K1 and K2
+with a bf16 y, K4 and K5 in bf16; phases ``train_bf16``,
+``profile_train_bf16`` and ``finetune_bf16``), against the CPU and the
+card's fp32 training, and ``owa_bf16`` fits head_compare's fast cell in
+fp32 and bf16 on the card and holds the bf16/fp32 OWA ratio to 1.01. Each
 phase prints one JSON line; any failed check raises and the script exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
@@ -67,6 +72,12 @@ TIMED_STEPS = 10
 WIDE_HIDDEN, WIDE_STEPS = 64, 3
 # the fine-tune server: known series observed, observations each, steps per burst
 FT_SERIES, FT_OBS, FT_STEPS = 8, 40, 2
+# the OWA cell: benchmarks/head_compare.py's fast cell (the quarterly
+# synthetic split at scale 0.002, seed 0; 40 steps at batch min(64, N), lr
+# 4e-3), and the reference's bf16/fp32 lstm OWA ratio on it (JAX on the
+# CPU, BENCH_PR10.json's head_compare) beside the gate both are held to
+OWA_SCALE, OWA_STEPS, OWA_BATCH, OWA_LR = 0.002, 40, 64, 4e-3
+OWA_RATIO_GATE, OWA_RATIO_REFERENCE = 1.01, 0.992
 
 # tolerances, with their reasons:
 # K1 runs the plain version's operations in the same order with IEEE
@@ -95,6 +106,16 @@ K2_RTOL, K2_ATOL = 1e-5, 1e-6
 # the plain matmuls: atol 1e-5; its weight gradients sum B rows: atol
 # 1e-5 * sqrt(B). K5's weight gradients must be bit-identical across runs.
 K45_ATOL = 1e-5
+# bf16 training streams: K2 with a bf16 y gives the plain version's bits (y_t
+# widened exactly, the fp32 walk, dy rounded once); K4 and K5 in bf16 round
+# h', c', act and dx, dh_prev, dc_prev once from float32 sums taken in
+# another order than the plain matmuls, so they are held as K3 in bf16: 1
+# bf16 ulp, or K45_ATOL near zero; K5's float32 weight gradients, before
+# their rounding, as the fp32 K5's (K45_ATOL * sqrt(B), the same bits on two
+# launches). Training under bf16, card against CPU: the bf16 serving bound
+# FC16_RTOL on per-step losses and val sMAPE; against the card's fp32 run,
+# the reference's own bf16-vs-fp32 bound (tests/core/test_precision.py).
+TRAIN16_RTOL, TRAIN16_VS_FP32_RTOL = FC16_RTOL, 0.05
 # train losses, card against CPU. The first loss differs only by summation
 # order (~1e-7 relative). Adam's steps are sign-like (about lr * sign(g)
 # per weight), so a gradient component that sits at rounding level can get
@@ -374,20 +395,8 @@ def check_lstm_cell(rows, in_size, hidden, gen, bf16=False):
     torch.cuda.synchronize()
     h_p, c_p = plain()
     if bf16:
-        pairs = ((h_k, h_p), (c_k, c_p))
-        ulps = [ref.bf16_ulps(a, b) for a, b in pairs]
-        diffs = [(a.float() - b.float()).abs() for a, b in pairs]
-        past = sum(int(((u > K3_BF16_ULPS) & (d > K3_ATOL)).sum()) for u, d in zip(ulps, diffs))
-        if past:
-            raise AssertionError(f"lstm_cell_bf16 {(rows, in_size, hidden)}: {past} outputs "
-                                 f"past {K3_BF16_ULPS} bf16 ulp and atol {K3_ATOL}")
-        err = max(float(d.max()) for d in diffs)
-        # how far the near-zero outputs went in ulps, and how many passed one
-        over = [u > K3_BF16_ULPS for u in ulps]
-        ulp_stats = dict(max_ulps=max(int(u.max()) for u in ulps),
-                         past_1_ulp=sum(int(o.sum()) for o in over),
-                         past_1_ulp_max_abs=max((float(d[o].max()) for d, o in zip(diffs, over)
-                                                 if o.any()), default=0.0))
+        err, ulp_stats = check_bf16(f"lstm_cell_bf16 {(rows, in_size, hidden)}",
+                                    ((h_k, h_p), (c_k, c_p)), K3_ATOL)
     else:
         err = max(check_close("lstm_cell h", h_k, h_p, rtol=0.0, atol=K3_ATOL),
                   check_close("lstm_cell c", c_k, c_p, rtol=0.0, atol=K3_ATOL))
@@ -408,6 +417,31 @@ def check_lstm_cell(rows, in_size, hidden, gen, bf16=False):
     if bf16:
         rec.update(ulp_stats)
     return rec
+
+
+def check_bf16(what, pairs, atol):
+    """bf16 (kernel, plain) output pairs within K3_BF16_ULPS bf16 ulp, or
+    within ``atol`` where an output is so near zero that float32's sum-order
+    error spans more ulps. Returns the max abs error and how far the
+    near-zero outputs went in ulps, and how many passed one."""
+    from repro_torch.kernels import ref
+
+    for got, want in pairs:
+        if got.dtype != want.dtype or tuple(got.shape) != tuple(want.shape):
+            raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} against "
+                                 f"{want.dtype} {tuple(want.shape)}")
+    ulps = [ref.bf16_ulps(a, b) for a, b in pairs]
+    diffs = [(a.float() - b.float()).abs() for a, b in pairs]
+    past = sum(int(((u > K3_BF16_ULPS) & (d > atol)).sum()) for u, d in zip(ulps, diffs))
+    if past:
+        raise AssertionError(f"{what}: {past} outputs past {K3_BF16_ULPS} bf16 ulp and "
+                             f"atol {atol}")
+    over = [u > K3_BF16_ULPS for u in ulps]
+    return max(float(d.max()) for d in diffs), dict(
+        max_ulps=max(int(u.max()) for u in ulps),
+        past_1_ulp=sum(int(o.sum()) for o in over),
+        past_1_ulp_max_abs=max((float(d[o].max()) for d, o in zip(diffs, over) if o.any()),
+                               default=0.0))
 
 
 def cell_plan_of(rows, in_size, hidden):
@@ -434,17 +468,21 @@ def train_path_shapes(cfg, window: int):
     return k2, k45
 
 
-def check_hw_scan_bwd(n, t_len, m, gen, timed=True):
+def check_hw_scan_bwd(n, t_len, m, gen, timed=True, bf16=False):
     """K2 against the plain adjoint on the card. No single PyTorch call
     computes the adjoint of this recurrence (autograd of the plain scan is
     one small launch per operation per step), so ``library_ms`` is None.
-    ``timed=False`` skips the plain version's timing."""
+    ``timed=False`` skips the plain version's timing; ``bf16`` streams y
+    and dy in bf16 (record ``hw_scan_bwd_bf16``), where every output must be
+    the plain version's bits."""
     import torch
 
     from repro_torch.kernels import hw_scan, ref
 
     dev = torch.device("cuda")
     y, alpha, gamma, init_seas = _hw_inputs(n, t_len, m, gen, dev)
+    if bf16:
+        y = y.to(torch.bfloat16)
     levels, seas = ref.hw_scan_ref(y, alpha, gamma, init_seas)
     dlev = torch.randn((n, t_len), generator=gen).to(dev)
     dseas = torch.randn((n, t_len + m), generator=gen).to(dev)
@@ -459,15 +497,20 @@ def check_hw_scan_bwd(n, t_len, m, gen, timed=True):
     err = max(check_close(f"hw_scan_bwd {name}", g.t() if g.dim() == 2 else g, w,
                           rtol=K2_RTOL, atol=K2_ATOL)
               for name, g, w in zip(names, got, want))
+    if bf16 and not all(g.dtype == w.dtype and torch.equal(g.t() if g.dim() == 2 else g, w)
+                        for g, w in zip(got, want)):
+        raise AssertionError(f"hw_scan_bwd_bf16 {(n, t_len, m)}: not the plain version's bits")
     ms, host_ms = time_ms(kernel), wrapper_ms(kernel)
     plain_ms = time_ms(plain, iters=3, warmup=1) if timed else None
     # reads y, levels, dlev, seas (T N: the kernel reads seas rows 0..T-1
     # only), dseas ((T+m) N), alpha, gamma; writes dy (T N), dalpha, dgamma,
-    # dinit (m N); 27 flops per (t, series)
-    n_bytes = 4 * n * (3 * t_len + t_len + (t_len + m) + 2) + 4 * n * (t_len + 2 + m)
+    # dinit (m N); 27 flops per (t, series). y and dy in y's element size
+    n_bytes = (y.element_size() * 2 * n * t_len + 4 * n * (3 * t_len + (t_len + m) + 2)
+               + 4 * n * (2 + m))
     n_flops = 27 * n * t_len
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return dict(name="hw_scan_bwd", shape=dict(N=n, T=t_len, m=m),
+    return dict(name="hw_scan_bwd_bf16" if bf16 else "hw_scan_bwd",
+                shape=dict(N=n, T=t_len, m=m),
                 plan=scan_plan_of([args_tm[i] for i in (0, 3, 4, 5, 6)], n, t_len, m, "bwd"),
                 max_abs_err=err,
                 ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=None,
@@ -475,15 +518,19 @@ def check_hw_scan_bwd(n, t_len, m, gen, timed=True):
                 bound_by=bound_by)
 
 
-def check_lstm_cell_fwd(rows, in_size, hidden, gen):
+def check_lstm_cell_fwd(rows, in_size, hidden, gen, bf16=False):
     """K4 against its plain version; ``torch.lstm_cell`` (timed only) as the
-    library yardstick, though it writes no activations."""
+    library yardstick, though it writes no activations. ``bf16``: every
+    input in bf16 (record ``lstm_cell_fwd_bf16``), h', c' and act held to
+    K3_BF16_ULPS, the bound taken at the card's bf16 rate."""
     import torch
 
     from repro_torch.kernels import lstm_cell, ref
 
     dev = torch.device("cuda")
     wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, gen, dev)
+    if bf16:
+        wx, wh, b, x, h, c = (t.to(torch.bfloat16) for t in (wx, wh, b, x, h, c))
     kernel = lambda: lstm_cell.lstm_cell_fwd(wx, wh, b, x, h, c)
     plain = lambda: ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
     w_ih, w_hh, zero_b = wx.t().contiguous(), wh.t().contiguous(), torch.zeros_like(b)
@@ -491,36 +538,47 @@ def check_lstm_cell_fwd(rows, in_size, hidden, gen):
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
-    err = max(check_close(f"lstm_cell_fwd {name}", g, w, rtol=0.0, atol=K45_ATOL)
-              for name, g, w in zip(("h", "c", "act"), got, want))
+    ulp_stats = {}
+    if bf16:
+        err, ulp_stats = check_bf16(f"lstm_cell_fwd_bf16 {(rows, in_size, hidden)}",
+                                    list(zip(got, want)), K45_ATOL)
+    else:
+        err = max(check_close(f"lstm_cell_fwd {name}", g, w, rtol=0.0, atol=K45_ATOL)
+                  for name, g, w in zip(("h", "c", "act"), got, want))
     ms, plain_ms, library_ms = time_ms(kernel), time_ms(plain), time_ms(library)
     host_ms = wrapper_ms(kernel)
     g4 = 4 * hidden
-    n_bytes = 4 * (rows * in_size + 4 * rows * hidden + rows * g4
-                   + (in_size + hidden) * g4 + g4)
+    n_bytes = x.element_size() * (rows * in_size + 4 * rows * hidden + rows * g4
+                                  + (in_size + hidden) * g4 + g4)
     n_flops = 2 * rows * (in_size + hidden) * g4
-    bound_ms, bound_by = bound(n_bytes, n_flops)
-    return dict(name="lstm_cell_fwd", shape=dict(B=rows, I=in_size, H=hidden),
+    bound_ms, bound_by = bound(n_bytes, n_flops, BF16_FLOPS if bf16 else FP32_FLOPS)
+    return dict(name="lstm_cell_fwd_bf16" if bf16 else "lstm_cell_fwd",
+                shape=dict(B=rows, I=in_size, H=hidden),
                 plan=cell_plan_of(rows, in_size, hidden)._asdict(), max_abs_err=err, ms=ms,
                 wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, **ulp_stats)
 
 
-def check_lstm_cell_bwd(rows, in_size, hidden, gen):
+def check_lstm_cell_bwd(rows, in_size, hidden, gen, bf16=False):
     """K5 against its plain version, and bit-identical weight gradients
     across two launches. No single PyTorch call computes a cell's backward
     with its weight gradients (autograd of ``torch.lstm_cell`` is a fused
     elementwise backward plus separate cuBLAS products), so ``library_ms``
-    is None."""
+    is None. ``bf16``: every input in bf16 (record ``lstm_cell_bwd_bf16``),
+    dx, dh_prev and dc_prev held to K3_BF16_ULPS, the float32 weight
+    gradients, before their rounding, as the fp32 kernel's."""
     import torch
 
     from repro_torch.kernels import build, lstm_cell, ref
 
     dev = torch.device("cuda")
     wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, gen, dev)
-    _, c_new, act = ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
     dh = torch.randn((rows, hidden), generator=gen).to(dev)
     dc = torch.randn((rows, hidden), generator=gen).to(dev)
+    if bf16:
+        wx, wh, b, x, h, c, dh, dc = (t.to(torch.bfloat16)
+                                      for t in (wx, wh, b, x, h, c, dh, dc))
+    _, c_new, act = ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
     args = (wx, wh, x, h, c, c_new, act, dh, dc)
     kernel = lambda: lstm_cell.lstm_cell_bwd(*args)
     plain = lambda: ref.lstm_cell_bwd_ref(*args)
@@ -532,23 +590,35 @@ def check_lstm_cell_bwd(rows, in_size, hidden, gen):
             raise AssertionError(f"lstm_cell_bwd {name}: two launches differ")
     want = plain()
     names = ("dx", "dh_prev", "dc_prev", "dwx", "dwh", "db")
-    err = max(check_close(f"lstm_cell_bwd {name}", g, w, rtol=0.0,
-                          atol=K45_ATOL * (1.0 if k < 3 else max(1.0, rows ** 0.5)))
-              for k, (name, g, w) in enumerate(zip(names, got, want)))
+    ulp_stats = {}
+    if bf16:
+        err, ulp_stats = check_bf16(f"lstm_cell_bwd_bf16 {(rows, in_size, hidden)}",
+                                    list(zip(got[:3], want[:3])), K45_ATOL)
+    else:
+        err = max(check_close(f"lstm_cell_bwd {name}", g, w, rtol=0.0, atol=K45_ATOL)
+                  for name, g, w in zip(names[:3], got[:3], want[:3]))
+    # the weight gradients, float32 sums over B rows in either dtype
+    err = max([err] + [check_close(f"lstm_cell_bwd {name}", g, w, rtol=0.0,
+                                   atol=K45_ATOL * max(1.0, rows ** 0.5))
+                       for name, g, w in zip(names[3:], got[3:], want[3:])])
     ms, plain_ms, host_ms = time_ms(kernel), time_ms(plain), wrapper_ms(kernel)
     g4, kw = 4 * hidden, in_size + hidden
-    n_bytes = (4 * (kw * g4 + rows * in_size + 5 * rows * hidden + rows * g4)
-               + 4 * (rows * in_size + 2 * rows * hidden + kw * g4 + g4))
+    e = x.element_size()
+    # inputs in the stream dtype; dx, dh_prev, dc_prev in it, the weight
+    # gradients float32
+    n_bytes = (e * (kw * g4 + rows * in_size + 5 * rows * hidden + rows * g4)
+               + e * (rows * in_size + 2 * rows * hidden) + 4 * (kw * g4 + g4))
     # dx + dh_prev and the weight gradients: two products over 4H x (I + H)
     # per row; db and the gate algebra (about 20 flops per row and unit)
     n_flops = 4 * rows * g4 * kw + rows * g4 + 20 * rows * hidden
-    bound_ms, bound_by = bound(n_bytes, n_flops)
+    bound_ms, bound_by = bound(n_bytes, n_flops, BF16_FLOPS if bf16 else FP32_FLOPS)
     plan = lstm_cell.bwd_plan(rows, in_size, hidden, build.device_limits(dev).smem_optin)
-    return dict(name="lstm_cell_bwd", shape=dict(B=rows, I=in_size, H=hidden),
+    return dict(name="lstm_cell_bwd_bf16" if bf16 else "lstm_cell_bwd",
+                shape=dict(B=rows, I=in_size, H=hidden),
                 plan=dict(plan._asdict(), blocks=plan.blocks),
                 max_abs_err=err, deterministic=True, ms=ms, wrapper_ms=host_ms,
                 plain_ms=plain_ms,
-                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by, **ulp_stats)
 
 
 def k6_shapes():
@@ -771,7 +841,8 @@ def profile_call(call, top: int = 8, match=None):
     kernel name, the number of device activities (kernels and copies), and
     the device-busy share of the call's wall time (the union of kernel and
     copy intervals over the host-clock wall); with ``match`` (a substring of
-    kernel names) also the calls and device ms of the kernels it names.
+    kernel names, or a dict of labels to tuples of substrings a name must
+    all hold) also the calls and device ms of the kernels it names.
     ``None`` fields when the profiler saw no device activity.
     """
     import torch
@@ -793,11 +864,16 @@ def profile_call(call, top: int = 8, match=None):
         spans.append((start, end))
         calls, us = by_name.get(evt.name, (0, 0.0))
         by_name[evt.name] = (calls + 1, us + (end - start))
+    def matching(parts):
+        hits = [v for name, v in by_name.items() if all(p in name for p in parts)]
+        return dict(calls=sum(c for c, _ in hits), ms=sum(us for _, us in hits) / 1e3)
+
     matched = None
-    if match is not None:
-        hits = [v for name, v in by_name.items() if match in name]
-        matched = dict(name=match, calls=sum(c for c, _ in hits),
-                       ms=sum(us for _, us in hits) / 1e3)
+    if isinstance(match, str):
+        matched = dict(name=match, **matching((match,)))
+    elif match is not None:
+        matched = {label: dict(parts=list(parts), **matching(parts))
+                   for label, parts in match.items()}
     if not spans:
         return dict(wall_ms=wall_ms, device_busy_ms=None, busy_share=None,
                     device_calls=0, kernels=None, matched=matched)
@@ -904,11 +980,11 @@ def _t(a):
 # ---------------------------------------------------------------------------
 
 
-def run_train(cfg, data, dev):
+def run_train(cfg, data, dev, rtol=TRAIN_RTOL):
     """``train_esrnn`` on the card and on the CPU from the same init and
     schedule: 10 dense Adam steps (per-step engine) and 8 sparse Adam steps
     in supersteps of 4. Per-step losses and the final validation sMAPE must
-    agree within TRAIN_RTOL."""
+    agree within ``rtol``."""
     import torch
 
     from repro_torch.core.esrnn import param_leaves
@@ -932,11 +1008,11 @@ def run_train(cfg, data, dev):
         want = torch.tensor(cpu_h["loss"], dtype=torch.float64)
         if not torch.isfinite(losses).all() or len(losses) != kw["n_steps"]:
             raise AssertionError(f"train {name}: losses {card_h['loss']}")
-        check_close(f"train {name} losses", losses, want, rtol=TRAIN_RTOL, atol=0.0)
+        check_close(f"train {name} losses", losses, want, rtol=rtol, atol=0.0)
         smape = torch.tensor([v for _, v in card_h["val_smape"]])
         check_close(f"train {name} val sMAPE", smape,
                     torch.tensor([v for _, v in cpu_h["val_smape"]]),
-                    rtol=TRAIN_RTOL, atol=0.0)
+                    rtol=rtol, atol=0.0)
         param_diff = max(
             float((a.detach().cpu() - b.detach()).abs().max())
             for (_, a), (_, b) in zip(param_leaves(res["card"]["params"]),
@@ -1013,14 +1089,18 @@ class TrainSteps:
 
 
 def time_train_steps(cfg, data, dev):
-    """Steps/s of the per-step engine on the card, and launches per step."""
+    """Steps/s of the per-step engine on the card, and launches per step:
+    K1 and K2 once, K4 and K5 once a cell step, in the policy's stream dtype
+    (the ``_bf16`` counters under bf16), and nothing else."""
     import torch
 
     from repro_torch.kernels import ops
 
     cells = forecast_steps(cfg, TRAIN_T)              # a train step walks the same cells
     want = dict.fromkeys(ops.launch_counts(), 0)     # every kernel and stream dtype
-    want.update(hw_scan=1, hw_scan_bwd=1, lstm_cell_fwd=cells, lstm_cell_bwd=cells)
+    suffix = "_bf16" if cfg.precision == "bf16" else ""
+    want.update({"hw_scan" + suffix: 1, "hw_scan_bwd" + suffix: 1,
+                 "lstm_cell_fwd" + suffix: cells, "lstm_cell_bwd" + suffix: cells})
     rows = []
     for batch in (TRAIN_BATCH, BIG_BATCH):
         for sparse in (False, True):
@@ -1052,10 +1132,12 @@ def time_train_steps(cfg, data, dev):
 # ---------------------------------------------------------------------------
 
 
-def run_finetune(cfg, params_cpu, params_dev, dev, seed: int = 6):
+def run_finetune(cfg, params_cpu, params_dev, dev, seed: int = 6, rtol: float = FC_RTOL,
+                 atol: float = FC_ATOL, loss_rtol: float = TRAIN_RTOL):
     """Two ``ForecastServer``s with ``finetune_steps > 0``, on the card and
     on the CPU, observe the same histories, forecast, fine-tune when the
-    queue drains, and forecast again; card and CPU must agree."""
+    queue drains, and forecast again; card and CPU must agree, the
+    forecasts within ``rtol``/``atol``, the last loss within ``loss_rtol``."""
     from repro_torch.forecast import ForecastRequest
     from repro_torch.forecast.server import ForecastServer, ServerConfig
 
@@ -1081,7 +1163,7 @@ def run_finetune(cfg, params_cpu, params_dev, dev, seed: int = 6):
     err = 0.0
     for w in range(2):
         err = max(err, check_close(f"fine-tune wave {w}", _t(waves["card"][w]),
-                                   _t(waves["cpu"][w]), rtol=FC_RTOL, atol=FC_ATOL))
+                                   _t(waves["cpu"][w]), rtol=rtol, atol=atol))
     if np.array_equal(waves["card"][0], waves["card"][1]):
         raise AssertionError("the fine-tune burst did not change the forecasts")
     card, cpu = servers["card"], servers["cpu"]
@@ -1096,12 +1178,85 @@ def run_finetune(cfg, params_cpu, params_dev, dev, seed: int = 6):
                               - getattr(cpu.dispatcher._hw_table, f)[sids]).max())
                  for f in ("alpha_logit", "gamma_logit", "init_seas_logit"))
     check_close("fine-tune loss", _t(np.float64(card.tuner.last_loss)),
-                _t(np.float64(cpu.tuner.last_loss)), rtol=TRAIN_RTOL, atol=0.0)
+                _t(np.float64(cpu.tuner.last_loss)), rtol=loss_rtol, atol=0.0)
     return dict(series=sids, observations=FT_OBS, steps_per_burst=FT_STEPS,
                 bursts=card.stats.finetunes, window=card.tuner.window,
                 last_loss=card.tuner.last_loss, cpu_last_loss=cpu.tuner.last_loss,
                 forecast_max_abs_err=err, hw_rows_max_abs_diff=hw_err,
                 kernel_launches=dict(card.stats.kernel_launches))
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: bf16 training, the bf16 fine-tune and the OWA gate
+# ---------------------------------------------------------------------------
+
+
+def run_train_bf16(cfg16, data, dev, fp32_runs):
+    """The train phase's runs under ``precision="bf16"``: card against CPU
+    within TRAIN16_RTOL, and the card's bf16 losses within
+    TRAIN16_VS_FP32_RTOL of the card's fp32 losses of the same runs
+    (``fp32_runs``, the train phase's result)."""
+    import torch
+
+    out = run_train(cfg16, data, dev, rtol=TRAIN16_RTOL)
+    for name, rec in out.items():
+        l16 = torch.tensor(rec["losses"], dtype=torch.float64)
+        l32 = torch.tensor(fp32_runs[name]["losses"], dtype=torch.float64)
+        check_close(f"train_bf16 {name} losses against the card's fp32 run", l16, l32,
+                    rtol=TRAIN16_VS_FP32_RTOL, atol=0.0)
+        rec.update(fp32_losses=fp32_runs[name]["losses"],
+                   max_rel_loss_err_vs_fp32=max_rel(l16, l32))
+    return out
+
+
+def run_owa(dev):
+    """``benchmarks/head_compare.py``'s fast cell on the card: the lstm head
+    fitted by ``train_esrnn`` in fp32 and in bf16 from the same init and
+    schedule, each test forecast scored by sMAPE and MASE against the port's
+    Naive2 (``core/comb.py``), and the bf16/fp32 OWA ratio held to
+    OWA_RATIO_GATE."""
+    import torch
+
+    from repro_torch.core import losses as L
+    from repro_torch.core.comb import naive2_forecast
+    from repro_torch.core.esrnn import esrnn_forecast, make_config
+    from repro_torch.data.pipeline import prepare
+    from repro_torch.data.synthetic_m4 import generate
+    from repro_torch.train.trainer import TrainConfig, train_esrnn
+
+    data = prepare(generate("quarterly", scale=OWA_SCALE, seed=0))
+    m, h = data.seasonality, data.horizon
+    y_in = np.asarray(data.val_input, np.float32)
+    target = torch.from_numpy(np.asarray(data.test_target, np.float32))
+    insample = torch.from_numpy(y_in)
+    n2 = torch.from_numpy(naive2_forecast(y_in, h, m).astype(np.float32))
+    n2_smape, n2_mase = float(L.smape(n2, target)), float(L.mase(n2, target, insample, m))
+    tcfg = TrainConfig(batch_size=min(OWA_BATCH, data.n_series), n_steps=OWA_STEPS, lr=OWA_LR,
+                       eval_every=max(OWA_STEPS // 3, 1), seed=0)
+    rows = {}
+    for precision in ("fp32", "bf16"):
+        cfg = make_config("quarterly", precision=precision)
+        t0 = time.perf_counter()
+        out = train_esrnn(cfg, data, tcfg, device=dev, generator=torch.Generator().manual_seed(0))
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fc = esrnn_forecast(cfg, out["params"], insample.to(dev),
+                            torch.from_numpy(np.asarray(data.cats, np.float32)).to(dev)).cpu()
+        if fc.dtype != torch.float32 or fc.shape != target.shape or not torch.isfinite(fc).all():
+            raise AssertionError(f"owa {precision}: forecast {fc.dtype} {tuple(fc.shape)}")
+        smape, mase = float(L.smape(fc, target)), float(L.mase(fc, target, insample, m))
+        rows[precision] = dict(fit_s=fit_s, smape=smape, mase=mase,
+                               owa=float(L.owa(smape, mase, n2_smape, n2_mase)),
+                               final_loss=out["history"]["loss"][-1])
+    ratio = rows["bf16"]["owa"] / rows["fp32"]["owa"]
+    if not ratio <= OWA_RATIO_GATE:
+        raise AssertionError(f"bf16/fp32 lstm OWA ratio {ratio} > {OWA_RATIO_GATE}")
+    return dict(frequency="quarterly", n_series=data.n_series, steps=OWA_STEPS,
+                batch=tcfg.batch_size, lr=OWA_LR,
+                naive2=dict(smape=n2_smape, mase=n2_mase), lstm=rows, bf16_owa_ratio=ratio,
+                gate=OWA_RATIO_GATE, reference_bf16_owa_ratio=OWA_RATIO_REFERENCE,
+                reference_of="JAX on the CPU, BENCH_PR10.json head_compare")
 
 
 # ---------------------------------------------------------------------------
@@ -1337,11 +1492,11 @@ def main() -> int:
     # empty report: the library was built by an earlier process)
     report = {name: ptxas_summary(reports.get(name, ""))
               for name in ("flash_attention.cu", "lstm_cell.cu", "hw_scan.cu", "hw_scan_bwd.cu")}
-    # the bf16 instantiations of K1 and K3: each entry and the two lines
+    # the bf16 instantiations of K1 to K5: each entry and the two lines
     # ptxas prints after it (stack and spills, registers and shared memory)
     bf16 = {name: [line for i, entry in enumerate(report[name]) if "bfloat16" in entry
                    for line in report[name][i:i + 3]]
-            for name in ("hw_scan.cu", "lstm_cell.cu")}
+            for name in ("hw_scan.cu", "hw_scan_bwd.cu", "lstm_cell.cu")}
     emit(dict(phase="ptxas", build_s=build_s, report=report, bf16_entries=bf16))
 
     # phase 2: kernels against their plain versions, at the main path's
@@ -1379,8 +1534,20 @@ def main() -> int:
         k3b = [check_lstm_cell(rows, width, cfg.hidden_size, gen, bf16=True)
                for rows, width in k3_shapes]
         k3b += [check_lstm_cell(*shape, gen, bf16=True) for shape in WIDE_CELL]
+        # the bf16 streams of K2, K4 and K5 at the bf16 train steps' and the
+        # bf16 fine-tune's shapes, and the wide widths
+        k2b = [check_hw_scan_bwd(n, t, m, gen, bf16=True) for n, t, m in k2_shapes]
+        k2b += [check_hw_scan_bwd(n, TRAIN_T, 1, gen, bf16=True)
+                for n in (TRAIN_BATCH, BIG_BATCH)]
+        k2b += [check_hw_scan_bwd(n, t, m, gen, timed=False, bf16=True) for n, t, m in WIDE_RING]
+        k4b = [check_lstm_cell_fwd(rows, width, cfg.hidden_size, gen, bf16=True)
+               for rows, width in k45_shapes]
+        k4b += [check_lstm_cell_fwd(*shape, gen, bf16=True) for shape in WIDE_CELL]
+        k5b = [check_lstm_cell_bwd(rows, width, cfg.hidden_size, gen, bf16=True)
+               for rows, width in k45_shapes]
+        k5b += [check_lstm_cell_bwd(*shape, gen, bf16=True) for shape in WIDE_BWD]
     torch.cuda.empty_cache()
-    for rec in k1 + k3 + k2 + k4 + k5 + k6 + k1b + k3b:
+    for rec in k1 + k3 + k2 + k4 + k5 + k6 + k1b + k3b + k2b + k4b + k5b:
         emit(dict(phase="kernel", **rec))
 
     # phases 3 to 7 are the main paths: each counts launches from zero and
@@ -1466,6 +1633,41 @@ def main() -> int:
         lambda: run_finetune(cfg, params_cpu, params_dev, dev))
     emit(dict(phase="finetune", card=smi, launches=ft_launches, **finetune))
 
+    # phase 6b: the same training and fine-tune under the bf16 policy: K1
+    # and K2 with a bf16 y once a step, K4 and K5 in bf16 once a cell step,
+    # and no fp32 training kernel; then head_compare's OWA cell, fp32 and
+    # bf16, on the card
+    train16_kernels = ("hw_scan_bf16", "hw_scan_bwd_bf16", "lstm_cell_fwd_bf16",
+                       "lstm_cell_bwd_bf16")
+    fp32_kernels = ("hw_scan", "hw_scan_bwd", "lstm_cell", "lstm_cell_fwd", "lstm_cell_bwd")
+
+    def fp32_free(what, counts):
+        if any(counts[k] for k in fp32_kernels):
+            raise AssertionError(f"{what} launched fp32 kernels: {counts}")
+
+    train16, train16_launches = counted(train16_kernels, "bf16 training",
+                                        lambda: run_train_bf16(cfg16, data, dev, train))
+    fp32_free("bf16 training", train16_launches)
+    emit(dict(phase="train_bf16", config="quarterly", precision="bf16", N=TRAIN_N, T=TRAIN_T,
+              batch=TRAIN_BATCH, card=smi, launches=train16_launches, **train16,
+              **time_train_steps(cfg16, data, dev)))
+    bench16 = TrainSteps(cfg16, data, dev, TRAIN_BATCH, sparse=False)
+    emit(dict(phase="profile_train_bf16", call="one dense bf16 train step", N=TRAIN_N,
+              T=TRAIN_T, batch=TRAIN_BATCH, card=smi, **profile_call(
+                  bench16.step, match={"lstm_cell_fwd_bf16": ("lstm_cell_smem", "bfloat16"),
+                                       "lstm_cell_bwd_bf16": ("lstm_bwd", "bfloat16")})))
+    del bench16
+    finetune16, ft16_launches = counted(
+        bf16_kernels + train16_kernels, "the bf16 fine-tune server",
+        lambda: run_finetune(cfg16, params_cpu, params_dev, dev, rtol=FC16_RTOL,
+                             atol=FC16_ATOL, loss_rtol=TRAIN16_RTOL))
+    fp32_free("the bf16 fine-tune server", ft16_launches)
+    emit(dict(phase="finetune_bf16", precision="bf16", card=smi, launches=ft16_launches,
+              **finetune16))
+    owa, owa_launches = counted(train_kernels + train16_kernels, "the OWA cell",
+                                lambda: run_owa(dev))
+    emit(dict(phase="owa_bf16", card=smi, launches=owa_launches, **owa))
+
     # phase 7: the LM serving path. Card against CPU at full width, two
     # layers, fp32; then the full yi-6b in bf16 through the serve launcher's
     # generate, K6 held against its plain version on layer 0's own q, k, v,
@@ -1521,6 +1723,12 @@ def main() -> int:
               None),
         entry("lstm_cell_bf16", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:56",
               k3b, k3b[0]["library_ms"]),
+        entry("hw_scan_bwd_bf16", csrc + "hw_scan_bwd.cu", "src/repro/kernels/hw_scan.py:89",
+              k2b, None),
+        entry("lstm_cell_fwd_bf16", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:72",
+              k4b, k4b[0]["library_ms"]),
+        entry("lstm_cell_bwd_bf16", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:90",
+              k5b, None),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -65,9 +65,8 @@ class ESRNNConfig:
                                    # streams y into the HW scan, and the
                                    # features, the recurrent stack and the
                                    # readout's hidden activations, in bf16
-                                   # with fp32 accumulation. The port serves
-                                   # under bf16; training under bf16 comes
-                                   # with a later slice and raises.
+                                   # with fp32 accumulation, in serving,
+                                   # training and the fine-tune alike.
 
     @property
     def tdtype(self) -> torch.dtype:

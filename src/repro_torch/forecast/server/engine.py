@@ -44,7 +44,6 @@ from repro_torch.forecast.serving import (
 )
 from repro_torch.forecast.server.finetune import IdleFineTuner
 from repro_torch.forecast.server.state import ObserveWrite, OnlineStateStore
-from repro_torch.kernels.build import BF16_TRAINING
 
 
 class QueueFull(RuntimeError):
@@ -138,10 +137,6 @@ class ForecastServer:
             self.dispatcher.n_known, history_cap=cap)
         self.tuner = None
         if sc.finetune_steps > 0:
-            if config.precision == "bf16":
-                raise NotImplementedError(
-                    f"ServerConfig.finetune_steps > 0 under precision='bf16': the bf16 "
-                    f"fine-tune comes with {BF16_TRAINING}; serve with finetune_steps=0")
             self.tuner = IdleFineTuner(
                 config, params, steps=sc.finetune_steps,
                 batch=sc.finetune_batch,

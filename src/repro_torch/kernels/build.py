@@ -41,18 +41,16 @@ _SIGNATURES = {
     "hw_scan_f32": (8, 4, 0),              # K1 (the last pointer and first int: its plan)
     "hw_scan_bf16": (8, 4, 0),             # K1, bf16 y
     "hw_scan_bwd_f32": (13, 4, 0),         # K2 (likewise)
+    "hw_scan_bwd_bf16": (13, 4, 0),        # K2, bf16 y and dy
     "lstm_cell_f32": (9, 4, 0),            # K3 (the last pointer and first int: its plan)
     "lstm_cell_bf16": (9, 4, 0),           # K3, bf16
     "lstm_cell_fwd_f32": (10, 4, 0),       # K4
+    "lstm_cell_fwd_bf16": (10, 4, 0),      # K4, bf16
     "lstm_cell_bwd_f32": (18, 4, 0),       # K5
+    "lstm_cell_bwd_bf16": (18, 4, 0),      # K5, bf16 (float32 weight gradients)
     "flash_attention_f32": (4, 7, 1),      # K6, fp32
     "flash_attention_bf16": (4, 7, 1),     # K6, bf16
 }
-
-# what the bf16 policy still lacks, named by every refusal: training, the
-# server's fine-tune and the backward kernels in bf16
-BF16_TRAINING = ("the bf16 training slice of the port (K2, K4 and K5 in bf16; "
-                 "ROADMAP.md, section 2a)")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -1,4 +1,5 @@
-// K2: adjoint of the Holt-Winters smoothing scan (time-reversed), fp32, sm_90a.
+// K2: adjoint of the Holt-Winters smoothing scan (time-reversed), sm_90a; y
+// and dy in fp32 or bf16, the state and every other stream in fp32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/hw_scan.py:_hw_scan_bwd_kernel.
 //
@@ -59,7 +60,22 @@
 // contract them into FMAs; with IEEE division (FastDiv gives the same
 // quotients) the kernel rounds as the plain version does, operation for
 // operation, and as the one-load-per-step kernel before this design did.
+//
+// bf16 y (the bf16 policy's observation stream; the reference kernel widens
+// each y row and emits dy in y's dtype, hw_scan.py:195-197 and :216): the
+// kernel is templated on y's element type, as K1 is. The y tile is staged
+// at half width (16-byte copies of 8 series where N is a multiple of 8,
+// else each thread loads its own 2-byte element; the four float streams
+// keep their own copy width, 16 bytes where N is a multiple of 4), each
+// y_t is widened to float as the walk reads it, and dy is rounded once as
+// it is stored (__float2bfloat16_rn). Levels, seas, dlev, dseas, the ring,
+// dalpha, dgamma and d init_seas stay float, and the walk's arithmetic and
+// order do not change: the outputs are the plain version's on the same
+// bf16 y, bit for bit (torch promotes bf16 x fp32 to fp32 the same way, and
+// rounds the float dy to bf16 once). The bytes fall by 2N(T) (y) and 2N(T)
+// (dy): 0.36 MB at the train batch (256, 72, 4).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -72,6 +88,7 @@ namespace {
 using repro::SCAN_PIPE;
 
 constexpr int STREAMS = 5;   // y, levels (one row back), seas, dlev, dseas
+constexpr int FLOATS = STREAMS - 1;   // the float streams, staged after y
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -120,46 +137,54 @@ __device__ __forceinline__ State bwd_steps(State st, In (&in)[U], const Params& 
     return st;
 }
 
-template <bool GLOBAL_RING, int COPY>
-__global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
+template <bool GLOBAL_RING, int COPY_Y, int COPY_F, class T>
+__global__ void hw_scan_bwd_kernel(const T* __restrict__ y,
                                    const float* __restrict__ alpha,
                                    const float* __restrict__ gamma,
                                    const float* __restrict__ levels,
                                    const float* __restrict__ seas,
                                    const float* __restrict__ dlev,
                                    const float* __restrict__ dseas,
-                                   float* __restrict__ dy,
+                                   T* __restrict__ dy,
                                    float* __restrict__ dalpha,
                                    float* __restrict__ dgamma,
                                    float* __restrict__ dinit,
                                    float* __restrict__ ring_buf,
                                    int t_len, int n, int m, int tile) {
-    // [stages][STREAMS][tile][bs], then the ring
-    extern __shared__ __align__(16) float smem[];
+    // [stages][the y tile (tile x bs of T), then the FLOATS float tiles], then the ring
+    extern __shared__ __align__(16) unsigned char smem_bytes[];
     const int bs = blockDim.x;
     const long ln = n;
     const long col0 = static_cast<long>(blockIdx.x) * bs;
     const long col = col0 + threadIdx.x;
     const bool live = col < n;
     const int tiles = (t_len + tile - 1) / tile;
-    const int tile_floats = tile * bs;
-    const repro::Stager copier = repro::Stager::make<COPY>();
-    const int stage_floats = STREAMS * tile_floats;
+    const int tile_elems = tile * bs;
+    const long stage_bytes = static_cast<long>(tile_elems) * (sizeof(T) + FLOATS * sizeof(float));
+    const auto y_tile = [&](int j) {
+        return reinterpret_cast<T*>(smem_bytes + (j % SCAN_PIPE) * stage_bytes);
+    };
+    const auto f_tiles = [&](int j) {       // levels, seas, dlev, dseas: [FLOATS][tile][bs]
+        return reinterpret_cast<float*>(smem_bytes + (j % SCAN_PIPE) * stage_bytes +
+                                        tile_elems * sizeof(T));
+    };
+    const repro::Stager y_copier = repro::Stager::make<COPY_Y, T>();
+    const repro::Stager f_copier = repro::Stager::make<COPY_F, float>();
     // the j-th tile walked is time tile tiles - 1 - j: rows [t0, t0 + rows)
     const auto stage = [&](int j) {
         const int t0 = (tiles - 1 - j) * tile;
         const int rows = min(tile, t_len - t0);
-        float* buf = smem + (j % SCAN_PIPE) * stage_floats;
+        repro::stage_rows<COPY_Y>(y_copier, y_tile(j), y, t0, rows, n, col0);
+        float* buf = f_tiles(j);
         const auto copy = [&](int k, const float* src, long row0, int n_rows, int skip) {
-            repro::stage_rows<COPY>(copier, buf + k * tile_floats + skip, src, row0, n_rows, n,
-                                    col0);
+            repro::stage_rows<COPY_F>(f_copier, buf + k * tile_elems + skip, src, row0, n_rows,
+                                      n, col0);
         };
-        copy(0, y, t0, rows, 0);
-        if (t0 > 0) copy(1, levels, t0 - 1, rows, 0);
-        else copy(1, levels, 0, rows - 1, bs);      // row -1 is the primer, never read
-        copy(2, seas, t0, rows, 0);
-        copy(3, dlev, t0, rows, 0);
-        copy(4, dseas, t0, rows, 0);
+        if (t0 > 0) copy(0, levels, t0 - 1, rows, 0);
+        else copy(0, levels, 0, rows - 1, bs);      // row -1 is the primer, never read
+        copy(1, seas, t0, rows, 0);
+        copy(2, dlev, t0, rows, 0);
+        copy(3, dseas, t0, rows, 0);
     };
     for (int j = 0; j < SCAN_PIPE - 1; ++j) {
         if (j < tiles) stage(j);
@@ -168,7 +193,9 @@ __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
 
     // slot k of this series' ring is ring[k * bd] (as in K1)
     const int stages = min(SCAN_PIPE, tiles);
-    float* ring = GLOBAL_RING ? ring_buf + col : smem + stages * stage_floats + threadIdx.x;
+    float* ring = GLOBAL_RING ? ring_buf + col
+                              : reinterpret_cast<float*>(smem_bytes + stages * stage_bytes) +
+                                    threadIdx.x;
     const long bd = GLOBAL_RING ? ln : static_cast<long>(bs);
     Params p{};
     State st{0.0f, 0.0f, 0.0f, 0.0f};
@@ -178,7 +205,7 @@ __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
         p.one_minus_a = __fadd_rn(1.0f, -p.a);
         p.one_minus_g = __fadd_rn(1.0f, -p.g);
         p.s00 = seas[col];
-        p.y0 = y[col];
+        p.y0 = repro::widen(y[col]);
         st.l_t = levels[(t_len - 1) * ln + col];
         for (int k = 0; k < m; ++k) ring[((t_len + k) % m) * bd] = dseas[(t_len + k) * ln + col];
     }
@@ -189,7 +216,8 @@ __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
     // seeded), run them with FastDiv, redo them with IEEE division if an
     // operand was out of its range (hw_scan.cuh), then write the ring (in
     // step order, so a slot keeps its latest value) and dy
-    const auto walk = [&](auto group, auto at_zero, const float* buf, int r, long t) {
+    const auto walk = [&](auto group, auto at_zero, const T* yb, const float* fb, int r,
+                          long t) {
         constexpr int U = decltype(group)::U;
         constexpr int F = decltype(group)::F;
         constexpr bool AT_ZERO = decltype(at_zero)::value;
@@ -200,9 +228,8 @@ __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
         for (int k = 0; k < U; ++k) {
             const int e = (r - k) * bs;
             sl[k] = slot;
-            in[k] = In{buf[e], buf[tile_floats + e], buf[2 * tile_floats + e],
-                       buf[3 * tile_floats + e], buf[4 * tile_floats + e],
-                       F == 0 || k < F ? ring[slot * bd] : 0.0f};
+            in[k] = In{repro::widen(yb[e]), fb[e], fb[tile_elems + e], fb[2 * tile_elems + e],
+                       fb[3 * tile_elems + e], F == 0 || k < F ? ring[slot * bd] : 0.0f};
             slot = slot == 0 ? m - 1 : slot - 1;
         }
         repro::FastDiv fast;
@@ -215,7 +242,7 @@ __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
 #pragma unroll
         for (int k = 0; k < U; ++k) {
             ring[sl[k] * bd] = sig_v[k];
-            dy[(t - k) * ln + col] = dy_v[k];
+            dy[(t - k) * ln + col] = repro::narrow<T>(dy_v[k]);
         }
     };
     using One = repro::Group<1, 0>;
@@ -225,16 +252,17 @@ __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
         if (j + SCAN_PIPE - 1 < tiles) stage(j + SCAN_PIPE - 1);
         __pipeline_commit();
         if (!live) continue;
-        const float* buf = smem + (j % SCAN_PIPE) * stage_floats + threadIdx.x;
+        const T* yb = y_tile(j) + threadIdx.x;
+        const float* fb = f_tiles(j) + threadIdx.x;
         const int t0 = (tiles - 1 - j) * tile;
         int r = min(tile, t_len - t0) - 1;
         const int last = t0 == 0 ? 1 : 0;       // t = 0 takes the primer's terms, alone
         repro::by_group(m, [&](auto group) {
             constexpr int U = decltype(group)::U;
-            for (; r - U + 1 >= last; r -= U) walk(group, std::false_type{}, buf, r, t0 + r);
+            for (; r - U + 1 >= last; r -= U) walk(group, std::false_type{}, yb, fb, r, t0 + r);
         });
-        for (; r >= last; --r) walk(One{}, std::false_type{}, buf, r, t0 + r);
-        if (r == 0) walk(One{}, std::true_type{}, buf, 0, 0);
+        for (; r >= last; --r) walk(One{}, std::false_type{}, yb, fb, r, t0 + r);
+        if (r == 0) walk(One{}, std::true_type{}, yb, fb, 0, 0);
     }
     if (!live) return;
     dalpha[col] = st.da;
@@ -247,13 +275,13 @@ __global__ void hw_scan_bwd_kernel(const float* __restrict__ y,
 }
 
 // one launch; each instantiation keeps its own opt-in table (common.cuh)
-template <bool GLOBAL_RING, int COPY>
-int launch(const repro::ScanPlan& p, cudaStream_t st, const float* y, const float* alpha,
+template <bool GLOBAL_RING, int COPY_Y, int COPY_F, class T>
+int launch(const repro::ScanPlan& p, cudaStream_t st, const T* y, const float* alpha,
            const float* gamma, const float* levels, const float* seas, const float* dlev,
-           const float* dseas, float* dy, float* dalpha, float* dgamma, float* dinit,
+           const float* dseas, T* dy, float* dalpha, float* dgamma, float* dinit,
            float* ring, int t_len, int n, int m) {
     static repro::SmemOptIn opt_in;
-    const auto kernel = hw_scan_bwd_kernel<GLOBAL_RING, COPY>;
+    const auto kernel = hw_scan_bwd_kernel<GLOBAL_RING, COPY_Y, COPY_F, T>;
     cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(kernel), p.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<p.blocks, p.block, p.smem, st>>>(y, alpha, gamma, levels, seas, dlev, dseas, dy,
@@ -261,28 +289,62 @@ int launch(const repro::ScanPlan& p, cudaStream_t st, const float* y, const floa
     return static_cast<int>(cudaGetLastError());
 }
 
+// plan and ring: as in hw_scan_f32 (hw_scan.cuh:ScanPlan, five streams, y
+// first); T: y's and dy's element type
+template <class T>
+int hw_scan_bwd_entry(const void* y, const void* alpha, const void* gamma, const void* levels,
+                      const void* seas, const void* dlev, const void* dseas, void* dy,
+                      void* dalpha, void* dgamma, void* dinit, void* ring, const int* plan,
+                      int plan_len, int t_len, int n, int m, void* stream) {
+    constexpr int ELEM = sizeof(T);
+    repro::ScanPlan p;
+    const void* staged[] = {y, levels, seas, dlev, dseas};
+    cudaError_t err = repro::read_scan_plan(plan, plan_len, n, t_len, m, STREAMS, ring, staged,
+                                            STREAMS, &p, ELEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const auto f = [](const void* q) { return static_cast<const float*>(q); };
+    const auto w = [](void* q) { return static_cast<float*>(q); };
+    const auto go = [&](auto run) {
+        return run(p, static_cast<cudaStream_t>(stream), static_cast<const T*>(y), f(alpha),
+                   f(gamma), f(levels), f(seas), f(dlev), f(dseas), static_cast<T*>(dy),
+                   w(dalpha), w(dgamma), w(dinit), w(ring), t_len, n, m);
+    };
+    const bool global_ring = p.ring == repro::RING_GLOBAL;
+    // the copy widths scan_plan gives: y and the float streams both 16 bytes
+    // a copy, or y one element a copy and the float streams 16 bytes (a bf16
+    // y with N a multiple of 4, not of 8) or 4
+    if (p.copy == 16 && p.copy_rest == 16)
+        return global_ring ? go(launch<true, 16, 16, T>) : go(launch<false, 16, 16, T>);
+    if (p.copy == ELEM && p.copy_rest == 4)
+        return global_ring ? go(launch<true, ELEM, 4, T>) : go(launch<false, ELEM, 4, T>);
+    if constexpr (ELEM < 4) {
+        if (p.copy == ELEM && p.copy_rest == 16)
+            return global_ring ? go(launch<true, ELEM, 16, T>) : go(launch<false, ELEM, 16, T>);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// plan and ring: as in hw_scan_f32 (hw_scan.cuh:ScanPlan, five streams)
 extern "C" int hw_scan_bwd_f32(const void* y, const void* alpha, const void* gamma,
                                const void* levels, const void* seas,
                                const void* dlev, const void* dseas,
                                void* dy, void* dalpha, void* dgamma, void* dinit, void* ring,
                                const int* plan, int plan_len, int t_len, int n, int m,
                                void* stream) {
-    repro::ScanPlan p;
-    const void* staged[] = {y, levels, seas, dlev, dseas};
-    cudaError_t err = repro::read_scan_plan(plan, plan_len, n, t_len, m, STREAMS, ring, staged,
-                                            STREAMS, &p);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const auto f = [](const void* q) { return static_cast<const float*>(q); };
-    const auto w = [](void* q) { return static_cast<float*>(q); };
-    const auto go = [&](auto run) {
-        return run(p, static_cast<cudaStream_t>(stream), f(y), f(alpha), f(gamma), f(levels),
-                   f(seas), f(dlev), f(dseas), w(dy), w(dalpha), w(dgamma), w(dinit), w(ring),
-                   t_len, n, m);
-    };
-    const bool global_ring = p.ring == repro::RING_GLOBAL;
-    if (p.copy == 16) return global_ring ? go(launch<true, 16>) : go(launch<false, 16>);
-    return global_ring ? go(launch<true, 4>) : go(launch<false, 4>);
+    return hw_scan_bwd_entry<float>(y, alpha, gamma, levels, seas, dlev, dseas, dy, dalpha,
+                                    dgamma, dinit, ring, plan, plan_len, t_len, n, m, stream);
+}
+
+// y and dy in bf16; alpha, gamma, levels, seas, dlev, dseas, dalpha, dgamma
+// and dinit float, as above
+extern "C" int hw_scan_bwd_bf16(const void* y, const void* alpha, const void* gamma,
+                                const void* levels, const void* seas,
+                                const void* dlev, const void* dseas,
+                                void* dy, void* dalpha, void* dgamma, void* dinit, void* ring,
+                                const int* plan, int plan_len, int t_len, int n, int m,
+                                void* stream) {
+    return hw_scan_bwd_entry<__nv_bfloat16>(y, alpha, gamma, levels, seas, dlev, dseas, dy,
+                                            dalpha, dgamma, dinit, ring, plan, plan_len, t_len,
+                                            n, m, stream);
 }

@@ -1,6 +1,6 @@
 // K3: fused LSTM cell (inference forward), K4: the same forward that also
-// writes the gate activations, and K5: its backward; sm_90a. K3 in fp32 and
-// bf16, K4 and K5 in fp32.
+// writes the gate activations, and K5: its backward; sm_90a. All three in
+// fp32 and bf16.
 //
 // Replace the Pallas TPU kernels src/repro/kernels/lstm_cell.py:_lstm_kernel
 // (K3), _lstm_fwd_kernel (K4) and _lstm_bwd_kernel (K5).
@@ -87,6 +87,12 @@
 // form runs them as float FMAs on the CUDA cores, as the fp32 kernel does,
 // so its own ceiling is that kernel's (0.0062 ms at 67 TFLOP/s).
 //
+// K4 in bf16 (the bf16 training step's forward; src/repro/kernels/
+// lstm_cell.py:72-87) is the same instantiation with act: the four
+// activations are rounded to bf16 once as they are stored, beside h' and
+// c'; h' and c' come from the float activations, as in K3. Its bound is the
+// bytes at the bf16 rate, with the act rows (8H bytes a row) added.
+//
 // K5 is described above its kernel, further down.
 
 #include <cuda_pipeline.h>
@@ -132,7 +138,7 @@ __global__ void lstm_cell_smem(const T* __restrict__ wx,
                                const T* __restrict__ c,
                                T* __restrict__ h_out,
                                T* __restrict__ c_out,
-                               float* __restrict__ act,
+                               T* __restrict__ act,
                                int rows, int in_size, int hidden, int tile_groups) {
     extern __shared__ float4 smem4[];
     const int g4 = 4 * hidden;
@@ -246,11 +252,11 @@ __global__ void lstm_cell_smem(const T* __restrict__ wx,
             c_out[idx] = repro::narrow<T>(c_new);
             h_out[idx] = repro::narrow<T>(so * tanhf(c_new));
             if (WITH_ACT) {
-                float* ar = act + (row0 + lr) * g4 + j;
-                ar[0] = si;
-                ar[hidden] = sf;
-                ar[2 * hidden] = tg;
-                ar[3 * hidden] = so;
+                T* ar = act + (row0 + lr) * g4 + j;
+                ar[0] = repro::narrow<T>(si);
+                ar[hidden] = repro::narrow<T>(sf);
+                ar[2 * hidden] = repro::narrow<T>(tg);
+                ar[3 * hidden] = repro::narrow<T>(so);
             }
         }
     }
@@ -268,7 +274,7 @@ __global__ void lstm_cell_wide(const T* __restrict__ wx,
                                const T* __restrict__ c,
                                T* __restrict__ h_out,
                                T* __restrict__ c_out,
-                               float* __restrict__ act,
+                               T* __restrict__ act,
                                int rows, int in_size, int hidden, int tile_groups,
                                int units, int k_chunk) {
     constexpr int CELL_R = CELL_WIDE_R;
@@ -416,11 +422,11 @@ __global__ void lstm_cell_wide(const T* __restrict__ wx,
             c_out[idx] = repro::narrow<T>(c_new);
             h_out[idx] = repro::narrow<T>(so * tanhf(c_new));
             if (WITH_ACT) {
-                float* ar = act + (row0 + lr) * g4 + j;
-                ar[0] = si;
-                ar[hidden] = sf;
-                ar[2 * hidden] = tg;
-                ar[3 * hidden] = so;
+                T* ar = act + (row0 + lr) * g4 + j;
+                ar[0] = repro::narrow<T>(si);
+                ar[hidden] = repro::narrow<T>(sf);
+                ar[2 * hidden] = repro::narrow<T>(tg);
+                ar[3 * hidden] = repro::narrow<T>(so);
             }
         }
     }
@@ -452,12 +458,12 @@ int launch_cell_tiles(const void* wx, const void* wh, const void* b, const void*
     if constexpr (WIDE) {
         lstm_cell_wide<WITH_ACT, T><<<grid, p.threads, p.smem, stream>>>(
             f(wx), f(wh), f(b), f(x), f(h), f(c), static_cast<T*>(h_out),
-            static_cast<T*>(c_out), static_cast<float*>(act), rows, in_size, hidden,
+            static_cast<T*>(c_out), static_cast<T*>(act), rows, in_size, hidden,
             p.groups, p.units, p.k_chunk);
     } else {
         lstm_cell_smem<WITH_ACT, CELL_R, T><<<grid, p.threads, p.smem, stream>>>(
             f(wx), f(wh), f(b), f(x), f(h), f(c), static_cast<T*>(h_out),
-            static_cast<T*>(c_out), static_cast<float*>(act), rows, in_size, hidden,
+            static_cast<T*>(c_out), static_cast<T*>(act), rows, in_size, hidden,
             p.groups);
     }
     return static_cast<int>(cudaGetLastError());
@@ -572,6 +578,19 @@ int launch_cell_smem(const void* wx, const void* wh, const void* b, const void* 
 // for the weight gradients), never by the SM count or by which block ends
 // first, and no float is summed atomically: two launches on the same
 // inputs give bit-identical results.
+//
+// K5 in bf16 (src/repro/kernels/lstm_cell.py:90-138, :210-219): every
+// input bf16, the same kernel templated on that type. The weights, the
+// residuals (act, c, c', dh, dc) and the [x | h] rows are widened to float
+// as they are staged or loaded, so bwd_plan's float layout, the gate
+// algebra and every sum order are the fp32 kernel's. The column blocks
+// stage bf16 rows by plain loads (a bf16 row of [x | h] is 2 (I + H) bytes,
+// 28 at I = 14, which need not be 16-byte aligned, and cp.async has no
+// 2-byte copy). The partials, the tickets, the chunk sum and dWx, dWh, db
+// stay float: the weight gradients are the float sums over the whole batch,
+// which the wrapper's autograd Function rounds to the weight dtype once
+// (as the reference's vjp does, :246-249). dx, dh_prev and dc_prev are
+// rounded to bf16 once as they are stored.
 
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_UNIT_BLOCK = 32;   // units per block of the dx / dh_prev sums
@@ -621,39 +640,44 @@ struct CellResidual {
     float si, sf, tg, so, c, c_new, dh, dc;
 };
 
-__device__ __forceinline__ CellResidual load_residual(const float* __restrict__ act,
-                                                      const float* __restrict__ c,
-                                                      const float* __restrict__ c_new,
-                                                      const float* __restrict__ dh,
-                                                      const float* __restrict__ dc,
+// (widened to float: a bf16 stream's residuals are read at half width and
+// computed on exactly as the float they widen to)
+template <class T>
+__device__ __forceinline__ CellResidual load_residual(const T* __restrict__ act,
+                                                      const T* __restrict__ c,
+                                                      const T* __restrict__ c_new,
+                                                      const T* __restrict__ dh,
+                                                      const T* __restrict__ dc,
                                                       long row, int j, int hidden) {
     const long at = row * hidden + j;
-    const float* ar = act + row * 4 * hidden + j;
-    return CellResidual{__ldg(ar), __ldg(ar + hidden), __ldg(ar + 2 * hidden),
-                        __ldg(ar + 3 * hidden), __ldg(c + at), __ldg(c_new + at),
-                        __ldg(dh + at), __ldg(dc + at)};
+    const T* ar = act + row * 4 * hidden + j;
+    return CellResidual{ldf(ar), ldf(ar + hidden), ldf(ar + 2 * hidden),
+                        ldf(ar + 3 * hidden), ldf(c + at), ldf(c_new + at),
+                        ldf(dh + at), ldf(dc + at)};
 }
 
 // the pre-activation gate cotangents (i, f, g, o) of one (row, unit), and
-// its dc_prev into *dc_prev when that is not null
-__device__ __forceinline__ float4 gate_cotangents(const CellResidual& v, float* dc_prev) {
+// its dc_prev (rounded once to T) into *dc_prev when that is not null
+template <class T>
+__device__ __forceinline__ float4 gate_cotangents(const CellResidual& v, T* dc_prev) {
     const float tc = tanhf(v.c_new);
     const float dct = v.dc + v.dh * v.so * (1.0f - tc * tc);
-    if (dc_prev != nullptr) *dc_prev = dct * v.sf;
+    if (dc_prev != nullptr) *dc_prev = repro::narrow<T>(dct * v.sf);
     return make_float4(dct * v.tg * v.si * (1.0f - v.si), dct * v.c * v.sf * (1.0f - v.sf),
                        dct * v.si * (1.0f - v.tg * v.tg), v.dh * tc * v.so * (1.0f - v.so));
 }
 
-__device__ __forceinline__ void bwd_rows(const float* __restrict__ wx,
-                                         const float* __restrict__ wh,
-                                         const float* __restrict__ c,
-                                         const float* __restrict__ c_new,
-                                         const float* __restrict__ act,
-                                         const float* __restrict__ dh,
-                                         const float* __restrict__ dc,
-                                         float* __restrict__ dx,
-                                         float* __restrict__ dh_prev,
-                                         float* __restrict__ dc_prev,
+template <class T>
+__device__ __forceinline__ void bwd_rows(const T* __restrict__ wx,
+                                         const T* __restrict__ wh,
+                                         const T* __restrict__ c,
+                                         const T* __restrict__ c_new,
+                                         const T* __restrict__ act,
+                                         const T* __restrict__ dh,
+                                         const T* __restrict__ dc,
+                                         T* __restrict__ dx,
+                                         T* __restrict__ dh_prev,
+                                         T* __restrict__ dc_prev,
                                          int rows, int in_size, int hidden, const BwdPlan& p,
                                          int rb, float4* smem4) {
     const int g4 = 4 * hidden;
@@ -671,10 +695,10 @@ __device__ __forceinline__ void bwd_rows(const float* __restrict__ wx,
         for (int e = threadIdx.x; e < nu * nk; e += blockDim.x) {
             const int kl = e / nu, jl = e - kl * nu;
             const int k = k0 + kl, j = u0 + jl;
-            const float* src = k < in_size ? wx + static_cast<long>(k) * g4 + j
-                                           : wh + static_cast<long>(k - in_size) * g4 + j;
-            ws[jl * krp + kl] = make_float4(__ldg(src), __ldg(src + hidden),
-                                            __ldg(src + 2 * hidden), __ldg(src + 3 * hidden));
+            const T* src = k < in_size ? wx + static_cast<long>(k) * g4 + j
+                                       : wh + static_cast<long>(k - in_size) * g4 + j;
+            ws[jl * krp + kl] = make_float4(ldf(src), ldf(src + hidden),
+                                            ldf(src + 2 * hidden), ldf(src + 3 * hidden));
         }
     };
     if (resident) stage_weights(0, hidden, 0, kw);
@@ -711,7 +735,7 @@ __device__ __forceinline__ void bwd_rows(const float* __restrict__ wx,
                     const int r = e / nu, jl = e - r * nu;
                     float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
                     if (r < nr) {
-                        float* dcp = q == 0 ? dc_prev + (row0 + r) * hidden + u0 + jl : nullptr;
+                        T* dcp = q == 0 ? dc_prev + (row0 + r) * hidden + u0 + jl : nullptr;
                         d = gate_cotangents(v[u], dcp);
                     }
                     float* dr = dgs + jl * 4 * tr + r;
@@ -751,19 +775,20 @@ __device__ __forceinline__ void bwd_rows(const float* __restrict__ wx,
         for (int r = 0; r < 4; ++r) {
             const long row = row0 + 4 * rq + r;
             if (4 * rq + r >= nr) break;
-            if (k < in_size) dx[row * in_size + k] = tot[r];
-            else dh_prev[row * hidden + (k - in_size)] = tot[r];
+            if (k < in_size) dx[row * in_size + k] = repro::narrow<T>(tot[r]);
+            else dh_prev[row * hidden + (k - in_size)] = repro::narrow<T>(tot[r]);
         }
     }
 }
 
-__device__ __forceinline__ void bwd_cols(const float* __restrict__ x,
-                                         const float* __restrict__ h,
-                                         const float* __restrict__ c,
-                                         const float* __restrict__ c_new,
-                                         const float* __restrict__ act,
-                                         const float* __restrict__ dh,
-                                         const float* __restrict__ dc,
+template <class T>
+__device__ __forceinline__ void bwd_cols(const T* __restrict__ x,
+                                         const T* __restrict__ h,
+                                         const T* __restrict__ c,
+                                         const T* __restrict__ c_new,
+                                         const T* __restrict__ act,
+                                         const T* __restrict__ dh,
+                                         const T* __restrict__ dc,
                                          float* __restrict__ dwx,
                                          float* __restrict__ dwh,
                                          float* __restrict__ db,
@@ -792,15 +817,24 @@ __device__ __forceinline__ void bwd_cols(const float* __restrict__ x,
     for (long r0 = rbeg; r0 < rend; r0 += p.sub_rows) {
         const int nrs = static_cast<int>(min(static_cast<long>(p.sub_rows), rend - r0));
         __syncthreads();                       // the last rows' reads are done
-        // the rows of [x | h | 1] by asynchronous copies (all in flight at
-        // once, no registers), waited for after the cotangents below
+        // the rows of [x | h | 1]: float rows by asynchronous copies (all in
+        // flight at once, no registers), waited for after the cotangents
+        // below; bf16 rows (2-byte elements, which cp.async does not copy,
+        // in rows of 2 (I + H) bytes that need not align) widened to float
+        // by plain loads, visible after the barrier below
         const int n_x = nrs * ck;
         for (int e = threadIdx.x; e < n_x; e += blockDim.x) {
             const int r = e / ck, k = k0 + e - r * ck;
             const long row = r0 + r;
-            if (k < in_size) __pipeline_memcpy_async(xs + e, x + row * in_size + k, 4);
-            else if (k < kw) __pipeline_memcpy_async(xs + e, h + row * hidden + (k - in_size), 4);
-            else xs[e] = k == kw ? 1.0f : 0.0f;   // db's row: fmaf(1, d, a) == a + d
+            if constexpr (sizeof(T) == 4) {
+                if (k < in_size) __pipeline_memcpy_async(xs + e, x + row * in_size + k, 4);
+                else if (k < kw) __pipeline_memcpy_async(xs + e, h + row * hidden + (k - in_size), 4);
+                else xs[e] = k == kw ? 1.0f : 0.0f;   // db's row: fmaf(1, d, a) == a + d
+            } else {
+                if (k < in_size) xs[e] = ldf(x + row * in_size + k);
+                else if (k < kw) xs[e] = ldf(h + row * hidden + (k - in_size));
+                else xs[e] = k == kw ? 1.0f : 0.0f;
+            }
         }
         __pipeline_commit();
         const int n_d = nrs * nu;
@@ -817,7 +851,7 @@ __device__ __forceinline__ void bwd_cols(const float* __restrict__ x,
                 const int e = e0 + u * blockDim.x;
                 if (e >= n_d) break;
                 const int r = e / nu, jj = e - r * nu;
-                dgc[r * p.col_units + jj] = gate_cotangents(v[u], nullptr);
+                dgc[r * p.col_units + jj] = gate_cotangents<T>(v[u], nullptr);
             }
         }
         __pipeline_wait_prior(0);
@@ -917,13 +951,14 @@ __device__ __forceinline__ void bwd_cols(const float* __restrict__ x,
     if (threadIdx.x == 0) tickets[slice_part] = 0;   // ready for the next launch
 }
 
+template <class T>
 __global__ void __launch_bounds__(BWD_THREADS)
-lstm_bwd(const float* __restrict__ wx, const float* __restrict__ wh,
-         const float* __restrict__ x, const float* __restrict__ h,
-         const float* __restrict__ c, const float* __restrict__ c_new,
-         const float* __restrict__ act, const float* __restrict__ dh,
-         const float* __restrict__ dc, float* __restrict__ dx,
-         float* __restrict__ dh_prev, float* __restrict__ dc_prev,
+lstm_bwd(const T* __restrict__ wx, const T* __restrict__ wh,
+         const T* __restrict__ x, const T* __restrict__ h,
+         const T* __restrict__ c, const T* __restrict__ c_new,
+         const T* __restrict__ act, const T* __restrict__ dh,
+         const T* __restrict__ dc, T* __restrict__ dx,
+         T* __restrict__ dh_prev, T* __restrict__ dc_prev,
          float* __restrict__ dwx, float* __restrict__ dwh, float* __restrict__ db,
          float* __restrict__ partial, unsigned int* __restrict__ tickets,
          int rows, int in_size, int hidden, BwdPlan p) {
@@ -940,6 +975,37 @@ lstm_bwd(const float* __restrict__ wx, const float* __restrict__ wh,
         bwd_rows(wx, wh, c, c_new, act, dh, dc, dx, dh_prev, dc_prev, rows, in_size, hidden, p,
                  b - col_blocks, smem4);
     }
+}
+
+// plan: BwdPlan's plan_len ints; scratch: (chunks, I + H + 1, 4H) floats
+// when chunks > 1; tickets: col_kparts * slices unsigned ints, all 0, which
+// the kernel leaves at 0 -- no other launch may use them while this one runs.
+// T: the inputs' and dx's, dh_prev's and dc_prev's type; the weight
+// gradients are float either way.
+template <class T>
+int launch_bwd(const void* wx, const void* wh, const void* x, const void* h, const void* c,
+               const void* c_new, const void* act, const void* dh, const void* dc, void* dx,
+               void* dh_prev, void* dc_prev, void* dwx, void* dwh, void* db, void* scratch,
+               void* tickets, const void* plan, int plan_len, int rows, int in_size,
+               int hidden, void* stream) {
+    if (plan_len != static_cast<int>(sizeof(BwdPlan) / sizeof(int)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int* v = static_cast<const int*>(plan);
+    const BwdPlan p{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9], v[10], v[11], v[12]};
+    if (!bwd_plan_fits(p, rows, in_size, hidden) || (p.chunks > 1 && scratch == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    static repro::SmemOptIn opt_in;            // per device (common.cuh)
+    cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(lstm_bwd<T>), p.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const unsigned grid = static_cast<unsigned>(p.row_blocks + p.col_kparts * p.slices * p.chunks);
+    const auto in = [](const void* q) { return static_cast<const T*>(q); };
+    lstm_bwd<T><<<grid, BWD_THREADS, p.smem, static_cast<cudaStream_t>(stream)>>>(
+        in(wx), in(wh), in(x), in(h), in(c), in(c_new), in(act), in(dh), in(dc),
+        static_cast<T*>(dx), static_cast<T*>(dh_prev), static_cast<T*>(dc_prev),
+        static_cast<float*>(dwx), static_cast<float*>(dwh), static_cast<float*>(db),
+        static_cast<float*>(scratch), static_cast<unsigned int*>(tickets),
+        rows, in_size, hidden, p);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -970,9 +1036,16 @@ extern "C" int lstm_cell_fwd_f32(const void* wx, const void* wh, const void* b,
                                   rows, in_size, hidden, stream);
 }
 
-// plan: BwdPlan's plan_len ints; scratch: (chunks, I + H + 1, 4H) floats
-// when chunks > 1; tickets: col_kparts * slices unsigned ints, all 0, which
-// the kernel leaves at 0 -- no other launch may use them while this one runs
+// K4 with every input and output, act included, in bf16
+extern "C" int lstm_cell_fwd_bf16(const void* wx, const void* wh, const void* b,
+                                  const void* x, const void* h, const void* c,
+                                  void* h_out, void* c_out, void* act, const void* plan,
+                                  int plan_len, int rows, int in_size, int hidden,
+                                  void* stream) {
+    return launch_cell_smem<true, __nv_bfloat16>(wx, wh, b, x, h, c, h_out, c_out, act, plan,
+                                                 plan_len, rows, in_size, hidden, stream);
+}
+
 extern "C" int lstm_cell_bwd_f32(const void* wx, const void* wh, const void* x,
                                  const void* h, const void* c, const void* c_new,
                                  const void* act, const void* dh, const void* dc,
@@ -980,27 +1053,23 @@ extern "C" int lstm_cell_bwd_f32(const void* wx, const void* wh, const void* x,
                                  void* dwx, void* dwh, void* db, void* scratch,
                                  void* tickets, const void* plan, int plan_len,
                                  int rows, int in_size, int hidden, void* stream) {
-    if (plan_len != static_cast<int>(sizeof(BwdPlan) / sizeof(int)))
-        return static_cast<int>(cudaErrorInvalidValue);
-    const int* v = static_cast<const int*>(plan);
-    const BwdPlan p{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9], v[10], v[11], v[12]};
-    if (!bwd_plan_fits(p, rows, in_size, hidden) || (p.chunks > 1 && scratch == nullptr))
-        return static_cast<int>(cudaErrorInvalidValue);
-    static repro::SmemOptIn opt_in;            // per device (common.cuh)
-    cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(lstm_bwd), p.smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const unsigned grid = static_cast<unsigned>(p.row_blocks + p.col_kparts * p.slices * p.chunks);
-    lstm_bwd<<<grid, BWD_THREADS, p.smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(wx), static_cast<const float*>(wh),
-        static_cast<const float*>(x), static_cast<const float*>(h),
-        static_cast<const float*>(c), static_cast<const float*>(c_new),
-        static_cast<const float*>(act), static_cast<const float*>(dh),
-        static_cast<const float*>(dc), static_cast<float*>(dx),
-        static_cast<float*>(dh_prev), static_cast<float*>(dc_prev),
-        static_cast<float*>(dwx), static_cast<float*>(dwh), static_cast<float*>(db),
-        static_cast<float*>(scratch), static_cast<unsigned int*>(tickets),
-        rows, in_size, hidden, p);
-    return static_cast<int>(cudaGetLastError());
+    return launch_bwd<float>(wx, wh, x, h, c, c_new, act, dh, dc, dx, dh_prev, dc_prev, dwx,
+                             dwh, db, scratch, tickets, plan, plan_len, rows, in_size, hidden,
+                             stream);
+}
+
+// K5 with the inputs and dx, dh_prev, dc_prev in bf16; dwx, dwh, db (and
+// the scratch) float, the sums over the batch before any rounding
+extern "C" int lstm_cell_bwd_bf16(const void* wx, const void* wh, const void* x,
+                                  const void* h, const void* c, const void* c_new,
+                                  const void* act, const void* dh, const void* dc,
+                                  void* dx, void* dh_prev, void* dc_prev,
+                                  void* dwx, void* dwh, void* db, void* scratch,
+                                  void* tickets, const void* plan, int plan_len,
+                                  int rows, int in_size, int hidden, void* stream) {
+    return launch_bwd<__nv_bfloat16>(wx, wh, x, h, c, c_new, act, dh, dc, dx, dh_prev, dc_prev,
+                                     dwx, dwh, db, scratch, tickets, plan, plan_len, rows,
+                                     in_size, hidden, stream);
 }
 
 // The constants that kernels/lstm_cell.py sizes and chooses launches by, and

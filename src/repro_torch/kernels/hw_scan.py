@@ -19,10 +19,11 @@ backward runs K2. On CPU tensors the same Function runs the plain versions
 :func:`~repro_torch.kernels.ref.hw_scan_ref` and
 :func:`~repro_torch.kernels.ref.hw_scan_bwd_ref`.
 
-K1 also takes y in bf16 (the bf16 policy's observation stream): the same
-kernel, templated on y's element type, stages half-width tiles and widens
-each y_t; alpha, gamma, the ring and the outputs stay float32. The bf16
-backward (K2 with a bf16 y) belongs to the bf16 training slice and raises.
+Both also take y in bf16 (the bf16 policy's observation stream): each
+kernel, templated on y's element type, stages half-width y tiles and widens
+each y_t; alpha, gamma, the ring, the state and every other stream and
+output stay float32, except K2's dy, which is rounded to bf16 once as it is
+stored. Widening is exact, so both give the plain versions' bits.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ RING_PLACES = ("shared", "optin", "global")   # ScanPlan.ring, by index
 # launches since the last reset (kernels.ops.reset_launch_counts)
 launches = 0                     # K1, float32 y
 bf16_launches = 0                # K1, bf16 y
-bwd_launches = 0                 # K2
+bwd_launches = 0                 # K2, float32 y
+bwd_bf16_launches = 0            # K2, bf16 y
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -60,10 +62,17 @@ class ScanPlan(NamedTuple):
     block: int       # series per block, one thread each
     tile: int        # rows per staged tile
     stages: int      # tile buffers: min(SCAN_PIPE, tiles of T)
-    copy: int        # bytes per copy: 16 where rows are 16-byte aligned, else the element's
+    copy: int        # bytes per copy of y: 16 where its rows are 16-byte aligned, else one element
+    copy_rest: int   # the same for K2's float streams (levels, seas, dlev, dseas); 0 in K1
     ring: int        # where the m-slot ring lives: an index of RING_PLACES
     smem: int        # dynamic shared memory, bytes
     blocks: int      # the grid
+
+
+def _copy_bytes(n: int, elem: int, aligned: bool) -> int:
+    """16-byte copies where every row of an ``elem``-byte stream of ``n``
+    series starts on 16 bytes, else one element a copy."""
+    return 16 if aligned and (n * elem) % 16 == 0 else elem
 
 
 @functools.lru_cache(maxsize=4096)
@@ -72,8 +81,10 @@ def scan_plan(n: int, t_len: int, m: int, smem_optin: int, sm_count: int,
     """K1's (``streams=FWD_STREAMS``) or K2's (``BWD_STREAMS``) launch for
     ``n`` series of ``t_len`` steps and an ``m``-slot ring, on a device with
     ``sm_count`` SMs and ``smem_optin`` bytes of opt-in shared memory per
-    block (an SM holds that and 1 KB per block). ``elem`` is the bytes of a
-    staged element: 4, or 2 for K1's bf16 y (the ring is float either way).
+    block (an SM holds that and 1 KB per block). The first staged stream is
+    y, of ``elem`` bytes an element (4, or 2 under the bf16 policy); K2's
+    other four are float32, as is the ring. A tile row of a block stages
+    ``elem + 4 * (streams - 1)`` bytes per series.
 
     * 32 series per block, so that large batches spread over every SM in
       one even wave (750 blocks at the forecast's 24,000 series) and small
@@ -85,9 +96,9 @@ def scan_plan(n: int, t_len: int, m: int, smem_optin: int, sm_count: int,
     * tiles of the most rows of SCAN_TILES, no more than T needs, with which
       every block of the grid is resident at once (each tile boundary costs
       the walk a wait and a barrier, so fewer tiles are faster);
-    * 16-byte copies where every staged row is 16-byte aligned (``N`` a
-      multiple of 4, of 8 for bf16, and ``aligned`` base pointers), else
-      one element per copy.
+    * per stream, 16-byte copies where its rows are 16-byte aligned (``N``
+      a multiple of 4 for a float32 stream, of 8 for bf16, and ``aligned``
+      base pointers), else one element per copy.
 
     The arithmetic and its order are the same in every plan.
     """
@@ -95,10 +106,11 @@ def scan_plan(n: int, t_len: int, m: int, smem_optin: int, sm_count: int,
     blocks = _cdiv(n, block)
     per_sm = _cdiv(blocks, sm_count)
     ring_bytes = 4 * m * block
+    row_bytes = elem + 4 * (streams - 1)      # staged bytes per series and tile row
 
     def layout(tile):
         stages = min(SCAN_PIPE, _cdiv(t_len, tile))
-        return stages, elem * stages * streams * tile * block
+        return stages, row_bytes * stages * tile * block
 
     ring_shared = layout(SCAN_TILES[-1])[1] + ring_bytes <= smem_optin
     cap = next((t for t in reversed(SCAN_TILES) if t >= t_len), SCAN_TILES[0])
@@ -109,8 +121,9 @@ def scan_plan(n: int, t_len: int, m: int, smem_optin: int, sm_count: int,
         if tile <= cap and smem <= smem_optin and resident:
             break
     where = "global" if not ring_shared else ("shared" if smem <= DEFAULT_SMEM else "optin")
-    copy = 16 if aligned and (n * elem) % 16 == 0 else elem
-    return ScanPlan(block, tile, stages, copy, RING_PLACES.index(where), smem, blocks)
+    copy_rest = _copy_bytes(n, 4, aligned) if streams > 1 else 0
+    return ScanPlan(block, tile, stages, _copy_bytes(n, elem, aligned), copy_rest,
+                    RING_PLACES.index(where), smem, blocks)
 
 
 _plan_ints = build.plan_ints
@@ -122,6 +135,7 @@ def _launch_plan(kernel: str, t_len: int, n: int, m: int, dev, streams: int, sta
         raise ValueError(f"{kernel}: empty problem (T={t_len}, N={n}, M={m})")
     limits = build.device_limits(dev)
     aligned = all(t.data_ptr() % 16 == 0 for t in staged)
+    # staged[0] is y, the only stream that may be bf16 (the rest are float32)
     plan = scan_plan(n, t_len, m, limits.smem_optin, limits.sm_count, streams, aligned,
                      staged[0].element_size())
     ring = (torch.empty((m, n), dtype=torch.float32, device=dev)
@@ -171,22 +185,25 @@ def hw_scan_bwd_tm(y_tm, alpha, gamma, levels_tm, seas_tm, dlev_tm, dseas_tm):
     """Launch K2: the adjoint of :func:`hw_scan_tm`.
 
     y_tm, levels_tm, dlev_tm: (T, N); alpha/gamma: (N,); seas_tm, dseas_tm:
-    (T+M, N); all float32, contiguous, on one CUDA device. Returns dy_tm
-    (T, N), dalpha (N,), dgamma (N,), d init_seas_tm (M, N). Raises on
-    anything else.
+    (T+M, N); y float32 or bfloat16, the rest float32; all contiguous, on
+    one CUDA device. Returns dy_tm (T, N) in y's dtype, and float32 dalpha
+    (N,), dgamma (N,), d init_seas_tm (M, N). Raises on anything else.
     """
-    global bwd_launches
+    global bwd_launches, bwd_bf16_launches
     t_len, n = y_tm.shape
     m = seas_tm.shape[0] - t_len
     dev = y_tm.device
+    build.check_inputs("hw_scan_bwd", [("y_tm", y_tm, (t_len, n))], dev,
+                       dtypes=(torch.float32, torch.bfloat16))
     build.check_inputs("hw_scan_bwd", [
-        ("y_tm", y_tm, (t_len, n)), ("alpha", alpha, (n,)), ("gamma", gamma, (n,)),
+        ("alpha", alpha, (n,)), ("gamma", gamma, (n,)),
         ("levels_tm", levels_tm, (t_len, n)), ("seas_tm", seas_tm, (t_len + m, n)),
         ("dlev_tm", dlev_tm, (t_len, n)), ("dseas_tm", dseas_tm, (t_len + m, n))], dev)
+    bf16 = y_tm.dtype == torch.bfloat16
     plan, ring = _launch_plan("hw_scan_bwd", t_len, n, m, dev, BWD_STREAMS,
                               [y_tm, levels_tm, seas_tm, dlev_tm, dseas_tm])
 
-    dy = torch.empty((t_len, n), dtype=torch.float32, device=dev)
+    dy = torch.empty((t_len, n), dtype=y_tm.dtype, device=dev)
     dalpha = torch.empty((n,), dtype=torch.float32, device=dev)
     dgamma = torch.empty((n,), dtype=torch.float32, device=dev)
     dinit = torch.empty((m, n), dtype=torch.float32, device=dev)
@@ -194,7 +211,7 @@ def hw_scan_bwd_tm(y_tm, alpha, gamma, levels_tm, seas_tm, dlev_tm, dseas_tm):
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hw_scan_bwd_f32(
+        err = (lib.hw_scan_bwd_bf16 if bf16 else lib.hw_scan_bwd_f32)(
             y_tm.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
             levels_tm.data_ptr(), seas_tm.data_ptr(), dlev_tm.data_ptr(),
             dseas_tm.data_ptr(), dy.data_ptr(), dalpha.data_ptr(),
@@ -202,7 +219,10 @@ def hw_scan_bwd_tm(y_tm, alpha, gamma, levels_tm, seas_tm, dlev_tm, dseas_tm):
             None if ring is None else ring.data_ptr(), ctypes.addressof(plan_ints),
             len(plan_ints), t_len, n, m, stream)
     build.check(err, "hw_scan_bwd")
-    bwd_launches += 1
+    if bf16:
+        bwd_bf16_launches += 1
+    else:
+        bwd_launches += 1
     return dy, dalpha, dgamma, dinit
 
 
@@ -226,9 +246,6 @@ class HWScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dlev, dseas):
         y_tm, alpha, gamma, levels, seas = ctx.saved_tensors
-        if y_tm.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"the HW scan's backward with a bf16 y comes with {build.BF16_TRAINING}")
         # set_materialize_grads is on (the default): an unused output comes
         # in as zeros, never None
         if y_tm.device.type == "cuda":

@@ -25,10 +25,12 @@ counterpart of the JAX ``custom_vjp``); the plain versions are
 :func:`~repro_torch.kernels.ref.lstm_cell_bwd_ref`, which the same Function
 runs on CPU tensors.
 
-K3 also takes bf16 (the bf16 policy's stream, every input in bf16): both
-plans, templated on the element type, widen as they load, compute in
-float32 and round h' and c' to bf16 once. K4 and K5 in bf16 belong to the
-bf16 training slice: :class:`LSTMCell` raises on bf16 inputs.
+All three also take bf16 (the bf16 policy's stream, every input in bf16):
+templated on the element type, they widen as they load and compute in
+float32. K3 and K4 round h', c' (and K4 the activations) to bf16 once as
+they store them; K5 rounds dx, dh_prev and dc_prev once and returns the
+weight gradients as float32 sums over the batch, which :class:`LSTMCell`
+rounds to the weight dtype once, as the reference's ``custom_vjp`` does.
 """
 
 from __future__ import annotations
@@ -68,8 +70,10 @@ _C_CONSTANTS = ("CELL_PAD", "CELL_SUM_BLOCK", "CELL_WIDE_R", "BWD_THREADS",
 # launches since the last reset (kernels.ops.reset_launch_counts)
 launches = 0                     # K3, float32
 bf16_launches = 0                # K3, bf16
-fwd_launches = 0                 # K4
-bwd_launches = 0                 # K5
+fwd_launches = 0                 # K4, float32
+fwd_bf16_launches = 0            # K4, bf16
+bwd_launches = 0                 # K5, float32
+bwd_bf16_launches = 0            # K5, bf16
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -214,21 +218,28 @@ def _kernel_library() -> ctypes.CDLL:
 _plan_ints = build.plan_ints
 
 
-def _cell_shapes(kernel, wx, wh, b, x, h, c, dtypes=(torch.float32,)):
-    """Check a K3/K4 call: every input of one of ``dtypes``, all of one
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _one_dtype(kernel, named_shapes, dev, rows, hidden):
+    """Check a K3/K4/K5 call: every input float32 or bfloat16, all of one
     dtype (the JAX kernel's one stream dtype)."""
-    rows, in_size = x.shape
-    hidden = h.shape[1]
-    dev = x.device
-    build.check_inputs(kernel, [
-        ("wx", wx, (in_size, 4 * hidden)), ("wh", wh, (hidden, 4 * hidden)),
-        ("b", b, (4 * hidden,)), ("x", x, (rows, in_size)),
-        ("h", h, (rows, hidden)), ("c", c, (rows, hidden))], dev, dtypes)
-    mixed = {str(t.dtype) for t in (wx, wh, b, x, h, c)}
+    build.check_inputs(kernel, named_shapes, dev, STREAM_DTYPES)
+    mixed = {str(t.dtype) for _, t, _ in named_shapes}
     if len(mixed) > 1:
         raise TypeError(f"{kernel}: the inputs mix {sorted(mixed)}; the kernel takes one dtype")
     if rows < 1 or hidden < 1:
         raise ValueError(f"{kernel}: empty problem (B={rows}, H={hidden})")
+
+
+def _cell_shapes(kernel, wx, wh, b, x, h, c):
+    rows, in_size = x.shape
+    hidden = h.shape[1]
+    dev = x.device
+    _one_dtype(kernel, [
+        ("wx", wx, (in_size, 4 * hidden)), ("wh", wh, (hidden, 4 * hidden)),
+        ("b", b, (4 * hidden,)), ("x", x, (rows, in_size)),
+        ("h", h, (rows, hidden)), ("c", c, (rows, hidden))], dev, rows, hidden)
     return rows, in_size, hidden, dev
 
 
@@ -245,8 +256,7 @@ def lstm_cell(wx, wh, b, x, h, c):
     it never computes on the CPU.
     """
     global launches, bf16_launches
-    rows, in_size, hidden, dev = _cell_shapes("lstm_cell", wx, wh, b, x, h, c,
-                                              (torch.float32, torch.bfloat16))
+    rows, in_size, hidden, dev = _cell_shapes("lstm_cell", wx, wh, b, x, h, c)
     bf16 = x.dtype == torch.bfloat16
     h_out = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
     c_out = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
@@ -268,22 +278,27 @@ def lstm_cell(wx, wh, b, x, h, c):
 
 def lstm_cell_fwd(wx, wh, b, x, h, c):
     """Launch K4: K3 that also returns ``act = [sig i | sig f | tanh g | sig o]``
-    (B, 4H). Same inputs and checks as :func:`lstm_cell`."""
-    global fwd_launches
+    (B, 4H), in the inputs' dtype (rounded once in bf16). Same inputs and
+    checks as :func:`lstm_cell`."""
+    global fwd_launches, fwd_bf16_launches
     rows, in_size, hidden, dev = _cell_shapes("lstm_cell_fwd", wx, wh, b, x, h, c)
-    h_out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
-    c_out = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
-    act = torch.empty((rows, 4 * hidden), dtype=torch.float32, device=dev)
+    bf16 = x.dtype == torch.bfloat16
+    h_out = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
+    c_out = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
+    act = torch.empty((rows, 4 * hidden), dtype=x.dtype, device=dev)
     plan = _cell_plan_ints(dev, rows, in_size, hidden)
     lib = _kernel_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lstm_cell_fwd_f32(
+        err = (lib.lstm_cell_fwd_bf16 if bf16 else lib.lstm_cell_fwd_f32)(
             wx.data_ptr(), wh.data_ptr(), b.data_ptr(), x.data_ptr(),
             h.data_ptr(), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
             act.data_ptr(), ctypes.addressof(plan), len(plan), rows, in_size, hidden, stream)
     build.check(err, "lstm_cell_fwd")
-    fwd_launches += 1
+    if bf16:
+        fwd_bf16_launches += 1
+    else:
+        fwd_launches += 1
     return h_out, c_out, act
 
 
@@ -305,7 +320,10 @@ def _ticket_counters(dev, stream: int, n: int) -> torch.Tensor:
 
 def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
     """Launch K5: ``(dh, dc)`` -> ``dx (B,I), dh_prev (B,H), dc_prev (B,H),
-    dwx (I,4H), dwh (H,4H), db (4H,)``, all float32 on the card.
+    dwx (I,4H), dwh (H,4H), db (4H,)``. The inputs all float32 or all
+    bfloat16; dx, dh_prev and dc_prev in that dtype, the weight gradients
+    always the float32 sums (:class:`LSTMCell` rounds them to the weight
+    dtype).
 
     One launch; the weight gradients are summed over B in an order fixed by
     the shape (:func:`bwd_plan`), so two launches on the same inputs give
@@ -315,23 +333,23 @@ def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
     replayed concurrently with K5 calls on its capture stream, nor twice at
     once. A set per launch would need a memset, a device call per call.
     """
-    global bwd_launches
+    global bwd_launches, bwd_bf16_launches
     rows, in_size = x.shape
     hidden = h.shape[1]
     dev = x.device
     g4 = 4 * hidden
-    build.check_inputs("lstm_cell_bwd", [
+    _one_dtype("lstm_cell_bwd", [
         ("wx", wx, (in_size, g4)), ("wh", wh, (hidden, g4)),
         ("x", x, (rows, in_size)), ("h", h, (rows, hidden)), ("c", c, (rows, hidden)),
         ("c_new", c_new, (rows, hidden)), ("act", act, (rows, g4)),
-        ("dh", dh, (rows, hidden)), ("dc", dc, (rows, hidden))], dev)
-    if rows < 1 or hidden < 1:
-        raise ValueError(f"lstm_cell_bwd: empty problem (B={rows}, H={hidden})")
+        ("dh", dh, (rows, hidden)), ("dc", dc, (rows, hidden))], dev, rows, hidden)
+    bf16 = x.dtype == torch.bfloat16
     plan = bwd_plan(rows, in_size, hidden, build.device_limits(dev).smem_optin)
     f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty((rows, in_size), **f32)
-    dh_prev = torch.empty((rows, hidden), **f32)
-    dc_prev = torch.empty((rows, hidden), **f32)
+    stream_dt = dict(dtype=x.dtype, device=dev)
+    dx = torch.empty((rows, in_size), **stream_dt)
+    dh_prev = torch.empty((rows, hidden), **stream_dt)
+    dc_prev = torch.empty((rows, hidden), **stream_dt)
     dwx = torch.empty((in_size, g4), **f32)
     dwh = torch.empty((hidden, g4), **f32)
     db = torch.empty((g4,), **f32)
@@ -342,7 +360,7 @@ def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         tickets = _ticket_counters(dev, stream, plan.col_kparts * plan.slices)
-        err = lib.lstm_cell_bwd_f32(
+        err = (lib.lstm_cell_bwd_bf16 if bf16 else lib.lstm_cell_bwd_f32)(
             wx.data_ptr(), wh.data_ptr(), x.data_ptr(), h.data_ptr(), c.data_ptr(),
             c_new.data_ptr(), act.data_ptr(), dh.data_ptr(), dc.data_ptr(),
             dx.data_ptr(), dh_prev.data_ptr(), dc_prev.data_ptr(), dwx.data_ptr(),
@@ -350,19 +368,20 @@ def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
             tickets.data_ptr(), ctypes.addressof(plan_ints), len(plan_ints),
             rows, in_size, hidden, stream)
     build.check(err, "lstm_cell_bwd")
-    bwd_launches += 1
+    if bf16:
+        bwd_bf16_launches += 1
+    else:
+        bwd_launches += 1
     return dx, dh_prev, dc_prev, dwx, dwh, db
 
 
 class LSTMCell(torch.autograd.Function):
     """Differentiable fused cell: K4 forward, K5 backward on the card; the
-    plain versions on the CPU. ``apply(wx, wh, b, x, h, c) -> (h', c')``."""
+    plain versions on the CPU. ``apply(wx, wh, b, x, h, c) -> (h', c')``,
+    all six inputs float32 or all bfloat16."""
 
     @staticmethod
     def forward(ctx, wx, wh, b, x, h, c):
-        if torch.bfloat16 in {t.dtype for t in (wx, wh, b, x, h, c)}:
-            raise NotImplementedError(
-                f"a differentiable LSTM cell in bf16 (K4 and K5) comes with {build.BF16_TRAINING}")
         if x.device.type == "cuda":
             h_new, c_new, act = lstm_cell_fwd(wx, wh, b, x, h, c)
         else:
@@ -381,4 +400,6 @@ class LSTMCell(torch.autograd.Function):
         else:
             dx, dhp, dcp, dwx, dwh, db = ref.lstm_cell_bwd_ref(
                 wx, wh, x, h, c, c_new, act, dh, dc)
-        return dwx, dwh, db, dx, dhp, dcp
+        # the weight gradients are float32 sums over the whole batch, rounded
+        # to the weight dtype once, here (the identity in float32)
+        return dwx.to(wx.dtype), dwh.to(wh.dtype), db.to(wx.dtype), dx, dhp, dcp

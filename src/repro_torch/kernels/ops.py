@@ -45,18 +45,22 @@ def _on_cuda(t) -> bool:
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`, by
-    kernel and stream dtype (``hw_scan_bf16``: K1 with a bf16 y;
-    ``lstm_cell_bf16``: K3 in bf16; the names without a suffix: float32)."""
+    kernel and stream dtype: the names without a suffix count float32
+    launches, ``_bf16`` the bf16 policy's (K1 and K2 with a bf16 y, K3, K4
+    and K5 in bf16)."""
     return {"hw_scan": _hw.launches, "hw_scan_bf16": _hw.bf16_launches,
-            "hw_scan_bwd": _hw.bwd_launches,
+            "hw_scan_bwd": _hw.bwd_launches, "hw_scan_bwd_bf16": _hw.bwd_bf16_launches,
             "lstm_cell": _lstm.launches, "lstm_cell_bf16": _lstm.bf16_launches,
-            "lstm_cell_fwd": _lstm.fwd_launches,
-            "lstm_cell_bwd": _lstm.bwd_launches, "flash_attention": _fa.launches}
+            "lstm_cell_fwd": _lstm.fwd_launches, "lstm_cell_fwd_bf16": _lstm.fwd_bf16_launches,
+            "lstm_cell_bwd": _lstm.bwd_launches, "lstm_cell_bwd_bf16": _lstm.bwd_bf16_launches,
+            "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
-    _hw.launches = _hw.bf16_launches = _hw.bwd_launches = 0
-    _lstm.launches = _lstm.bf16_launches = _lstm.fwd_launches = _lstm.bwd_launches = 0
+    _hw.launches = _hw.bf16_launches = _hw.bwd_launches = _hw.bwd_bf16_launches = 0
+    _lstm.launches = _lstm.bf16_launches = 0
+    _lstm.fwd_launches = _lstm.fwd_bf16_launches = 0
+    _lstm.bwd_launches = _lstm.bwd_bf16_launches = 0
     _fa.launches = 0
 
 

@@ -60,6 +60,12 @@ def hw_scan_bwd_ref(y, alpha, gamma, levels, seas, dlev, dseas):
 
     y, levels, dlev: (N, T); alpha, gamma: (N,); seas, dseas: (N, T+m).
     Returns dy (N, T), dalpha (N,), dgamma (N,), d init_seas (N, m).
+
+    A bf16 y (the bf16 policy's stream): torch promotes each product and
+    quotient with y_t to float32, widening y_t exactly, so the state, the
+    cotangents and dalpha, dgamma, d init_seas stay float32, and dy is
+    rounded to bf16 once at the end -- the reference kernel's contract
+    (``hw_scan.py:195-197``, ``:216``) and K2's arithmetic.
     """
     t_len = y.shape[1]
     m = seas.shape[1] - t_len
@@ -134,13 +140,21 @@ def bf16_ulps(a, b):
 def lstm_cell_fwd_ref(wx, wh, b, x, h, c):
     """The plain K4: :func:`lstm_cell_ref` that also returns the gate
     activations ``act = [sigmoid(i) | sigmoid(f) | tanh(g) | sigmoid(o)]``
-    (B, 4H), the residual :func:`lstm_cell_bwd_ref` consumes."""
+    (B, 4H), the residual :func:`lstm_cell_bwd_ref` consumes.
+
+    In bf16 it is :func:`lstm_cell_ref`'s contract, with ``act`` rounded to
+    bf16 once as it is stored (the reference writes it in the stream dtype,
+    ``src/repro/kernels/lstm_cell.py:87``); h' is taken from the float32
+    activations and c', as in K3."""
+    out_dtype = x.dtype
+    wx, wh, b, x, h, c = (widen(t) for t in (wx, wh, b, x, h, c))
     gates = x @ wx + h @ wh + b
     i, f, g, o = gates.chunk(4, dim=-1)
     si, sf, tg, so = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
     c_new = sf * c + si * tg
     h_new = so * torch.tanh(c_new)
-    return h_new, c_new, torch.cat([si, sf, tg, so], dim=-1)
+    return (h_new.to(out_dtype), c_new.to(out_dtype),
+            torch.cat([si, sf, tg, so], dim=-1).to(out_dtype))
 
 
 def lstm_cell_bwd_ref(wx, wh, x, h, c, c_new, act, dh, dc):
@@ -151,7 +165,17 @@ def lstm_cell_bwd_ref(wx, wh, x, h, c, c_new, act, dh, dc):
     products that contract 4H (``dx``, ``dh_prev``) and the batch (``dwx``,
     ``dwh``, ``db``). Returns ``dx (B,I), dh_prev (B,H), dc_prev (B,H),
     dwx (I,4H), dwh (H,4H), db (4H,)``.
+
+    In bf16 (every input, as K5 takes them) the inputs are widened, the gate
+    cotangents and every product run in float32, and ``dx``, ``dh_prev`` and
+    ``dc_prev`` are rounded to bf16 once. The weight gradients stay the
+    float32 sums over the whole batch, as the reference kernel emits them
+    (``:213-219``); :class:`~repro_torch.kernels.lstm_cell.LSTMCell` rounds
+    them to the weight dtype once, after that sum (``:246-249``).
     """
+    out_dtype = x.dtype
+    wx, wh, x, h, c, c_new, act, dh, dc = (
+        widen(t) for t in (wx, wh, x, h, c, c_new, act, dh, dc))
     si, sf, tg, so = act.chunk(4, dim=-1)
     tc = torch.tanh(c_new)
     # h = so * tanh(c_new); c_new = sf * c + si * tg
@@ -161,8 +185,8 @@ def lstm_cell_bwd_ref(wx, wh, x, h, c, c_new, act, dh, dc):
     di_pre = dct * tg * si * (1.0 - si)
     dg_pre = dct * si * (1.0 - tg * tg)
     dgates = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=-1)     # (B, 4H)
-    return (dgates @ wx.t(), dgates @ wh.t(), dct * sf,
-            x.t() @ dgates, h.t() @ dgates, dgates.sum(dim=0))
+    return ((dgates @ wx.t()).to(out_dtype), (dgates @ wh.t()).to(out_dtype),
+            (dct * sf).to(out_dtype), x.t() @ dgates, h.t() @ dgates, dgates.sum(dim=0))
 
 
 def attention_ref(q, k, v, *, causal: bool = True, scale=None):

@@ -35,7 +35,6 @@ from repro_torch.core.esrnn import ESRNNConfig, esrnn_forecast, esrnn_init
 from repro_torch.core.heads import frozen_param_groups
 from repro_torch.data.pipeline import PreparedData, batch_schedule
 from repro_torch.device import resolve_device
-from repro_torch.kernels.build import BF16_TRAINING
 from repro_torch.train.engine import (
     make_step_fn, make_superstep_fn, segment_steps, split_frozen,
 )
@@ -106,9 +105,7 @@ class PreemptionHandler:
             signal.signal(sig, prev)
 
 
-def _refuse_unported(model: ESRNNConfig, cfg: TrainConfig, mesh) -> None:
-    if model.precision == "bf16":
-        raise NotImplementedError(f"training under precision='bf16' comes with {BF16_TRAINING}")
+def _refuse_unported(cfg: TrainConfig, mesh) -> None:
     later = {
         "ckpt_dir": (cfg.ckpt_dir is not None, "the spec/estimator/CLI/checkpoints"),
         "data_parallel > 1 / mesh": ((cfg.data_parallel or 0) > 1 or mesh is not None,
@@ -144,7 +141,7 @@ def train_esrnn(
     per-series table. The ``on_step`` hook gets ``(last_step, loss, params)``
     -- a float per step, or the segment's loss array under supersteps.
     """
-    _refuse_unported(model, cfg, mesh)
+    _refuse_unported(cfg, mesh)
     mcfg = model
     dev = resolve_device(device)
     cfg_adam = AdamConfig(

@@ -29,6 +29,9 @@ Tolerances and their reasons:
   is 2**-8 relative, and it travels through 229 cell steps and the exp);
 * the bf16 forecast against the port's own fp32 forecast: rtol 0.05, atol
   1e-3, as ``tests/core/test_precision.py`` holds the reference.
+
+bf16 training and the bf16 fine-tune are held against the JAX package in
+``test_torch_bf16_train.py``.
 """
 
 import dataclasses
@@ -57,14 +60,10 @@ from repro_torch.core import esrnn as tes
 from repro_torch.core import forward as tforward
 from repro_torch.core import heads as theads
 from repro_torch.core import holt_winters as thw
-from repro_torch.data.pipeline import synthetic_prepared
 from repro_torch.forecast import BucketDispatcher, synthetic_request_stream
 from repro_torch.forecast.server import ForecastServer, ServerConfig
-from repro_torch.kernels import hw_scan as thw_kernel
-from repro_torch.kernels import lstm_cell as tlstm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.train.trainer import TrainConfig, train_esrnn
 
 BF16 = dict(precision="bf16", use_pallas=True)
 RTOL, ATOL = 2e-2, 1e-3            # bf16 paths against the JAX package
@@ -424,44 +423,3 @@ def test_server_in_bf16_observe_and_submit_match_jax(model, jax_hw_scan_via_refe
         _close(g.result(timeout=0), w.result(timeout=0))
     assert tsrv.stats.observes == jsrv.stats.observes == len(hist)
     assert tsrv.store.get(1).t == len(hist)
-
-
-# ---------------------------------------------------------------------------
-# what belongs to the bf16 training slice raises
-
-
-def test_bf16_training_raises():
-    cfg = tes.make_config("quarterly", hidden_size=8, precision="bf16")
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        train_esrnn(cfg, synthetic_prepared(4, series_length=20),
-                    TrainConfig(n_steps=1, batch_size=2), device="cpu")
-
-
-def test_bf16_finetune_raises(model):
-    _, _, tcfg, tp = model
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        ForecastServer(tcfg, tp, server_config=ServerConfig(finetune_steps=2), device="cpu",
-                       length_buckets=LENGTHS, batch_buckets=BATCHES)
-
-
-def test_bf16_backward_raises_and_nothing_widens():
-    # the loss's gradient reaches the differentiable cell (K4/K5) first ...
-    cfg = tes.make_config("quarterly", hidden_size=8, precision="bf16")
-    params = tes.esrnn_init(torch.Generator().manual_seed(0), cfg, 3, device="cpu")
-    for _, leaf in tes.param_leaves(params):
-        leaf.requires_grad_(True)
-    y, cats = _batch(cfg, 3, 20)
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        tes.esrnn_loss_and_grad(cfg, params, torch.from_numpy(y), torch.from_numpy(cats))
-    # ... and each Function refuses bf16 by itself: the cell at its forward,
-    # the HW scan at its backward
-    args = [_t(a).requires_grad_(True) for a in _cell_inputs(4, 3, 2, seed=0)]
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        tlstm.LSTMCell.apply(*args)
-    y16, alpha, gamma, init_seas = (_t(a) for a in _scan_inputs(3, 9, 4, seed=1))
-    alpha.requires_grad_(True)
-    lev, seas = thw_kernel.HWScan.apply(y16.t().contiguous(), alpha, gamma,
-                                        init_seas.t().contiguous())
-    assert lev.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        (lev.sum() + seas.sum()).backward()

@@ -24,6 +24,11 @@ in another order, and one rounding to bf16 can fall on either side), or,
 where the output is so near zero that float32's sum-order error spans more
 than one bf16 ulp (around |v| < 1e-4; float32 against float64 sums differ
 there by up to 10 ulps on the CPU too), within the fp32 kernel's atol 1e-5.
+The bf16 streams of the training path are held the same way: K2 with a
+bf16 y to its plain version's bits (dy rounded once from the same float32
+walk); K4 and K5 in bf16 to 1 bf16 ulp or atol 1e-5, and K5's float32
+weight gradients, before their rounding, as the fp32 K5's (atol 1e-5 *
+sqrt(B), the same bits on two launches).
 """
 
 import ctypes
@@ -499,26 +504,174 @@ def test_bf16_forecast_launches_only_the_bf16_kernels_on_card(card):
 
 
 @pytest.mark.cuda
-def test_bf16_stays_off_the_training_kernels_on_card(card):
-    # K2, K4 and K5 take float32 only: a bf16 tensor raises, nothing widens
+def test_cell_kernels_take_one_dtype_on_card(card):
+    # K3, K4 and K5 take one dtype for all their inputs, as the reference
+    # kernel; K2 takes a bf16 y only, every other stream float32
     h = torch.ones((2, 2), dtype=torch.bfloat16, device=card)
     w = torch.ones((3, 8), dtype=torch.bfloat16, device=card)
     wh = torch.ones((2, 8), dtype=torch.bfloat16, device=card)
+    b = torch.ones(8, dtype=torch.bfloat16, device=card)
     x = torch.ones((2, 3), dtype=torch.bfloat16, device=card)
-    with pytest.raises(TypeError, match="float32 only"):
-        lstm_cell.lstm_cell_fwd(w, wh, torch.ones(8, dtype=torch.bfloat16, device=card),
-                                x, h, h)
-    with pytest.raises(TypeError, match="float32 only"):
-        lstm_cell.lstm_cell_bwd(w, wh, x, h, h, h, torch.ones((2, 8), dtype=torch.bfloat16,
-                                                                 device=card), h, h)
-    f = torch.ones(3, device=card)
-    with pytest.raises(TypeError, match="float32 only"):
-        hw_scan.hw_scan_bwd_tm(x, f, f, x.float(), torch.ones((3, 3), device=card), x.float(),
-                               torch.ones((3, 3), device=card))
-    # K3 takes one dtype for all six inputs, as the reference kernel
+    act = torch.ones((2, 8), dtype=torch.bfloat16, device=card)
     with pytest.raises(TypeError, match="mix"):
-        lstm_cell.lstm_cell(w.float(), wh, torch.ones(8, dtype=torch.bfloat16, device=card),
-                            x, h, h)
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        lstm_cell.LSTMCell.apply(w.requires_grad_(True), wh, torch.ones(8, dtype=torch.bfloat16,
-                                                                        device=card), x, h, h)
+        lstm_cell.lstm_cell(w.float(), wh, b, x, h, h)
+    with pytest.raises(TypeError, match="mix"):
+        lstm_cell.lstm_cell_fwd(w, wh, b, x, h.float(), h)
+    with pytest.raises(TypeError, match="mix"):
+        lstm_cell.lstm_cell_bwd(w, wh, x, h, h, h, act, h.float(), h)
+    f = torch.ones(3, device=card)
+    with pytest.raises(TypeError, match="dlev_tm is torch.bfloat16; the kernel takes float32"):
+        hw_scan.hw_scan_bwd_tm(x, f, f, x.float(), torch.ones((3, 3), device=card), x,
+                               torch.ones((3, 3), device=card))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 streams of K2, K4 and K5 (bf16 training and the bf16 fine-tune)
+
+
+# K2 at the train batches (256 and 2,048; m = 4 and the m == 1 convention),
+# the fine-tune's (8, 256, 4), the wide rings, and N off the copy widths: a
+# multiple of 4 but not of 8 (bf16 y one element a copy, the float streams
+# 16 bytes), not of 4 (both one element), and 1
+_BF16_SCAN_BWDS = ([(256, 72, 4), (2_048, 72, 4), (256, 72, 1), (2_048, 72, 1), (8, 256, 4)]
+                   + [(300, 208, 168), (130, 440, 400), (40, 2030, 2000)]
+                   + [(36, 41, 4), (12, 333, 4), (33, 70, 4), (3, 40, 12), (1, 9, 4),
+                      (36, 41, 2), (24_004, 128, 4)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t_len,m", _BF16_SCAN_BWDS)
+def test_hw_scan_bwd_bf16_equals_plain_bit_for_bit_on_card(card, n, t_len, m):
+    y, alpha, gamma, init_seas = _scan_bf16_case(n, t_len, m, n + t_len, card)
+    g = torch.Generator().manual_seed(n + m)
+    dlev = torch.randn((n, t_len), generator=g).to(card)
+    dseas = torch.randn((n, t_len + m), generator=g).to(card)
+    lev, seas = ref.hw_scan_ref(y, alpha, gamma, init_seas)
+    want = ref.hw_scan_bwd_ref(y, alpha, gamma, lev, seas, dlev, dseas)
+    tm = lambda a: a.t().contiguous()
+    args = (tm(y), alpha, gamma, tm(lev), tm(seas), tm(dlev), tm(dseas))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = hw_scan.hw_scan_bwd_tm(*args)
+        again = hw_scan.hw_scan_bwd_tm(*args)
+    counts = ops.launch_counts()
+    assert (counts["hw_scan_bwd_bf16"], counts["hw_scan_bwd"]) == (2, 0)
+    assert got[0].dtype == torch.bfloat16
+    for name, gt, w, a in zip(("dy", "dalpha", "dgamma", "dinit"), got, want, again):
+        gt = gt.t() if gt.dim() == 2 else gt
+        assert gt.dtype == w.dtype
+        assert torch.equal(gt, w), f"K2 bf16 {name} differs from the plain version"
+        assert torch.equal(gt, a.t() if a.dim() == 2 else a), "two launches differ"
+
+
+def _within_ulp_or_atol(got, want, what):
+    assert got.dtype == want.dtype == torch.bfloat16, what
+    past = (ref.bf16_ulps(got, want) > 1) & ((got.float() - want.float()).abs() > 1e-5)
+    assert not past.any(), f"{what}: {int(past.sum())} outputs past 1 bf16 ulp and atol 1e-5"
+
+
+# K4 and K5 at every bf16 train-step shape (rows = batch x dilation, I = 14
+# then 40, at batch 256 and 2,048), the fine-tune's (batch 8), the tests'
+# odd width (I = 7, H = 50), and the widths past the presets
+_BF16_TRAIN_CELLS = ([(b * d, i, 40) for b in (256, 2_048, 8)
+                      for d, i in ((1, 14), (2, 40), (4, 40), (8, 40))]
+                     + [(128, 7, 50), (333, 62, 50)]
+                     + [(rows, hid, hid) for hid in (64, 128, 256) for rows in (1, 256)]
+                     + [(33, 1030, 1030)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,in_size,hidden", _BF16_TRAIN_CELLS)
+def test_lstm_cell_fwd_bwd_bf16_within_one_ulp_of_plain_on_card(card, rows, in_size, hidden):
+    wx, wh, b, x, h, c = _cell_bf16_args(rows, in_size, hidden, rows + hidden, card)
+    ops.reset_launch_counts()
+    fwd = lstm_cell.lstm_cell_fwd(wx, wh, b, x, h, c)
+    want_fwd = ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
+    for name, gt, w in zip(("h", "c", "act"), fwd, want_fwd):
+        _within_ulp_or_atol(gt, w, f"K4 bf16 {name}")
+    # K5 on the plain forward's residuals, as the Function feeds it
+    g = torch.Generator().manual_seed(rows + 1)
+    dh = torch.randn((rows, hidden), generator=g).to(card, torch.bfloat16)
+    dc = torch.randn((rows, hidden), generator=g).to(card, torch.bfloat16)
+    _, c_new, act = want_fwd
+    bwd_args = (wx, wh, x, h, c, c_new, act, dh, dc)
+    got = lstm_cell.lstm_cell_bwd(*bwd_args)
+    again = lstm_cell.lstm_cell_bwd(*bwd_args)
+    want = ref.lstm_cell_bwd_ref(*bwd_args)
+    counts = ops.launch_counts()
+    assert (counts["lstm_cell_fwd_bf16"], counts["lstm_cell_bwd_bf16"]) == (1, 2)
+    assert counts["lstm_cell_fwd"] == counts["lstm_cell_bwd"] == 0
+    for name, gt, w in zip(("dx", "dh_prev", "dc_prev"), got[:3], want[:3]):
+        _within_ulp_or_atol(gt, w, f"K5 bf16 {name}")
+    # the weight gradients: float32 sums over B rows before any rounding,
+    # bit-identical across launches
+    for name, gt, w, a in zip(("dwx", "dwh", "db"), got[3:], want[3:], again[3:]):
+        assert gt.dtype == torch.float32
+        torch.testing.assert_close(gt, w, rtol=0, atol=1e-5 * max(1.0, rows ** 0.5))
+        assert torch.equal(gt, a), f"K5 bf16 {name} differs between launches"
+
+
+@pytest.mark.cuda
+def test_lstm_cell_function_in_bf16_on_card(card):
+    # K4 forward, K5 backward; the weight gradients rounded to bf16 once,
+    # the fp32 master weights behind the cast receive float32
+    masters = [a.float().requires_grad_(True)
+               for a in _cell_bf16_args(256, 14, 40, 5, card)[:3]]
+    x, h, c = (a.requires_grad_(True) for a in _cell_bf16_args(256, 14, 40, 6, card)[3:])
+    ops.reset_launch_counts()
+    h_new, c_new = ops.lstm_cell(*(m.to(torch.bfloat16) for m in masters), x, h, c)
+    (h_new.float().square().sum() + c_new.float().sum()).backward()
+    counts = ops.launch_counts()
+    assert (counts["lstm_cell_fwd_bf16"], counts["lstm_cell_bwd_bf16"]) == (1, 1)
+    assert h_new.dtype == torch.bfloat16 and x.grad.dtype == torch.bfloat16
+    cpu = [m.detach().cpu().requires_grad_(True) for m in masters]
+    xc, hc, cc = (a.detach().cpu().requires_grad_(True) for a in (x, h, c))
+    hw, cw = ops.lstm_cell(*(m.to(torch.bfloat16) for m in cpu), xc, hc, cc)
+    (hw.float().square().sum() + cw.float().sum()).backward()
+    # against the CPU Function: its forward rounds its own residuals, which
+    # may sit 1 bf16 ulp from the card's, so the bf16 bound of the forecast
+    for m, mc in zip(masters, cpu):
+        assert m.grad.dtype == torch.float32
+        torch.testing.assert_close(m.grad.cpu(), mc.grad, rtol=2e-2, atol=2e-2)
+    for a, ac in zip((x, h, c), (xc, hc, cc)):
+        assert a.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(a.grad.cpu().float(), ac.grad.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [False, True])
+def test_bf16_train_step_launches_only_the_bf16_kernels_on_card(card, sparse):
+    from repro_torch.convert import copy_params
+    from repro_torch.core import esrnn
+    from repro_torch.train.engine import make_step_fn
+    from repro_torch.train.optimizer import AdamConfig, adam_init, adam_init_sparse
+
+    cfg = esrnn.make_config("quarterly", precision="bf16")
+    n, t_len, batch = 64, 40, 16
+    g = torch.Generator().manual_seed(2)
+    y = torch.rand((n, t_len), generator=g) * 100 + 50
+    cats = torch.eye(6)[torch.randint(0, 6, (n,), generator=g)]
+    mask = torch.ones((n, t_len))
+    idx = torch.randperm(n, generator=g)[:batch]
+    params = esrnn.esrnn_init(torch.Generator().manual_seed(0), cfg, n, device="cpu")
+    adam = AdamConfig(lr=1e-3, clip_norm=20.0, group_lr={"per_series": 10.0, "default": 1.0})
+    losses = {}
+    for where in ("cpu", "card"):
+        dev = torch.device("cpu") if where == "cpu" else card
+        p = copy_params(params, dev)
+        opt = adam_init_sparse(p) if sparse else adam_init(p)
+        step = make_step_fn(cfg, adam, y.to(dev), cats.to(dev), mask.to(dev), sparse=sparse)
+        ops.reset_launch_counts()
+        p, opt, loss = step(p, opt, idx.to(dev))
+        losses[where] = float(loss)
+        if where == "card":
+            counts = ops.launch_counts()
+            for _, leaf in esrnn.param_leaves(p):
+                assert leaf.dtype == torch.float32
+    positions = t_len - cfg.input_size + 1
+    steps = sum(-(-positions // d) for block in cfg.dilations for d in block)
+    want = dict.fromkeys(counts, 0)
+    want.update(hw_scan_bf16=1, hw_scan_bwd_bf16=1, lstm_cell_fwd_bf16=steps,
+                lstm_cell_bwd_bf16=steps)
+    assert counts == want
+    assert abs(losses["card"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"])

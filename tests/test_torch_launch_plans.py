@@ -188,6 +188,110 @@ def test_scan_plan_fits_covers_and_keeps_resident_with_bf16_y():
                 assert p.tile >= hw_scan.scan_plan(n, t_len, m, H100_SMEM_OPTIN,
                                                    H100_SMS).tile
 
+# K2 with a bf16 y (bf16 training): y staged at 2 bytes, the four other
+# streams (levels, seas, dlev, dseas) float32, so a tile row stages 2 + 16
+# bytes a series; each stream takes its own copy width
+
+
+def _parent_scan_plan(n, t_len, m, smem_optin, sm_count, streams=1, aligned=True, elem=4):
+    """``scan_plan`` as it was before the plan kept a copy width per stream,
+    when every staged stream was sized by the first one's element: the float32
+    plans of K1 and K2 must not change."""
+    block = hw_scan.SCAN_BLOCK
+    blocks = -(-n // block)
+    per_sm = -(-blocks // sm_count)
+    ring_bytes = 4 * m * block
+
+    def layout(tile):
+        stages = min(hw_scan.SCAN_PIPE, -(-t_len // tile))
+        return stages, elem * stages * streams * tile * block
+
+    ring_shared = layout(hw_scan.SCAN_TILES[-1])[1] + ring_bytes <= smem_optin
+    cap = next((t for t in reversed(hw_scan.SCAN_TILES) if t >= t_len), hw_scan.SCAN_TILES[0])
+    for tile in hw_scan.SCAN_TILES:
+        stages, tiles_bytes = layout(tile)
+        smem = tiles_bytes + (ring_bytes if ring_shared else 0)
+        resident = per_sm * (smem + 1024) <= smem_optin + 1024
+        if tile <= cap and smem <= smem_optin and resident:
+            break
+    where = "global" if not ring_shared else ("shared" if smem <= 48 * 1024 else "optin")
+    copy = 16 if aligned and (n * elem) % 16 == 0 else elem
+    return dict(block=block, tile=tile, stages=stages, copy=copy,
+                ring=hw_scan.RING_PLACES.index(where), smem=smem, blocks=blocks)
+
+
+@pytest.mark.parametrize("streams", _STREAMS)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_scan_plan_float32_plans_are_unchanged(streams, aligned):
+    for n in _SCAN_N:
+        for t_len in _SCAN_T:
+            for m in _SCAN_M:
+                p = hw_scan.scan_plan(n, t_len, m, H100_SMEM_OPTIN, H100_SMS, streams, aligned)
+                want = _parent_scan_plan(n, t_len, m, H100_SMEM_OPTIN, H100_SMS, streams,
+                                         aligned)
+                got = p._asdict()
+                # K1 stages no float stream beside y; K2's float streams copy
+                # as the parent's single width did
+                assert got.pop("copy_rest") == (0 if streams == 1 else want["copy"])
+                assert got == want, (n, t_len, m)
+    # K1's bf16 plans are the parent's too (the one stream was sized right)
+    for n in _SCAN_N:
+        for t_len in _SCAN_T:
+            p = hw_scan.scan_plan(n, t_len, 4, H100_SMEM_OPTIN, H100_SMS, aligned=aligned,
+                                  elem=BF16)._asdict()
+            assert p.pop("copy_rest") == 0
+            assert p == _parent_scan_plan(n, t_len, 4, H100_SMEM_OPTIN, H100_SMS,
+                                          aligned=aligned, elem=BF16)
+
+
+@pytest.mark.parametrize("n,t_len,m,want", [
+    # the train batches (one 128-row tile of all 72 steps, one block an SM)
+    (256, 72, 4, ("optin", 128, 1, 74_240, 16, 16)),
+    (2_048, 72, 1, ("optin", 128, 1, 73_856, 16, 16)),
+    (8, 256, 4, ("optin", 128, 2, 147_968, 16, 16)),        # the fine-tune's K2
+    (36, 41, 4, ("shared", 64, 1, 37_376, 2, 16)),          # N % 8 != 0, N % 4 == 0
+    (3, 40, 4, ("shared", 64, 1, 37_376, 2, 4)),            # N % 4 != 0
+    (24_000, 128, 4, ("shared", 16, 3, 28_160, 16, 16)),    # six blocks an SM
+    (300, 208, 168, ("optin", 128, 2, 168_960, 2, 16)),
+    (130, 440, 400, ("optin", 64, 3, 161_792, 2, 4)),
+    (64, 2040, 2_000, ("global", 128, 3, 221_184, 16, 16)),
+])
+def test_scan_plan_stages_k2_with_a_bf16_y(n, t_len, m, want):
+    p = hw_scan.scan_plan(n, t_len, m, H100_SMEM_OPTIN, H100_SMS, hw_scan.BWD_STREAMS,
+                          elem=BF16)
+    assert (hw_scan.RING_PLACES[p.ring], p.tile, p.stages, p.smem, p.copy, p.copy_rest) == want
+
+
+def test_scan_plan_fits_and_copies_16_bytes_only_on_aligned_streams_with_bf16_y():
+    row_bytes = BF16 + 4 * (hw_scan.BWD_STREAMS - 1)
+    for n in _SCAN_N + [36, 12, 24_004]:
+        for t_len in _SCAN_T:
+            for m in _SCAN_M:
+                p = hw_scan.scan_plan(n, t_len, m, H100_SMEM_OPTIN, H100_SMS,
+                                      hw_scan.BWD_STREAMS, elem=BF16)
+                where = hw_scan.RING_PLACES[p.ring]
+                ring = 0 if where == "global" else 4 * m * p.block
+                assert p.smem == row_bytes * p.stages * p.tile * p.block + ring, (n, t_len, m)
+                assert p.smem <= H100_SMEM_OPTIN
+                assert p.blocks * p.block >= n > (p.blocks - 1) * p.block
+                assert p.stages == min(hw_scan.SCAN_PIPE, -(-t_len // p.tile)) >= 1
+                if p.tile != hw_scan.SCAN_TILES[-1]:
+                    per_sm = -(-p.blocks // H100_SMS)
+                    assert per_sm * (p.smem + 1024) <= H100_SMEM_OPTIN + 1024
+                # y's 16-byte copies move 8 series, the float streams' 4
+                assert p.copy == (16 if n % 8 == 0 else BF16), (n, t_len, m)
+                assert p.copy_rest == (16 if n % 4 == 0 else 4), (n, t_len, m)
+                # where the ring sits as in the float32 plan of the shape, never
+                # fewer rows staged (the narrower y can instead bring the ring
+                # into shared memory, beside smaller tiles)
+                f32 = hw_scan.scan_plan(n, t_len, m, H100_SMEM_OPTIN, H100_SMS,
+                                        hw_scan.BWD_STREAMS)
+                assert p.tile >= f32.tile or p.ring != f32.ring, (n, t_len, m)
+        unaligned = hw_scan.scan_plan(n, 72, 4, H100_SMEM_OPTIN, H100_SMS, hw_scan.BWD_STREAMS,
+                                      aligned=False, elem=BF16)
+        assert (unaligned.copy, unaligned.copy_rest) == (BF16, 4)
+
+
 def _preset_geometry(rows, in_size, hidden, sm_count):
     """K3/K4's launch of ``lstm_cell_smem`` at a preset width, written out:
     4 or 8 rows per thread, min(8, 1,024 / H) row groups (fewer below a

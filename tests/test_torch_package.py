@@ -34,8 +34,9 @@ from repro_torch.kernels import build, flash_attention, hw_scan, lstm_cell, ops
 from repro_torch.train.trainer import TrainConfig, train_esrnn
 
 ROOT = Path(__file__).resolve().parents[1]
-NO_LAUNCHES = {"hw_scan": 0, "hw_scan_bf16": 0, "hw_scan_bwd": 0, "lstm_cell": 0,
-               "lstm_cell_bf16": 0, "lstm_cell_fwd": 0, "lstm_cell_bwd": 0,
+NO_LAUNCHES = {"hw_scan": 0, "hw_scan_bf16": 0, "hw_scan_bwd": 0, "hw_scan_bwd_bf16": 0,
+               "lstm_cell": 0, "lstm_cell_bf16": 0, "lstm_cell_fwd": 0,
+               "lstm_cell_fwd_bf16": 0, "lstm_cell_bwd": 0, "lstm_cell_bwd_bf16": 0,
                "flash_attention": 0}
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 

@@ -38,8 +38,9 @@ LENGTHS, BATCHES = (16, 32), (2, 4)
 SHARED_COUNTERS = ("requests", "batches", "compiles", "cache_hits",
                    "padded_series", "truncated_series", "observes",
                    "write_batches", "finetunes", "compile_budget")
-NO_LAUNCHES = {"hw_scan": 0, "hw_scan_bf16": 0, "hw_scan_bwd": 0, "lstm_cell": 0,
-               "lstm_cell_bf16": 0, "lstm_cell_fwd": 0, "lstm_cell_bwd": 0,
+NO_LAUNCHES = {"hw_scan": 0, "hw_scan_bf16": 0, "hw_scan_bwd": 0, "hw_scan_bwd_bf16": 0,
+               "lstm_cell": 0, "lstm_cell_bf16": 0, "lstm_cell_fwd": 0,
+               "lstm_cell_fwd_bf16": 0, "lstm_cell_bwd": 0, "lstm_cell_bwd_bf16": 0,
                "flash_attention": 0}
 
 
