@@ -21,10 +21,10 @@ full width and depth in bf16 (``lm_serve``: batch 8, prompt 2048, 32
 generated tokens; K6 once per layer in the prefill), and one profiled
 prefill and decode step. Between the fp32 serving phases and training, the
 same forecast and server run under the bf16 policy (``precision="bf16"``:
-K1 with a bf16 y, K3 in bf16; phases ``forecast_bf16``, ``profile_bf16``
+K1 with a bf16 y, K3 in bf16 on the tensor cores; phases ``forecast_bf16``, ``profile_bf16``
 and ``serve_bf16``), against the CPU and the card's fp32 forecast. After
 the fine-tune, training and the fine-tune run under bf16 too (K1 and K2
-with a bf16 y, K4 and K5 in bf16; phases ``train_bf16``,
+with a bf16 y, K4 (on the tensor cores) and K5 in bf16; phases ``train_bf16``,
 ``profile_train_bf16`` and ``finetune_bf16``), against the CPU and the
 card's fp32 training, and ``owa_bf16`` fits head_compare's fast cell in
 fp32 and bf16 on the card and holds the bf16/fp32 OWA ratio to 1.01. Each
@@ -411,7 +411,7 @@ def check_lstm_cell(rows, in_size, hidden, gen, bf16=False):
     bound_ms, bound_by = bound(n_bytes, n_flops, BF16_FLOPS if bf16 else FP32_FLOPS)
     rec = dict(name="lstm_cell_bf16" if bf16 else "lstm_cell",
                shape=dict(B=rows, I=in_size, H=hidden),
-               plan=cell_plan_of(rows, in_size, hidden)._asdict(), max_abs_err=err, ms=ms,
+               **cell_launch_of((wx, wh, b, x, h, c), act=False), max_abs_err=err, ms=ms,
                wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by)
     if bf16:
@@ -444,14 +444,23 @@ def check_bf16(what, pairs, atol):
                                default=0.0))
 
 
-def cell_plan_of(rows, in_size, hidden):
-    """K3/K4's launch plan for this shape on this card."""
-    import torch
+# registers a thread of each instantiation of the bf16 cell kernel on the
+# tensor cores (csrc/lstm_cell_tc.cu), by its template arguments (WITH_ACT,
+# quads a warp), from the ptxas report of the build (main fills it in)
+TC_REGISTERS = {}
 
-    from repro_torch.kernels import build, lstm_cell
 
-    lim = build.device_limits(torch.device("cuda"))
-    return lstm_cell.cell_plan(rows, in_size, hidden, lim.smem_optin, lim.sm_count)
+def cell_launch_of(args, act):
+    """K3's (K4's with ``act``) C entry point and launch plan for these
+    inputs on this card (lstm_cell.cell_launch), and the registers ptxas
+    gave the tensor-core kernel where it runs."""
+    from repro_torch.kernels import lstm_cell
+
+    entry, plan = lstm_cell.cell_launch(*args, act=act)
+    rec = dict(entry=entry, plan=plan._asdict())
+    if isinstance(plan, lstm_cell.TcPlan):
+        rec.update(kernel="lstm_cell_tc", registers=TC_REGISTERS.get((act, plan.quads)))
+    return rec
 
 
 def train_path_shapes(cfg, window: int):
@@ -554,7 +563,7 @@ def check_lstm_cell_fwd(rows, in_size, hidden, gen, bf16=False):
     bound_ms, bound_by = bound(n_bytes, n_flops, BF16_FLOPS if bf16 else FP32_FLOPS)
     return dict(name="lstm_cell_fwd_bf16" if bf16 else "lstm_cell_fwd",
                 shape=dict(B=rows, I=in_size, H=hidden),
-                plan=cell_plan_of(rows, in_size, hidden)._asdict(), max_abs_err=err, ms=ms,
+                **cell_launch_of((wx, wh, b, x, h, c), act=True), max_abs_err=err, ms=ms,
                 wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, **ulp_stats)
 
@@ -825,13 +834,16 @@ def run_forecast_bf16(cfg, params_cpu, params_dev, y, cats, dev, want_fp32):
 
 
 def profile_forecast(cfg, params_dev, y, cats, dev, top: int = 8):
-    """Where one ``esrnn_forecast`` call spends the card's time."""
+    """Where one ``esrnn_forecast`` call spends the card's time; K3's device
+    ms under ``matched`` (fp32 ``lstm_cell_smem``, bf16 ``lstm_cell_tc``)."""
     import torch
 
     from repro_torch.core.esrnn import esrnn_forecast
 
     y_d, c_d = torch.from_numpy(y).to(dev), torch.from_numpy(cats).to(dev)
-    return profile_call(lambda: esrnn_forecast(cfg, params_dev, y_d, c_d), top)
+    match = ({"lstm_cell_bf16": ("lstm_cell_tc<false",)} if cfg.precision == "bf16"
+             else {"lstm_cell": ("lstm_cell_smem<false",)})
+    return profile_call(lambda: esrnn_forecast(cfg, params_dev, y_d, c_d), top, match)
 
 
 def profile_call(call, top: int = 8, match=None):
@@ -1491,13 +1503,22 @@ def main() -> int:
     # function its registers, shared memory, spills and any warning (an
     # empty report: the library was built by an earlier process)
     report = {name: ptxas_summary(reports.get(name, ""))
-              for name in ("flash_attention.cu", "lstm_cell.cu", "hw_scan.cu", "hw_scan_bwd.cu")}
+              for name in ("flash_attention.cu", "lstm_cell.cu", "lstm_cell_tc.cu", "hw_scan.cu",
+                           "hw_scan_bwd.cu")}
     # the bf16 instantiations of K1 to K5: each entry and the two lines
     # ptxas prints after it (stack and spills, registers and shared memory)
     bf16 = {name: [line for i, entry in enumerate(report[name]) if "bfloat16" in entry
                    for line in report[name][i:i + 3]]
-            for name in ("hw_scan.cu", "hw_scan_bwd.cu", "lstm_cell.cu")}
-    emit(dict(phase="ptxas", build_s=build_s, report=report, bf16_entries=bf16))
+            for name in ("hw_scan.cu", "hw_scan_bwd.cu", "lstm_cell.cu", "lstm_cell_tc.cu")}
+    # the tensor-core cell kernel's registers by instantiation: K3 (ILb0E)
+    # and K4 (ILb1E), quads a warp (ILi<q>E)
+    for act, quads, used in re.findall(
+            r"Compiling entry function '[^']*lstm_cell_tcILb(\d)ELi(\d+)E[^']*'"
+            r".*?Used (\d+) registers", reports.get("lstm_cell_tc.cu", ""), re.S):
+        TC_REGISTERS[(act == "1", int(quads))] = int(used)
+    emit(dict(phase="ptxas", build_s=build_s, report=report, bf16_entries=bf16,
+              lstm_cell_tc_registers={f"{'k4' if act else 'k3'} quads {q}": n
+                                      for (act, q), n in sorted(TC_REGISTERS.items())}))
 
     # phase 2: kernels against their plain versions, at the main path's
     # shapes (the first of each list is the first launch of the forecast
@@ -1654,7 +1675,7 @@ def main() -> int:
     bench16 = TrainSteps(cfg16, data, dev, TRAIN_BATCH, sparse=False)
     emit(dict(phase="profile_train_bf16", call="one dense bf16 train step", N=TRAIN_N,
               T=TRAIN_T, batch=TRAIN_BATCH, card=smi, **profile_call(
-                  bench16.step, match={"lstm_cell_fwd_bf16": ("lstm_cell_smem", "bfloat16"),
+                  bench16.step, match={"lstm_cell_fwd_bf16": ("lstm_cell_tc<true",),
                                        "lstm_cell_bwd_bf16": ("lstm_bwd", "bfloat16")})))
     del bench16
     finetune16, ft16_launches = counted(
@@ -1721,12 +1742,12 @@ def main() -> int:
               "src/repro/kernels/flash_attention.py:28", k6, k6[0]["library_ms"]),
         entry("hw_scan_bf16", csrc + "hw_scan.cu", "src/repro/kernels/hw_scan.py:56", k1b,
               None),
-        entry("lstm_cell_bf16", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:56",
+        entry("lstm_cell_bf16", csrc + "lstm_cell_tc.cu", "src/repro/kernels/lstm_cell.py:56",
               k3b, k3b[0]["library_ms"]),
         entry("hw_scan_bwd_bf16", csrc + "hw_scan_bwd.cu", "src/repro/kernels/hw_scan.py:89",
               k2b, None),
-        entry("lstm_cell_fwd_bf16", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:72",
-              k4b, k4b[0]["library_ms"]),
+        entry("lstm_cell_fwd_bf16", csrc + "lstm_cell_tc.cu",
+              "src/repro/kernels/lstm_cell.py:72", k4b, k4b[0]["library_ms"]),
         entry("lstm_cell_bwd_bf16", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:90",
               k5b, None),
     ]

@@ -43,9 +43,11 @@ _SIGNATURES = {
     "hw_scan_bwd_f32": (13, 4, 0),         # K2 (likewise)
     "hw_scan_bwd_bf16": (13, 4, 0),        # K2, bf16 y and dy
     "lstm_cell_f32": (9, 4, 0),            # K3 (the last pointer and first int: its plan)
-    "lstm_cell_bf16": (9, 4, 0),           # K3, bf16
+    "lstm_cell_bf16": (9, 4, 0),           # K3, bf16, tensor cores (lstm_cell_tc.cu)
+    "lstm_cell_wide_bf16": (9, 4, 0),      # K3, bf16, past the presets' widths
     "lstm_cell_fwd_f32": (10, 4, 0),       # K4
-    "lstm_cell_fwd_bf16": (10, 4, 0),      # K4, bf16
+    "lstm_cell_fwd_bf16": (10, 4, 0),      # K4, bf16, tensor cores (lstm_cell_tc.cu)
+    "lstm_cell_fwd_wide_bf16": (10, 4, 0),  # K4, bf16, past the presets' widths
     "lstm_cell_bwd_f32": (18, 4, 0),       # K5
     "lstm_cell_bwd_bf16": (18, 4, 0),      # K5, bf16 (float32 weight gradients)
     "flash_attention_f32": (4, 7, 1),      # K6, fp32
@@ -144,8 +146,9 @@ def library() -> ctypes.CDLL:
         lib.repro_device_limits.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                                             ctypes.POINTER(ctypes.c_int)]
         lib.repro_device_limits.restype = ctypes.c_int
-        lib.repro_lstm_cell_constants.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-        lib.repro_lstm_cell_constants.restype = ctypes.c_int
+        for name in ("repro_lstm_cell_constants", "repro_lstm_cell_tc_constants"):
+            getattr(lib, name).argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
         return lib
 

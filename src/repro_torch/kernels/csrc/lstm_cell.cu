@@ -1,6 +1,7 @@
 // K3: fused LSTM cell (inference forward), K4: the same forward that also
 // writes the gate activations, and K5: its backward; sm_90a. All three in
-// fp32 and bf16.
+// fp32 and bf16; K3 and K4 in bf16 at the presets' widths live in
+// lstm_cell_tc.cu.
 //
 // Replace the Pallas TPU kernels src/repro/kernels/lstm_cell.py:_lstm_kernel
 // (K3), _lstm_fwd_kernel (K4) and _lstm_bwd_kernel (K5).
@@ -73,25 +74,14 @@
 // one block per SM, 25-30 % of its time at the forecast's largest shapes,
 // so the presets do not take them.
 //
-// K3 in bf16 (the bf16 policy; the reference kernel's contract,
-// src/repro/kernels/lstm_cell.py:48-69): x, h, c, Wx, Wh and b all bf16.
-// Both kernels are templated on that element type. The weights are widened
-// to float as they are staged, so the shared-memory layout and cell_plan's
-// arithmetic are the fp32 kernel's; the input tile, c and the bias are
-// widened as they are loaded. The gate sums (products of bf16 values are
-// exact in float), the activations and the state update run in float, and
-// h' and c' are rounded to bf16 once (__float2bfloat16_rn); h' uses the
-// float c'. Its bound is the bytes: half the fp32 kernel's, 8.4 MB at
-// B = 24,000, I = 14, H = 40 (0.0025 ms), since bf16 operands could run the
-// products on the tensor cores (0.0004 ms at 989 TFLOP/s). This simple
-// form runs them as float FMAs on the CUDA cores, as the fp32 kernel does,
-// so its own ceiling is that kernel's (0.0062 ms at 67 TFLOP/s).
-//
-// K4 in bf16 (the bf16 training step's forward; src/repro/kernels/
-// lstm_cell.py:72-87) is the same instantiation with act: the four
-// activations are rounded to bf16 once as they are stored, beside h' and
-// c'; h' and c' come from the float activations, as in K3. Its bound is the
-// bytes at the bf16 rate, with the act rows (8H bytes a row) added.
+// K3 and K4 in bf16 (the bf16 policy; the reference kernel's contract,
+// src/repro/kernels/lstm_cell.py:48-87) run on the tensor cores in their own
+// kernel, lstm_cell_tc.cu, at every width that lstm_cell_smem takes; its
+// note gives their bound and design. Past those widths the bf16 stream runs
+// lstm_cell_wide<.., __nv_bfloat16> (entry points lstm_cell_wide_bf16 and
+// lstm_cell_fwd_wide_bf16 below): the weights widened to float as they are
+// staged, the same layout and sum order as in fp32, h' and c' (and K4's act)
+// rounded to bf16 once as they are stored; h' from the float c'.
 //
 // K5 is described above its kernel, further down.
 
@@ -505,6 +495,24 @@ int launch_cell_smem(const void* wx, const void* wh, const void* b, const void* 
     if (p.cell_r == 8) return REPRO_CELL(8, false);
 #undef REPRO_CELL
     return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 stream at the widths past lstm_cell_smem's: a wide plan only
+// (every other bf16 width runs lstm_cell_tc.cu).
+template <bool WITH_ACT>
+int launch_cell_wide_bf16(const void* wx, const void* wh, const void* b, const void* x,
+                          const void* h, const void* c, void* h_out, void* c_out, void* act,
+                          const void* plan, int plan_len, int rows, int in_size, int hidden,
+                          void* stream) {
+    if (plan_len != static_cast<int>(sizeof(CellPlan) / sizeof(int)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int* v = static_cast<const int*>(plan);
+    const CellPlan p{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]};
+    if (!p.wide || !cell_plan_fits(p, in_size, hidden))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return launch_cell_tiles<WITH_ACT, CELL_WIDE_R, true, __nv_bfloat16>(
+        wx, wh, b, x, h, c, h_out, c_out, act, rows, in_size, hidden, p,
+        static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -1018,13 +1026,14 @@ extern "C" int lstm_cell_f32(const void* wx, const void* wh, const void* b,
                                    rows, in_size, hidden, stream);
 }
 
-// K3 with x, h, c, wx, wh, b, h_out and c_out all bf16
-extern "C" int lstm_cell_bf16(const void* wx, const void* wh, const void* b,
-                              const void* x, const void* h, const void* c,
-                              void* h_out, void* c_out, const void* plan, int plan_len,
-                              int rows, int in_size, int hidden, void* stream) {
-    return launch_cell_smem<false, __nv_bfloat16>(wx, wh, b, x, h, c, h_out, c_out, nullptr,
-                                                  plan, plan_len, rows, in_size, hidden, stream);
+// K3 in bf16 at the widths past lstm_cell_smem's (a plan with wide = 1):
+// x, h, c, wx, wh, b, h_out and c_out all bf16
+extern "C" int lstm_cell_wide_bf16(const void* wx, const void* wh, const void* b,
+                                   const void* x, const void* h, const void* c,
+                                   void* h_out, void* c_out, const void* plan, int plan_len,
+                                   int rows, int in_size, int hidden, void* stream) {
+    return launch_cell_wide_bf16<false>(wx, wh, b, x, h, c, h_out, c_out, nullptr, plan,
+                                        plan_len, rows, in_size, hidden, stream);
 }
 
 extern "C" int lstm_cell_fwd_f32(const void* wx, const void* wh, const void* b,
@@ -1036,14 +1045,15 @@ extern "C" int lstm_cell_fwd_f32(const void* wx, const void* wh, const void* b,
                                   rows, in_size, hidden, stream);
 }
 
-// K4 with every input and output, act included, in bf16
-extern "C" int lstm_cell_fwd_bf16(const void* wx, const void* wh, const void* b,
-                                  const void* x, const void* h, const void* c,
-                                  void* h_out, void* c_out, void* act, const void* plan,
-                                  int plan_len, int rows, int in_size, int hidden,
-                                  void* stream) {
-    return launch_cell_smem<true, __nv_bfloat16>(wx, wh, b, x, h, c, h_out, c_out, act, plan,
-                                                 plan_len, rows, in_size, hidden, stream);
+// K4 in bf16 at the widths past lstm_cell_smem's: every input and output,
+// act included, bf16
+extern "C" int lstm_cell_fwd_wide_bf16(const void* wx, const void* wh, const void* b,
+                                       const void* x, const void* h, const void* c,
+                                       void* h_out, void* c_out, void* act, const void* plan,
+                                       int plan_len, int rows, int in_size, int hidden,
+                                       void* stream) {
+    return launch_cell_wide_bf16<true>(wx, wh, b, x, h, c, h_out, c_out, act, plan, plan_len,
+                                       rows, in_size, hidden, stream);
 }
 
 extern "C" int lstm_cell_bwd_f32(const void* wx, const void* wh, const void* x,

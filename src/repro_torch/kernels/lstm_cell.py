@@ -4,7 +4,7 @@ All three live in ``csrc/lstm_cell.cu`` and replace the Pallas TPU kernels
 of ``src/repro/kernels/lstm_cell.py``: K3 ``_lstm_kernel`` (the inference
 forward), K4 ``_lstm_fwd_kernel`` (the same forward, also writing the gate
 activations ``(B, 4H)`` the backward needs) and K5 ``_lstm_bwd_kernel``.
-K3 and K4 are one kernel (with a second for widths past the presets'):
+In float32 K3 and K4 are one kernel (with a second for widths past the presets'):
 the weights in shared memory, each thread one hidden unit of 4 or 8 rows, a
 persistent grid over row tiles; both keep the ``(B, 4H)`` gates out of
 device memory. K5 is one launch of two kinds of
@@ -25,10 +25,16 @@ counterpart of the JAX ``custom_vjp``); the plain versions are
 :func:`~repro_torch.kernels.ref.lstm_cell_bwd_ref`, which the same Function
 runs on CPU tensors.
 
-All three also take bf16 (the bf16 policy's stream, every input in bf16):
-templated on the element type, they widen as they load and compute in
-float32. K3 and K4 round h', c' (and K4 the activations) to bf16 once as
-they store them; K5 rounds dx, dh_prev and dc_prev once and returns the
+All three also take bf16 (the bf16 policy's stream, every input in bf16).
+K3 and K4 in bf16 run their own kernel, ``csrc/lstm_cell_tc.cu``: the gate
+products on the tensor cores (``mma.sync``, bf16 in, float32 sums), the
+gate columns permuted as the weights are staged so that each lane holds the
+four gates of one unit, double-buffered ``cp.async`` row tiles, and h', c'
+(and K4's activations) rounded to bf16 once and stored as whole rows from
+shared memory; :func:`cell_tc_plan` sizes its launch. Widths past the
+presets' (where :func:`cell_plan` takes the wide kernel) run the wide kernel
+in bf16. K5 is templated on the element type: it widens as it loads,
+computes in float32, rounds dx, dh_prev and dc_prev once and returns the
 weight gradients as float32 sums over the batch, which :class:`LSTMCell`
 rounds to the weight dtype once, as the reference's ``custom_vjp`` does.
 """
@@ -37,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -62,10 +68,20 @@ BWD_MAX_CHUNKS = 32      # ... up to this many chunks
 BWD_SUB_ROWS = 128       # rows a column block stages at once, at most
 BWD_SMEM = 100 * 1024    # shared memory per K5 block, at most (two blocks per SM)
 
+# K3/K4's bf16 geometry on the tensor cores (csrc/lstm_cell_tc.cu, lstm_cell_tc)
+TC_QMAX = 8              # quads of 4 units (16 gate columns) a warp holds, at most
+TC_PAD = 8               # bf16 of padding per staged row of [x | h] and of the weights
+TC_MAX_WARPS = 8         # warps per block, at most
+TC_SMALL_QUADS = 2       # quads a warp takes where the batch does not fill the card ...
+TC_FILL = 8              # ... with TC_FILL warps an SM at the largest slices
+TC_DEEP = 8              # half-size tiles an SM from which half-size blocks pay
+
 # the constants above that csrc/lstm_cell.cu also uses, and the lengths of the
-# two plans, in the order its repro_lstm_cell_constants reports them
+# two plans, in the order its repro_lstm_cell_constants reports them; and
+# those of csrc/lstm_cell_tc.cu, in the order of repro_lstm_cell_tc_constants
 _C_CONSTANTS = ("CELL_PAD", "CELL_SUM_BLOCK", "CELL_WIDE_R", "BWD_THREADS",
                 "CellPlan", "BwdPlan")
+_TC_CONSTANTS = ("TC_QMAX", "TC_PAD", "TC_MAX_WARPS", "TcPlan")
 
 # launches since the last reset (kernels.ops.reset_launch_counts)
 launches = 0                     # K3, float32
@@ -130,6 +146,122 @@ def cell_plan(rows: int, in_size: int, hidden: int, smem_optin: int,
     threads = block_groups * units
     k_chunk = kw if kw * per_k <= smem_optin else smem_optin // per_k
     return CellPlan(cell_r, groups, units, slices, threads, k_chunk, int(wide), k_chunk * per_k)
+
+
+class TcPlan(NamedTuple):
+    """A launch of the bf16 cell on the tensor cores (``csrc/lstm_cell_tc.cu``);
+    the kernel takes these ints in this order."""
+    m_tiles: int     # 16-row m-tiles per row tile: a tile is 16 m_tiles rows
+    slices: int      # unit slices per m-tile: a block is m_tiles x slices warps
+    quads: int       # quads of 4 units per slice, at most TC_QMAX
+    k_x: int         # k of the first h column: I rounded up to 8
+    k_pad: int       # k_x + H rounded up to 16
+    n_pad: int       # permuted gate columns: 16 per quad, slices x quads quads
+    copy_w: int      # bytes per load of one gate's units in a weight row (2, 4 or 8)
+    copy_x: int      # bytes per copy of an x row
+    copy_h: int      # bytes per copy of an h row
+    copy_c: int      # bytes per copy of c's tile (one contiguous run)
+    copy_out: int    # bytes per store of h', c' and act (contiguous runs)
+    act: int         # 1: K4, which writes act
+    smem: int        # dynamic shared memory, bytes
+
+    @property
+    def tile(self) -> int:
+        return 16 * self.m_tiles
+
+    @property
+    def warps(self) -> int:
+        return self.m_tiles * self.slices
+
+
+def tc_column(gate: int, unit: int) -> int:
+    """The staged column of gate ``gate`` (0 to 3: i, f, g, o) of unit
+    ``unit`` in the tensor-core kernel, which stages the weights by this map.
+
+    16 columns per quad of 4 units: (i, f) of the quad in its first 8-column
+    n-tile, (g, o) in its second, unit u of the quad at columns 2u and
+    2u + 1 of each. The lane l of an m16n8 accumulator fragment holds
+    columns 2 (l % 4) and 2 (l % 4) + 1 of an n-tile, so over the quad's two
+    n-tiles it holds all four gates of unit l % 4.
+    """
+    return 16 * (unit // 4) + 8 * (gate // 2) + 2 * (unit % 4) + gate % 2
+
+
+def _copy_width(align: int, row_bytes: int = 16) -> int:
+    """The widest copy (16, 8, 4 or 2 bytes) that a stream's base address
+    (aligned to ``align`` bytes) and its row length allow; a contiguous run
+    starting on the base (c's tile, the outputs') has no rows to divide."""
+    return next(w for w in (16, 8, 4, 2) if align % w == 0 and row_bytes % w == 0)
+
+
+def tc_smem(m_tiles: int, k_pad: int, n_pad: int, hidden: int, act: int) -> int:
+    """Shared memory of the tensor-core kernel's layout, bytes: the permuted
+    weights, the float biases, two [x | h] tiles, two c tiles, and h', c'
+    (and act) staged, each a multiple of 16 bytes."""
+    tile = 16 * m_tiles
+    run = lambda n: 16 * _cdiv(2 * n, 16)         # n bf16 in whole 16-byte units
+    return (2 * k_pad * (n_pad + TC_PAD) + 4 * n_pad + 2 * 2 * tile * (k_pad + TC_PAD)
+            + 2 * run(tile * hidden) + 2 * run(tile * hidden)
+            + (run(4 * tile * hidden) if act else 0))
+
+
+@functools.lru_cache(maxsize=4096)
+def cell_tc_plan(rows: int, in_size: int, hidden: int, smem_optin: int, sm_count: int,
+                 act: int, align_w: int = 16, align_x: int = 16, align_h: int = 16,
+                 align_c: int = 16, align_out: int = 16) -> Optional[TcPlan]:
+    """K3's (``act=0``) or K4's (``act=1``) bf16 launch on the tensor cores
+    for one shape, or None where the shape takes the wide kernel (where
+    :func:`cell_plan` does: the bf16 stream runs the new kernel at every
+    width ``lstm_cell_smem`` takes). ``align_*``: the largest power of two,
+    up to 16, dividing the base address of the weights (both), x, h, c and
+    the outputs (all).
+
+    * a warp takes 16 rows and a slice of at most TC_QMAX quads of units:
+      the fewest slices, unless the m-tiles times those slices give fewer
+      than TC_FILL warps an SM, where the slices take TC_SMALL_QUADS quads
+      (at most TC_MAX_WARPS slices), so a small batch spreads out;
+    * up to TC_MAX_WARPS warps a block, or half that (32-row tiles at
+      H = 40) where the batch holds TC_DEEP such half tiles an SM: more,
+      smaller blocks then overlap one tile's loads with another's update;
+      m-tiles per row tile halved further while there are fewer tiles than
+      SMs or the layout passes the opt-in shared memory;
+    * each stream's copy width from its rows and base (:func:`_copy_width`):
+      x and h row by row (16 bytes where the rows align: I and H multiples
+      of 8), c and the outputs as contiguous runs per tile; the weights 4,
+      2 or 1 units of a gate a load (8, 4 or 2 bytes), as H and their base
+      allow.
+
+    The quads past H (a slice of the last quad's units, and whole quads
+    where slices x quads passes H / 4) carry zero weights.
+
+    The sums run in the same order in every plan.
+    """
+    if cell_plan(rows, in_size, hidden, smem_optin, sm_count).wide:
+        return None
+    hq = _cdiv(hidden, 4)
+    k_x = 8 * _cdiv(in_size, 8)
+    k_pad = 16 * _cdiv(k_x + hidden, 16)
+    slices = _cdiv(hq, TC_QMAX)
+    if _cdiv(rows, 16) * slices < TC_FILL * sm_count:
+        slices = max(slices, min(TC_MAX_WARPS, _cdiv(hq, TC_SMALL_QUADS)))
+    quads = _cdiv(hq, slices)
+    slices = _cdiv(hq, quads)                     # no empty slice
+    n_pad = 16 * slices * quads
+    m_tiles = max(1, TC_MAX_WARPS // slices)
+    if m_tiles > 1 and _cdiv(rows, 16 * (m_tiles // 2)) >= TC_DEEP * sm_count:
+        m_tiles //= 2
+    while m_tiles > 1 and (_cdiv(rows, 16 * m_tiles) < sm_count
+                           or tc_smem(m_tiles, k_pad, n_pad, hidden, act) > smem_optin):
+        m_tiles //= 2
+    smem = tc_smem(m_tiles, k_pad, n_pad, hidden, act)
+    if smem > smem_optin:
+        raise ValueError(f"cell_tc_plan: no layout of ({in_size}, {hidden}) fits "
+                         f"{smem_optin} bytes of shared memory")
+    copy_w = next(w for w in (8, 4, 2) if hidden % (w // 2) == 0 and align_w % w == 0)
+    return TcPlan(m_tiles, slices, quads, k_x, k_pad, n_pad, copy_w,
+                  _copy_width(align_x, 2 * in_size),
+                  _copy_width(align_h, 2 * hidden), _copy_width(align_c),
+                  _copy_width(align_out), act, smem)
 
 
 class BwdPlan(NamedTuple):
@@ -199,19 +331,25 @@ def bwd_plan(rows: int, in_size: int, hidden: int, smem_optin: int) -> BwdPlan:
 
 @functools.cache
 def _kernel_library() -> ctypes.CDLL:
-    """The kernel library, once it has shown that ``csrc/lstm_cell.cu`` was
-    built with the constants and plan lengths this module sizes launches by
-    (a mismatch would overrun shared memory or change the sum order)."""
+    """The kernel library, once it has shown that ``csrc/lstm_cell.cu`` and
+    ``csrc/lstm_cell_tc.cu`` were built with the constants and plan lengths
+    this module sizes launches by (a mismatch would overrun shared memory or
+    change the sum order)."""
     lib = build.library()
     want = {"CELL_PAD": CELL_PAD, "CELL_SUM_BLOCK": CELL_SUM_BLOCK,
             "CELL_WIDE_R": CELL_WIDE_R, "BWD_THREADS": BWD_THREADS,
             "CellPlan": len(CellPlan._fields), "BwdPlan": len(BwdPlan._fields)}
-    got = (ctypes.c_int * len(_C_CONSTANTS))()
-    count = lib.repro_lstm_cell_constants(got, len(got))
-    have = dict(zip(_C_CONSTANTS, got))
-    if count != len(_C_CONSTANTS) or have != want:
-        raise RuntimeError(f"csrc/lstm_cell.cu was built with {have} ({count} values); "
-                           f"kernels/lstm_cell.py expects {want}")
+    want_tc = {"TC_QMAX": TC_QMAX, "TC_PAD": TC_PAD, "TC_MAX_WARPS": TC_MAX_WARPS,
+               "TcPlan": len(TcPlan._fields)}
+    for source, names, query, expected in (
+            ("lstm_cell.cu", _C_CONSTANTS, lib.repro_lstm_cell_constants, want),
+            ("lstm_cell_tc.cu", _TC_CONSTANTS, lib.repro_lstm_cell_tc_constants, want_tc)):
+        got = (ctypes.c_int * len(names))()
+        count = query(got, len(got))
+        have = dict(zip(names, got))
+        if count != len(names) or have != expected:
+            raise RuntimeError(f"csrc/{source} was built with {have} ({count} values); "
+                               f"kernels/lstm_cell.py expects {expected}")
     return lib
 
 
@@ -243,9 +381,50 @@ def _cell_shapes(kernel, wx, wh, b, x, h, c):
     return rows, in_size, hidden, dev
 
 
-def _cell_plan_ints(dev, rows, in_size, hidden):
-    limits = build.device_limits(dev)
-    return _plan_ints(cell_plan(rows, in_size, hidden, limits.smem_optin, limits.sm_count))
+def _alignment(t: torch.Tensor) -> int:
+    """The largest power of two, up to 16, that divides a tensor's address."""
+    ptr = t.data_ptr()
+    return min(16, ptr & -ptr) if ptr else 16
+
+
+def cell_launch(wx, wh, b, x, h, c, act: bool = False, outputs=()):
+    """The C entry point and the plan that K3 (K4 with ``act``) launches for
+    these inputs: ``lstm_cell_f32`` with :func:`cell_plan` in float32; in
+    bf16 ``lstm_cell_bf16`` with :func:`cell_tc_plan`, or past the presets'
+    widths ``lstm_cell_wide_bf16`` with :func:`cell_plan`. ``outputs``: the
+    tensors the kernel writes (absent: fresh ones, 16-byte aligned)."""
+    rows, in_size = x.shape
+    hidden = h.shape[1]
+    fwd = "_fwd" if act else ""
+    limits = build.device_limits(x.device)
+    if x.dtype == torch.bfloat16:
+        tc = cell_tc_plan(rows, in_size, hidden, limits.smem_optin, limits.sm_count, int(act),
+                          min(_alignment(wx), _alignment(wh)), _alignment(x), _alignment(h),
+                          _alignment(c), min((_alignment(t) for t in outputs), default=16))
+        if tc is not None:
+            return f"lstm_cell{fwd}_bf16", tc
+        name = f"lstm_cell{fwd}_wide_bf16"
+    else:
+        name = f"lstm_cell{fwd}_f32"
+    return name, cell_plan(rows, in_size, hidden, limits.smem_optin, limits.sm_count)
+
+
+def _launch_cell(kernel, wx, wh, b, x, h, c, act: bool):
+    """Check a K3 (K4 with ``act``) call, allocate its outputs, launch the
+    kernel :func:`cell_launch` picks and raise if it refuses."""
+    rows, in_size, hidden, dev = _cell_shapes(kernel, wx, wh, b, x, h, c)
+    outs = [torch.empty((rows, width), dtype=x.dtype, device=dev)
+            for width in ((hidden, hidden, 4 * hidden) if act else (hidden, hidden))]
+    name, plan = cell_launch(wx, wh, b, x, h, c, act, outs)
+    plan_ints = _plan_ints(plan)
+    entry = getattr(_kernel_library(), name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(wx.data_ptr(), wh.data_ptr(), b.data_ptr(), x.data_ptr(), h.data_ptr(),
+                    c.data_ptr(), *(t.data_ptr() for t in outs), ctypes.addressof(plan_ints),
+                    len(plan_ints), rows, in_size, hidden, stream)
+    build.check(err, kernel)
+    return outs
 
 
 def lstm_cell(wx, wh, b, x, h, c):
@@ -256,20 +435,8 @@ def lstm_cell(wx, wh, b, x, h, c):
     it never computes on the CPU.
     """
     global launches, bf16_launches
-    rows, in_size, hidden, dev = _cell_shapes("lstm_cell", wx, wh, b, x, h, c)
-    bf16 = x.dtype == torch.bfloat16
-    h_out = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
-    c_out = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
-    plan = _cell_plan_ints(dev, rows, in_size, hidden)
-    lib = _kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = (lib.lstm_cell_bf16 if bf16 else lib.lstm_cell_f32)(
-            wx.data_ptr(), wh.data_ptr(), b.data_ptr(), x.data_ptr(),
-            h.data_ptr(), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-            ctypes.addressof(plan), len(plan), rows, in_size, hidden, stream)
-    build.check(err, "lstm_cell")
-    if bf16:
+    h_out, c_out = _launch_cell("lstm_cell", wx, wh, b, x, h, c, act=False)
+    if x.dtype == torch.bfloat16:
         bf16_launches += 1
     else:
         launches += 1
@@ -281,21 +448,8 @@ def lstm_cell_fwd(wx, wh, b, x, h, c):
     (B, 4H), in the inputs' dtype (rounded once in bf16). Same inputs and
     checks as :func:`lstm_cell`."""
     global fwd_launches, fwd_bf16_launches
-    rows, in_size, hidden, dev = _cell_shapes("lstm_cell_fwd", wx, wh, b, x, h, c)
-    bf16 = x.dtype == torch.bfloat16
-    h_out = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
-    c_out = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
-    act = torch.empty((rows, 4 * hidden), dtype=x.dtype, device=dev)
-    plan = _cell_plan_ints(dev, rows, in_size, hidden)
-    lib = _kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = (lib.lstm_cell_fwd_bf16 if bf16 else lib.lstm_cell_fwd_f32)(
-            wx.data_ptr(), wh.data_ptr(), b.data_ptr(), x.data_ptr(),
-            h.data_ptr(), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-            act.data_ptr(), ctypes.addressof(plan), len(plan), rows, in_size, hidden, stream)
-    build.check(err, "lstm_cell_fwd")
-    if bf16:
+    h_out, c_out, act = _launch_cell("lstm_cell_fwd", wx, wh, b, x, h, c, act=True)
+    if x.dtype == torch.bfloat16:
         fwd_bf16_launches += 1
     else:
         fwd_launches += 1

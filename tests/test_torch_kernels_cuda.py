@@ -24,11 +24,15 @@ in another order, and one rounding to bf16 can fall on either side), or,
 where the output is so near zero that float32's sum-order error spans more
 than one bf16 ulp (around |v| < 1e-4; float32 against float64 sums differ
 there by up to 10 ulps on the CPU too), within the fp32 kernel's atol 1e-5.
-The bf16 streams of the training path are held the same way: K2 with a
-bf16 y to its plain version's bits (dy rounded once from the same float32
-walk); K4 and K5 in bf16 to 1 bf16 ulp or atol 1e-5, and K5's float32
-weight gradients, before their rounding, as the fp32 K5's (atol 1e-5 *
-sqrt(B), the same bits on two launches).
+K3 and K4 in bf16 run on the tensor cores (``csrc/lstm_cell_tc.cu``) at
+every width where ``cell_plan`` does not take the wide kernel, and are held
+the same way, at every preset width and ragged row counts; their outputs
+are the same bits on two launches, and a row's bits do not depend on the
+batch (and so the plan) it is computed in. The bf16 streams of the training
+path are held the same way: K2 with a bf16 y to its plain version's bits
+(dy rounded once from the same float32 walk); K4 and K5 in bf16 to 1 bf16
+ulp or atol 1e-5, and K5's float32 weight gradients, before their rounding,
+as the fp32 K5's (atol 1e-5 * sqrt(B), the same bits on two launches).
 """
 
 import ctypes
@@ -37,7 +41,7 @@ import pytest
 import torch
 
 from repro_torch import strict_fp32
-from repro_torch.kernels import flash_attention, hw_scan, lstm_cell, ops, ref
+from repro_torch.kernels import build, flash_attention, hw_scan, lstm_cell, ops, ref
 
 
 @pytest.fixture
@@ -479,6 +483,87 @@ def test_lstm_cell_bf16_within_one_ulp_or_fp32_atol_of_plain_on_card(card, rows,
         past = (ref.bf16_ulps(g, w) > 1) & ((g.float() - w.float()).abs() > 1e-5)
         assert not past.any(), f"{int(past.sum())} outputs past 1 bf16 ulp and atol 1e-5"
         assert torch.equal(g, a), "two launches on the same inputs differ"
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4 in bf16 on the tensor cores (csrc/lstm_cell_tc.cu)
+
+
+def _run_cell(act, args):
+    with torch.no_grad():
+        return (lstm_cell.lstm_cell_fwd(*args) if act else lstm_cell.lstm_cell(*args))
+
+
+# every preset width (H = 30, 40, 50 with each input width) at ragged row
+# counts: one row, an m-tile short and past, and a tile past 4,096
+_TC_RAGGED = [(rows, in_size, hidden) for in_size, hidden in _PRESET_WIDTHS
+              for rows in (1, 15, 17, 4_097)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [False, True], ids=["k3", "k4"])
+@pytest.mark.parametrize("rows,in_size,hidden", _TC_RAGGED + _BF16_CELLS)
+def test_lstm_cell_tc_within_one_ulp_or_fp32_atol_of_plain_on_card(card, act, rows, in_size,
+                                                                   hidden):
+    args = _cell_bf16_args(rows, in_size, hidden, rows + 7 * hidden + in_size, card)
+    name, _ = lstm_cell.cell_launch(*args, act=act)
+    lim = build.device_limits(card)
+    wide = lstm_cell.cell_plan(rows, in_size, hidden, lim.smem_optin, lim.sm_count).wide
+    assert name == ("lstm_cell_fwd" if act else "lstm_cell") + ("_wide" if wide else "") + "_bf16"
+    ops.reset_launch_counts()
+    got = _run_cell(act, args)
+    counts = ops.launch_counts()
+    assert counts["lstm_cell_fwd_bf16" if act else "lstm_cell_bf16"] == 1
+    assert counts["lstm_cell"] == counts["lstm_cell_fwd"] == 0
+    want = (ref.lstm_cell_fwd_ref if act else ref.lstm_cell_ref)(*args)
+    for what, gt, w in zip(("h", "c", "act"), got, want):
+        _within_ulp_or_atol(gt, w, f"{name} {what}")
+
+
+# the quarterly widths and the yearly one, whose h and c rows (60 bytes)
+# take 4-byte copies; a slice 3 rows in moves x's base off 16 bytes too
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [False, True], ids=["k3", "k4"])
+@pytest.mark.parametrize("in_size,hidden", [(14, 40), (40, 40), (10, 30), (18, 50)])
+def test_lstm_cell_tc_gives_a_row_the_same_bits_in_any_batch_on_card(card, act, in_size,
+                                                                      hidden):
+    wx, wh, b, x, h, c = _cell_bf16_args(24_000, in_size, hidden, in_size + hidden, card)
+    big = _run_cell(act, (wx, wh, b, x, h, c))
+    again = _run_cell(act, (wx, wh, b, x, h, c))
+    for a, r in zip(big, again):
+        assert torch.equal(a, r), "two launches on the same inputs differ"
+    for lo in (0, 3, 20_000):
+        part = (wx, wh, b, x[lo:lo + 512], h[lo:lo + 512], c[lo:lo + 512])
+        small_plan = lstm_cell.cell_launch(*part, act=act)[1]
+        assert small_plan != lstm_cell.cell_launch(wx, wh, b, x, h, c, act=act)[1]
+        for a, small in zip(big, _run_cell(act, part)):
+            assert torch.equal(a[lo:lo + 512], small), (
+                f"rows {lo}..{lo + 511} differ between batches of 24,000 and 512")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["short", "smem", "copy", "geometry"])
+def test_lstm_cell_tc_refuses_a_plan_the_source_does_not_take_on_card(card, monkeypatch, fault):
+    # the constants and plan length shared with csrc/lstm_cell_tc.cu agree
+    # (checked when the library is first used) ...
+    lstm_cell._kernel_library()
+    # ... and its entry points refuse a plan one int short, 4 bytes of
+    # shared memory short of the layout, a 16-byte copy of x rows that are
+    # 28 bytes long, or a slice of more quads than a warp holds
+    real = lstm_cell.cell_tc_plan
+    faults = dict(smem=lambda p: p._replace(smem=p.smem - 4),
+                  copy=lambda p: p._replace(copy_x=16),
+                  geometry=lambda p: p._replace(quads=lstm_cell.TC_QMAX + 1, slices=1))
+    if fault == "short":
+        monkeypatch.setattr(lstm_cell, "_plan_ints",
+                            lambda plan: (ctypes.c_int * (len(plan) - 1))(*plan[:-1]))
+    else:
+        monkeypatch.setattr(lstm_cell, "cell_tc_plan", lambda *a: faults[fault](real(*a)))
+    args = _cell_bf16_args(4_000, 14, 40, 5, card)
+    for act in (False, True):
+        assert lstm_cell.cell_launch(*args, act=act)[0].endswith("_bf16")
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            _run_cell(act, args)
 
 
 @pytest.mark.cuda

@@ -386,3 +386,158 @@ def test_bwd_row_chunks_depend_on_the_row_count_alone(rows):
 def test_bwd_plan_covers_the_sms_at_the_train_batch(in_size):
     # at batch 256 (the esrnn-quarterly spec's) a launch has a block per SM
     assert lstm_cell.bwd_plan(256, in_size, 40, H100_SMEM_OPTIN).blocks >= H100_SMS
+
+
+# ---------------------------------------------------------------------------
+# K3/K4 in bf16 on the tensor cores (csrc/lstm_cell_tc.cu): lstm_cell.cell_tc_plan
+
+# each preset's (I, H) at layer 1 (input window + 6 categories) and layers
+# 2+: yearly H = 30, quarterly H = 40, monthly H = 50, hourly H = 40
+_TC_PRESETS = {"yearly": [(10, 30), (30, 30)], "quarterly": [(14, 40), (40, 40)],
+               "monthly": [(18, 50), (50, 50)], "hourly": [(30, 40), (40, 40)]}
+# the widths past the presets that chip_smoke.py's WIDE_CELL runs
+_WIDE_CELL = [(rows, hid, hid) for hid in (128, 256, 1030) for rows in (1, 333)]
+
+
+def _tc_plans(sm_count=H100_SMS):
+    for widths in _TC_PRESETS.values():
+        for in_size, hidden in widths:
+            for rows in _K3_ROWS:
+                for act in (0, 1):
+                    yield (rows, in_size, hidden, act), lstm_cell.cell_tc_plan(
+                        rows, in_size, hidden, H100_SMEM_OPTIN, sm_count, act)
+
+
+@pytest.mark.parametrize("preset", sorted(_TC_PRESETS))
+@pytest.mark.parametrize("sm_count", [H100_SMS, 114])
+def test_cell_tc_plan_takes_every_preset_width(preset, sm_count):
+    for in_size, hidden in _TC_PRESETS[preset]:
+        for rows in _K3_ROWS:
+            for act in (0, 1):
+                p = lstm_cell.cell_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, sm_count, act)
+                assert isinstance(p, lstm_cell.TcPlan), (rows, in_size, hidden, act)
+                assert p.act == act
+
+
+@pytest.mark.parametrize("sm_count", [H100_SMS, 114])
+def test_cell_tc_plan_fits_the_opt_in_shared_memory(sm_count):
+    for (rows, in_size, hidden, act), p in _tc_plans(sm_count):
+        assert p.smem == lstm_cell.tc_smem(p.m_tiles, p.k_pad, p.n_pad, hidden, act)
+        assert p.smem <= H100_SMEM_OPTIN, (rows, in_size, hidden)
+        assert 1 <= p.warps <= lstm_cell.TC_MAX_WARPS and 32 * p.warps <= MAX_THREADS
+        assert 1 <= p.quads <= lstm_cell.TC_QMAX
+
+
+def test_cell_tc_plan_covers_every_row_and_unit_once():
+    np = pytest.importorskip("numpy")
+    for (rows, in_size, hidden, act), p in _tc_plans():
+        if rows > 25_345 or act:
+            continue
+        hq = -(-hidden // 4)
+        seen = np.zeros((-(-rows // p.tile) * p.tile, hq), dtype=np.int64)
+        # tile t, warp w: rows t * tile + 16 (w // slices) + 0..15, quads
+        # (w % slices) * quads + 0..quads-1 that exist
+        for t in range(-(-rows // p.tile)):
+            for w in range(p.warps):
+                r0 = t * p.tile + 16 * (w // p.slices)
+                q0 = (w % p.slices) * p.quads
+                seen[r0:r0 + 16, q0:min(hq, q0 + p.quads)] += 1
+        assert (seen == 1).all(), (rows, in_size, hidden)
+
+
+@pytest.mark.parametrize("in_size,hidden", _PRESET_WIDTHS + [(7, 50), (1, 2), (64, 64)])
+def test_cell_tc_plan_pads_k_and_the_units(in_size, hidden):
+    for rows in (1, 512, 24_000):
+        p = lstm_cell.cell_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, H100_SMS, 0)
+        assert p.k_x % 8 == 0 and in_size <= p.k_x < in_size + 8
+        assert p.k_pad % 16 == 0 and p.k_x + hidden <= p.k_pad < p.k_x + hidden + 16
+        # units padded to whole quads (4 units, 16 columns), every slice whole
+        quads = -(-hidden // 4)
+        assert p.n_pad == 16 * p.slices * p.quads
+        assert p.slices * p.quads >= quads > (p.slices - 1) * p.quads
+
+
+@pytest.mark.parametrize("in_size,hidden,want", [
+    (14, 40, (4, 16, 8)), (40, 40, (16, 16, 8)), (10, 30, (4, 4, 4)), (30, 30, (4, 4, 4)),
+    (18, 50, (4, 4, 4)), (50, 50, (4, 4, 4)), (30, 40, (4, 16, 8)), (62, 50, (4, 4, 4)),
+    (7, 50, (2, 4, 4)), (64, 64, (16, 16, 8)), (7, 7, (2, 2, 2))])
+def test_cell_tc_plan_copies_16_bytes_only_where_a_streams_rows_align(in_size, hidden, want):
+    # x rows are 2 I bytes, h rows 2 H: 16-byte copies need I, H multiples
+    # of 8 (I = 14, H = 30 and H = 50 are not); c and the outputs are
+    # contiguous runs per tile, so only their base decides; a weight load
+    # takes 4 units of a gate where H is a multiple of 4, 2 where even
+    p = lstm_cell.cell_tc_plan(4_096, in_size, hidden, H100_SMEM_OPTIN, H100_SMS, 1)
+    assert (p.copy_x, p.copy_h, p.copy_w) == want
+    assert p.copy_c == p.copy_out == 16
+    # a base off 16 bytes narrows its own stream's copies and no other
+    off = lstm_cell.cell_tc_plan(4_096, in_size, hidden, H100_SMEM_OPTIN, H100_SMS, 1,
+                                 4, 4, 2, 8, 4)
+    assert (off.copy_w, off.copy_x, off.copy_h, off.copy_c, off.copy_out) == (
+        min(4, want[2]), min(4, want[0]), 2, 8, 4)
+
+
+@pytest.mark.parametrize("rows,in_size,hidden", _WIDE_CELL)
+def test_cell_tc_plan_sends_the_widths_past_the_presets_to_the_wide_kernel(rows, in_size,
+                                                                           hidden):
+    for act in (0, 1):
+        assert lstm_cell.cell_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, H100_SMS,
+                                      act) is None
+    assert lstm_cell.cell_plan(rows, in_size, hidden, H100_SMEM_OPTIN, H100_SMS).wide
+
+
+@pytest.mark.parametrize("in_size,hidden", _PRESET_WIDTHS + _WIDE_WIDTHS + [
+    (1, 104), (24, 104), (1, 120), (28, 100), (64, 64), (65, 64), (7, 50), (1, 2)])
+def test_cell_tc_plan_takes_exactly_the_widths_lstm_cell_smem_took(in_size, hidden):
+    # the bf16 stream runs the tensor-core kernel wherever cell_plan does not
+    # take the wide kernel, and the wide kernel elsewhere
+    for rows in _K3_ROWS:
+        tc = lstm_cell.cell_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, H100_SMS, 1)
+        wide = lstm_cell.cell_plan(rows, in_size, hidden, H100_SMEM_OPTIN, H100_SMS).wide
+        assert (tc is None) == bool(wide), (rows, in_size, hidden)
+
+
+@pytest.mark.parametrize("hidden", [2, 30, 40, 50, 64])
+def test_tc_column_is_a_bijection_onto_the_padded_columns(hidden):
+    units = 4 * -(-hidden // 4)
+    cols = [lstm_cell.tc_column(q, j) for j in range(units) for q in range(4)]
+    assert sorted(cols) == list(range(4 * units))
+
+
+def test_tc_column_gives_each_lane_the_four_gates_of_one_unit():
+    # an m16n8 accumulator fragment: lane l holds columns 2 (l % 4) and
+    # 2 (l % 4) + 1 of each 8-column n-tile; a quad's two n-tiles are its
+    # columns 0-7 and 8-15
+    for quad in range(13):
+        for lane in range(32):
+            t = lane % 4
+            held = [16 * quad + 8 * n + 2 * t + e for n in (0, 1) for e in (0, 1)]
+            gates = {lstm_cell.tc_column(q, 4 * quad + t): q for q in range(4)}
+            assert [gates[col] for col in held] == [0, 1, 2, 3]      # i, f, g, o
+
+
+def _parent_cell_plan(rows, in_size, hidden, smem_optin, sm_count):
+    """lstm_cell.cell_plan as it stood before the bf16 stream moved to the
+    tensor cores, written out: the fp32 launches must not move."""
+    kw = in_size + hidden
+    cell_r = 4 if rows <= 3 * 64 * sm_count else 8
+    units = hidden
+    block_groups = min(8, 512 // units) if units <= 512 else 0
+    groups = min(block_groups, max(1, -(-rows // (cell_r * sm_count))))
+    per_k = 4 * (4 * units + groups * cell_r + 4)
+    wide = block_groups == 0 or kw > 128 or kw * per_k > smem_optin
+    if wide:
+        cell_r, units, block_groups = 4, min(hidden, 32), 8
+        groups = min(block_groups, -(-rows // cell_r))
+        per_k = 4 * (4 * units + groups * cell_r + 4)
+    slices = -(-hidden // units)
+    k_chunk = kw if kw * per_k <= smem_optin else smem_optin // per_k
+    return (cell_r, groups, units, slices, block_groups * units, k_chunk, int(wide),
+            k_chunk * per_k)
+
+
+@pytest.mark.parametrize("in_size,hidden", _PRESET_WIDTHS + _WIDE_WIDTHS)
+@pytest.mark.parametrize("sm_count", [H100_SMS, 114])
+def test_cell_plan_float32_plans_are_unchanged(in_size, hidden, sm_count):
+    for rows in _K3_ROWS:
+        assert tuple(lstm_cell.cell_plan(rows, in_size, hidden, H100_SMEM_OPTIN, sm_count)) == \
+            _parent_cell_plan(rows, in_size, hidden, H100_SMEM_OPTIN, sm_count), rows
