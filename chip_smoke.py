@@ -24,7 +24,7 @@ same forecast and server run under the bf16 policy (``precision="bf16"``:
 K1 with a bf16 y, K3 in bf16 on the tensor cores; phases ``forecast_bf16``, ``profile_bf16``
 and ``serve_bf16``), against the CPU and the card's fp32 forecast. After
 the fine-tune, training and the fine-tune run under bf16 too (K1 and K2
-with a bf16 y, K4 (on the tensor cores) and K5 in bf16; phases ``train_bf16``,
+with a bf16 y, K4 and K5 in bf16 on the tensor cores; phases ``train_bf16``,
 ``profile_train_bf16`` and ``finetune_bf16``), against the CPU and the
 card's fp32 training, and ``owa_bf16`` fits head_compare's fast cell in
 fp32 and bf16 on the card and holds the bf16/fp32 OWA ratio to 1.01. Each
@@ -463,6 +463,25 @@ def cell_launch_of(args, act):
     return rec
 
 
+# registers a thread of the bf16 K5 kernel on the tensor cores
+# (csrc/lstm_cell_bwd_tc.cu), from the ptxas report of the build (main fills
+# it in)
+BWD_TC_REGISTERS = {}
+
+
+def bwd_launch_of(args, outputs):
+    """K5's C entry point and launch plan for these inputs and outputs on
+    this card (lstm_cell.bwd_launch), and the registers ptxas gave the
+    tensor-core kernel where it runs."""
+    from repro_torch.kernels import lstm_cell
+
+    entry, plan = lstm_cell.bwd_launch(*args, outputs=outputs)
+    rec = dict(entry=entry, plan=dict(plan._asdict(), blocks=plan.blocks))
+    if isinstance(plan, lstm_cell.BwdTcPlan):
+        rec.update(kernel="lstm_cell_bwd_tc", registers=BWD_TC_REGISTERS.get("lstm_cell_bwd_tc"))
+    return rec
+
+
 def train_path_shapes(cfg, window: int):
     """The shapes the train and fine-tune phases hand K2, K4 and K5.
 
@@ -578,7 +597,7 @@ def check_lstm_cell_bwd(rows, in_size, hidden, gen, bf16=False):
     gradients, before their rounding, as the fp32 kernel's."""
     import torch
 
-    from repro_torch.kernels import build, lstm_cell, ref
+    from repro_torch.kernels import lstm_cell, ref
 
     dev = torch.device("cuda")
     wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, gen, dev)
@@ -621,11 +640,10 @@ def check_lstm_cell_bwd(rows, in_size, hidden, gen, bf16=False):
     # per row; db and the gate algebra (about 20 flops per row and unit)
     n_flops = 4 * rows * g4 * kw + rows * g4 + 20 * rows * hidden
     bound_ms, bound_by = bound(n_bytes, n_flops, BF16_FLOPS if bf16 else FP32_FLOPS)
-    plan = lstm_cell.bwd_plan(rows, in_size, hidden, build.device_limits(dev).smem_optin)
     return dict(name="lstm_cell_bwd_bf16" if bf16 else "lstm_cell_bwd",
                 shape=dict(B=rows, I=in_size, H=hidden),
-                plan=dict(plan._asdict(), blocks=plan.blocks),
-                max_abs_err=err, deterministic=True, ms=ms, wrapper_ms=host_ms,
+                **bwd_launch_of(args, got[:3]), max_abs_err=err, deterministic=True, ms=ms,
+                wrapper_ms=host_ms,
                 plain_ms=plain_ms,
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by, **ulp_stats)
 
@@ -1503,8 +1521,8 @@ def main() -> int:
     # function its registers, shared memory, spills and any warning (an
     # empty report: the library was built by an earlier process)
     report = {name: ptxas_summary(reports.get(name, ""))
-              for name in ("flash_attention.cu", "lstm_cell.cu", "lstm_cell_tc.cu", "hw_scan.cu",
-                           "hw_scan_bwd.cu")}
+              for name in ("flash_attention.cu", "lstm_cell.cu", "lstm_cell_tc.cu",
+                           "lstm_cell_bwd_tc.cu", "hw_scan.cu", "hw_scan_bwd.cu")}
     # the bf16 instantiations of K1 to K5: each entry and the two lines
     # ptxas prints after it (stack and spills, registers and shared memory)
     bf16 = {name: [line for i, entry in enumerate(report[name]) if "bfloat16" in entry
@@ -1516,9 +1534,15 @@ def main() -> int:
             r"Compiling entry function '[^']*lstm_cell_tcILb(\d)ELi(\d+)E[^']*'"
             r".*?Used (\d+) registers", reports.get("lstm_cell_tc.cu", ""), re.S):
         TC_REGISTERS[(act == "1", int(quads))] = int(used)
+    # and the bf16 K5 kernel's
+    for used in re.findall(r"Compiling entry function '[^']*lstm_cell_bwd_tc[^']*'"
+                           r".*?Used (\d+) registers", reports.get("lstm_cell_bwd_tc.cu", ""),
+                           re.S):
+        BWD_TC_REGISTERS["lstm_cell_bwd_tc"] = int(used)
     emit(dict(phase="ptxas", build_s=build_s, report=report, bf16_entries=bf16,
               lstm_cell_tc_registers={f"{'k4' if act else 'k3'} quads {q}": n
-                                      for (act, q), n in sorted(TC_REGISTERS.items())}))
+                                      for (act, q), n in sorted(TC_REGISTERS.items())},
+              lstm_cell_bwd_tc_registers=BWD_TC_REGISTERS.get("lstm_cell_bwd_tc")))
 
     # phase 2: kernels against their plain versions, at the main path's
     # shapes (the first of each list is the first launch of the forecast
@@ -1676,7 +1700,7 @@ def main() -> int:
     emit(dict(phase="profile_train_bf16", call="one dense bf16 train step", N=TRAIN_N,
               T=TRAIN_T, batch=TRAIN_BATCH, card=smi, **profile_call(
                   bench16.step, match={"lstm_cell_fwd_bf16": ("lstm_cell_tc<true",),
-                                       "lstm_cell_bwd_bf16": ("lstm_bwd", "bfloat16")})))
+                                       "lstm_cell_bwd_bf16": ("lstm_cell_bwd_tc",)})))
     del bench16
     finetune16, ft16_launches = counted(
         bf16_kernels + train16_kernels, "the bf16 fine-tune server",
@@ -1748,7 +1772,8 @@ def main() -> int:
               k2b, None),
         entry("lstm_cell_fwd_bf16", csrc + "lstm_cell_tc.cu",
               "src/repro/kernels/lstm_cell.py:72", k4b, k4b[0]["library_ms"]),
-        entry("lstm_cell_bwd_bf16", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:90",
+        entry("lstm_cell_bwd_bf16", csrc + "lstm_cell_bwd_tc.cu",
+              "src/repro/kernels/lstm_cell.py:90",
               k5b, None),
     ]
     emit({"kernels": kernels})

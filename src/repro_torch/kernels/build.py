@@ -49,7 +49,9 @@ _SIGNATURES = {
     "lstm_cell_fwd_bf16": (10, 4, 0),      # K4, bf16, tensor cores (lstm_cell_tc.cu)
     "lstm_cell_fwd_wide_bf16": (10, 4, 0),  # K4, bf16, past the presets' widths
     "lstm_cell_bwd_f32": (18, 4, 0),       # K5
-    "lstm_cell_bwd_bf16": (18, 4, 0),      # K5, bf16 (float32 weight gradients)
+    "lstm_cell_bwd_bf16": (18, 4, 0),      # K5, bf16, tensor cores (lstm_cell_bwd_tc.cu;
+                                           # float32 weight gradients)
+    "lstm_cell_bwd_wide_bf16": (18, 4, 0),  # K5, bf16, past the presets' widths
     "flash_attention_f32": (4, 7, 1),      # K6, fp32
     "flash_attention_bf16": (4, 7, 1),     # K6, bf16
 }
@@ -146,7 +148,8 @@ def library() -> ctypes.CDLL:
         lib.repro_device_limits.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                                             ctypes.POINTER(ctypes.c_int)]
         lib.repro_device_limits.restype = ctypes.c_int
-        for name in ("repro_lstm_cell_constants", "repro_lstm_cell_tc_constants"):
+        for name in ("repro_lstm_cell_constants", "repro_lstm_cell_tc_constants",
+                     "repro_lstm_cell_bwd_tc_constants"):
             getattr(lib, name).argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib

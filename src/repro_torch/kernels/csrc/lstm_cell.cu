@@ -1,7 +1,7 @@
 // K3: fused LSTM cell (inference forward), K4: the same forward that also
 // writes the gate activations, and K5: its backward; sm_90a. All three in
 // fp32 and bf16; K3 and K4 in bf16 at the presets' widths live in
-// lstm_cell_tc.cu.
+// lstm_cell_tc.cu, K5 in bf16 there in lstm_cell_bwd_tc.cu.
 //
 // Replace the Pallas TPU kernels src/repro/kernels/lstm_cell.py:_lstm_kernel
 // (K3), _lstm_fwd_kernel (K4) and _lstm_bwd_kernel (K5).
@@ -587,8 +587,9 @@ int launch_cell_wide_bf16(const void* wx, const void* wh, const void* b, const v
 // first, and no float is summed atomically: two launches on the same
 // inputs give bit-identical results.
 //
-// K5 in bf16 (src/repro/kernels/lstm_cell.py:90-138, :210-219): every
-// input bf16, the same kernel templated on that type. The weights, the
+// K5 in bf16 past the presets' widths (src/repro/kernels/lstm_cell.py:90-138,
+// :210-219; the presets' widths run lstm_cell_bwd_tc.cu on the tensor
+// cores): every input bf16, the same kernel templated on that type. The weights, the
 // residuals (act, c, c', dh, dc) and the [x | h] rows are widened to float
 // as they are staged or loaded, so bwd_plan's float layout, the gate
 // algebra and every sum order are the fp32 kernel's. The column blocks
@@ -1068,9 +1069,11 @@ extern "C" int lstm_cell_bwd_f32(const void* wx, const void* wh, const void* x,
                              stream);
 }
 
-// K5 with the inputs and dx, dh_prev, dc_prev in bf16; dwx, dwh, db (and
-// the scratch) float, the sums over the batch before any rounding
-extern "C" int lstm_cell_bwd_bf16(const void* wx, const void* wh, const void* x,
+// K5 in bf16 at the widths past the presets' (kernels/lstm_cell.py:bwd_tc_plan
+// is None; every other bf16 width runs lstm_cell_bwd_tc.cu): the inputs and
+// dx, dh_prev, dc_prev in bf16; dwx, dwh, db (and the scratch) float, the
+// sums over the batch before any rounding
+extern "C" int lstm_cell_bwd_wide_bf16(const void* wx, const void* wh, const void* x,
                                   const void* h, const void* c, const void* c_new,
                                   const void* act, const void* dh, const void* dc,
                                   void* dx, void* dh_prev, void* dc_prev,

@@ -37,6 +37,17 @@ in bf16. K5 is templated on the element type: it widens as it loads,
 computes in float32, rounds dx, dh_prev and dc_prev once and returns the
 weight gradients as float32 sums over the batch, which :class:`LSTMCell`
 rounds to the weight dtype once, as the reference's ``custom_vjp`` does.
+K5 in bf16 runs its own kernel, ``csrc/lstm_cell_bwd_tc.cu``, at the
+presets' widths: each float32 gate cotangent is split into three bf16 terms
+that sum to it exactly (:func:`split_bf16`), so both products run on the
+tensor cores and differ from the plain version only in summation order.
+Up to 512 rows row blocks form dx and dh_prev while column blocks sum whole
+gate columns of the weight gradients over the batch; above, blocks form
+both for their row tiles and their partials are summed across a
+thread-block cluster through distributed shared memory and across clusters
+by tickets; every order is fixed by the shape (:func:`bwd_tc_plan`). Past
+those widths the bf16 stream runs the templated K5 (:func:`bwd_launch`
+names the kernel of a call).
 """
 
 from __future__ import annotations
@@ -76,12 +87,28 @@ TC_SMALL_QUADS = 2       # quads a warp takes where the batch does not fill the 
 TC_FILL = 8              # ... with TC_FILL warps an SM at the largest slices
 TC_DEEP = 8              # half-size tiles an SM from which half-size blocks pay
 
+# K5's bf16 geometry on the tensor cores (csrc/lstm_cell_bwd_tc.cu, lstm_cell_bwd_tc)
+BWD_TC_WARPS = 16        # warps per block
+BWD_TC_MTILES = 4        # 16-row m-tiles a row tile holds, at most
+BWD_TC_CLUSTER = 8       # blocks per thread-block cluster, at most
+BWD_TC_BLOCKS = 120      # blocks a large batch is cut into, at most, so that its clusters of 8
+                         # are resident at once on an H100. A constant, not read from the card:
+                         # the blocks fix the weight-gradient sums' order
+BWD_TC_TERMS = 3         # bf16 terms each float32 cotangent is split into
+BWD_TC_SPLIT_ROWS = 512  # batches up to this many rows take the split plan (no cross-block sum)
+BWD_TC_COL_UNITS = 4     # units of a column block of the split plan
+BWD_TC_COL_ROWS = 512    # rows a column block stages at once, at most
+
 # the constants above that csrc/lstm_cell.cu also uses, and the lengths of the
-# two plans, in the order its repro_lstm_cell_constants reports them; and
-# those of csrc/lstm_cell_tc.cu, in the order of repro_lstm_cell_tc_constants
+# two plans, in the order its repro_lstm_cell_constants reports them; those
+# of csrc/lstm_cell_tc.cu, in the order of repro_lstm_cell_tc_constants; and
+# those of csrc/lstm_cell_bwd_tc.cu, in the order of
+# repro_lstm_cell_bwd_tc_constants
 _C_CONSTANTS = ("CELL_PAD", "CELL_SUM_BLOCK", "CELL_WIDE_R", "BWD_THREADS",
                 "CellPlan", "BwdPlan")
 _TC_CONSTANTS = ("TC_QMAX", "TC_PAD", "TC_MAX_WARPS", "TcPlan")
+_BWD_TC_CONSTANTS = ("BWD_TC_WARPS", "BWD_TC_MTILES", "BWD_TC_CLUSTER", "BWD_TC_TERMS",
+                     "TC_PAD", "BWD_TC_COL_UNITS", "BwdTcPlan")
 
 # launches since the last reset (kernels.ops.reset_launch_counts)
 launches = 0                     # K3, float32
@@ -329,21 +356,172 @@ def bwd_plan(rows: int, in_size: int, hidden: int, smem_optin: int) -> BwdPlan:
                    col_units, slices, chunks, chunk_rows, sub_rows, smem)
 
 
+class BwdTcPlan(NamedTuple):
+    """A launch of K5 in bf16 on the tensor cores (``csrc/lstm_cell_bwd_tc.cu``);
+    the kernel takes these ints in this order."""
+    m_tiles: int     # 16-row m-tiles per row tile: a tile is 16 m_tiles rows
+    tiles: int       # row tiles a block walks, in order
+    blocks: int      # blocks of the grid, a multiple of cluster
+    cluster: int     # blocks per thread-block cluster
+    row_blocks: int  # split plan: the blocks of [dx | dh_prev], then the column blocks of
+                     # BWD_TC_COL_UNITS units; 0: the cluster plan
+    col_rows: int    # split plan: rows a column block stages at once
+    k_x: int         # staged column of the first h input: I rounded up to 8
+    k_w: int         # staged weight rows: k_x + H rounded up to 16
+    k_pad: int       # staged columns of [x | h | 1]: k_x + H + 1 rounded up to 16
+    n_pad: int       # gate columns: 4H rounded up to 16
+    copy_w: int      # bytes per copy of a weight row
+    copy_x: int      # bytes per copy of an x row
+    copy_h: int      # bytes per copy of an h row
+    copy_r: int      # bytes per copy of the runs of act, c, c', dh and dc
+    copy_out: int    # bytes per store of the runs of dx, dh_prev and dc_prev
+    smem: int        # dynamic shared memory, bytes
+
+    @property
+    def tile(self) -> int:
+        return 16 * self.m_tiles
+
+    @property
+    def clusters(self) -> int:
+        return self.blocks // self.cluster
+
+
+def _bwd_tc_widths(in_size: int, hidden: int):
+    """(k_x, k_w, k_pad, n_pad) of the tensor-core K5's staged layout."""
+    k_x = 8 * _cdiv(in_size, 8)
+    return k_x, 16 * _cdiv(k_x + hidden, 16), 16 * _cdiv(k_x + hidden + 1, 16), \
+        16 * _cdiv(4 * hidden, 16)
+
+
+def bwd_tc_smem(m_tiles: int, in_size: int, hidden: int, col_rows: int = 0) -> int:
+    """Shared memory of the tensor-core K5's layout, bytes.
+
+    The cluster plan (``col_rows`` 0): the weights as bf16 [k][gate column],
+    the block's float32 partial weight gradients, a tile of [x | h | 1], the
+    tile's runs of act, c, c', dh and dc, the three bf16 terms of its
+    cotangents, and dx, dh_prev and dc_prev staged; each row read by
+    ldmatrix padded by TC_PAD bf16. The split plan: the larger of its row
+    blocks' layout (the same without the partial and [x | h | 1]) and its
+    column blocks' (``col_rows`` rows of [x | h | 1], of the slice's
+    residuals and of its terms, and a float32 16 x 16 partial per warp's
+    k-part of each m-tile of the staged inputs)."""
+    k_x, k_w, k_pad, n_pad = _bwd_tc_widths(in_size, hidden)
+    tile = 16 * m_tiles
+    run = lambda n: 16 * _cdiv(2 * n, 16)         # n bf16 in whole 16-byte units
+    w_stride = 2 * (n_pad + TC_PAD)
+    x_stride = 2 * (k_pad + TC_PAD)
+    split = col_rows > 0
+    rows = (k_w * w_stride + run(4 * tile * hidden) + 4 * run(tile * hidden)
+            + BWD_TC_TERMS * tile * w_stride + run(tile * in_size) + 2 * run(tile * hidden))
+    if not split:
+        return rows + 4 * (in_size + hidden + 1) * (n_pad + TC_PAD) + tile * x_stride
+    m2 = k_pad // 16
+    ksplit = max(1, BWD_TC_WARPS // m2)
+    cols = (col_rows * x_stride + run(8 * BWD_TC_COL_UNITS * col_rows)
+            + BWD_TC_TERMS * col_rows * 2 * (4 * BWD_TC_COL_UNITS + TC_PAD) + m2 * ksplit * 1024)
+    return max(rows, cols)
+
+
+@functools.lru_cache(maxsize=4096)
+def bwd_tc_plan(rows: int, in_size: int, hidden: int, smem_optin: int, sm_count: int,
+                align_w: int = 16, align_x: int = 16, align_h: int = 16, align_r: int = 16,
+                align_out: int = 16) -> Optional[BwdTcPlan]:
+    """K5's bf16 launch on the tensor cores for one shape, or None where even
+    16-row tiles of the cluster plan would pass ``smem_optin`` (the widths
+    past the presets', H = 64 and up at I = H, which run the templated K5).
+    ``align_*``: the largest power of two, up to 16, dividing the base address
+    of the weights (both), x, h, the residuals (act, c, c', dh, dc: all) and
+    the outputs (dx, dh_prev, dc_prev: all).
+
+    * Up to BWD_TC_SPLIT_ROWS rows, the split plan: row blocks of 16 rows
+      (32 past 128 rows) form dx, dh_prev and dc_prev, and column blocks of
+      BWD_TC_COL_UNITS units each sum their gate columns of the weight
+      gradients over the whole batch, the batch at once where its rows fit
+      the shared memory (else in chunks of half as many, down to 16): no
+      block's sum meets another's, so there is no cluster, scratch or ticket.
+    * Above, the cluster plan: tiles of 16 m_tiles rows, the fewest m-tiles
+      (1, 2 or 4) that make at most BWD_TC_BLOCKS tiles (one a block), else
+      the most whose layout fits, the tiles cut into at most BWD_TC_BLOCKS
+      blocks, in clusters of BWD_TC_CLUSTER whose partials meet through
+      distributed shared memory, the clusters' through tickets.
+    * Each stream's copy width from its rows and base (:func:`_copy_width`):
+      weight rows (8H bytes), x and h rows; the residuals and the outputs as
+      contiguous runs per tile.
+
+    Every sum's order follows from the plan, which depends on the shape (and
+    the opt-in limit, through the tile) alone: ``sm_count`` does not enter,
+    so the same inputs give the same bits on any card of the kind.
+    """
+    fits = [m for m in (BWD_TC_MTILES, 2, 1) if bwd_tc_smem(m, in_size, hidden) <= smem_optin]
+    if not fits:
+        return None
+    m16 = _cdiv(rows, 16)
+    col_rows = row_blocks = 0
+    if rows <= BWD_TC_SPLIT_ROWS:
+        m_tiles = 1 if rows <= 128 else 2
+        col_rows = min(BWD_TC_COL_ROWS, 16 * m16)
+        while col_rows > 16 and bwd_tc_smem(m_tiles, in_size, hidden, col_rows) > smem_optin:
+            col_rows = 16 * _cdiv(col_rows // 2, 16)
+        row_blocks = _cdiv(m16, m_tiles)
+        tiles, cluster = 1, 1
+        blocks = row_blocks + _cdiv(hidden, BWD_TC_COL_UNITS)
+        if bwd_tc_smem(m_tiles, in_size, hidden, col_rows) > smem_optin:
+            return None
+    else:
+        # the smallest tile that gives every block one tile, else the largest
+        m_tiles = next((m for m in (1, 2, BWD_TC_MTILES)
+                        if m <= fits[0] and _cdiv(m16, m) <= BWD_TC_BLOCKS), fits[0])
+        cluster = BWD_TC_CLUSTER
+        n_tiles = _cdiv(m16, m_tiles)
+        tiles = _cdiv(n_tiles, BWD_TC_BLOCKS)
+        blocks = cluster * _cdiv(_cdiv(n_tiles, tiles), cluster)
+    k_x, k_w, k_pad, n_pad = _bwd_tc_widths(in_size, hidden)
+    return BwdTcPlan(m_tiles, tiles, blocks, cluster, row_blocks, col_rows,
+                     k_x, k_w, k_pad, n_pad,
+                     _copy_width(align_w, 8 * hidden), _copy_width(align_x, 2 * in_size),
+                     _copy_width(align_h, 2 * hidden), _copy_width(align_r),
+                     _copy_width(align_out), bwd_tc_smem(m_tiles, in_size, hidden, col_rows))
+
+
+def split_bf16(d: torch.Tensor):
+    """A float32 tensor as three bf16 tensors that sum to it exactly, as
+    ``csrc/lstm_cell_bwd_tc.cu`` splits each gate cotangent:
+    ``d0 = bf16(d)``, ``d1 = bf16(d - d0)``, ``d2 = bf16(d - d0 - d1)``.
+
+    Each difference is exact in float32 (the rounding error of a float32
+    rounded to fewer bits), and what is left after two roundings to bf16's
+    8 significant bits has at most 8 of them, so ``d2`` is exact too and
+    ``d0 + d1 + d2 == d`` for finite ``d`` with ``|d| >= 2**-100`` (below
+    that ``d2`` can fall past bf16's smallest subnormal). A product of a
+    term and a bf16 value is exact in float32.
+    """
+    d0 = d.to(torch.bfloat16)
+    r1 = d - d0.float()
+    d1 = r1.to(torch.bfloat16)
+    return d0, d1, (r1 - d1.float()).to(torch.bfloat16)
+
+
 @functools.cache
 def _kernel_library() -> ctypes.CDLL:
-    """The kernel library, once it has shown that ``csrc/lstm_cell.cu`` and
-    ``csrc/lstm_cell_tc.cu`` were built with the constants and plan lengths
-    this module sizes launches by (a mismatch would overrun shared memory or
-    change the sum order)."""
+    """The kernel library, once it has shown that ``csrc/lstm_cell.cu``,
+    ``csrc/lstm_cell_tc.cu`` and ``csrc/lstm_cell_bwd_tc.cu`` were built with
+    the constants and plan lengths this module sizes launches by (a mismatch
+    would overrun shared memory or change the sum order)."""
     lib = build.library()
     want = {"CELL_PAD": CELL_PAD, "CELL_SUM_BLOCK": CELL_SUM_BLOCK,
             "CELL_WIDE_R": CELL_WIDE_R, "BWD_THREADS": BWD_THREADS,
             "CellPlan": len(CellPlan._fields), "BwdPlan": len(BwdPlan._fields)}
     want_tc = {"TC_QMAX": TC_QMAX, "TC_PAD": TC_PAD, "TC_MAX_WARPS": TC_MAX_WARPS,
                "TcPlan": len(TcPlan._fields)}
+    want_bwd_tc = {"BWD_TC_WARPS": BWD_TC_WARPS, "BWD_TC_MTILES": BWD_TC_MTILES,
+                   "BWD_TC_CLUSTER": BWD_TC_CLUSTER, "BWD_TC_TERMS": BWD_TC_TERMS,
+                   "TC_PAD": TC_PAD, "BWD_TC_COL_UNITS": BWD_TC_COL_UNITS,
+                   "BwdTcPlan": len(BwdTcPlan._fields)}
     for source, names, query, expected in (
             ("lstm_cell.cu", _C_CONSTANTS, lib.repro_lstm_cell_constants, want),
-            ("lstm_cell_tc.cu", _TC_CONSTANTS, lib.repro_lstm_cell_tc_constants, want_tc)):
+            ("lstm_cell_tc.cu", _TC_CONSTANTS, lib.repro_lstm_cell_tc_constants, want_tc),
+            ("lstm_cell_bwd_tc.cu", _BWD_TC_CONSTANTS, lib.repro_lstm_cell_bwd_tc_constants,
+             want_bwd_tc)):
         got = (ctypes.c_int * len(names))()
         count = query(got, len(got))
         have = dict(zip(names, got))
@@ -472,20 +650,45 @@ def _ticket_counters(dev, stream: int, n: int) -> torch.Tensor:
     return found
 
 
+def bwd_launch(wx, wh, x, h, c, c_new, act, dh, dc, outputs=()):
+    """The C entry point and the plan that K5 launches for these inputs:
+    ``lstm_cell_bwd_f32`` with :func:`bwd_plan` in float32; in bf16
+    ``lstm_cell_bwd_bf16`` with :func:`bwd_tc_plan`, or past the presets'
+    widths ``lstm_cell_bwd_wide_bf16`` with :func:`bwd_plan`. ``outputs``:
+    dx, dh_prev and dc_prev as the kernel will write them (absent: fresh
+    ones, 16-byte aligned)."""
+    rows, in_size = x.shape
+    hidden = h.shape[1]
+    limits = build.device_limits(x.device)
+    if x.dtype == torch.bfloat16:
+        tc = bwd_tc_plan(rows, in_size, hidden, limits.smem_optin, limits.sm_count,
+                         min(_alignment(wx), _alignment(wh)), _alignment(x), _alignment(h),
+                         min(_alignment(t) for t in (act, c, c_new, dh, dc)),
+                         min((_alignment(t) for t in outputs), default=16))
+        if tc is not None:
+            return "lstm_cell_bwd_bf16", tc
+        name = "lstm_cell_bwd_wide_bf16"
+    else:
+        name = "lstm_cell_bwd_f32"
+    return name, bwd_plan(rows, in_size, hidden, limits.smem_optin)
+
+
 def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
     """Launch K5: ``(dh, dc)`` -> ``dx (B,I), dh_prev (B,H), dc_prev (B,H),
     dwx (I,4H), dwh (H,4H), db (4H,)``. The inputs all float32 or all
     bfloat16; dx, dh_prev and dc_prev in that dtype, the weight gradients
     always the float32 sums (:class:`LSTMCell` rounds them to the weight
-    dtype).
+    dtype). The kernel is the one :func:`bwd_launch` names.
 
     One launch; the weight gradients are summed over B in an order fixed by
-    the shape (:func:`bwd_plan`), so two launches on the same inputs give
-    the same bits. The launch takes integer tickets kept per device and
-    stream (:func:`_ticket_counters`): two K5 launches that run at the same
-    time must never share them, so a captured CUDA graph may not be
-    replayed concurrently with K5 calls on its capture stream, nor twice at
-    once. A set per launch would need a memset, a device call per call.
+    the shape (:func:`bwd_plan`, :func:`bwd_tc_plan`), so two launches on the
+    same inputs give the same bits. Where the sum crosses blocks (fp32 and
+    the wide bf16 kernel: chunks of rows; the tensor-core kernel: clusters)
+    the launch takes integer tickets kept per device and stream
+    (:func:`_ticket_counters`): two K5 launches that run at the same time
+    must never share them, so a captured CUDA graph may not be replayed
+    concurrently with K5 calls on its capture stream, nor twice at once. A
+    set per launch would need a memset, a device call per call.
     """
     global bwd_launches, bwd_bf16_launches
     rows, in_size = x.shape
@@ -497,8 +700,6 @@ def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
         ("x", x, (rows, in_size)), ("h", h, (rows, hidden)), ("c", c, (rows, hidden)),
         ("c_new", c_new, (rows, hidden)), ("act", act, (rows, g4)),
         ("dh", dh, (rows, hidden)), ("dc", dc, (rows, hidden))], dev, rows, hidden)
-    bf16 = x.dtype == torch.bfloat16
-    plan = bwd_plan(rows, in_size, hidden, build.device_limits(dev).smem_optin)
     f32 = dict(dtype=torch.float32, device=dev)
     stream_dt = dict(dtype=x.dtype, device=dev)
     dx = torch.empty((rows, in_size), **stream_dt)
@@ -507,14 +708,20 @@ def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
     dwx = torch.empty((in_size, g4), **f32)
     dwh = torch.empty((hidden, g4), **f32)
     db = torch.empty((g4,), **f32)
-    scratch = (torch.empty((plan.chunks, in_size + hidden + 1, g4), **f32)
-               if plan.chunks > 1 else None)
-    lib = _kernel_library()
+    name, plan = bwd_launch(wx, wh, x, h, c, c_new, act, dh, dc, (dx, dh_prev, dc_prev))
+    # the weight-gradient sum's parts (row chunks, or clusters) and the
+    # regions that each take a ticket
+    if isinstance(plan, BwdTcPlan):
+        parts, regions = (1, 1) if plan.row_blocks else (plan.clusters, plan.cluster)
+    else:
+        parts, regions = plan.chunks, plan.col_kparts * plan.slices
+    scratch = (torch.empty((parts, in_size + hidden + 1, g4), **f32) if parts > 1 else None)
+    entry = getattr(_kernel_library(), name)
     plan_ints = _plan_ints(plan)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        tickets = _ticket_counters(dev, stream, plan.col_kparts * plan.slices)
-        err = (lib.lstm_cell_bwd_bf16 if bf16 else lib.lstm_cell_bwd_f32)(
+        tickets = _ticket_counters(dev, stream, regions)
+        err = entry(
             wx.data_ptr(), wh.data_ptr(), x.data_ptr(), h.data_ptr(), c.data_ptr(),
             c_new.data_ptr(), act.data_ptr(), dh.data_ptr(), dc.data_ptr(),
             dx.data_ptr(), dh_prev.data_ptr(), dc_prev.data_ptr(), dwx.data_ptr(),
@@ -522,7 +729,7 @@ def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
             tickets.data_ptr(), ctypes.addressof(plan_ints), len(plan_ints),
             rows, in_size, hidden, stream)
     build.check(err, "lstm_cell_bwd")
-    if bf16:
+    if x.dtype == torch.bfloat16:
         bwd_bf16_launches += 1
     else:
         bwd_launches += 1

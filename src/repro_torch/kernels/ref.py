@@ -174,8 +174,17 @@ def lstm_cell_bwd_ref(wx, wh, x, h, c, c_new, act, dh, dc):
     them to the weight dtype once, after that sum (``:246-249``).
     """
     out_dtype = x.dtype
-    wx, wh, x, h, c, c_new, act, dh, dc = (
-        widen(t) for t in (wx, wh, x, h, c, c_new, act, dh, dc))
+    wx, wh, x, h = (widen(t) for t in (wx, wh, x, h))
+    dgates, dc_prev = lstm_cell_bwd_cotangents(c, c_new, act, dh, dc)
+    return ((dgates @ wx.t()).to(out_dtype), (dgates @ wh.t()).to(out_dtype),
+            dc_prev.to(out_dtype), x.t() @ dgates, h.t() @ dgates, dgates.sum(dim=0))
+
+
+def lstm_cell_bwd_cotangents(c, c_new, act, dh, dc):
+    """The first half of :func:`lstm_cell_bwd_ref`: the pre-activation gate
+    cotangents ``dgates = [di | df | dg | do]`` (B, 4H) and ``dc_prev``
+    (B, H), both float32 (the inputs widened)."""
+    c, c_new, act, dh, dc = (widen(t) for t in (c, c_new, act, dh, dc))
     si, sf, tg, so = act.chunk(4, dim=-1)
     tc = torch.tanh(c_new)
     # h = so * tanh(c_new); c_new = sf * c + si * tg
@@ -184,9 +193,7 @@ def lstm_cell_bwd_ref(wx, wh, x, h, c, c_new, act, dh, dc):
     df_pre = dct * c * sf * (1.0 - sf)
     di_pre = dct * tg * si * (1.0 - si)
     dg_pre = dct * si * (1.0 - tg * tg)
-    dgates = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=-1)     # (B, 4H)
-    return ((dgates @ wx.t()).to(out_dtype), (dgates @ wh.t()).to(out_dtype),
-            (dct * sf).to(out_dtype), x.t() @ dgates, h.t() @ dgates, dgates.sum(dim=0))
+    return torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=-1), dct * sf
 
 
 def attention_ref(q, k, v, *, causal: bool = True, scale=None):

@@ -32,7 +32,10 @@ batch (and so the plan) it is computed in. The bf16 streams of the training
 path are held the same way: K2 with a bf16 y to its plain version's bits
 (dy rounded once from the same float32 walk); K4 and K5 in bf16 to 1 bf16
 ulp or atol 1e-5, and K5's float32 weight gradients, before their rounding,
-as the fp32 K5's (atol 1e-5 * sqrt(B), the same bits on two launches).
+as the fp32 K5's (atol 1e-5 * sqrt(B), the same bits on two launches). K5
+in bf16 runs on the tensor cores (``csrc/lstm_cell_bwd_tc.cu``) at every
+preset width, and is held the same way at ragged row counts and on inputs
+whose bases are off 16 bytes; past the presets it runs the templated kernel.
 """
 
 import ctypes
@@ -686,6 +689,10 @@ def test_lstm_cell_fwd_bwd_bf16_within_one_ulp_of_plain_on_card(card, rows, in_s
     counts = ops.launch_counts()
     assert (counts["lstm_cell_fwd_bf16"], counts["lstm_cell_bwd_bf16"]) == (1, 2)
     assert counts["lstm_cell_fwd"] == counts["lstm_cell_bwd"] == 0
+    # every preset width (H <= 50) on the tensor cores, the wide widths not
+    entry, plan = lstm_cell.bwd_launch(*bwd_args)
+    assert entry == ("lstm_cell_bwd_bf16" if hidden <= 50 else "lstm_cell_bwd_wide_bf16")
+    assert isinstance(plan, lstm_cell.BwdTcPlan) == (hidden <= 50)
     for name, gt, w in zip(("dx", "dh_prev", "dc_prev"), got[:3], want[:3]):
         _within_ulp_or_atol(gt, w, f"K5 bf16 {name}")
     # the weight gradients: float32 sums over B rows before any rounding,
@@ -721,6 +728,125 @@ def test_lstm_cell_function_in_bf16_on_card(card):
     for a, ac in zip((x, h, c), (xc, hc, cc)):
         assert a.grad.dtype == torch.bfloat16
         torch.testing.assert_close(a.grad.cpu().float(), ac.grad.float(), rtol=2e-2, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# K5 in bf16 on the tensor cores (csrc/lstm_cell_bwd_tc.cu)
+
+
+def _bwd_bf16_args(rows, in_size, hidden, seed, dev):
+    """K5's bf16 inputs: a cell's bf16 inputs, the plain forward's c' and act
+    (the residuals the Function saves) and bf16 cotangents."""
+    wx, wh, b, x, h, c = _cell_bf16_args(rows, in_size, hidden, seed, dev)
+    _, c_new, act = ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
+    g = torch.Generator().manual_seed(seed + 1)
+    dh, dc = (torch.randn((rows, hidden), generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    return [wx, wh, x, h, c, c_new, act, dh, dc]
+
+
+def _within_bwd_bounds(got, want, rows, what):
+    # dx, dh_prev, dc_prev within 1 bf16 ulp or atol 1e-5; the float32
+    # weight gradients, sums over B rows, within 1e-5 sqrt(B)
+    for name, gt, w in zip(("dx", "dh_prev", "dc_prev"), got[:3], want[:3]):
+        _within_ulp_or_atol(gt, w, f"{what} {name}")
+    for gt, w in zip(got[3:], want[3:]):
+        assert gt.dtype == torch.float32
+        torch.testing.assert_close(gt, w, rtol=0, atol=1e-5 * max(1.0, rows ** 0.5))
+
+
+# every preset width and the tests' (7, 50) at ragged rows: one row, a few,
+# past two m-tiles, the train step's 256, a 64-row tile past 2,048 (clusters
+# and tickets), and the largest train shape's row count
+_BWD_TC_RAGGED = [(rows, in_size, hidden) for in_size, hidden in _PRESET_WIDTHS + [(7, 50)]
+                  for rows in (1, 7, 33, 256, 2_049, 16_384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,in_size,hidden", _BWD_TC_RAGGED)
+def test_lstm_cell_bwd_tc_within_one_ulp_or_fp32_atol_of_plain_on_card(card, rows, in_size,
+                                                                       hidden):
+    args = _bwd_bf16_args(rows, in_size, hidden, rows + 3 * hidden + in_size, card)
+    entry, plan = lstm_cell.bwd_launch(*args)
+    assert entry == "lstm_cell_bwd_bf16" and isinstance(plan, lstm_cell.BwdTcPlan)
+    ops.reset_launch_counts()
+    got = lstm_cell.lstm_cell_bwd(*args)
+    again = lstm_cell.lstm_cell_bwd(*args)
+    counts = ops.launch_counts()
+    assert (counts["lstm_cell_bwd_bf16"], counts["lstm_cell_bwd"]) == (2, 0)
+    _within_bwd_bounds(got, ref.lstm_cell_bwd_ref(*args), rows, entry)
+    for name, a, b in zip(("dx", "dh_prev", "dc_prev", "dwx", "dwh", "db"), got, again):
+        assert torch.equal(a, b), f"K5 bf16 {name} differs between two launches"
+
+
+def _off_16_bytes(t):
+    """A copy of ``t`` whose base lies one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_size,hidden", [(14, 40), (40, 40), (10, 30), (7, 50)])
+def test_lstm_cell_bwd_tc_takes_inputs_off_16_byte_bases_on_card(card, in_size, hidden):
+    rows = 333
+    args = _bwd_bf16_args(rows, in_size, hidden, 11, card)
+    shifted = [_off_16_bytes(t) for t in args]
+    assert all(t.data_ptr() % 16 == 2 for t in shifted)
+    entry, plan = lstm_cell.bwd_launch(*shifted)
+    assert entry == "lstm_cell_bwd_bf16"
+    # every stream one element a copy
+    assert (plan.copy_w, plan.copy_x, plan.copy_h, plan.copy_r) == (2, 2, 2, 2)
+    got = lstm_cell.lstm_cell_bwd(*shifted)
+    _within_bwd_bounds(got, ref.lstm_cell_bwd_ref(*args), rows, "K5 bf16 off 16-byte bases")
+    # the copies move the same values, so the sums are the aligned launch's
+    for name, a, b in zip(("dx", "dh_prev", "dc_prev", "dwx", "dwh", "db"), got,
+                          lstm_cell.lstm_cell_bwd(*args)):
+        assert torch.equal(a, b), f"K5 bf16 {name} differs from the aligned inputs'"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [256, 4_000], ids=["split", "clusters"])
+@pytest.mark.parametrize("fault", ["short", "smem", "copy", "geometry"])
+def test_lstm_cell_bwd_tc_refuses_a_plan_the_source_does_not_take_on_card(card, monkeypatch,
+                                                                          fault, rows):
+    # the constants and plan length shared with csrc/lstm_cell_bwd_tc.cu agree
+    # (checked when the library is first used) ...
+    lstm_cell._kernel_library()
+    # ... and its entry point refuses, in either plan, a plan one int short,
+    # 4 bytes of shared memory short of the layout, a 16-byte copy of x rows
+    # that are 28 bytes long, or a cluster of more blocks than the kernel sums
+    # (the split plan: a column block short of the units)
+    real = lstm_cell.bwd_tc_plan
+    faults = dict(smem=lambda p: p._replace(smem=p.smem - 4),
+                  copy=lambda p: p._replace(copy_x=16),
+                  geometry=lambda p: (p._replace(blocks=p.blocks - 1) if p.row_blocks
+                                      else p._replace(cluster=lstm_cell.BWD_TC_CLUSTER + 1)))
+    if fault == "short":
+        monkeypatch.setattr(lstm_cell, "_plan_ints",
+                            lambda plan: (ctypes.c_int * (len(plan) - 1))(*plan[:-1]))
+    else:
+        monkeypatch.setattr(lstm_cell, "bwd_tc_plan", lambda *a: faults[fault](real(*a)))
+    args = _bwd_bf16_args(rows, 14, 40, 5, card)
+    entry, plan = lstm_cell.bwd_launch(*args)
+    assert entry == "lstm_cell_bwd_bf16" and (plan.row_blocks > 0) == (rows == 256)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        lstm_cell.lstm_cell_bwd(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,hidden", [(256, 64), (256, 128), (256, 256), (33, 1030)])
+def test_lstm_cell_bwd_bf16_past_the_presets_launches_the_wide_kernel_on_card(card, rows,
+                                                                              hidden):
+    args = _bwd_bf16_args(rows, hidden, hidden, rows + hidden, card)
+    lim = build.device_limits(card)
+    assert lstm_cell.bwd_tc_plan(rows, hidden, hidden, lim.smem_optin, lim.sm_count) is None
+    entry, plan = lstm_cell.bwd_launch(*args)
+    assert entry == "lstm_cell_bwd_wide_bf16" and isinstance(plan, lstm_cell.BwdPlan)
+    ops.reset_launch_counts()
+    got = lstm_cell.lstm_cell_bwd(*args)
+    assert ops.launch_counts()["lstm_cell_bwd_bf16"] == 1
+    _within_bwd_bounds(got, ref.lstm_cell_bwd_ref(*args), rows, entry)
 
 
 @pytest.mark.cuda

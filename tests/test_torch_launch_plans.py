@@ -541,3 +541,189 @@ def test_cell_plan_float32_plans_are_unchanged(in_size, hidden, sm_count):
     for rows in _K3_ROWS:
         assert tuple(lstm_cell.cell_plan(rows, in_size, hidden, H100_SMEM_OPTIN, sm_count)) == \
             _parent_cell_plan(rows, in_size, hidden, H100_SMEM_OPTIN, sm_count), rows
+
+
+# ---------------------------------------------------------------------------
+# K5 in bf16 on the tensor cores (csrc/lstm_cell_bwd_tc.cu): lstm_cell.bwd_tc_plan
+
+# every preset's widths and the tests' odd one (I = 7, H = 50)
+_BWD_TC_WIDTHS = _PRESET_WIDTHS + [(7, 50)]
+# the widths chip_smoke.py's WIDE_BWD sends K5: past the presets
+_WIDE_BWD = [(64, 64), (128, 128), (256, 256), (1030, 1030)]
+
+
+@pytest.mark.parametrize("in_size,hidden", _BWD_TC_WIDTHS)
+@pytest.mark.parametrize("sm_count", [H100_SMS, 114])
+def test_bwd_tc_plan_takes_every_preset_width(in_size, hidden, sm_count):
+    for rows in _ROWS:
+        p = lstm_cell.bwd_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, sm_count)
+        assert isinstance(p, lstm_cell.BwdTcPlan), (rows, in_size, hidden)
+
+
+@pytest.mark.parametrize("in_size,hidden", _BWD_TC_WIDTHS)
+def test_bwd_tc_plan_fits_the_opt_in_shared_memory(in_size, hidden):
+    for rows in _ROWS:
+        p = lstm_cell.bwd_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, H100_SMS)
+        assert p.smem == lstm_cell.bwd_tc_smem(p.m_tiles, in_size, hidden, p.col_rows)
+        assert p.smem <= H100_SMEM_OPTIN
+        assert 32 * lstm_cell.BWD_TC_WARPS <= MAX_THREADS
+        assert 1 <= p.m_tiles <= lstm_cell.BWD_TC_MTILES and p.tiles >= 1
+        split = rows <= lstm_cell.BWD_TC_SPLIT_ROWS
+        assert (p.row_blocks > 0) == split, rows
+        if split:
+            # one tile a row block (16 rows, 32 past 128), no cluster
+            assert (p.m_tiles, p.tiles, p.cluster) == (1 if rows <= 128 else 2, 1, 1)
+            # the whole batch a chunk where it fits, else the most rows that do
+            whole = min(lstm_cell.BWD_TC_COL_ROWS, 16 * -(-rows // 16))
+            assert p.col_rows <= whole and (p.col_rows == whole or lstm_cell.bwd_tc_smem(
+                p.m_tiles, in_size, hidden, 2 * p.col_rows) > H100_SMEM_OPTIN)
+        else:
+            # the smallest tile that gives each block one, else the largest
+            # whose layout fits; clusters of 8
+            m_max = next(m for m in (4, 2, 1)
+                         if lstm_cell.bwd_tc_smem(m, in_size, hidden) <= H100_SMEM_OPTIN)
+            one = [m for m in (1, 2, 4)
+                   if m <= m_max and -(-rows // (16 * m)) <= lstm_cell.BWD_TC_BLOCKS]
+            assert p.m_tiles == (one[0] if one else m_max), rows
+            assert (p.cluster, p.col_rows) == (lstm_cell.BWD_TC_CLUSTER, 0)
+            assert p.blocks % p.cluster == 0 and p.blocks <= lstm_cell.BWD_TC_BLOCKS
+
+
+@pytest.mark.parametrize("in_size,hidden", _BWD_TC_WIDTHS)
+def test_bwd_tc_plan_covers_every_row_k_and_gate_column_once(in_size, hidden):
+    np = pytest.importorskip("numpy")
+    g4, kw = 4 * hidden, in_size + hidden
+    for rows in _ROWS:
+        p = lstm_cell.bwd_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, H100_SMS)
+        # rows: block b walks tiles b * tiles .. b * tiles + tiles - 1 of 16
+        # m_tiles rows (the split plan's row blocks: one tile each); every row
+        # in exactly one (block, tile), and no block wholly past the batch but
+        # those that round the clusters up
+        row_blocks = p.row_blocks or p.blocks
+        seen = np.zeros(row_blocks * p.tiles * p.tile, dtype=np.int64)
+        for b in range(row_blocks):
+            for i in range(p.tiles):
+                t = b * p.tiles + i
+                seen[t * p.tile:(t + 1) * p.tile] += 1
+        assert (seen[:rows] == 1).all(), (rows, in_size, hidden)
+        assert row_blocks - p.cluster < -(-rows // (p.tile * p.tiles)) <= row_blocks
+        if p.row_blocks:
+            # the column blocks: every unit (its four gate columns) in one,
+            # every row in one of a column block's chunks
+            units = np.zeros(hidden, dtype=np.int64)
+            for cb in range(p.blocks - p.row_blocks):
+                u = lstm_cell.BWD_TC_COL_UNITS
+                units[cb * u:(cb + 1) * u] += 1
+            assert (units == 1).all()
+            assert p.col_rows % 16 == 0 and p.col_rows >= min(rows, 16)
+        # k: x at [0, I), h at [k_x, k_x + H), db's ones at k_x + H, each a
+        # staged column of [x | h | 1] (k_pad) and, but for the ones, a
+        # staged weight row (k_w), once
+        cols = list(range(in_size)) + [p.k_x + j for j in range(hidden)]
+        assert len(set(cols)) == kw and max(cols) < p.k_w <= p.k_pad
+        assert in_size <= p.k_x < in_size + 8 and p.k_x % 8 == 0
+        assert p.k_x + hidden < p.k_pad and p.k_pad % 16 == 0 and p.k_w % 16 == 0
+        # gate columns: 4H within n_pad, padded to whole 16-column k-steps
+        assert g4 <= p.n_pad < g4 + 16 and p.n_pad % 16 == 0
+        # the cluster's ranks split the (I + H + 1) x 4H gradients into
+        # regions that cover each once (the kernel's lo / hi, in float4s)
+        n_out4 = (kw + 1) * g4 // 4
+        bounds = [r * n_out4 // p.cluster for r in range(p.cluster + 1)]
+        assert bounds[0] == 0 and bounds[-1] == n_out4 and bounds == sorted(bounds)
+
+
+@pytest.mark.parametrize("in_size,hidden,want", [
+    (14, 40, (16, 4, 16)), (40, 40, (16, 16, 16)), (10, 30, (16, 4, 4)), (30, 30, (16, 4, 4)),
+    (18, 50, (16, 4, 4)), (50, 50, (16, 4, 4)), (30, 40, (16, 4, 16)), (62, 50, (16, 4, 4)),
+    (7, 50, (16, 2, 4)), (7, 7, (8, 2, 2))])
+def test_bwd_tc_plan_copies_16_bytes_only_where_a_streams_rows_align(in_size, hidden, want):
+    # weight rows are 8H bytes (16-byte copies where H is even), x rows 2I
+    # and h rows 2H (16 bytes where I, H are multiples of 8); the residuals
+    # and the outputs are contiguous runs per tile, so only their bases decide
+    p = lstm_cell.bwd_tc_plan(4_096, in_size, hidden, H100_SMEM_OPTIN, H100_SMS)
+    assert (p.copy_w, p.copy_x, p.copy_h) == want
+    assert p.copy_r == p.copy_out == 16
+    # a base off 16 bytes narrows its own stream's copies and no other
+    off = lstm_cell.bwd_tc_plan(4_096, in_size, hidden, H100_SMEM_OPTIN, H100_SMS,
+                                4, 2, 8, 4, 2)
+    assert (off.copy_w, off.copy_x, off.copy_h, off.copy_r, off.copy_out) == (
+        min(4, want[0]), 2, min(8, want[2]), 4, 2)
+
+
+@pytest.mark.parametrize("in_size,hidden", _BWD_TC_WIDTHS + _WIDE_WIDTHS + _WIDE_BWD)
+def test_bwd_tc_plan_is_none_exactly_where_the_templated_kernel_runs(in_size, hidden):
+    # the bf16 stream runs the templated K5 (lstm_cell_bwd_wide_bf16) where
+    # even 16-row tiles would pass the opt-in shared memory: at the widths
+    # past the presets, and at no preset width
+    wide = lstm_cell.bwd_tc_smem(1, in_size, hidden) > H100_SMEM_OPTIN
+    for rows in _ROWS:
+        p = lstm_cell.bwd_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, H100_SMS)
+        assert (p is None) == wide, (rows, in_size, hidden)
+    assert wide == ((in_size, hidden) in _WIDE_BWD or (in_size, hidden) in [
+        (18, 128), (18, 256), (1030, 1030), (18, 1030)])
+
+
+@pytest.mark.parametrize("in_size,hidden", _BWD_TC_WIDTHS)
+def test_bwd_tc_plan_sum_order_does_not_depend_on_the_sm_count(in_size, hidden):
+    # the blocks, tiles and clusters fix the order of every weight-gradient
+    # sum, so the plan may not move with the card's SM count
+    for rows in _ROWS:
+        plans = {lstm_cell.bwd_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, sms)
+                 for sms in (H100_SMS, 114, 1, 264)}
+        assert len(plans) == 1, (rows, in_size, hidden)
+
+
+def test_bwd_tc_plan_splits_small_batches_and_clusters_large_ones():
+    # the train step's first layer at batch 256 and the fine-tune: row blocks
+    # and column blocks, no cross-block sum; past 512 rows at most 120 blocks
+    # (the clusters of 8 an H100 keeps resident) in clusters of 8
+    for rows, want in [(8, (1, 1, 11, 1, 1)), (16, (1, 1, 11, 1, 1)), (64, (1, 1, 14, 1, 4)),
+                       (256, (2, 1, 18, 1, 8)), (512, (2, 1, 26, 1, 16)),
+                       (1_024, (1, 1, 64, 8, 0)), (2_048, (2, 1, 64, 8, 0)),
+                       (4_096, (4, 1, 64, 8, 0)), (8_192, (4, 2, 64, 8, 0)),
+                       (16_384, (4, 3, 88, 8, 0))]:
+        p = lstm_cell.bwd_tc_plan(rows, 40, 40, H100_SMEM_OPTIN, H100_SMS)
+        assert (p.m_tiles, p.tiles, p.blocks, p.cluster, p.row_blocks) == want, rows
+    p = lstm_cell.bwd_tc_plan(256, 14, 40, H100_SMEM_OPTIN, H100_SMS)
+    assert (p.m_tiles, p.row_blocks, p.blocks, p.col_rows) == (2, 8, 18, 256)
+    # at 512 rows the whole batch is one chunk where it fits
+    assert lstm_cell.bwd_tc_plan(512, 40, 40, H100_SMEM_OPTIN, H100_SMS).col_rows == 512
+    assert lstm_cell.bwd_tc_plan(512, 62, 50, H100_SMEM_OPTIN, H100_SMS).col_rows == 256
+
+
+def _parent_bwd_plan(rows, in_size, hidden, smem_optin):
+    """lstm_cell.bwd_plan as it stood before K5's bf16 stream moved to the
+    tensor cores, written out: the fp32 launches must not move."""
+    cdiv = lambda a, b: -(-a // b)
+    kw = in_size + hidden
+    budget = min(smem_optin, 100 * 1024)
+    if kw <= 256:
+        row_k, r_max = kw, 4 * min(4, 256 // kw)
+    else:
+        row_k, r_max = 64, 16
+    tile_rows = min(r_max, max(4, 4 * cdiv(cdiv(rows, 128), 4)))
+    row_kparts = cdiv(kw, row_k)
+    per_unit = 16 * (row_k | 1) + 16 * tile_rows
+    row_units = min(hidden, budget // per_unit)
+    row_blocks = min(cdiv(rows, tile_rows) * row_kparts, 128)
+    col_k = 4 * cdiv(kw + 1, 4) if kw + 1 <= 128 else 64
+    col_kparts = cdiv(kw + 1, col_k)
+    chunk_rows = cdiv(rows, min(32, cdiv(rows, 32)))
+    chunks = cdiv(rows, chunk_rows)
+    max_units = 256 // (col_k // 4)
+    want_slices = cdiv(128, chunks * col_kparts)
+    col_units = min(max_units, cdiv(hidden, want_slices))
+    slices = cdiv(hidden, col_units)
+    per_row = 4 * col_k + 16 * col_units
+    sub_rows = min(chunk_rows, 128, budget // per_row)
+    smem = max(row_units * per_unit, sub_rows * per_row)
+    return (tile_rows, row_k, row_kparts, row_units, row_blocks, col_k, col_kparts, col_units,
+            slices, chunks, chunk_rows, sub_rows, smem)
+
+
+@pytest.mark.parametrize("in_size,hidden", _PRESET_WIDTHS + _WIDE_WIDTHS + [(7, 50)])
+def test_bwd_plan_float32_plans_are_unchanged(in_size, hidden):
+    for rows in _ROWS:
+        for optin in (H100_SMEM_OPTIN, 166_912, 101_376):
+            assert tuple(lstm_cell.bwd_plan(rows, in_size, hidden, optin)) == \
+                _parent_bwd_plan(rows, in_size, hidden, optin), (rows, optin)
