@@ -27,7 +27,14 @@ the fine-tune, training and the fine-tune run under bf16 too (K1 and K2
 with a bf16 y, K4 and K5 in bf16 on the tensor cores; phases ``train_bf16``,
 ``profile_train_bf16`` and ``finetune_bf16``), against the CPU and the
 card's fp32 training, and ``owa_bf16`` fits head_compare's fast cell in
-fp32 and bf16 on the card and holds the bf16/fp32 OWA ratio to 1.01. Each
+fp32 and bf16 on the card and holds the bf16/fp32 OWA ratio to 1.01.
+``estimator`` then drives the user surface at the same width: the
+esrnn-quarterly spec on its full synthetic quarterly set, fitted through
+the forecast CLI (``repro_torch.launch.forecast``, in process) on the card
+against the estimator on the CPU, resumed from a checkpoint bit for bit,
+its saved directory served by every inference subcommand against the same
+directory loaded on the CPU, head_compare's fast cell held to the
+reference's lstm OWA, and a bf16 fit and eval through the spec. Each
 phase prints one JSON line; any failed check raises and the script exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
@@ -38,11 +45,14 @@ and convolutions before anything runs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -78,6 +88,22 @@ FT_SERIES, FT_OBS, FT_STEPS = 8, 40, 2
 # CPU, BENCH_PR10.json's head_compare) beside the gate both are held to
 OWA_SCALE, OWA_STEPS, OWA_BATCH, OWA_LR = 0.002, 40, 64, 4e-3
 OWA_RATIO_GATE, OWA_RATIO_REFERENCE = 1.01, 0.992
+# the estimator cell: the esrnn-quarterly spec at the paper's width, its
+# synthetic M4 quarterly set in full (data_scale=1.0: 24,000 series drawn,
+# 8,572 of at least the quarterly MIN_LENGTH kept by the section-5.2
+# equalization), batch 256, driven through the forecast CLI and the
+# estimator; 20 fp32 steps with eval and checkpoints every 10, a resume
+# from step 10, 10 bf16 steps; the serve and observe calls of the CLI; and
+# the reference's lstm OWA on head_compare's fast cell (BENCH_PR10.json
+# head_compare, JAX on the CPU) with the factor it is held to
+EST_SPEC, EST_STEPS, EST_EVERY, EST_BF16_STEPS = "esrnn-quarterly", 20, 10, 10
+EST_SCALE = 1.0
+EST_SETS = (f"data_scale={EST_SCALE}", f"eval_every={EST_EVERY}", f"ckpt_every={EST_EVERY}")
+EST_REQUESTS, EST_WAVES = 64, 2
+EST_OBSERVE = ({"op": "observe", "series_id": 0, "y": 105.2},
+               {"op": "forecast", "series_id": 0}, {"op": "stats"})
+EST_OWA_SETS = ("data_scale=0.002", "rnn_lr=0.004", "hw_lr=0.04", "batch_size=64")
+EST_OWA_REFERENCE, EST_OWA_FACTOR = 0.687, 1.01
 
 # tolerances, with their reasons:
 # K1 runs the plain version's operations in the same order with IEEE
@@ -1290,6 +1316,260 @@ def run_owa(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: the spec, the estimator, the forecast CLI and checkpoints
+# ---------------------------------------------------------------------------
+
+
+def forecast_cli(*argv, stdin=None):
+    """``repro_torch.launch.forecast.main(argv)`` in process, its standard
+    output captured (it must not mix with this script's JSON lines):
+    ``(output, seconds)``; a non-zero exit raises."""
+    import torch
+
+    from repro_torch.launch import forecast
+
+    buf, old_stdin = io.StringIO(), sys.stdin
+    if stdin is not None:
+        sys.stdin = io.StringIO("".join(json.dumps(op) + "\n" for op in stdin))
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = forecast.main(list(argv))
+    finally:
+        sys.stdin = old_stdin
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"forecast {' '.join(argv)} exited {rc}")
+    return buf.getvalue(), seconds
+
+
+def _last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _sets(pairs):
+    return [arg for pair in pairs for arg in ("--set", pair)]
+
+
+def _timed_ms(fn, reps: int = 3) -> float:
+    """Median wall ms of ``reps`` calls after one warm-up, synchronized."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _check_scores(what, got, want, keys, rtol):
+    for k in keys:
+        g, w = got[k], want[k]
+        if not (np.isfinite(g) and abs(g - w) <= rtol * abs(w)):
+            raise AssertionError(f"{what} {k}: {g} against the CPU's {w} (rtol {rtol})")
+    return max(abs(got[k] - want[k]) / abs(want[k]) for k in keys)
+
+
+def run_estimator(dev, tmp):
+    """The user surface at full width, fp32, on the card against the CPU.
+
+    1. ``fit`` through the CLI on the card (20 steps, eval and checkpoints
+       every 10, the estimator saved), the same spec fitted by the estimator
+       on the CPU: per-step losses and val sMAPE within TRAIN_RTOL.
+    2. Resume on the card: a 10-step fit into a checkpoint directory, then a
+       fresh estimator asked for 20 steps there: resumed from 10, its losses
+       the unbroken CLI run's steps 10-19 bit for bit.
+    3. ``predict --quantiles``, ``eval``, ``backtest``, ``serve`` (both
+       engines) and ``observe`` through the CLI on the card from the saved
+       directory, against ``ESRNNForecaster.load(dir, device="cpu")``:
+       forecasts within FC_RTOL / FC_ATOL, scores within rtol 1e-4.
+    4. head_compare's fast cell through the CLI: the lstm OWA within
+       EST_OWA_FACTOR of the reference's.
+    Timings: fit steps/s and wall, save and load seconds, predict, eval and
+    backtest ms, serve requests/s.
+    """
+    import torch
+
+    from repro_torch.forecast import ESRNNForecaster, get_spec
+
+    spec = get_spec(EST_SPEC, n_steps=EST_STEPS, data_scale=EST_SCALE, eval_every=EST_EVERY,
+                    ckpt_every=EST_EVERY)
+    d1, d2, out_dir, owa_dir = (str(Path(tmp) / n) for n in ("ckpt1", "ckpt2", "fq", "owa"))
+    card = ("--device", str(dev))
+
+    # 1. the fit, card (CLI) against CPU (estimator)
+    text, fit_s = forecast_cli("fit", "--spec", EST_SPEC, "--steps", str(EST_STEPS),
+                               *_sets(EST_SETS), "--ckpt-dir", d1, "--out-dir", out_dir,
+                               "--json", *card)
+    fit = _last_json(text)
+    t0 = time.perf_counter()
+    cpu_fit = ESRNNForecaster(spec, device="cpu").fit()
+    cpu_fit_s = time.perf_counter() - t0
+    data = cpu_fit.data_
+    losses = torch.tensor(fit["loss"], dtype=torch.float64)
+    if len(losses) != EST_STEPS or not torch.isfinite(losses).all():
+        raise AssertionError(f"estimator fit: losses {fit['loss']}")
+    check_close("estimator fit losses", losses,
+                torch.tensor(cpu_fit.history_["loss"], dtype=torch.float64),
+                rtol=TRAIN_RTOL, atol=0.0)
+    if [s for s, _ in fit["val_smape"]] != [s for s, _ in cpu_fit.history_["val_smape"]]:
+        raise AssertionError(f"estimator fit: val sMAPE at {fit['val_smape']}")
+    check_close("estimator fit val sMAPE", torch.tensor([v for _, v in fit["val_smape"]]),
+                torch.tensor([v for _, v in cpu_fit.history_["val_smape"]]),
+                rtol=TRAIN_RTOL, atol=0.0)
+
+    # 2. resume on the card, against the unbroken CLI run
+    part = ESRNNForecaster(spec, device=dev).fit(data, ckpt_dir=d2, n_steps=EST_EVERY)
+    stamps = []
+    rest = ESRNNForecaster(spec, device=dev).fit(
+        data, ckpt_dir=d2, hooks={"on_step": lambda *_: stamps.append(time.perf_counter())})
+    if rest.resumed_from_ != EST_EVERY or len(rest.history_["loss"]) != EST_STEPS - EST_EVERY:
+        raise AssertionError(f"resume: from {rest.resumed_from_}, "
+                             f"{len(rest.history_['loss'])} losses")
+    resume_diff = max(abs(a - b) for a, b in zip(
+        part.history_["loss"] + rest.history_["loss"], fit["loss"]))
+    if resume_diff != 0.0:
+        raise AssertionError(f"resumed losses differ from the unbroken run's by "
+                             f"{resume_diff}: {rest.history_['loss']} against {fit['loss']}")
+    step_s = float(np.median(np.diff(stamps)[:-1]))      # the last did an eval and a save
+
+    # 3. inference from the saved directory: card (CLI) against CPU (load)
+    cpu = ESRNNForecaster.load(out_dir, device="cpu")
+    cpu.data_ = data
+    taus = (0.1, 0.5, 0.9)
+    text, predict_s = forecast_cli("predict", "--dir", out_dir, "--quantiles",
+                                   ",".join(map(str, taus)), "--json", *card)
+    bands = _last_json(text)["quantiles"]
+    want_bands = cpu.predict_quantiles(taus=taus)
+    errs = {f"band {t}": check_close(f"band {t}", torch.tensor(bands[str(t)]),
+                                     torch.from_numpy(want_bands[t]), rtol=FC_RTOL, atol=FC_ATOL)
+            for t in taus}
+    errs["forecast"] = check_close("forecast", torch.tensor(bands["0.5"]),
+                                   torch.from_numpy(cpu.predict()), rtol=FC_RTOL, atol=FC_ATOL)
+    text, eval_s = forecast_cli("eval", "--dir", out_dir, "--split", "test", "--json", *card)
+    scores, want_scores = _last_json(text), cpu.evaluate(split="test")
+    score_keys = [k for k in want_scores if k != "split"]
+    eval_err = _check_scores("eval", scores, want_scores, score_keys, 1e-4)
+    text, backtest_s = forecast_cli("backtest", "--dir", out_dir, "--json", *card)
+    bt, want_bt = _last_json(text), cpu.backtest()
+    errs["backtest"] = check_close("backtest forecasts", torch.tensor(bt["forecasts"]),
+                                   torch.from_numpy(want_bt["forecasts"]),
+                                   rtol=FC_RTOL, atol=FC_ATOL)
+    bt_err = max(_check_scores(f"backtest origin {w.get('origin', 'overall')}", g, w,
+                               ("smape", "mase"), 1e-4)
+                 for g, w in zip(bt["per_origin"] + [bt], want_bt["per_origin"] + [want_bt]))
+    serve = {}
+    for engine in ("continuous", "batch"):
+        text, seconds = forecast_cli("serve", "--dir", out_dir, "--engine", engine,
+                                     "--requests", str(EST_REQUESTS), "--waves",
+                                     str(EST_WAVES), *card)
+        m = re.search(r"served (\d+) requests .*?: (\d+) series/s wall \((\d+) req/s", text)
+        if not m or int(m.group(1)) != EST_REQUESTS * EST_WAVES:
+            raise AssertionError(f"serve {engine}: {text}")
+        serve[engine] = dict(requests=int(m.group(1)), series_per_s_wall=int(m.group(2)),
+                             requests_per_s_dispatch=int(m.group(3)), cli_s=seconds,
+                             output=text.strip().splitlines())
+    observed = {}
+    for where in (str(dev), "cpu"):
+        text, _ = forecast_cli("observe", "--dir", out_dir, "--device", where,
+                               stdin=EST_OBSERVE)
+        observed[where] = [json.loads(line) for line in text.strip().splitlines()]
+    card_obs, cpu_obs = observed[str(dev)], observed["cpu"]
+    if len(card_obs) != len(EST_OBSERVE) or card_obs[0].get("ok") is not True \
+            or card_obs[2].get("observes") != 1:
+        raise AssertionError(f"observe: {card_obs}")
+    errs["observe"] = check_close("observe forecast", torch.tensor(card_obs[1]["forecast"]),
+                                  torch.tensor(cpu_obs[1]["forecast"]),
+                                  rtol=FC_RTOL, atol=FC_ATOL)
+
+    # timings of the estimator's own calls on the card, at the phase's N
+    t0 = time.perf_counter()
+    f = ESRNNForecaster.load(out_dir, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    f.data_ = data
+    t0 = time.perf_counter()
+    f.save(str(Path(tmp) / "resaved"))
+    save_s = time.perf_counter() - t0
+    timings = dict(predict_ms=_timed_ms(f.predict), eval_ms=_timed_ms(f.evaluate),
+                   backtest_ms=_timed_ms(f.backtest), save_s=save_s, load_s=load_s)
+
+    # 4. head_compare's fast cell through the CLI
+    text, _ = forecast_cli("fit", "--spec", EST_SPEC, "--steps", str(OWA_STEPS),
+                           *_sets(EST_OWA_SETS), "--out-dir", owa_dir, "--json", *card)
+    owa_fit = _last_json(text)
+    text, _ = forecast_cli("eval", "--dir", owa_dir, "--json", *card)
+    owa = _last_json(text)
+    gate = EST_OWA_FACTOR * EST_OWA_REFERENCE
+    if not owa["owa"] <= gate:
+        raise AssertionError(f"lstm OWA through the estimator {owa['owa']} > {gate}")
+
+    return dict(
+        spec=EST_SPEC, n_series=fit["n_series"], batch=spec.batch_size,
+        hidden=spec.model.hidden_size, dilations=spec.model.dilations,
+        fit=dict(steps=EST_STEPS, losses=fit["loss"], val_smape=fit["val_smape"],
+                 cpu_val_smape=cpu_fit.history_["val_smape"],
+                 max_rel_loss_err=max_rel(losses, torch.tensor(cpu_fit.history_["loss"],
+                                                               dtype=torch.float64)),
+                 cli_wall_s=fit_s, cpu_wall_s=cpu_fit_s, steps_per_s=1.0 / step_s),
+        resume=dict(resumed_from=rest.resumed_from_, max_abs_loss_diff=resume_diff),
+        inference=dict(max_abs_err=errs, eval_max_rel_err=eval_err,
+                       backtest_max_rel_err=bt_err, eval=scores,
+                       backtest=dict(origins=bt["origins"], per_origin=bt["per_origin"],
+                                     smape=bt["smape"], mase=bt["mase"]),
+                       cli_s=dict(predict=predict_s, eval=eval_s, backtest=backtest_s),
+                       serve=serve, observe=card_obs),
+        timings=timings,
+        owa=dict(n_series=owa_fit["n_series"], steps=OWA_STEPS, sets=EST_OWA_SETS,
+                 final_loss=owa_fit["loss"][-1], smape=owa["smape"], mase=owa["mase"],
+                 owa=owa["owa"], gate=gate, reference=EST_OWA_REFERENCE,
+                 reference_of="JAX on the CPU, BENCH_PR10.json head_compare"))
+
+
+def run_estimator_bf16(dev, tmp, counted):
+    """A 10-step ``fit`` and an ``eval`` through the CLI on the card under
+    ``--set precision=bf16``, each counted on its own (the bf16 training
+    streams in the fit, K1 and K3 bf16 in eval, no fp32 kernel), against the
+    same fit and eval on the CPU: losses and scores within TRAIN16_RTOL."""
+    import torch
+
+    from repro_torch.forecast import ESRNNForecaster, get_spec
+
+    spec = get_spec(EST_SPEC, n_steps=EST_BF16_STEPS, data_scale=EST_SCALE, eval_every=EST_EVERY,
+                    ckpt_every=EST_EVERY, precision="bf16")
+    out_dir = str(Path(tmp) / "fq_bf16")
+    sets = _sets(EST_SETS + ("precision=bf16",))
+    (text, _), fit_launches = counted(
+        ("hw_scan_bf16", "hw_scan_bwd_bf16", "lstm_cell_fwd_bf16", "lstm_cell_bwd_bf16"),
+        "the bf16 estimator fit", lambda: forecast_cli(
+            "fit", "--spec", EST_SPEC, "--steps", str(EST_BF16_STEPS), *sets,
+            "--out-dir", out_dir, "--json", "--device", str(dev)))
+    fit = _last_json(text)
+    (text, _), eval_launches = counted(
+        ("hw_scan_bf16", "lstm_cell_bf16"), "the bf16 estimator eval",
+        lambda: forecast_cli("eval", "--dir", out_dir, "--json", "--device", str(dev)))
+    scores = _last_json(text)
+    if any(eval_launches[k] for k in ("hw_scan_bwd_bf16", "lstm_cell_fwd_bf16",
+                                      "lstm_cell_bwd_bf16")):
+        raise AssertionError(f"the bf16 eval launched training kernels: {eval_launches}")
+    cpu = ESRNNForecaster(spec, device="cpu").fit()
+    want = cpu.evaluate(split="test")
+    check_close("bf16 estimator losses", torch.tensor(fit["loss"], dtype=torch.float64),
+                torch.tensor(cpu.history_["loss"], dtype=torch.float64),
+                rtol=TRAIN16_RTOL, atol=0.0)
+    err = _check_scores("bf16 eval", scores, want, [k for k in want if k != "split"],
+                        TRAIN16_RTOL)
+    return dict(steps=EST_BF16_STEPS, losses=fit["loss"], cpu_losses=cpu.history_["loss"],
+                eval=scores, cpu_eval=want, max_rel_score_err=err), \
+        fit_launches, eval_launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the LM serving path (yi-6b prefill + greedy decode)
 # ---------------------------------------------------------------------------
 
@@ -1712,6 +1992,19 @@ def main() -> int:
     owa, owa_launches = counted(train_kernels + train16_kernels, "the OWA cell",
                                 lambda: run_owa(dev))
     emit(dict(phase="owa_bf16", card=smi, launches=owa_launches, **owa))
+
+    # phase 6c: the user surface -- spec, estimator, forecast CLI and
+    # checkpoints -- at full width: fp32 K1 to K5 all launched; then bf16
+    # through the spec, its bf16 streams only
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_estimator_") as tmp:
+        est, est_launches = counted(fp32_kernels, "the estimator",
+                                    lambda: run_estimator(dev, tmp))
+        est16, fit16_launches, eval16_launches = run_estimator_bf16(dev, tmp, counted)
+    fp32_free("the bf16 estimator fit", fit16_launches)
+    fp32_free("the bf16 estimator eval", eval16_launches)
+    emit(dict(phase="estimator", card=smi, launches=est_launches, **est,
+              bf16=dict(fit_launches=fit16_launches, eval_launches=eval16_launches, **est16)))
+    torch.cuda.empty_cache()
 
     # phase 7: the LM serving path. Card against CPU at full width, two
     # layers, fp32; then the full yi-6b in bf16 through the serve launcher's

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -268,3 +268,12 @@ def batch_schedule(
         for s in range(start_step, start_step + n_steps)
     ])
 
+
+def iterate_batches(
+    data: PreparedData, batch_size: int, n_steps: int, *, seed: int = 0,
+    start_step: int = 0,
+) -> Iterator[Tuple[int, np.ndarray, np.ndarray, np.ndarray]]:
+    """Yield (step, series_idx, y, cats) minibatches; resumable at any step."""
+    for step in range(start_step, n_steps):
+        idx = batch_indices(data.n_series, batch_size, step, seed=seed)
+        yield step, idx, data.train[idx], data.cats[idx]

@@ -1,0 +1,465 @@
+"""ESRNNForecaster: the estimator-style entry point (PyTorch port).
+
+Counterpart of ``repro.forecast.estimator``, verb for verb:
+
+    f = ESRNNForecaster("esrnn-quarterly")          # or a ForecastSpec
+    f.fit(data)                                     # joint two-group training
+    yhat = f.predict()                              # (N, H) point forecast
+    bands = f.predict_quantiles(taus=(0.1, 0.5, 0.9))
+    scores = f.evaluate(split="test")               # sMAPE/MASE/OWA vs
+                                                    # Comb / Naive2
+    bt = f.backtest(origins=(72, 80))               # rolling-origin scores,
+                                                    # one forward pass
+    f.save(path);  g = ESRNNForecaster.load(path)   # the shared Checkpointer
+    srv = f.serve()                                 # continuous-batching
+                                                    # online server
+
+Everything runs on ``device`` (default: the card; ``device="cpu"`` for the
+CPU), through the CUDA kernels on the card. A saved directory has the JAX
+estimator's layout (params under ``<dir>/params/`` in the JAX checkpoint
+format, plus ``forecaster.json``), so a forecaster saved by either package
+loads in the other.
+
+Series data parallelism (``mesh=``, ``data_parallel > 1``) and the
+out-of-core chunked path (``series_chunk > 0``) come with later slices of
+the port and raise; an estimator fitted data-parallel elsewhere still
+predicts here, on the one device, with a warning.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.core import losses as L
+from repro_torch.core.comb import comb_forecast, naive2_forecast
+from repro_torch.core.esrnn import (
+    esrnn_forecast, esrnn_forecast_at, esrnn_init, esrnn_loss,
+    esrnn_loss_and_grad, esrnn_predict_stats, gather_series, param_leaves,
+)
+from repro_torch.data.pipeline import PreparedData, prepare
+from repro_torch.data.synthetic_m4 import M4Dataset, generate
+from repro_torch.device import resolve_device
+from repro_torch.forecast.spec import ForecastSpec, get_spec
+from repro_torch.train.trainer import train_from_spec
+
+log = logging.getLogger("repro_torch.forecast")
+
+_META_FILE = "forecaster.json"
+
+
+class NotFittedError(RuntimeError):
+    pass
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: series-sharded fit and inference come with the series data "
+            "parallelism slice of the port (ROADMAP.md, section 1, item 5)")
+
+
+class ESRNNForecaster:
+    """Scikit-style estimator over the vectorized ES-RNN, on one device."""
+
+    def __init__(self, spec: Union[str, ForecastSpec] = "esrnn-quarterly",
+                 *, device=None, **overrides):
+        if isinstance(spec, str):
+            spec = get_spec(spec, **overrides)
+        elif overrides:
+            spec = spec.replace(**overrides)
+        self.spec = spec
+        self.device = device                     # resolved at first use
+        self.params_: Optional[Dict] = None
+        self.history_: Optional[Dict] = None
+        self.resumed_from_: Optional[int] = None
+        self.n_series_: Optional[int] = None
+        self.data_: Optional[PreparedData] = None
+        self.cats_: Optional[np.ndarray] = None   # fitted one-hots, persisted
+
+    # -- config shortcuts ----------------------------------------------------
+
+    @property
+    def config(self):
+        return self.spec.model
+
+    @property
+    def horizon(self) -> int:
+        return self.spec.horizon
+
+    @property
+    def _dev(self) -> torch.device:
+        return resolve_device(self.device)
+
+    def _check_fitted(self):
+        if self.params_ is None:
+            raise NotFittedError(
+                "this ESRNNForecaster has no params; call fit(), "
+                "init_params(), or load() first")
+
+    def _check_resident(self):
+        if self.spec.series_chunk and self.spec.series_chunk > 0:
+            raise NotImplementedError(
+                f"series_chunk={self.spec.series_chunk}: the out-of-core chunked "
+                "path comes with its slice of the port (ROADMAP.md, section 1, "
+                "item 4)")
+
+    def _check_inference(self, mesh) -> None:
+        """The reference's mesh rule, on one device: an explicit mesh raises;
+        a spec fitted data-parallel runs single-device with a warning."""
+        _refuse_mesh(mesh)
+        self._check_resident()
+        if self.spec.data_parallel > 1:
+            log.warning(
+                "spec.data_parallel=%d: the port runs inference on one device "
+                "(%s)", self.spec.data_parallel, self._dev)
+
+    def _tensor(self, a, dtype=None):
+        return torch.as_tensor(a).to(self._dev, dtype or self.config.tdtype)
+
+    # -- data ----------------------------------------------------------------
+
+    def make_data(self) -> PreparedData:
+        """Spec-driven synthetic M4 slice (Tables 2/3 profile, section 5)."""
+        spec = self.spec
+        ds = generate(spec.frequency, scale=spec.data_scale, seed=spec.data_seed)
+        return prepare(ds, min_length=spec.min_length,
+                       variable_length=spec.variable_length)
+
+    def _coerce_data(self, data) -> PreparedData:
+        if data is None:
+            return self.make_data()
+        if isinstance(data, M4Dataset):
+            return prepare(data, min_length=self.spec.min_length,
+                           variable_length=self.spec.variable_length)
+        if isinstance(data, PreparedData):
+            return data
+        raise TypeError(f"cannot fit on {type(data).__name__}; "
+                        "pass PreparedData, M4Dataset, or None")
+
+    # -- fit -----------------------------------------------------------------
+
+    def init_params(self, n_series: int, seed: Optional[int] = None):
+        """Primer initialization without training (cold-start serving)."""
+        seed = self.spec.seed if seed is None else seed
+        self.params_ = esrnn_init(torch.Generator().manual_seed(seed), self.config,
+                                  n_series, device=self._dev)
+        self.n_series_ = n_series
+        return self.params_
+
+    def fit(self, data=None, *, ckpt_dir: Optional[str] = None,
+            n_steps: Optional[int] = None, hooks=None,
+            mesh=None) -> "ESRNNForecaster":
+        """Joint two-group training (the spec's rnn_lr / hw_lr); returns self.
+
+        From ``self.params_`` when set, else from the spec's seed (a CPU
+        generator, so the init is the same on every device). ``ckpt_dir``
+        checkpoints the fit and resumes it from the latest checkpoint there.
+        ``spec.scan_steps > 1`` runs the superstep engine, and
+        ``spec.sparse_adam`` the segment update of the per-series table.
+        """
+        _refuse_mesh(mesh)
+        if self.spec.data_parallel > 1:
+            raise NotImplementedError(
+                f"data_parallel={self.spec.data_parallel}: data-parallel training "
+                "comes with the series data parallelism slice of the port "
+                "(ROADMAP.md, section 1, item 5)")
+        self._check_resident()
+        dev = self._dev
+        pdata = self._coerce_data(data)
+        out = train_from_spec(self.spec, pdata, ckpt_dir=ckpt_dir,
+                              n_steps=n_steps, params=self.params_, hooks=hooks,
+                              device=dev)
+        self.params_ = out["params"]
+        self.history_ = out["history"]
+        self.resumed_from_ = out["resumed_from"]
+        self.n_series_ = pdata.n_series
+        self.data_ = pdata
+        self.cats_ = np.asarray(pdata.cats, np.float32)
+        return self
+
+    # -- predict -------------------------------------------------------------
+
+    def _resolve_inputs(self, y, cats, series_idx):
+        """Resolve (params, y, cats) on the estimator's device."""
+        self._check_fitted()
+        if y is None:
+            if self.data_ is None:
+                raise NotFittedError("predict() without y requires fit(data)")
+            y = self.data_.train
+        y = self._tensor(y)
+        if cats is None and self.cats_ is not None:
+            # fitted categories: the rows of y are (a subset of) the fitted
+            # series, so reuse their one-hots rather than zeroing the feature
+            if series_idx is not None:
+                cats = self.cats_[np.asarray(series_idx)]
+            elif y.shape[0] == self.cats_.shape[0]:
+                cats = self.cats_
+        if cats is None:
+            cats = np.zeros((y.shape[0], self.config.n_categories), np.float32)
+        cats = self._tensor(cats)
+        params = self.params_
+        if series_idx is not None:
+            params = gather_series(params, torch.as_tensor(
+                np.asarray(series_idx), device=self._dev))
+        n_hw = params["hw"].alpha_logit.shape[0]
+        if y.shape[0] != n_hw:
+            raise ValueError(
+                f"y has {y.shape[0]} series but the fitted per-series table "
+                f"has {n_hw}; pass series_idx to select rows")
+        return params, y, cats
+
+    def predict(self, y=None, cats=None, *,
+                series_idx: Optional[Sequence[int]] = None,
+                mesh=None) -> np.ndarray:
+        """Point forecast (N, H) from the end of each series (Eq. 5).
+
+        With no arguments, forecasts the fitted training series. ``y`` may be
+        any history for the fitted series (e.g. train+val to forecast the test
+        window); ``series_idx`` selects per-series HW rows when y is a subset.
+        """
+        self._check_inference(mesh)
+        params, y, cats = self._resolve_inputs(y, cats, series_idx)
+        return esrnn_forecast(self.config, params, y, cats).cpu().numpy()
+
+    def predict_quantiles(
+        self, y=None, cats=None, *, taus: Tuple[float, ...] = (0.1, 0.5, 0.9),
+        series_idx: Optional[Sequence[int]] = None, mesh=None,
+    ) -> Dict[float, np.ndarray]:
+        """Quantile bands around the point forecast.
+
+        The model is trained on one pinball quantile (spec ``tau``), so its
+        output is one quantile path. Bands come from the fitted Holt-Winters
+        in-sample residuals: the per-series log-residual spread sigma gives
+        q_tau(h) = yhat * exp(z_tau * sigma * sqrt(h)) (tau = 0.5 returns the
+        point forecast exactly). Point and sigma come off one forward pass.
+        """
+        self._check_inference(mesh)
+        params, y, cats = self._resolve_inputs(y, cats, series_idx)
+        point, sigma = esrnn_predict_stats(self.config, params, y, cats)
+        steps = torch.sqrt(torch.arange(1, self.horizon + 1, dtype=torch.float32,
+                                        device=point.device))[None, :]
+        out = {}
+        for tau in taus:
+            z = torch.special.ndtri(torch.tensor(tau, dtype=torch.float32,
+                                                 device=point.device))
+            out[tau] = (point * torch.exp(z * sigma * steps)).cpu().numpy()
+        return out
+
+    # -- loss (golden-equivalence surface + benchmarks) ----------------------
+
+    def loss(self, y, cats):
+        """Training loss through the estimator (the function the fit uses)."""
+        self._check_fitted()
+        with torch.no_grad():
+            return esrnn_loss(self.config, self.params_, self._tensor(y),
+                              self._tensor(cats))
+
+    def loss_and_grad(self, y, cats):
+        """``(loss, grads)``, ``grads`` in ``param_leaves`` order."""
+        self._check_fitted()
+        for _, t in param_leaves(self.params_):
+            t.requires_grad_(True)
+        return esrnn_loss_and_grad(self.config, self.params_, self._tensor(y),
+                                   self._tensor(cats))
+
+    # -- evaluate ------------------------------------------------------------
+
+    def evaluate(self, data: Optional[PreparedData] = None,
+                 split: str = "test", *, mesh=None) -> Dict[str, float]:
+        """M4-style scores: sMAPE/MASE/OWA vs the Comb and Naive2 benchmarks.
+
+        ``split="test"`` forecasts from train+val and scores on the test
+        window (Eq. 7); ``split="val"`` forecasts from train and scores on
+        the validation window. Scores are taken on the host in float32.
+        """
+        self._check_fitted()
+        data = data if data is not None else self.data_
+        if data is None:
+            raise NotFittedError("evaluate() needs PreparedData (fit or pass)")
+        if split == "test":
+            insample, target = data.val_input, data.test_target
+        elif split == "val":
+            insample, target = data.train, data.val_target
+        else:
+            raise ValueError(f"split must be 'val' or 'test', got {split!r}")
+        m, h = data.seasonality, min(self.horizon, target.shape[1])
+        fc = self.predict(insample, data.cats, mesh=mesh)[:, :h]
+        host = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+        target_t, insample_t = host(target[:, :h]), host(insample)
+
+        def score(f):
+            f = host(f)
+            return (float(L.smape(f, target_t)),
+                    float(L.mase(f, target_t, insample_t, m)))
+
+        s_es, m_es = score(fc)
+        s_cb, m_cb = score(comb_forecast(insample, h, m))
+        s_n2, m_n2 = score(naive2_forecast(insample, h, m))
+        return {
+            "split": split,
+            "smape": s_es, "mase": m_es,
+            "owa": float(L.owa(s_es, m_es, s_n2, m_n2)),
+            "smape_comb": s_cb, "mase_comb": m_cb,
+            "owa_comb": float(L.owa(s_cb, m_cb, s_n2, m_n2)),
+            "smape_naive2": s_n2, "mase_naive2": m_n2,
+        }
+
+    # -- rolling-origin backtest ---------------------------------------------
+
+    def backtest(self, data: Optional[PreparedData] = None, *,
+                 origins: Optional[Sequence[int]] = None,
+                 y=None, cats=None, mesh=None) -> Dict:
+        """Rolling-origin backtest: forecast at several origins, no refit.
+
+        For each origin ``o`` (an observation count) the model forecasts as
+        if only ``y[:, :o]`` had been observed and is scored on the next
+        ``H`` actuals. All origins are read off one forward pass
+        (``esrnn_forecast_at``): the causal HW recurrence makes the states
+        at position ``o - 1`` the truncated history's states.
+
+        Defaults: the full fitted history (train+val+test) with origins at
+        the end of train and the end of val. Horizons that run past the
+        series end are masked out of the metrics; an origin with no
+        scorable target reports NaN. Returns per-origin and overall
+        sMAPE/MASE plus the (N, K, H) forecasts.
+        """
+        self._check_fitted()
+        if y is None:
+            data = data if data is not None else self.data_
+            if data is None:
+                raise NotFittedError(
+                    "backtest() needs PreparedData (fit or pass data=)")
+            y = np.concatenate([data.val_input, data.test_target], axis=1)
+            cats = data.cats if cats is None else cats
+            if origins is None:
+                train_len = data.train.shape[1]
+                origins = (train_len, train_len + data.horizon)
+        elif origins is None:
+            raise ValueError("backtest(y=...) needs explicit origins")
+        self._check_inference(mesh)
+        params, y, cats = self._resolve_inputs(y, cats, None)
+        m = max(self.config.seasonality, 1)
+        h = self.horizon
+        n, t_len = y.shape
+        origins = tuple(int(o) for o in origins)
+
+        # per-origin scoring windows + validity masks (numpy, host-side)
+        y_np = y.cpu().numpy()
+        target = np.zeros((n, len(origins), h), np.float32)
+        tmask = np.zeros((n, len(origins), h), np.float32)
+        for k, o in enumerate(origins):
+            avail = max(0, min(h, t_len - o))
+            target[:, k, :avail] = y_np[:, o:o + avail]
+            tmask[:, k, :avail] = 1.0
+
+        fc = esrnn_forecast_at(self.config, params, y, cats, origins)
+        terms = L.rolling_metric_terms(
+            fc, self._tensor(target, torch.float32), self._tensor(tmask, torch.float32),
+            y, origins, m)
+        s_sum, s_cnt, m_sum, m_cnt = (t.cpu().numpy().astype(np.float64) for t in terms)
+
+        def ratio(num, cnt):
+            # an origin with no scorable targets (e.g. origin == T) is
+            # unscored: NaN, not a perfect-looking 0.0
+            return float(num / cnt) if cnt > 0 else float("nan")
+
+        per_origin = [
+            {"origin": o,
+             "smape": ratio(200.0 * s_sum[k], s_cnt[k]),
+             "mase": ratio(m_sum[k], m_cnt[k])}
+            for k, o in enumerate(origins)]
+        return {
+            "origins": list(origins),
+            "horizon": h,
+            "per_origin": per_origin,
+            "smape": ratio(200.0 * s_sum.sum(), s_cnt.sum()),
+            "mase": ratio(m_sum.sum(), m_cnt.sum()),
+            "forecasts": fc.cpu().numpy(),
+        }
+
+    # -- serving -------------------------------------------------------------
+
+    def serve(self, *, server_config=None,
+              length_buckets: Tuple[int, ...] = (32, 64, 128, 256),
+              batch_buckets: Tuple[int, ...] = (1, 4, 16, 64),
+              mesh=None, seed_histories: bool = False):
+        """Continuous-batching online server over the fitted params.
+
+        Returns an (unstarted) :class:`repro_torch.forecast.server.ForecastServer`
+        on the estimator's device -- ``start()`` it for threaded serving or
+        drive ``step()``/``drain()`` synchronously. ``seed_histories=True``
+        pre-registers every fitted series' training history in the online
+        store (masked left-padding stripped), so ``observe`` and
+        history-less forecasts work for known ids from the first request.
+        """
+        self._check_fitted()
+        self._check_inference(mesh)
+        from repro_torch.forecast.server import ForecastServer
+
+        srv = ForecastServer(
+            self.config, self.params_, server_config=server_config,
+            length_buckets=length_buckets, batch_buckets=batch_buckets,
+            device=self._dev)
+        if seed_histories:
+            if self.data_ is None:
+                raise NotFittedError(
+                    "serve(seed_histories=True) needs fitted data; call "
+                    "fit(data) first")
+            y = np.asarray(self.data_.train, np.float32)
+            mask = np.asarray(self.data_.mask, np.float32)
+            for sid in range(y.shape[0]):
+                real = y[sid][mask[sid] > 0]
+                srv.store.seed(
+                    sid, real, row=srv.dispatcher.resolve_row(sid),
+                    category=int(np.argmax(self.cats_[sid]))
+                    if self.cats_ is not None else None)
+        return srv
+
+    # -- persistence (the shared Checkpointer) -------------------------------
+
+    def save(self, directory: str) -> str:
+        """Persist spec + params atomically via the shared Checkpointer.
+
+        Params live under ``<directory>/params/`` so a saved estimator can
+        share a directory with trainer checkpoints (``fit(ckpt_dir=...)``
+        writes ``step_<n>/`` trees of (params, opt_state) at the top level).
+        """
+        self._check_fitted()
+        ckpt = Checkpointer(os.path.join(directory, "params"), keep=self.spec.keep)
+        step = len(self.history_["loss"]) if self.history_ else 0
+        ckpt.save(step, self.params_)
+        meta = {
+            "spec": self.spec.to_dict(),
+            "n_series": int(self.n_series_),
+            "step": step,
+            "cats": self.cats_.tolist() if self.cats_ is not None else None,
+        }
+        tmp = os.path.join(directory, _META_FILE + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=2)
+        os.replace(tmp, os.path.join(directory, _META_FILE))
+        return directory
+
+    @classmethod
+    def load(cls, directory: str, *, device=None) -> "ESRNNForecaster":
+        """A saved forecaster (either package's), its params on ``device``
+        (default: the card)."""
+        with open(os.path.join(directory, _META_FILE)) as f:
+            meta = json.load(f)
+        spec = ForecastSpec.from_dict(meta["spec"])
+        f = cls(spec, device=device)
+        template = esrnn_init(torch.Generator().manual_seed(spec.seed), spec.model,
+                              meta["n_series"], device=f._dev)
+        _, f.params_ = Checkpointer(
+            os.path.join(directory, "params")).restore(template, step=meta["step"])
+        f.n_series_ = meta["n_series"]
+        if meta.get("cats") is not None:
+            f.cats_ = np.asarray(meta["cats"], np.float32)
+        return f

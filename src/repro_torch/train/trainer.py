@@ -10,12 +10,19 @@ per-series table resident on it:
 * dense or sparse two-group Adam (``sparse_adam``);
 * validation sMAPE on the held-out window at every ``eval_every`` boundary
   and at the end (paper section 5.1);
-* a SIGTERM/SIGINT handler that stops at the next boundary;
+* checkpoint/restart (``ckpt_dir``): atomic checkpoints of ``(params,
+  opt_state)`` in the JAX package's format
+  (:mod:`repro_torch.checkpoint`), at every eval boundary (with the
+  validation sMAPE as the metric), every ``ckpt_every`` boundary and on
+  preemption; a run with checkpoints in its ``ckpt_dir`` resumes from the
+  latest one. The batch schedule is stateless in the step, so a resumed
+  run walks the unbroken run's trajectory;
+* a SIGTERM/SIGINT handler that checkpoints and stops at the next boundary;
 * a wall-time EWMA per step that records stragglers.
 
-Checkpoints, series data parallelism, gradient compression and the chunked
-out-of-core fit belong to later slices of the port (ROADMAP.md, section 1);
-asking for them raises :class:`NotImplementedError`.
+Series data parallelism, gradient compression and the chunked out-of-core
+fit belong to later slices of the port (ROADMAP.md, section 1); asking for
+them raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.convert import copy_params
 from repro_torch.core import losses as L
 from repro_torch.core.esrnn import ESRNNConfig, esrnn_forecast, esrnn_init
@@ -53,7 +61,7 @@ class TrainConfig:
     seed: int = 0
     eval_every: int = 50
     ckpt_every: int = 50
-    ckpt_dir: Optional[str] = None      # checkpoints: a later slice
+    ckpt_dir: Optional[str] = None      # checkpoint/restart directory
     keep: int = 3
     straggler_factor: float = 3.0
     data_parallel: int = 0              # > 1: a later slice
@@ -107,7 +115,6 @@ class PreemptionHandler:
 
 def _refuse_unported(cfg: TrainConfig, mesh) -> None:
     later = {
-        "ckpt_dir": (cfg.ckpt_dir is not None, "the spec/estimator/CLI/checkpoints"),
         "data_parallel > 1 / mesh": ((cfg.data_parallel or 0) > 1 or mesh is not None,
                                      "the series data parallelism"),
         "compress_grads": (cfg.compress_grads, "the series data parallelism"),
@@ -140,6 +147,9 @@ def train_esrnn(
     selects the superstep engine; ``sparse_adam`` the segment update of the
     per-series table. The ``on_step`` hook gets ``(last_step, loss, params)``
     -- a float per step, or the segment's loss array under supersteps.
+    When ``cfg.ckpt_dir`` holds a checkpoint, the run restores ``(params,
+    opt_state)`` from the latest one onto ``device`` and continues from its
+    step (``resumed_from``); ``history`` then covers the resumed steps only.
     """
     _refuse_unported(cfg, mesh)
     mcfg = model
@@ -159,6 +169,26 @@ def train_esrnn(
     trainable, _ = split_frozen(params, frozen)
     opt_state = (adam_init_sparse(trainable) if cfg.sparse_adam
                  else adam_init(trainable))
+    start_step = 0
+
+    ckpt = Checkpointer(cfg.ckpt_dir, keep=cfg.keep) if cfg.ckpt_dir else None
+    if ckpt is not None and ckpt.latest_step() is not None:
+        try:
+            start_step, (params, opt_state) = ckpt.restore((params, opt_state))
+        except ValueError as e:
+            # checkpoints are engine-portable (scan_steps), but the sparse
+            # optimizer state carries an extra per-row clock: flipping
+            # sparse_adam across a resume is a real state mismatch. Other
+            # restore failures (shape drift etc.) pass through untouched.
+            if "tree structure mismatch" not in str(e):
+                raise
+            raise ValueError(
+                f"cannot resume from {cfg.ckpt_dir}: {e}. If this run was "
+                f"checkpointed with a different sparse_adam setting "
+                f"(currently {cfg.sparse_adam}), resume with the original "
+                "setting -- the dense and sparse Adam states are not "
+                "interchangeable") from e
+        log.info("resumed from step %d", start_step)
 
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     y_all, cats_all, mask_all = to_dev(data.train), to_dev(data.cats), to_dev(data.mask)
@@ -182,12 +212,19 @@ def train_esrnn(
         """Host work at a step boundary; True when the trainer should stop."""
         history["loss"].extend(float(v) for v in losses)
         if reached % cfg.eval_every == 0 or reached == cfg.n_steps:
-            history["val_smape"].append((reached, val_smape(params)))
+            vs = val_smape(params)
+            history["val_smape"].append((reached, vs))
+            if ckpt is not None:
+                ckpt.save(reached, (params, opt_state), metric=vs)
+        elif ckpt is not None and reached % cfg.ckpt_every == 0:
+            ckpt.save(reached, (params, opt_state))
         if hooks and "on_step" in hooks:
             hooks["on_step"](reached - 1, losses if fused else float(losses[0]),
                              params)
         if pre.requested:
-            log.warning("preemption requested at step %d; stopping", reached)
+            log.warning("preemption requested at step %d; checkpointing", reached)
+            if ckpt is not None:
+                ckpt.save(reached, (params, opt_state))
             return True
         return False
 
@@ -206,7 +243,7 @@ def train_esrnn(
         log.info("superstep engine: scan_steps=%d%s", cfg.scan_steps,
                  ", sparse per-series adam" if cfg.sparse_adam else "")
     try:
-        for step, k in segment_steps(0, cfg.n_steps, max(1, cfg.scan_steps),
+        for step, k in segment_steps(start_step, cfg.n_steps, max(1, cfg.scan_steps),
                                      cfg.eval_every, cfg.ckpt_every):
             sched = to_dev(batch_schedule(n, bs, step, k, seed=cfg.seed))
             t0 = time.perf_counter()
@@ -219,4 +256,28 @@ def train_esrnn(
         pre.uninstall()
 
     return {"params": params, "opt_state": opt_state, "history": history,
-            "resumed_from": 0}
+            "resumed_from": start_step}
+
+
+def train_from_spec(
+    spec,
+    data: PreparedData,
+    *,
+    ckpt_dir: Optional[str] = None,
+    n_steps: Optional[int] = None,
+    params=None,
+    hooks: Optional[Dict[str, Callable]] = None,
+    mesh=None,
+    device=None,
+    generator: Optional[torch.Generator] = None,
+) -> Dict:
+    """Spec-driven entry point: a ``ForecastSpec`` in, trained params out.
+
+    The path ``repro_torch.forecast.ESRNNForecaster.fit`` and the
+    ``repro_torch.launch.forecast`` CLI take; the two-group learning rates
+    come from the spec's ``rnn_lr`` / ``hw_lr``. ``device`` and
+    ``generator`` as in :func:`train_esrnn`.
+    """
+    cfg = TrainConfig.from_spec(spec, ckpt_dir=ckpt_dir, n_steps=n_steps)
+    return train_esrnn(spec.model, data, cfg, params=params, hooks=hooks,
+                       mesh=mesh, device=device, generator=generator)

@@ -28,9 +28,10 @@ from repro.core import esrnn as jes
 from repro_torch.convert import params_from_numpy, params_to_device, params_to_numpy
 from repro_torch.core import esrnn as tes
 from repro_torch.data.pipeline import synthetic_prepared
-from repro_torch.forecast import BucketDispatcher
+from repro_torch.forecast import BucketDispatcher, ESRNNForecaster, get_smoke_spec
 from repro_torch.forecast.server import ForecastServer, IdleFineTuner
 from repro_torch.kernels import build, flash_attention, hw_scan, lstm_cell, ops
+from repro_torch.launch import forecast as forecast_cli
 from repro_torch.train.trainer import TrainConfig, train_esrnn
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -69,7 +70,7 @@ def test_port_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is usable")
     cfg = tes.make_config("quarterly", hidden_size=8)
@@ -88,6 +89,16 @@ def test_entry_points_default_to_the_card():
                     TrainConfig(n_steps=1, batch_size=2))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         IdleFineTuner(cfg, params)
+    spec = get_smoke_spec("esrnn-quarterly", n_steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ESRNNForecaster(spec).fit()
+    saved = ESRNNForecaster(spec, device="cpu")
+    saved.init_params(3)
+    saved.save(str(tmp_path / "fq"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ESRNNForecaster.load(str(tmp_path / "fq"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forecast_cli.main(["fit", "--smoke", "--steps", "1"])
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -141,14 +141,18 @@ def test_superstep_equals_per_step(data, sparse):
         np.testing.assert_array_equal(a, b)
 
 
-def test_on_step_hook_and_unported_options(data):
+def test_on_step_hook_and_unported_options(data, tmp_path):
     cfg = tes.make_config("quarterly", **MODEL)
     seen = []
     ttrainer.train_esrnn(cfg, data, _train_cfg(ttrainer.TrainConfig, False, 4),
                          device="cpu", hooks={"on_step": lambda s, l, p: seen.append(s)})
     assert seen == [3, 5, 9, 11]                   # segment ends: 4, 6, 10, 12
-    for kw in (dict(ckpt_dir="x"), dict(data_parallel=2), dict(compress_grads=True),
-               dict(series_chunk=4)):
+    # checkpoints are ported: ckpt_dir writes one at the end instead of raising
+    out = ttrainer.train_esrnn(cfg, data, ttrainer.TrainConfig(n_steps=1, batch_size=4,
+                                                               ckpt_dir=str(tmp_path)),
+                               device="cpu")
+    assert out["resumed_from"] == 0 and (tmp_path / "step_1" / "manifest.json").exists()
+    for kw in (dict(data_parallel=2), dict(compress_grads=True), dict(series_chunk=4)):
         with pytest.raises(NotImplementedError, match="slice of the port"):
             ttrainer.train_esrnn(cfg, data, ttrainer.TrainConfig(n_steps=1, **kw),
                                  device="cpu")
