@@ -34,9 +34,17 @@ the forecast CLI (``repro_torch.launch.forecast``, in process) on the card
 against the estimator on the CPU, resumed from a checkpoint bit for bit,
 its saved directory served by every inference subcommand against the same
 directory loaded on the CPU, head_compare's fast cell held to the
-reference's lstm OWA, and a bf16 fit and eval through the spec. Each
-phase prints one JSON line; any failed check raises and the script exits
-non-zero. The last line is ``{"ok": true, "device": {...}}``.
+reference's lstm OWA, and a bf16 fit and eval through the spec. ``heads``
+then drives the esn and ssm heads at the same width: the forecast cell on
+the card (held to the CPU on its first 2,048 series), dense train steps
+against the CPU (the esn reservoir bit-identical; per step K4 and K5's
+dx-only launch 124 times each, the full K5 never; the ssm head K1 and K2
+only), esn under bf16, an esn fine-tune server, head_compare's fast cell
+per head against the reference's OWA, and each head's spec through the
+CLI with a resume bit for bit; K5's dx-only launch is also held against
+its plain version and the full K5 in phase ``kernel``. Each phase prints
+one JSON line (``heads`` one per part); any failed check raises and the
+script exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the ``src/`` tree beside it, and imports
 nothing of the JAX package. fp32 parity: TF32 is switched off for matmuls
@@ -104,6 +112,23 @@ EST_OBSERVE = ({"op": "observe", "series_id": 0, "y": 105.2},
                {"op": "forecast", "series_id": 0}, {"op": "stats"})
 EST_OWA_SETS = ("data_scale=0.002", "rnn_lr=0.004", "hw_lr=0.04", "batch_size=64")
 EST_OWA_REFERENCE, EST_OWA_FACTOR = 0.687, 1.01
+
+# the heads cell: the esn and ssm heads at the quarterly preset's full width
+# (hidden 40, dilations ((1, 2), (4, 8)), 6 categories; ssm: 5 heads x 8,
+# state 8, chunk 32), weights random from a seed. The forecast at the
+# forecast cell's N and T on the card, held to the CPU on its first
+# HEADS_CPU_N series (series are independent; a full-size CPU ssm pass
+# would hold GBs of (N, chunks, heads, 32, 32) tensors on the host);
+# HEADS_STEPS dense train steps per head on the train cell, esn also
+# HEADS_BF16_STEPS under bf16; head_compare's fast cell per head, its OWA
+# held to HEADS_OWA_FACTOR times the reference's (BENCH_PR10.json
+# head_compare, JAX on the CPU); the CLI at data_scale=1.0, HEADS_CLI_STEPS
+# steps with eval and checkpoints every HEADS_CLI_EVERY, resumed from there
+HEADS = ("esn", "ssm")
+HEADS_CPU_N = 2048
+HEADS_STEPS, HEADS_BF16_STEPS = 5, 3
+HEADS_OWA_REFERENCE, HEADS_OWA_FACTOR = {"esn": 0.780, "ssm": 0.769}, 1.01
+HEADS_CLI_STEPS, HEADS_CLI_EVERY = 10, 5
 
 # tolerances, with their reasons:
 # K1 runs the plain version's operations in the same order with IEEE
@@ -674,6 +699,85 @@ def check_lstm_cell_bwd(rows, in_size, hidden, gen, bf16=False):
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by, **ulp_stats)
 
 
+DX_REGISTERS = {}
+
+
+def check_lstm_cell_bwd_dx(rows, in_size, hidden, gen, bf16=False):
+    """K5's dx-only launch (the esn head's frozen reservoir: no weight
+    gradients) against its plain version within K5's bounds (fp32 atol
+    K45_ATOL; bf16 K3_BF16_ULPS or K45_ATOL), the same bits on two launches,
+    and against the full K5's dx, dh_prev and dc_prev on the same inputs:
+    bit for bit in fp32 and the bf16 split plan (the same row blocks, or the
+    same per-row sums), within the bf16 bound past 512 rows in bf16 (the
+    full launch's cluster plan), the record saying which. Timed beside the
+    full K5 (``full_ms``); its bytes are the residuals, the weights and the
+    three outputs (x and h are not read); ``registers``: ptxas's count for
+    the dx-only kernel and the full one. No one PyTorch call gives a cell's
+    input gradients alone: ``library_ms`` None."""
+    import torch
+
+    from repro_torch.kernels import lstm_cell, ref
+
+    dev = torch.device("cuda")
+    wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, gen, dev)
+    dh = torch.randn((rows, hidden), generator=gen).to(dev)
+    dc = torch.randn((rows, hidden), generator=gen).to(dev)
+    if bf16:
+        wx, wh, b, x, h, c, dh, dc = (t.to(torch.bfloat16)
+                                      for t in (wx, wh, b, x, h, c, dh, dc))
+    _, c_new, act = ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
+    args = (wx, wh, c, c_new, act, dh, dc)
+    full_args = (wx, wh, x, h, c, c_new, act, dh, dc)
+    kernel = lambda: lstm_cell.lstm_cell_bwd_dx(*args)
+    full = lambda: lstm_cell.lstm_cell_bwd(*full_args)
+    plain = lambda: ref.lstm_cell_bwd_dx_ref(*args)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    names = ("dx", "dh_prev", "dc_prev")
+    for name, g1, g2 in zip(names, got, again):
+        if not torch.equal(g1, g2):
+            raise AssertionError(f"lstm_cell_bwd_dx {name}: two launches differ")
+    want = plain()
+    what = f"lstm_cell_bwd_dx{'_bf16' if bf16 else ''} {(rows, in_size, hidden)}"
+    ulp_stats = {}
+    if bf16:
+        err, ulp_stats = check_bf16(what, list(zip(got, want)), K45_ATOL)
+    else:
+        err = max(check_close(f"{what} {name}", g, w, rtol=0.0, atol=K45_ATOL)
+                  for name, g, w in zip(names, got, want))
+    entry, plan = lstm_cell.bwd_dx_launch(*args, outputs=got)
+    full_out = full()[:3]
+    equal_full = all(torch.equal(g, f) for g, f in zip(got, full_out))
+    split = not (bf16 and isinstance(plan, lstm_cell.BwdTcPlan)
+                 and rows > lstm_cell.BWD_TC_SPLIT_ROWS)
+    if split and not equal_full:
+        raise AssertionError(f"{what}: dx, dh_prev, dc_prev differ from the full K5's")
+    vs_full = dict(bit_identical=equal_full,
+                   held_to="bits" if split else "the bf16 bound (the full launch's cluster plan)")
+    if not split:
+        _, vs_full["ulps"] = check_bf16(f"{what} against the full K5", list(zip(got, full_out)),
+                                        K45_ATOL)
+    ms, full_ms = time_ms(kernel), time_ms(full)
+    plain_ms, host_ms = time_ms(plain), wrapper_ms(kernel)
+    g4, kw = 4 * hidden, in_size + hidden
+    e = c.element_size()
+    # wx, wh, act, c, c', dh, dc in; dx, dh_prev, dc_prev out
+    n_bytes = e * (kw * g4 + rows * (g4 + 4 * hidden) + rows * (in_size + 2 * hidden))
+    # dx + dh_prev: one product over 4H x (I + H) per row; the gate algebra
+    n_flops = 2 * rows * g4 * kw + 20 * rows * hidden
+    bound_ms, bound_by = bound(n_bytes, n_flops, BF16_FLOPS if bf16 else FP32_FLOPS)
+    tc = isinstance(plan, lstm_cell.BwdTcPlan)
+    stream = "tc" if tc else ("bf16" if bf16 else "f32")
+    return dict(name="lstm_cell_bwd_dx_bf16" if bf16 else "lstm_cell_bwd_dx",
+                shape=dict(B=rows, I=in_size, H=hidden), entry=entry,
+                plan=dict(plan._asdict(), blocks=plan.blocks),
+                registers=dict(dx_only=DX_REGISTERS.get(("dx", stream)),
+                               full=DX_REGISTERS.get(("full", stream))),
+                max_abs_err=err, deterministic=True, vs_full=vs_full, ms=ms, full_ms=full_ms,
+                wrapper_ms=host_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, **ulp_stats)
+
+
 def k6_shapes():
     """K6's checks: (B, Hq, Hkv, Tq, Tk, D, dtype, causal). The first is the
     LM serve path's own (one launch per layer of the yi-6b prefill); the
@@ -752,14 +856,15 @@ def check_flash_attention(b, hq, hkv, tq, tk, d, dtype_name, causal, gen, qkv=No
 # ---------------------------------------------------------------------------
 
 
-def make_model(n_series: int, seed: int = 0):
-    """Quarterly config and CPU params: random weights, per-series HW rows."""
+def make_model(n_series: int, seed: int = 0, head: str = "lstm"):
+    """Quarterly config of ``head`` and CPU params: random weights,
+    per-series HW rows."""
     import torch
 
     from repro_torch.core.esrnn import esrnn_init, make_config
     from repro_torch.core.holt_winters import HWParams
 
-    cfg = make_config("quarterly")
+    cfg = make_config("quarterly", head=head)
     params = esrnn_init(torch.Generator().manual_seed(seed), cfg, n_series,
                         device="cpu")
     rng = np.random.default_rng(seed)
@@ -1081,18 +1186,17 @@ def run_train(cfg, data, dev, rtol=TRAIN_RTOL):
     return out
 
 
-def run_train_wide(data, dev):
-    """The quarterly model at ``hidden_size=64``: WIDE_STEPS dense Adam
-    steps of ``train_esrnn`` at batch 256 on the card against the CPU, per-step
-    losses within TRAIN_RTOL. At this width every LSTM layer after the first
-    has I = H = 64: K4 and K5 with (I + H) x 4H weights of 128 KB."""
+def run_dense_train(cfg, data, dev, steps, rtol):
+    """``train_esrnn`` of ``cfg`` on the card and on the CPU from the same
+    init and schedule: ``steps`` dense Adam steps at batch 256, per-step
+    losses within ``rtol``. For the esn head, every reservoir leaf on the
+    card is the init's, bit for bit."""
     import torch
 
-    from repro_torch.core.esrnn import make_config
+    from repro_torch.core.esrnn import esrnn_init, param_leaves
     from repro_torch.train.trainer import TrainConfig, train_esrnn
 
-    cfg = make_config("quarterly", hidden_size=WIDE_HIDDEN)
-    tcfg = TrainConfig(batch_size=TRAIN_BATCH, eval_every=1000, seed=0, n_steps=WIDE_STEPS,
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, eval_every=1000, seed=0, n_steps=steps,
                        scan_steps=1, sparse_adam=False)
     res, wall = {}, {}
     for where, device in (("card", dev), ("cpu", "cpu")):
@@ -1105,12 +1209,34 @@ def run_train_wide(data, dev):
     card_l, cpu_l = res["card"]["history"]["loss"], res["cpu"]["history"]["loss"]
     losses = torch.tensor(card_l, dtype=torch.float64)
     want = torch.tensor(cpu_l, dtype=torch.float64)
-    if not torch.isfinite(losses).all() or len(losses) != WIDE_STEPS:
-        raise AssertionError(f"train_wide: losses {card_l}")
-    check_close("train_wide losses", losses, want, rtol=TRAIN_RTOL, atol=0.0)
-    return dict(hidden=cfg.hidden_size, dilations=cfg.dilations, steps=WIDE_STEPS,
-                losses=card_l, cpu_losses=cpu_l, max_rel_loss_err=max_rel(losses, want),
+    if not torch.isfinite(losses).all() or len(losses) != steps:
+        raise AssertionError(f"{cfg.head} train: losses {card_l}")
+    check_close(f"{cfg.head} train losses ({cfg.precision})", losses, want, rtol=rtol, atol=0.0)
+    reservoir = None
+    if cfg.head == "esn":
+        init = esrnn_init(torch.Generator().manual_seed(0), cfg, data.n_series, device="cpu")
+        leaves = [(path, t) for path, t in param_leaves(res["card"]["params"]) if path[0] == "rnn"]
+        same = [torch.equal(t.detach().cpu(), t0) for (_, t), (_, t0)
+                in zip(leaves, [lf for lf in param_leaves(init) if lf[0][0] == "rnn"])]
+        if not all(same):
+            raise AssertionError(f"esn reservoir leaves moved on the card: "
+                                 f"{[p for (p, _), ok in zip(leaves, same) if not ok]}")
+        reservoir = dict(leaves=len(leaves), bit_identical=True)
+    return dict(head=cfg.head, precision=cfg.precision, steps=steps, losses=card_l,
+                cpu_losses=cpu_l, max_rel_loss_err=max_rel(losses, want), reservoir=reservoir,
                 card_wall_s=wall["card"], cpu_wall_s=wall["cpu"])
+
+
+def run_train_wide(data, dev):
+    """The quarterly model at ``hidden_size=64``: WIDE_STEPS dense Adam
+    steps of ``train_esrnn`` at batch 256 on the card against the CPU, per-step
+    losses within TRAIN_RTOL. At this width every LSTM layer after the first
+    has I = H = 64: K4 and K5 with (I + H) x 4H weights of 128 KB."""
+    from repro_torch.core.esrnn import make_config
+
+    cfg = make_config("quarterly", hidden_size=WIDE_HIDDEN)
+    return dict(hidden=cfg.hidden_size, dilations=cfg.dilations,
+                **run_dense_train(cfg, data, dev, WIDE_STEPS, TRAIN_RTOL))
 
 
 class TrainSteps:
@@ -1121,18 +1247,21 @@ class TrainSteps:
         import torch
 
         from repro_torch.core.esrnn import esrnn_init
+        from repro_torch.core.heads import frozen_param_groups
         from repro_torch.data.pipeline import batch_indices
-        from repro_torch.train.engine import make_step_fn
+        from repro_torch.train.engine import make_step_fn, split_frozen
         from repro_torch.train.optimizer import AdamConfig, adam_init, adam_init_sparse
 
         n = data.n_series
         to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         self.params = esrnn_init(torch.Generator().manual_seed(0), cfg, n, device=dev)
-        self.opt = adam_init_sparse(self.params) if sparse else adam_init(self.params)
+        frozen = frozen_param_groups(cfg)             # the esn head's reservoir
+        trainable = split_frozen(self.params, frozen)[0]
+        self.opt = adam_init_sparse(trainable) if sparse else adam_init(trainable)
         adam = AdamConfig(lr=1e-3, clip_norm=20.0,
                           group_lr={"per_series": 10.0, "default": 1.0})
         self.step_fn = make_step_fn(cfg, adam, to_dev(data.train), to_dev(data.cats),
-                                    to_dev(data.mask), sparse=sparse)
+                                    to_dev(data.mask), sparse=sparse, frozen=frozen)
         self.idx = [to_dev(batch_indices(n, batch, s)) for s in range(TIMED_STEPS + 4)]
         self.k = 0
 
@@ -1194,6 +1323,10 @@ def run_finetune(cfg, params_cpu, params_dev, dev, seed: int = 6, rtol: float = 
     on the CPU, observe the same histories, forecast, fine-tune when the
     queue drains, and forecast again; card and CPU must agree, the
     forecasts within ``rtol``/``atol``, the last loss within ``loss_rtol``."""
+    import torch
+
+    from repro_torch.core.esrnn import param_leaves
+    from repro_torch.core.heads import frozen_param_groups
     from repro_torch.forecast import ForecastRequest
     from repro_torch.forecast.server import ForecastServer, ServerConfig
 
@@ -1223,6 +1356,13 @@ def run_finetune(cfg, params_cpu, params_dev, dev, seed: int = 6, rtol: float = 
     if np.array_equal(waves["card"][0], waves["card"][1]):
         raise AssertionError("the fine-tune burst did not change the forecasts")
     card, cpu = servers["card"], servers["cpu"]
+    # a frozen group (the esn reservoir) leaves the fine-tune as it came
+    frozen = frozen_param_groups(cfg)
+    moved = [path for (path, t), (_, t0) in zip(param_leaves(card.tuner.params),
+                                                param_leaves(params_dev))
+             if path[0] in frozen and not torch.equal(t, t0)]
+    if moved:
+        raise AssertionError(f"the fine-tune moved frozen leaves {moved}")
     if not card.stats.finetunes == cpu.stats.finetunes == 2:
         raise AssertionError(f"finetunes: card {card.stats.finetunes}, cpu {cpu.stats.finetunes}")
     # the fine-tuned HW rows are reported, not held to a bound: Adam
@@ -1375,6 +1515,53 @@ def _check_scores(what, got, want, keys, rtol):
     return max(abs(got[k] - want[k]) / abs(want[k]) for k in keys)
 
 
+def _resume(name, spec, data, dev, ckpt_dir, every, unbroken):
+    """``spec`` fitted on the card into ``ckpt_dir`` for ``every`` steps, then
+    a fresh estimator asked for the spec's steps there: resumed from
+    ``every``, its losses the unbroken run's ``unbroken`` bit for bit. The
+    resume record and the median seconds of a resumed step."""
+    from repro_torch.forecast import ESRNNForecaster
+
+    part = ESRNNForecaster(spec, device=dev).fit(data, ckpt_dir=ckpt_dir, n_steps=every)
+    stamps = []
+    rest = ESRNNForecaster(spec, device=dev).fit(
+        data, ckpt_dir=ckpt_dir, hooks={"on_step": lambda *_: stamps.append(time.perf_counter())})
+    if rest.resumed_from_ != every or len(rest.history_["loss"]) != len(unbroken) - every:
+        raise AssertionError(f"{name} resume: from {rest.resumed_from_}, "
+                             f"{len(rest.history_['loss'])} losses")
+    diff = max(abs(a - b) for a, b in zip(part.history_["loss"] + rest.history_["loss"],
+                                          unbroken))
+    if diff != 0.0:
+        raise AssertionError(f"{name}: resumed losses differ from the unbroken run's by "
+                             f"{diff}: {rest.history_['loss']} against {unbroken}")
+    step_s = float(np.median(np.diff(stamps)[:-1]))      # the last did an eval and a save
+    return dict(resumed_from=rest.resumed_from_, max_abs_loss_diff=diff), step_s
+
+
+def _predict_eval(name, out_dir, cpu, card):
+    """``predict --quantiles`` and ``eval`` through the CLI on the card from
+    the saved ``out_dir``, against ``cpu`` (it loaded on the CPU): bands and
+    forecast within FC_RTOL / FC_ATOL, scores within rtol 1e-4. The errors,
+    the scores, the largest relative score error and the CLI seconds."""
+    import torch
+
+    taus = (0.1, 0.5, 0.9)
+    text, predict_s = forecast_cli("predict", "--dir", out_dir, "--quantiles",
+                                   ",".join(map(str, taus)), "--json", *card)
+    bands = _last_json(text)["quantiles"]
+    want_bands = cpu.predict_quantiles(taus=taus)
+    errs = {f"band {t}": check_close(f"{name} band {t}", torch.tensor(bands[str(t)]),
+                                     torch.from_numpy(want_bands[t]), rtol=FC_RTOL, atol=FC_ATOL)
+            for t in taus}
+    errs["forecast"] = check_close(f"{name} forecast", torch.tensor(bands["0.5"]),
+                                   torch.from_numpy(cpu.predict()), rtol=FC_RTOL, atol=FC_ATOL)
+    text, eval_s = forecast_cli("eval", "--dir", out_dir, "--split", "test", "--json", *card)
+    scores, want = _last_json(text), cpu.evaluate(split="test")
+    eval_err = _check_scores(f"{name} eval", scores, want, [k for k in want if k != "split"],
+                             1e-4)
+    return errs, scores, eval_err, dict(predict=predict_s, eval=eval_s)
+
+
 def run_estimator(dev, tmp):
     """The user surface at full width, fp32, on the card against the CPU.
 
@@ -1424,37 +1611,12 @@ def run_estimator(dev, tmp):
                 rtol=TRAIN_RTOL, atol=0.0)
 
     # 2. resume on the card, against the unbroken CLI run
-    part = ESRNNForecaster(spec, device=dev).fit(data, ckpt_dir=d2, n_steps=EST_EVERY)
-    stamps = []
-    rest = ESRNNForecaster(spec, device=dev).fit(
-        data, ckpt_dir=d2, hooks={"on_step": lambda *_: stamps.append(time.perf_counter())})
-    if rest.resumed_from_ != EST_EVERY or len(rest.history_["loss"]) != EST_STEPS - EST_EVERY:
-        raise AssertionError(f"resume: from {rest.resumed_from_}, "
-                             f"{len(rest.history_['loss'])} losses")
-    resume_diff = max(abs(a - b) for a, b in zip(
-        part.history_["loss"] + rest.history_["loss"], fit["loss"]))
-    if resume_diff != 0.0:
-        raise AssertionError(f"resumed losses differ from the unbroken run's by "
-                             f"{resume_diff}: {rest.history_['loss']} against {fit['loss']}")
-    step_s = float(np.median(np.diff(stamps)[:-1]))      # the last did an eval and a save
+    resume, step_s = _resume("estimator", spec, data, dev, d2, EST_EVERY, fit["loss"])
 
     # 3. inference from the saved directory: card (CLI) against CPU (load)
     cpu = ESRNNForecaster.load(out_dir, device="cpu")
     cpu.data_ = data
-    taus = (0.1, 0.5, 0.9)
-    text, predict_s = forecast_cli("predict", "--dir", out_dir, "--quantiles",
-                                   ",".join(map(str, taus)), "--json", *card)
-    bands = _last_json(text)["quantiles"]
-    want_bands = cpu.predict_quantiles(taus=taus)
-    errs = {f"band {t}": check_close(f"band {t}", torch.tensor(bands[str(t)]),
-                                     torch.from_numpy(want_bands[t]), rtol=FC_RTOL, atol=FC_ATOL)
-            for t in taus}
-    errs["forecast"] = check_close("forecast", torch.tensor(bands["0.5"]),
-                                   torch.from_numpy(cpu.predict()), rtol=FC_RTOL, atol=FC_ATOL)
-    text, eval_s = forecast_cli("eval", "--dir", out_dir, "--split", "test", "--json", *card)
-    scores, want_scores = _last_json(text), cpu.evaluate(split="test")
-    score_keys = [k for k in want_scores if k != "split"]
-    eval_err = _check_scores("eval", scores, want_scores, score_keys, 1e-4)
+    errs, scores, eval_err, cli_s = _predict_eval("estimator", out_dir, cpu, card)
     text, backtest_s = forecast_cli("backtest", "--dir", out_dir, "--json", *card)
     bt, want_bt = _last_json(text), cpu.backtest()
     errs["backtest"] = check_close("backtest forecasts", torch.tensor(bt["forecasts"]),
@@ -1517,12 +1679,12 @@ def run_estimator(dev, tmp):
                  max_rel_loss_err=max_rel(losses, torch.tensor(cpu_fit.history_["loss"],
                                                                dtype=torch.float64)),
                  cli_wall_s=fit_s, cpu_wall_s=cpu_fit_s, steps_per_s=1.0 / step_s),
-        resume=dict(resumed_from=rest.resumed_from_, max_abs_loss_diff=resume_diff),
+        resume=resume,
         inference=dict(max_abs_err=errs, eval_max_rel_err=eval_err,
                        backtest_max_rel_err=bt_err, eval=scores,
                        backtest=dict(origins=bt["origins"], per_origin=bt["per_origin"],
                                      smape=bt["smape"], mase=bt["mase"]),
-                       cli_s=dict(predict=predict_s, eval=eval_s, backtest=backtest_s),
+                       cli_s=dict(cli_s, backtest=backtest_s),
                        serve=serve, observe=card_obs),
         timings=timings,
         owa=dict(n_series=owa_fit["n_series"], steps=OWA_STEPS, sets=EST_OWA_SETS,
@@ -1567,6 +1729,168 @@ def run_estimator_bf16(dev, tmp, counted):
     return dict(steps=EST_BF16_STEPS, losses=fit["loss"], cpu_losses=cpu.history_["loss"],
                 eval=scores, cpu_eval=want, max_rel_score_err=err), \
         fit_launches, eval_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the esn and ssm heads
+# ---------------------------------------------------------------------------
+
+
+def _first_rows(params, n):
+    """``params`` with the first ``n`` rows of the HW table (the shared
+    weights as they are): the forecast of those series alone."""
+    return {k: (v.map(lambda a: a[:n]) if k == "hw" else v) for k, v in params.items()}
+
+
+def run_head_forecast(head, dev):
+    """``esrnn_forecast`` of ``head`` at the forecast cell's N and T on the
+    card, held to the CPU on the first HEADS_CPU_N series (each series is
+    independent of the others), every value finite and of the right shape;
+    then timed."""
+    import torch
+
+    from repro_torch.convert import params_to_device
+    from repro_torch.core.esrnn import esrnn_forecast
+
+    cfg, params_cpu = make_model(N_SERIES, seed=0, head=head)
+    params_dev = params_to_device(params_cpu, dev)
+    y, cats = make_batch(cfg, N_SERIES, T_LEN)
+    y_d, c_d = torch.from_numpy(y).to(dev), torch.from_numpy(cats).to(dev)
+    got = esrnn_forecast(cfg, params_dev, y_d, c_d)
+    torch.cuda.synchronize()
+    if tuple(got.shape) != (N_SERIES, cfg.output_size) or not torch.isfinite(got).all():
+        raise AssertionError(f"{head} forecast {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+    n = HEADS_CPU_N
+    t0 = time.perf_counter()
+    want = esrnn_forecast(cfg, _first_rows(params_cpu, n), torch.from_numpy(y[:n]),
+                          torch.from_numpy(cats[:n]))
+    cpu_s = time.perf_counter() - t0
+    err = check_close(f"{head} forecast", got[:n], want, rtol=FC_RTOL, atol=FC_ATOL)
+    ms = _timed_ms(lambda: esrnn_forecast(cfg, params_dev, y_d, c_d))
+    return dict(head=head, N=N_SERIES, T=T_LEN, cpu_rows=n, max_abs_err=err,
+                max_rel_err=max_rel(got[:n].cpu(), want), ms=ms,
+                series_per_s=N_SERIES / ms * 1e3, cpu_reference_s=cpu_s)
+
+
+def head_step_launches(cfg, data, dev):
+    """Launches of one dense train step of ``cfg``'s head at batch 256: K1
+    and K2 once; for esn K4 once a cell step and K5's dx-only launch once a
+    cell step, the full K5 never; for ssm nothing else; and the steps/s of
+    the per-step engine (TIMED_STEPS dense steps)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    s = "_bf16" if cfg.precision == "bf16" else ""
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update({f"hw_scan{s}": 1, f"hw_scan_bwd{s}": 1})
+    if cfg.head != "ssm":
+        cells = forecast_steps(cfg, TRAIN_T)
+        want[f"lstm_cell_fwd{s}"] = cells
+        want[f"lstm_cell_bwd_dx{s}" if cfg.head == "esn" else f"lstm_cell_bwd{s}"] = cells
+    bench = TrainSteps(cfg, data, dev, TRAIN_BATCH, sparse=False)
+    for _ in range(2):
+        bench.step()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    bench.step()
+    per_step = ops.launch_counts()
+    if per_step != want:
+        raise AssertionError(f"{cfg.head} ({cfg.precision}) launches per train step "
+                             f"{per_step}, want {want}")
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        bench.step()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TIMED_STEPS
+    return bench, dict(launches_per_step={k: v for k, v in per_step.items() if v},
+                       ms_per_step=dt * 1e3, steps_per_s=1.0 / dt)
+
+
+# the kernels of a train step by name, for the profiles of the heads phase
+STEP_MATCH = {"K1 hw_scan": ("hw_scan_kernel",), "K2 hw_scan_bwd": ("hw_scan_bwd_kernel",),
+              "K4 lstm_cell_fwd": ("lstm_cell_smem<true",),
+              "K5 lstm_cell_bwd (full)": ("lstm_bwd<",),
+              "K5 lstm_cell_bwd_dx": ("lstm_bwd_dx<",)}
+
+
+def run_head_owa(head, dev):
+    """``benchmarks/head_compare.py``'s fast cell for ``head`` on the card in
+    fp32 (``run_owa``'s data, steps, batch, lr and seed; no other seed
+    tried), scored against the port's Naive2; the OWA held to
+    HEADS_OWA_FACTOR times the reference's (BENCH_PR10.json head_compare).
+    A miss is returned, not raised: the caller reports it and fails."""
+    import torch
+
+    from repro_torch.core import losses as L
+    from repro_torch.core.comb import naive2_forecast
+    from repro_torch.core.esrnn import esrnn_forecast, make_config
+    from repro_torch.data.pipeline import prepare
+    from repro_torch.data.synthetic_m4 import generate
+    from repro_torch.train.trainer import TrainConfig, train_esrnn
+
+    data = prepare(generate("quarterly", scale=OWA_SCALE, seed=0))
+    m, h = data.seasonality, data.horizon
+    y_in = np.asarray(data.val_input, np.float32)
+    target = torch.from_numpy(np.asarray(data.test_target, np.float32))
+    insample = torch.from_numpy(y_in)
+    n2 = torch.from_numpy(naive2_forecast(y_in, h, m).astype(np.float32))
+    n2_smape, n2_mase = float(L.smape(n2, target)), float(L.mase(n2, target, insample, m))
+    tcfg = TrainConfig(batch_size=min(OWA_BATCH, data.n_series), n_steps=OWA_STEPS, lr=OWA_LR,
+                       eval_every=max(OWA_STEPS // 3, 1), seed=0)
+    cfg = make_config("quarterly", head=head)
+    t0 = time.perf_counter()
+    out = train_esrnn(cfg, data, tcfg, device=dev, generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fc = esrnn_forecast(cfg, out["params"], insample.to(dev),
+                        torch.from_numpy(np.asarray(data.cats, np.float32)).to(dev)).cpu()
+    if fc.shape != target.shape or not torch.isfinite(fc).all():
+        raise AssertionError(f"owa {head}: forecast {tuple(fc.shape)}")
+    smape, mase = float(L.smape(fc, target)), float(L.mase(fc, target, insample, m))
+    owa = float(L.owa(smape, mase, n2_smape, n2_mase))
+    gate = HEADS_OWA_FACTOR * HEADS_OWA_REFERENCE[head]
+    return dict(head=head, n_series=data.n_series, steps=OWA_STEPS, batch=tcfg.batch_size,
+                lr=OWA_LR, fit_s=fit_s, smape=smape, mase=mase, owa=owa,
+                naive2=dict(smape=n2_smape, mase=n2_mase), gate=gate,
+                reference=HEADS_OWA_REFERENCE[head], passed=owa <= gate,
+                final_loss=out["history"]["loss"][-1],
+                reference_of="JAX on the CPU, BENCH_PR10.json head_compare")
+
+
+def run_head_cli(head, dev, tmp):
+    """``<head>-quarterly`` through the forecast CLI on the card at
+    ``data_scale=1.0``: a HEADS_CLI_STEPS-step ``fit`` with ``--ckpt-dir``
+    (eval and checkpoints every HEADS_CLI_EVERY); a fit resumed from step
+    HEADS_CLI_EVERY equal to the unbroken CLI run bit for bit (for esn its
+    checkpoints hold moments of the trainable subtree only); ``predict
+    --quantiles`` and ``eval`` from the saved directory against it loaded on
+    the CPU (:func:`_predict_eval`); fit steps/s."""
+    from repro_torch.forecast import ESRNNForecaster, get_spec
+
+    name = f"{head}-quarterly"
+    every = HEADS_CLI_EVERY
+    sets = (f"data_scale={EST_SCALE}", f"eval_every={every}", f"ckpt_every={every}")
+    spec = get_spec(name, n_steps=HEADS_CLI_STEPS, data_scale=EST_SCALE, eval_every=every,
+                    ckpt_every=every)
+    d1, d2, out_dir = (str(Path(tmp) / f"{head}_{n}") for n in ("ckpt1", "ckpt2", "fq"))
+    card = ("--device", str(dev))
+    text, fit_s = forecast_cli("fit", "--spec", name, "--steps", str(HEADS_CLI_STEPS),
+                               *_sets(sets), "--ckpt-dir", d1, "--out-dir", out_dir, "--json",
+                               *card)
+    fit = _last_json(text)
+    if len(fit["loss"]) != HEADS_CLI_STEPS or not np.isfinite(fit["loss"]).all():
+        raise AssertionError(f"{name} fit: losses {fit['loss']}")
+    cpu = ESRNNForecaster.load(out_dir, device="cpu")
+    data = cpu.make_data()
+    cpu.data_ = data
+    resume, step_s = _resume(name, spec, data, dev, d2, every, fit["loss"])
+    errs, scores, eval_err, cli_s = _predict_eval(name, out_dir, cpu, card)
+    return dict(spec=name, n_series=fit["n_series"], steps=HEADS_CLI_STEPS,
+                losses=fit["loss"], val_smape=fit["val_smape"], cli_fit_s=fit_s,
+                fit_steps_per_s=1.0 / step_s, resume=resume, predict_max_abs_err=errs,
+                eval=scores, eval_max_rel_err=eval_err, cli_s=cli_s)
 
 
 # ---------------------------------------------------------------------------
@@ -1814,15 +2138,25 @@ def main() -> int:
             r"Compiling entry function '[^']*lstm_cell_tcILb(\d)ELi(\d+)E[^']*'"
             r".*?Used (\d+) registers", reports.get("lstm_cell_tc.cu", ""), re.S):
         TC_REGISTERS[(act == "1", int(quads))] = int(used)
-    # and the bf16 K5 kernel's
-    for used in re.findall(r"Compiling entry function '[^']*lstm_cell_bwd_tc[^']*'"
-                           r".*?Used (\d+) registers", reports.get("lstm_cell_bwd_tc.cu", ""),
-                           re.S):
-        BWD_TC_REGISTERS["lstm_cell_bwd_tc"] = int(used)
+    # K5's dx-only kernels and the full ones beside them, by stream (the
+    # bf16 K5 on the tensor cores: ILb0E the full launch, ILb1E dx-only)
+    for which, stream, source, fn in (
+            ("dx", "f32", "lstm_cell.cu", "lstm_bwd_dxIfE"),
+            ("full", "f32", "lstm_cell.cu", "lstm_bwdIfE"),
+            ("dx", "bf16", "lstm_cell.cu", "lstm_bwd_dxI13__nv_bfloat16E"),
+            ("full", "bf16", "lstm_cell.cu", "lstm_bwdI13__nv_bfloat16E"),
+            ("dx", "tc", "lstm_cell_bwd_tc.cu", "lstm_cell_bwd_tcILb1E"),
+            ("full", "tc", "lstm_cell_bwd_tc.cu", "lstm_cell_bwd_tcILb0E")):
+        found = re.search(rf"Compiling entry function '[^']*{fn}[^']*'.*?Used (\d+) registers",
+                          reports.get(source, ""), re.S)
+        DX_REGISTERS[which, stream] = int(found.group(1)) if found else None
+    BWD_TC_REGISTERS["lstm_cell_bwd_tc"] = DX_REGISTERS["full", "tc"]
     emit(dict(phase="ptxas", build_s=build_s, report=report, bf16_entries=bf16,
               lstm_cell_tc_registers={f"{'k4' if act else 'k3'} quads {q}": n
                                       for (act, q), n in sorted(TC_REGISTERS.items())},
-              lstm_cell_bwd_tc_registers=BWD_TC_REGISTERS.get("lstm_cell_bwd_tc")))
+              lstm_cell_bwd_tc_registers=BWD_TC_REGISTERS.get("lstm_cell_bwd_tc"),
+              lstm_cell_bwd_dx_registers={f"{which} {stream}": n
+                                          for (which, stream), n in DX_REGISTERS.items()}))
 
     # phase 2: kernels against their plain versions, at the main path's
     # shapes (the first of each list is the first launch of the forecast
@@ -1871,8 +2205,14 @@ def main() -> int:
         k5b = [check_lstm_cell_bwd(rows, width, cfg.hidden_size, gen, bf16=True)
                for rows, width in k45_shapes]
         k5b += [check_lstm_cell_bwd(*shape, gen, bf16=True) for shape in WIDE_BWD]
+        # K5's dx-only launch (the esn head's reservoir) at every main-path
+        # K5 shape, fp32 and bf16
+        k5dx = [check_lstm_cell_bwd_dx(rows, width, cfg.hidden_size, gen)
+                for rows, width in k45_shapes]
+        k5dxb = [check_lstm_cell_bwd_dx(rows, width, cfg.hidden_size, gen, bf16=True)
+                 for rows, width in k45_shapes]
     torch.cuda.empty_cache()
-    for rec in k1 + k3 + k2 + k4 + k5 + k6 + k1b + k3b + k2b + k4b + k5b:
+    for rec in k1 + k3 + k2 + k4 + k5 + k6 + k1b + k3b + k2b + k4b + k5b + k5dx + k5dxb:
         emit(dict(phase="kernel", **rec))
 
     # phases 3 to 7 are the main paths: each counts launches from zero and
@@ -1967,7 +2307,7 @@ def main() -> int:
     fp32_kernels = ("hw_scan", "hw_scan_bwd", "lstm_cell", "lstm_cell_fwd", "lstm_cell_bwd")
 
     def fp32_free(what, counts):
-        if any(counts[k] for k in fp32_kernels):
+        if any(counts[k] for k in fp32_kernels + ("lstm_cell_bwd_dx",)):
             raise AssertionError(f"{what} launched fp32 kernels: {counts}")
 
     train16, train16_launches = counted(train16_kernels, "bf16 training",
@@ -2004,6 +2344,99 @@ def main() -> int:
     fp32_free("the bf16 estimator eval", eval16_launches)
     emit(dict(phase="estimator", card=smi, launches=est_launches, **est,
               bf16=dict(fit_launches=fit16_launches, eval_launches=eval16_launches, **est16)))
+    torch.cuda.empty_cache()
+
+    # phase 6d: the esn and ssm heads at the quarterly preset's full width.
+    # The esn head runs K1, K3 (K4 and K5's dx-only launch in training, never
+    # the full K5: its reservoir is frozen); the ssm head K1 and K2 only
+    from repro_torch.core.esrnn import make_config
+
+    heads_kernels = {"esn": dict(forecast=("hw_scan", "lstm_cell"),
+                                 train=("hw_scan", "hw_scan_bwd", "lstm_cell_fwd",
+                                        "lstm_cell_bwd_dx")),
+                     "ssm": dict(forecast=("hw_scan",), train=("hw_scan", "hw_scan_bwd"))}
+    lstm_free = ("lstm_cell", "lstm_cell_fwd", "lstm_cell_bwd", "lstm_cell_bwd_dx",
+                 "lstm_cell_bf16", "lstm_cell_fwd_bf16", "lstm_cell_bwd_bf16",
+                 "lstm_cell_bwd_dx_bf16")
+
+    def head_launches(head, what, counts):
+        if head == "ssm" and any(counts[k] for k in lstm_free):
+            raise AssertionError(f"{what} launched LSTM-cell kernels: {counts}")
+        if head == "esn" and (counts["lstm_cell_bwd"] or counts["lstm_cell_bwd_bf16"]):
+            raise AssertionError(f"{what} launched the full K5: {counts}")
+
+    def head_train_launches(cfg_h, steps, what, counts):
+        # a run of `steps` dense steps: K2 once a step; for esn K4 and the
+        # dx-only K5 once a cell step each; in the policy's stream dtype
+        head_launches(cfg_h.head, what, counts)
+        s = "_bf16" if cfg_h.precision == "bf16" else ""
+        cells = forecast_steps(cfg_h, TRAIN_T) if cfg_h.head == "esn" else 0
+        want = {f"hw_scan_bwd{s}": steps, f"lstm_cell_fwd{s}": steps * cells,
+                f"lstm_cell_bwd_dx{s}": steps * cells}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"{what} launched {counts}, want {want}")
+
+    for head in HEADS:
+        fc, fc_launches = counted(heads_kernels[head]["forecast"], f"the {head} forecast",
+                                  lambda: run_head_forecast(head, dev))
+        head_launches(head, f"the {head} forecast", fc_launches)
+        if head == "esn" and fc_launches["lstm_cell"] != (
+                fc_launches["hw_scan"] * forecast_steps(cfg, T_LEN)):
+            raise AssertionError(f"the esn forecast launched {fc_launches}")
+        emit(dict(phase="heads", part="forecast", card=smi, launches=fc_launches, **fc))
+    step_profiles = {}
+    for head in HEADS + ("lstm",):          # the lstm beside them, in the same call
+        cfg_h = make_config("quarterly", head=head)
+        rec = dict(head=head)
+        if head in HEADS:
+            tr, tr_launches = counted(
+                heads_kernels[head]["train"], f"{head} training",
+                lambda: run_dense_train(cfg_h, data, dev, HEADS_STEPS, TRAIN_RTOL))
+            head_train_launches(cfg_h, HEADS_STEPS, f"{head} training", tr_launches)
+            rec.update(launches=tr_launches, **tr)
+        bench, steps_rec = head_step_launches(cfg_h, data, dev)
+        step_profiles[head] = profile_call(bench.step, match=STEP_MATCH)
+        del bench
+        emit(dict(phase="heads", part="train", card=smi, batch=TRAIN_BATCH, T=TRAIN_T, **rec,
+                  **steps_rec))
+    emit(dict(phase="heads", part="profile_train", call="one dense train step per head",
+              batch=TRAIN_BATCH, T=TRAIN_T, card=smi, **step_profiles))
+    cfg16_esn = make_config("quarterly", head="esn", precision="bf16")
+    tr16, tr16_launches = counted(
+        ("hw_scan_bf16", "hw_scan_bwd_bf16", "lstm_cell_fwd_bf16", "lstm_cell_bwd_dx_bf16"),
+        "esn bf16 training",
+        lambda: run_dense_train(cfg16_esn, data, dev, HEADS_BF16_STEPS, TRAIN16_RTOL))
+    head_train_launches(cfg16_esn, HEADS_BF16_STEPS, "esn bf16 training", tr16_launches)
+    fp32_free("esn bf16 training", tr16_launches)
+    _, steps16 = head_step_launches(cfg16_esn, data, dev)
+    emit(dict(phase="heads", part="train_bf16", card=smi, batch=TRAIN_BATCH, T=TRAIN_T,
+              launches=tr16_launches, **tr16, **steps16))
+    cfg_esn, esn_cpu = make_model(N_SERIES, head="esn")
+    esn_ft, esn_ft_launches = counted(
+        forecast_kernels + ("hw_scan_bwd", "lstm_cell_fwd", "lstm_cell_bwd_dx"),
+        "the esn fine-tune server", lambda: run_finetune(
+            cfg_esn, esn_cpu, params_to_device(esn_cpu, dev), dev))
+    head_launches("esn", "the esn fine-tune server", esn_ft_launches)
+    emit(dict(phase="heads", part="finetune", head="esn", card=smi, launches=esn_ft_launches,
+              **esn_ft))
+    del esn_cpu
+    owa_missed = []
+    for head in HEADS:
+        rec, owa_launches = counted(heads_kernels[head]["train"], f"the {head} OWA cell",
+                                    lambda: run_head_owa(head, dev))
+        head_launches(head, f"the {head} OWA cell", owa_launches)
+        emit(dict(phase="heads", part="owa", card=smi, launches=owa_launches, **rec))
+        if not rec["passed"]:
+            owa_missed.append((head, rec["owa"], rec["gate"]))
+    if owa_missed:
+        raise AssertionError(f"head OWA past its gate (head, OWA, gate): {owa_missed}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_heads_") as tmp:
+        for head in HEADS:
+            rec, cli_launches = counted(
+                heads_kernels[head]["train"], f"the {head} CLI",
+                lambda: run_head_cli(head, dev, tmp))
+            head_launches(head, f"the {head} CLI", cli_launches)
+            emit(dict(phase="heads", part="cli", card=smi, launches=cli_launches, **rec))
     torch.cuda.empty_cache()
 
     # phase 7: the LM serving path. Card against CPU at full width, two
@@ -2068,6 +2501,12 @@ def main() -> int:
         entry("lstm_cell_bwd_bf16", csrc + "lstm_cell_bwd_tc.cu",
               "src/repro/kernels/lstm_cell.py:90",
               k5b, None),
+        # K5's dx-only launch (the esn head's frozen reservoir): no PyTorch
+        # call gives a cell's input gradients alone
+        entry("lstm_cell_bwd_dx", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:90",
+              k5dx, None),
+        entry("lstm_cell_bwd_dx_bf16", csrc + "lstm_cell_bwd_tc.cu",
+              "src/repro/kernels/lstm_cell.py:90", k5dxb, None),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -27,9 +27,12 @@ port's own objects stand for the JAX trees they mirror:
 * an ``nn.ModuleList`` is a list, and any other module (``LSTMCell``,
   ``Readout``, ``Attention``) the dict of its own parameters;
 * the trainer's ``(params, opt_state)``: the optimizer's ``mu`` and ``nu``
-  are lists in ``param_leaves(params)`` order, and render as the params
-  tree, as JAX's moments are; ``step`` is a Python int, stored as a 0-d
-  int32 and read back as an int.
+  are lists in ``param_leaves`` order of the trainable params, and render
+  as that tree, as JAX's moments are: where the head freezes groups (the
+  esn reservoir, ``"rnn"``), the moments cover the rest only (the JAX
+  trainer's ``adam_init(split_frozen(params, frozen)[0])``), and the
+  :class:`Checkpointer` is told the frozen groups; ``step`` is a Python
+  int, stored as a 0-d int32 and read back as an int.
 
 Leaves are float32 or int32 tensors (under ``precision="bf16"`` too: the
 master weights and moments stay float32). Any other dtype is refused.
@@ -43,7 +46,7 @@ import json
 import os
 import shutil
 import uuid
-from typing import Any, Callable, Iterator, List, Optional, Tuple
+from typing import Any, Callable, FrozenSet, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,12 +80,14 @@ def _is_opt_state(obj) -> bool:
     return isinstance(obj, dict) and isinstance(obj.get("mu"), list)
 
 
-def _shaped_like(params, leaves: List[torch.Tensor]):
-    """The params tree with ``leaves`` (``param_leaves`` order) in its place."""
+def _shaped_like(params, leaves: List[torch.Tensor], frozen: FrozenSet[str]):
+    """The trainable params tree (``params`` without the ``frozen`` groups)
+    with ``leaves`` (its ``param_leaves`` order) in its place."""
+    params = {k: v for k, v in params.items() if k not in frozen}
     want = len(param_leaves(params))
     if len(leaves) != want:
-        raise ValueError(f"optimizer moments have {len(leaves)} leaves, the params "
-                         f"{want}: moments of a partly frozen model are not supported")
+        raise ValueError(f"optimizer moments have {len(leaves)} leaves, the trainable "
+                         f"params {want} (frozen groups {sorted(frozen)})")
     it = iter(leaves)
 
     def shape(obj):
@@ -100,13 +105,14 @@ def _shaped_like(params, leaves: List[torch.Tensor]):
     return shape(params)
 
 
-def _canonical(state):
+def _canonical(state, frozen: FrozenSet[str] = frozenset()):
     """A ``(params, opt_state)`` pair with the optimizer's moment lists
-    shaped as its params and its step count marked; any other state as is."""
+    shaped as its trainable params and its step count marked; any other
+    state as is."""
     if isinstance(state, tuple) and len(state) == 2 and _is_opt_state(state[1]):
         params, opt = state
-        return (params, dict(opt, mu=_Moments(_shaped_like(params, opt["mu"])),
-                             nu=_Moments(_shaped_like(params, opt["nu"])),
+        return (params, dict(opt, mu=_Moments(_shaped_like(params, opt["mu"], frozen)),
+                             nu=_Moments(_shaped_like(params, opt["nu"], frozen)),
                              step=_Step(opt["step"])))
     return state
 
@@ -144,9 +150,11 @@ def _render(obj) -> str:
     return "{" + ", ".join(f"{k!r}: {_render(v)}" for k, v in kids) + "}"
 
 
-def treedef_token(state) -> str:
-    """``str(jax.tree_util.tree_structure(state))`` of the JAX counterpart."""
-    return f"PyTreeDef({_render(_canonical(state))})"
+def treedef_token(state, frozen: FrozenSet[str] = frozenset()) -> str:
+    """``str(jax.tree_util.tree_structure(state))`` of the JAX counterpart;
+    ``frozen``: the param groups a ``(params, opt_state)`` state's moments
+    leave out."""
+    return f"PyTreeDef({_render(_canonical(state, frozen))})"
 
 
 def _leaves(obj, path: Tuple) -> Iterator[Tuple[Tuple, Any]]:
@@ -160,10 +168,11 @@ def _leaves(obj, path: Tuple) -> Iterator[Tuple[Tuple, Any]]:
         yield from _leaves(v, path + (k,))
 
 
-def flatten_with_path(state) -> List[Tuple[Tuple, Any]]:
+def flatten_with_path(state, frozen: FrozenSet[str] = frozenset()) -> List[Tuple[Tuple, Any]]:
     """``[(path, leaf), ...]`` in the JAX tree's flatten order; a path is a
-    tuple of dict keys, field names and list indices."""
-    return list(_leaves(_canonical(state), ()))
+    tuple of dict keys, field names and list indices. ``frozen`` as in
+    :func:`treedef_token`."""
+    return list(_leaves(_canonical(state, frozen), ()))
 
 
 def _to_numpy(leaf, index: int) -> np.ndarray:
@@ -211,9 +220,14 @@ def _unflatten(obj, it: Iterator):
 
 
 class Checkpointer:
-    def __init__(self, directory: str, *, keep: int = 3):
+    """``frozen``: the param groups the moments of a saved or restored
+    ``(params, opt_state)`` leave out (the trainer passes its head's)."""
+
+    def __init__(self, directory: str, *, keep: int = 3,
+                 frozen: FrozenSet[str] = frozenset()):
         self.directory = directory
         self.keep = keep
+        self.frozen = frozenset(frozen)
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
@@ -228,14 +242,14 @@ class Checkpointer:
         Shared-weight leaves are never sharded; the treedef is the same
         either way, so both layouts restore into the same template.
         """
-        flat = flatten_with_path(state)
+        flat = flatten_with_path(state, self.frozen)
         tmp = os.path.join(self.directory, f"step_{step}.tmp-{uuid.uuid4().hex[:8]}")
         final = os.path.join(self.directory, f"step_{step}")
         os.makedirs(tmp, exist_ok=True)
         manifest = {
             "step": step,
             "metric": metric,
-            "treedef": treedef_token(state),
+            "treedef": treedef_token(state, self.frozen),
             "leaves": [],
         }
 
@@ -339,9 +353,9 @@ class Checkpointer:
         d = os.path.join(self.directory, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        if manifest["treedef"] != treedef_token(template):
+        if manifest["treedef"] != treedef_token(template, self.frozen):
             raise ValueError("checkpoint tree structure mismatch")
-        flat = flatten_with_path(template)
+        flat = flatten_with_path(template, self.frozen)
         leaves = []
         for i, (tpath, tl) in enumerate(flat):
             spec = manifest["leaves"][i]
@@ -375,4 +389,4 @@ class Checkpointer:
                     raise TypeError(f"leaf {i}: stored {spec['dtype']}, template "
                                     f"{tl.dtype}")
                 leaves.append(torch.from_numpy(arr).to(tl.device))
-        return step, _unflatten(_canonical(template), iter(leaves))
+        return step, _unflatten(_canonical(template, self.frozen), iter(leaves))

@@ -2,7 +2,9 @@
 
 ES-RNN (:func:`params_from_numpy`, :func:`params_to_numpy`): the JAX tree (with numpy leaves, e.g. after ``jax.tree_util.tree_map(
 np.asarray, params)``) is ``{"hw": HWParams, "rnn": [[{wx, wh, b}]],
-"head": {dense_w, dense_b, out_w, out_b}, "attn"?: {wq, wk, wv}}``. The port
+"head": {dense_w, dense_b, out_w, out_b}, "attn"?: {wq, wk, wv}}`` (the lstm
+and esn heads) or ``{"hw", "ssm": {w_in, a_log, dt_bias, d_skip}, "head"}``
+(the ssm head). The port
 keeps the same keys and the same orientation, so the mapping is leaf by
 leaf: no transposes, no reordering of gates, bitwise in both directions.
 """
@@ -17,7 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.drnn import LSTMCell
-from repro_torch.core.heads import Attention, Readout
+from repro_torch.core.heads import SSM, Attention, Readout
 from repro_torch.core.holt_winters import HWParams
 from repro_torch.device import resolve_device
 
@@ -27,6 +29,7 @@ __all__ = ["params_from_numpy", "params_to_numpy", "params_to_device", "copy_par
 _HW_FIELDS = tuple(f.name for f in dataclasses.fields(HWParams))
 _READOUT = ("dense_w", "dense_b", "out_w", "out_b")
 _ATTN = ("wq", "wk", "wv")
+_SSM = ("w_in", "a_log", "dt_bias", "d_skip")
 
 
 def _leaf(tree, name):
@@ -54,6 +57,8 @@ def params_from_numpy(tree, device=None):
         out["head"] = Readout(*(t(tree["head"][k]) for k in _READOUT))
     if "attn" in tree:
         out["attn"] = Attention(*(t(tree["attn"][k]) for k in _ATTN))
+    if "ssm" in tree:
+        out["ssm"] = SSM(*(t(tree["ssm"][k]) for k in _SSM))
     return out
 
 
@@ -70,6 +75,8 @@ def params_to_numpy(params):
         out["head"] = {k: a(getattr(params["head"], k)) for k in _READOUT}
     if "attn" in params:
         out["attn"] = {k: a(getattr(params["attn"], k)) for k in _ATTN}
+    if "ssm" in params:
+        out["ssm"] = {k: a(getattr(params["ssm"], k)) for k in _SSM}
     return out
 
 

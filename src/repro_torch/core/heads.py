@@ -8,13 +8,25 @@ is a registry entry
         init(cfg, generator, device) -> non-hw params subtrees,
         apply(cfg, params, feats)    -> (yhat_n (N, P, H), c_sq scalar),
         frozen                       -> top-level param keys training leaves
-                                        fixed (empty for lstm),
+                                        fixed (``{"rnn"}`` for esn),
     )
 
-The port registers the paper's ``lstm`` head only: the dilated residual
-LSTM (+ optional causal attention) followed by the tanh-dense + linear
-readout. The ``esn`` head (which freezes ``"rnn"``) and the ``ssm`` head
-come in a later slice.
+Three heads, as in the reference (``heads.py:326-329``):
+
+* ``lstm`` -- the paper's dilated residual LSTM (+ optional causal
+  attention) followed by the tanh-dense + linear readout;
+* ``esn`` -- an echo-state head: the same dilated stack as a fixed random
+  reservoir (``frozen={"rnn"}``), only the readout (and the per-series HW
+  table) trains. The training steps pass the reservoir with no gradient
+  requirement, so on the card its backward takes K5's dx-only launch and
+  forms no reservoir weight gradient; dx still flows through it to the HW
+  parameters upstream of the windows;
+* ``ssm`` -- a state-space head: a linear projection, then the Mamba2 SSD
+  chunked scan (:func:`repro_torch.models.ssm.ssd_chunked`) over the window
+  positions, causal by construction.
+
+Every head keeps its readout under ``"head"`` and no per-series state
+outside ``"hw"``.
 """
 
 from __future__ import annotations
@@ -26,14 +38,17 @@ from typing import Callable, Dict, FrozenSet, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.core.drnn import drnn_apply, drnn_init, uniform_init
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import widen
+from repro_torch.models.ssm import ssd_chunked
 
 __all__ = [
     "HeadSpec", "register_head", "get_head", "available_heads", "Readout",
-    "Attention", "frozen_param_groups", "lstm_head_init", "lstm_head_apply",
+    "Attention", "SSM", "frozen_param_groups", "lstm_head_init", "lstm_head_apply",
+    "esn_head_init", "esn_head_apply", "ssm_dims", "ssm_head_init", "ssm_head_apply",
 ]
 
 
@@ -99,6 +114,18 @@ class Attention(nn.Module):
         self.wq = nn.Parameter(wq)
         self.wk = nn.Parameter(wk)
         self.wv = nn.Parameter(wv)
+
+
+class SSM(nn.Module):
+    """The ssm head's input projection ``w_in (W + C, H + 2 N + heads)`` (order
+    x, B, C, dt) and its float32 ``a_log``, ``dt_bias``, ``d_skip`` (heads,)."""
+
+    def __init__(self, w_in, a_log, dt_bias, d_skip):
+        super().__init__()
+        self.w_in = nn.Parameter(w_in)
+        self.a_log = nn.Parameter(a_log)
+        self.dt_bias = nn.Parameter(dt_bias)
+        self.d_skip = nn.Parameter(d_skip)
 
 
 def _readout_init(cfg, generator, dev) -> Readout:
@@ -186,4 +213,91 @@ def lstm_head_apply(cfg, params, feats):
     return _readout_apply(params, hid), c_sq
 
 
+# ---------------------------------------------------------------------------
+# esn: fixed random reservoir (the same dilated stack), trained readout only
+# ---------------------------------------------------------------------------
+
+
+def esn_head_init(cfg, generator: torch.Generator, device=None):
+    """Reservoir = the dilated recurrent stack (``drnn_init`` unchanged: the
+    gates are contractive, so the 1/sqrt(fan-in) init gives a fading-memory
+    reservoir), then the readout: the lstm head's draws without attention.
+    ``cfg.attention`` is ignored: attention is a trained component, which
+    this head omits."""
+    return lstm_head_init(dataclasses.replace(cfg, attention=False), generator, device)
+
+
+def esn_head_apply(cfg, params, feats):
+    """Reservoir pass -> tanh dense -> linear readout: the lstm head's forward
+    without attention. The difference is in training only (``frozen``)."""
+    return lstm_head_apply(dataclasses.replace(cfg, attention=False), params, feats)
+
+
+# ---------------------------------------------------------------------------
+# ssm: Mamba2 SSD chunked scan over the window positions
+# ---------------------------------------------------------------------------
+
+_SSM_STATE = 8     # per-head state size N of the SSD recurrence
+_SSM_CHUNK = 32    # positions per intra-chunk quadratic block
+
+
+def ssm_dims(cfg) -> Tuple[int, int]:
+    """(heads, head width) of the SSD scan: the largest divisor of
+    ``hidden_size`` that is at most ``hidden_size // 8`` (so the head width is
+    at least 8), and at least one head."""
+    hid = cfg.hidden_size
+    nheads = max(d for d in range(1, max(1, hid // 8) + 1) if hid % d == 0)
+    return nheads, hid // nheads
+
+
+def ssm_head_init(cfg, generator: torch.Generator, device=None):
+    """``w_in`` uniform in ``(-1, 1) / sqrt(W + C)`` in the weight dtype;
+    ``a_log = 0`` (A = -1) and ``dt_bias = 0`` (dt ~ softplus(0)), a decay of
+    about 0.5 a step at init, and ``d_skip = 1``, all float32."""
+    dev = resolve_device(device)
+    feat = cfg.input_size + cfg.n_categories
+    nheads, _ = ssm_dims(cfg)
+    w_in = uniform_init(generator, (feat, cfg.hidden_size + 2 * _SSM_STATE + nheads),
+                        1.0 / math.sqrt(feat))
+    f32 = dict(dtype=torch.float32, device=dev)
+    ssm = SSM(w_in.to(dev, cfg.tdtype), torch.zeros(nheads, **f32),
+              torch.zeros(nheads, **f32), torch.ones(nheads, **f32))
+    return {"ssm": ssm, "head": _readout_init(cfg, generator, dev)}
+
+
+def ssm_head_apply(cfg, params, feats):
+    """Linear projection -> SSD chunked scan over the positions -> readout.
+
+    Under the bf16 policy (reference ``heads.py:280-323``): the projection
+    accumulates in float32; x, B and C drop to the stream dtype for the scan;
+    dt, the decay and ``a_log``/``dt_bias``/``d_skip`` stay float32. The
+    positions are padded to a multiple of the chunk with dt = 0, a no-op step
+    (decay exp(0) = 1, update 0), so the padding is exact. ``c_sq`` is the
+    mean square of the pre-readout sequence, the cell-state penalty's analog.
+    """
+    n, t, _ = feats.shape
+    hid = cfg.hidden_size
+    nheads, headdim = ssm_dims(cfg)
+    sp = params["ssm"]
+    cdt = feats.dtype
+    proj = widen(feats) @ widen(sp.w_in.to(cdt))
+    x = proj[..., :hid].to(cdt).reshape(n, t, nheads, headdim)
+    bb = proj[..., hid:hid + _SSM_STATE].to(cdt).reshape(n, t, 1, _SSM_STATE)
+    cc = proj[..., hid + _SSM_STATE:hid + 2 * _SSM_STATE].to(cdt).reshape(
+        n, t, 1, _SSM_STATE)
+    dt = F.softplus(proj[..., hid + 2 * _SSM_STATE:].float() + sp.dt_bias)
+    a = -torch.exp(sp.a_log)
+
+    q = min(_SSM_CHUNK, t)
+    pad = (-t) % q
+    padt = lambda z: torch.cat([z, z.new_zeros((n, pad) + z.shape[2:])], dim=1) if pad else z
+    y, _ = ssd_chunked(padt(x), padt(dt), a, padt(bb), padt(cc), chunk=q)
+    y = y[:, :t] + sp.d_skip.to(y.dtype)[None, None, :, None] * x
+    hidseq = y.reshape(n, t, hid)
+    c_sq = torch.mean(torch.square(hidseq.float()))
+    return _readout_apply(params, hidseq), c_sq
+
+
 register_head(HeadSpec("lstm", lstm_head_init, lstm_head_apply))
+register_head(HeadSpec("esn", esn_head_init, esn_head_apply, frozen=frozenset({"rnn"})))
+register_head(HeadSpec("ssm", ssm_head_init, ssm_head_apply))

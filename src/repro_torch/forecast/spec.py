@@ -12,8 +12,8 @@ by either package loads in the other.
 
 Override kwargs are routed by field name: ``ESRNNConfig`` fields go into the
 nested model config, everything else into the spec itself. The registry
-lists the heads the port has (``esrnn-<freq>``, the paper's lstm head); the
-reference's ``esn`` and ``ssm`` heads come with a later slice and raise.
+lists every head the port has, as the reference does: ``esrnn-<freq>`` (the
+paper's lstm head), ``esn-<freq>`` and ``ssm-<freq>``.
 """
 
 from __future__ import annotations
@@ -25,19 +25,6 @@ from repro_torch.core.esrnn import ESRNNConfig, make_config
 from repro_torch.core.heads import available_heads, get_head
 
 _MODEL_FIELDS = {f.name for f in dataclasses.fields(ESRNNConfig)} - {"name"}
-
-# heads of the JAX package the port has not taken yet
-_LATER_HEADS = ("esn", "ssm")
-
-
-def _check_head(head: str) -> None:
-    """Refuse a head the port lacks: by name for the reference's later heads,
-    as unknown (``get_head``'s error) for any other."""
-    if head in _LATER_HEADS and head not in available_heads():
-        raise NotImplementedError(
-            f"the {head!r} head comes with the esn/ssm slice of the port "
-            f"(ROADMAP.md, section 1, item 3); the port has {list(available_heads())}")
-    get_head(head)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +92,7 @@ class ForecastSpec:
                 f"valid spec fields: {sorted(spec_fields - {'model'})}; "
                 f"valid model fields: {sorted(_MODEL_FIELDS)}")
         if "head" in model_kw:
-            _check_head(model_kw["head"])
+            get_head(model_kw["head"])
         spec = self
         if model_kw:
             if isinstance(model_kw.get("dilations"), list):
@@ -160,8 +147,7 @@ def _canonical_name(head: str, freq: str) -> str:
 
 
 def list_specs() -> List[str]:
-    """Every registry name: ``esrnn-<freq>`` plus ``<head>-<freq>`` per head
-    the port has."""
+    """Every registry name: ``esrnn-<freq>`` plus ``<head>-<freq>`` per head."""
     names = [f"esrnn-{freq}" for freq in _FREQ_SPECS]
     for head in available_heads():
         if head == "lstm":
@@ -174,9 +160,7 @@ def get_spec(name: str, **overrides) -> ForecastSpec:
     """Resolve a registry name (+ optional overrides) into a ForecastSpec.
 
     Accepts ``esrnn-<freq>`` / ``m4-<freq>`` / a bare frequency (the paper's
-    lstm head), or ``<head>-<freq>`` for any other head the port registers.
-    ``esn-<freq>`` and ``ssm-<freq>`` raise :class:`NotImplementedError`
-    until the port has those heads.
+    lstm head), or ``<head>-<freq>`` for any other registered head.
     """
     head = "lstm"
     freq = name
@@ -184,15 +168,14 @@ def get_spec(name: str, **overrides) -> ForecastSpec:
     if dash and rest in _FREQ_SPECS:
         if prefix in _PREFIX_HEADS:
             head, freq = _PREFIX_HEADS[prefix], rest
-        elif prefix in available_heads() or prefix in _LATER_HEADS:
+        elif prefix in available_heads():
             head, freq = prefix, rest
-            _check_head(head)
     if freq not in _FREQ_SPECS:
         raise KeyError(
             f"unknown forecast spec {name!r}; available: {list_specs()}")
     if "head" in overrides:      # --set head=... canonicalizes the name too
         head = overrides["head"]
-        _check_head(head)
+        get_head(head)
     spec = ForecastSpec(
         name=_canonical_name(head, freq),
         model=make_config(freq, head=head), **_FREQ_SPECS[freq])

@@ -52,6 +52,9 @@ _SIGNATURES = {
     "lstm_cell_bwd_bf16": (18, 4, 0),      # K5, bf16, tensor cores (lstm_cell_bwd_tc.cu;
                                            # float32 weight gradients)
     "lstm_cell_bwd_wide_bf16": (18, 4, 0),  # K5, bf16, past the presets' widths
+    "lstm_cell_bwd_dx_f32": (11, 4, 0),    # K5's dx-only launch (no weight gradients)
+    "lstm_cell_bwd_dx_bf16": (11, 4, 0),   # the same, bf16, tensor cores
+    "lstm_cell_bwd_dx_wide_bf16": (11, 4, 0),  # the same, bf16, past the presets' widths
     "flash_attention_f32": (4, 7, 1),      # K6, fp32
     "flash_attention_bf16": (4, 7, 1),     # K6, bf16
 }

@@ -587,6 +587,21 @@ int launch_cell_wide_bf16(const void* wx, const void* wh, const void* b, const v
 // first, and no float is summed atomically: two launches on the same
 // inputs give bit-identical results.
 //
+// K5's dx-only launch (lstm_bwd_dx below; kernels/lstm_cell.py:bwd_dx_plan):
+// where no weight gradient is asked for -- the esn head's frozen reservoir,
+// whose training step passes its weights with no gradient requirement --
+// the launch is row blocks alone: dx, dh_prev and dc_prev per row tile, no
+// column blocks, no chunk scratch and no tickets. They are bwd_rows on
+// bwd_plan's row tiles; a small batch cuts k into more parts for more
+// blocks. A thread sums its k over the units in one order whatever the
+// parts, so dx, dh_prev and dc_prev are bit-identical to the full launch's.
+// Bound on the card: its bytes are the full launch's less x, h and the
+// weight gradients (at (256, 14, 40): 0.46 MB, 0.00014 ms); its floor the
+// row blocks' chain (a launch, the residuals' loads, a barrier, the
+// products), no ticket wait behind it.
+// Taking no ticket, it adds no hazard to a CUDA graph replayed beside eager
+// launches: two dx-only launches share nothing but their read-only inputs.
+//
 // K5 in bf16 past the presets' widths (src/repro/kernels/lstm_cell.py:90-138,
 // :210-219; the presets' widths run lstm_cell_bwd_tc.cu on the tensor
 // cores): every input bf16, the same kernel templated on that type. The weights, the
@@ -638,6 +653,19 @@ bool bwd_plan_fits(const BwdPlan& p, int rows, int in_size, int hidden) {
            static_cast<long>(p.col_units) * p.slices >= hidden && p.chunks >= 1 &&
            static_cast<long>(p.chunk_rows) * p.chunks >= rows && p.sub_rows >= 1 &&
            std::max(row_need, col_need) <= p.smem;
+}
+
+// whether a dx-only plan (row fields, every column field 0)
+// covers the shape within its threads and shared memory
+bool bwd_dx_plan_fits(const BwdPlan& p, int rows, int in_size, int hidden) {
+    const long kw = in_size + hidden;
+    const long row_need = p.row_units * (16L * (p.row_k | 1) + 16L * p.tile_rows);
+    return p.tile_rows >= 4 && p.tile_rows % 4 == 0 && p.row_k >= 1 &&
+           static_cast<long>(p.row_k) * p.row_kparts >= kw &&
+           p.row_k * (p.tile_rows / 4) <= BWD_THREADS && p.row_units >= 1 &&
+           p.row_blocks >= 1 && p.col_k == 0 && p.col_kparts == 0 && p.col_units == 0 &&
+           p.slices == 0 && p.chunks == 0 && p.chunk_rows == 0 && p.sub_rows == 0 &&
+           row_need <= p.smem && rows >= 1 && hidden >= 1;
 }
 
 constexpr int BWD_CELLS = 4;       // (row, unit) residuals a thread loads at once
@@ -986,6 +1014,41 @@ lstm_bwd(const T* __restrict__ wx, const T* __restrict__ wh,
     }
 }
 
+// K5's dx-only launch: the row blocks alone (no weight gradient)
+template <class T>
+__global__ void __launch_bounds__(BWD_THREADS)
+lstm_bwd_dx(const T* __restrict__ wx, const T* __restrict__ wh,
+            const T* __restrict__ c, const T* __restrict__ c_new,
+            const T* __restrict__ act, const T* __restrict__ dh,
+            const T* __restrict__ dc, T* __restrict__ dx,
+            T* __restrict__ dh_prev, T* __restrict__ dc_prev,
+            int rows, int in_size, int hidden, BwdPlan p) {
+    extern __shared__ float4 smem4[];
+    bwd_rows(wx, wh, c, c_new, act, dh, dc, dx, dh_prev, dc_prev, rows, in_size, hidden, p,
+             static_cast<int>(blockIdx.x), smem4);
+}
+
+template <class T>
+int launch_bwd_dx(const void* wx, const void* wh, const void* c, const void* c_new,
+                  const void* act, const void* dh, const void* dc, void* dx, void* dh_prev,
+                  void* dc_prev, const void* plan, int plan_len, int rows, int in_size,
+                  int hidden, void* stream) {
+    if (plan_len != static_cast<int>(sizeof(BwdPlan) / sizeof(int)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int* v = static_cast<const int*>(plan);
+    const BwdPlan p{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9], v[10], v[11], v[12]};
+    if (!bwd_dx_plan_fits(p, rows, in_size, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+    static repro::SmemOptIn opt_in;            // per device (common.cuh)
+    cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(lstm_bwd_dx<T>), p.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const auto in = [](const void* q) { return static_cast<const T*>(q); };
+    lstm_bwd_dx<T><<<static_cast<unsigned>(p.row_blocks), BWD_THREADS, p.smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+        in(wx), in(wh), in(c), in(c_new), in(act), in(dh), in(dc), static_cast<T*>(dx),
+        static_cast<T*>(dh_prev), static_cast<T*>(dc_prev), rows, in_size, hidden, p);
+    return static_cast<int>(cudaGetLastError());
+}
+
 // plan: BwdPlan's plan_len ints; scratch: (chunks, I + H + 1, 4H) floats
 // when chunks > 1; tickets: col_kparts * slices unsigned ints, all 0, which
 // the kernel leaves at 0 -- no other launch may use them while this one runs.
@@ -1083,6 +1146,26 @@ extern "C" int lstm_cell_bwd_wide_bf16(const void* wx, const void* wh, const voi
     return launch_bwd<__nv_bfloat16>(wx, wh, x, h, c, c_new, act, dh, dc, dx, dh_prev, dc_prev,
                                      dwx, dwh, db, scratch, tickets, plan, plan_len, rows,
                                      in_size, hidden, stream);
+}
+
+// K5's dx-only launch (kernels/lstm_cell.py:bwd_dx_plan): dx, dh_prev and
+// dc_prev only, in fp32 and, past the presets' widths, in bf16
+extern "C" int lstm_cell_bwd_dx_f32(const void* wx, const void* wh, const void* c,
+                                    const void* c_new, const void* act, const void* dh,
+                                    const void* dc, void* dx, void* dh_prev, void* dc_prev,
+                                    const void* plan, int plan_len, int rows, int in_size,
+                                    int hidden, void* stream) {
+    return launch_bwd_dx<float>(wx, wh, c, c_new, act, dh, dc, dx, dh_prev, dc_prev, plan,
+                                plan_len, rows, in_size, hidden, stream);
+}
+
+extern "C" int lstm_cell_bwd_dx_wide_bf16(const void* wx, const void* wh, const void* c,
+                                          const void* c_new, const void* act, const void* dh,
+                                          const void* dc, void* dx, void* dh_prev,
+                                          void* dc_prev, const void* plan, int plan_len,
+                                          int rows, int in_size, int hidden, void* stream) {
+    return launch_bwd_dx<__nv_bfloat16>(wx, wh, c, c_new, act, dh, dc, dx, dh_prev, dc_prev,
+                                        plan, plan_len, rows, in_size, hidden, stream);
 }
 
 // The constants that kernels/lstm_cell.py sizes and chooses launches by, and

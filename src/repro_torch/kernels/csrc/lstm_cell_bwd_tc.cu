@@ -88,6 +88,17 @@
 //   same time must not share one stream's set. At most 120 blocks, so that
 //   the clusters of 8 are resident at once on an H100.
 //
+// The dx-only launch (lstm_cell_bwd_tc<true>; kernels/lstm_cell.py:
+// bwd_dx_tc_plan), where no weight gradient is asked for (the esn head's
+// frozen reservoir): row blocks alone at every batch size, each walking
+// `tiles` row tiles with the split plan's row-block code and layout (no
+// partial, no [x | h | 1], x and h never read), cluster size 1, no column
+// block, scratch or ticket. Its tiles: the fewest m-tiles that give every SM
+// at most one tile, else 64-row tiles walked `tiles` to a block. dx, dh_prev
+// and dc_prev are the full launch's bits at any plan (each row's sums run
+// k-step by k-step, term by term, whatever the tile). Taking no ticket, it
+// adds no hazard to a CUDA graph replayed beside eager launches.
+//
 // Determinism: dx and dh_prev sum each row's products k-step by k-step, term
 // by term, whatever the plan; the weight gradients sum in an order fixed by
 // the plan (k-steps and k-parts within a column block; tiles within a block,
@@ -423,6 +434,7 @@ __device__ __forceinline__ void bwd_cols(const __nv_bfloat16* __restrict__ x,
     }
 }
 
+template <bool DX_ONLY>
 __global__ void __launch_bounds__(BWD_TC_THREADS, 1)
 lstm_cell_bwd_tc(const __nv_bfloat16* __restrict__ wx, const __nv_bfloat16* __restrict__ wh,
                  const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ h,
@@ -435,11 +447,12 @@ lstm_cell_bwd_tc(const __nv_bfloat16* __restrict__ wx, const __nv_bfloat16* __re
                  int in_size, int hidden, BwdTcPlan p) {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ int last;
-    if (p.row_blocks > 0 && static_cast<int>(blockIdx.x) >= p.row_blocks) {
+    if (!DX_ONLY && p.row_blocks > 0 && static_cast<int>(blockIdx.x) >= p.row_blocks) {
         bwd_cols(x, h, c, c_new, act, dh, dc, dwx, dwh, db, rows, in_size, hidden, p, smem);
         return;
     }
-    const bool split = p.row_blocks > 0;       // a row block of the split plan: no weight gradients
+    // a row block of the split plan or of the dx-only launch: no weight gradients
+    const bool split = DX_ONLY || p.row_blocks > 0;
     const BwdTcLayout L = bwd_tc_layout(p, in_size, hidden);
     const int g4 = 4 * hidden, kw = in_size + hidden;
     const int tid = threadIdx.x;
@@ -816,17 +829,22 @@ lstm_cell_bwd_tc(const __nv_bfloat16* __restrict__ wx, const __nv_bfloat16* __re
 // whether the kernel takes a plan for this shape and these tensors: its
 // geometry, a copy width per stream that the stream's rows (or runs) and base
 // allow, and the shared memory of the layout the source computes
+// (dx_only: the dx-only launch's plan, whose x and h, never read, are null and
+// copied by no width)
 bool bwd_tc_plan_fits(const BwdTcPlan& p, int rows, int in_size, int hidden,
-                      const void* const (&ins)[9], const void* const (&outs)[3]) {
+                      const void* const (&ins)[9], const void* const (&outs)[3],
+                      bool dx_only) {
     const auto width = [](int w) { return w == 2 || w == 4 || w == 8 || w == 16; };
     const auto on = [](const void* q, int w) { return reinterpret_cast<uintptr_t>(q) % w == 0; };
     const int k_x = (in_size + 7) / 8 * 8;
     const bool split = p.row_blocks > 0;
     const long covered = 16L * p.m_tiles * p.tiles * (split ? p.row_blocks : p.blocks);
     const bool plan_kind =
-        split ? p.tiles == 1 && p.cluster == 1 && p.col_rows >= 16 && p.col_rows % 16 == 0 &&
-                    p.blocks == p.row_blocks + (hidden + BWD_TC_COL_UNITS - 1) / BWD_TC_COL_UNITS
-              : p.col_rows == 0 && p.blocks >= p.cluster && p.blocks % p.cluster == 0;
+        dx_only ? p.row_blocks == p.blocks && p.cluster == 1 && p.col_rows == 0 &&
+                      p.copy_x == 0 && p.copy_h == 0
+        : split ? p.tiles == 1 && p.cluster == 1 && p.col_rows >= 16 && p.col_rows % 16 == 0 &&
+                      p.blocks == p.row_blocks + (hidden + BWD_TC_COL_UNITS - 1) / BWD_TC_COL_UNITS
+                : p.col_rows == 0 && p.blocks >= p.cluster && p.blocks % p.cluster == 0;
     const bool geometry =
         plan_kind && p.m_tiles >= 1 && p.m_tiles <= BWD_TC_MTILES && p.tiles >= 1 &&
         p.cluster >= 1 && p.cluster <= BWD_TC_CLUSTER && covered >= rows && p.k_x == k_x &&
@@ -834,24 +852,26 @@ bool bwd_tc_plan_fits(const BwdTcPlan& p, int rows, int in_size, int hidden,
         p.n_pad == (4 * hidden + 15) / 16 * 16;
     // ins: wx, wh, x, h, c, c', act, dh, dc
     bool copies = width(p.copy_w) && (8 * hidden) % p.copy_w == 0 && on(ins[0], p.copy_w) &&
-                  on(ins[1], p.copy_w) && width(p.copy_x) && (2 * in_size) % p.copy_x == 0 &&
-                  on(ins[2], p.copy_x) && width(p.copy_h) && (2 * hidden) % p.copy_h == 0 &&
-                  on(ins[3], p.copy_h) && width(p.copy_r) && width(p.copy_out);
+                  on(ins[1], p.copy_w) && width(p.copy_r) && width(p.copy_out) &&
+                  (dx_only || (width(p.copy_x) && (2 * in_size) % p.copy_x == 0 &&
+                               on(ins[2], p.copy_x) && width(p.copy_h) &&
+                               (2 * hidden) % p.copy_h == 0 && on(ins[3], p.copy_h)));
     for (int i = 4; i < 9; ++i) copies = copies && on(ins[i], p.copy_r);
     for (const void* o : outs) copies = copies && on(o, p.copy_out);
     const int need = bwd_tc_layout(p, in_size, hidden).total;
     return geometry && copies &&
-           p.smem == (split ? max(need, bwd_tc_col_layout(p).total) : need);
+           p.smem == (split && !dx_only ? max(need, bwd_tc_col_layout(p).total) : need);
 }
 
 // plan: BwdTcPlan's BWD_TC_PLAN_LEN ints; scratch: (blocks / cluster,
 // I + H + 1, 4H) floats and tickets: cluster unsigned ints, all 0, which the
 // kernel leaves at 0, both where there is more than one cluster
+// dx_only: the dx-only launch (x, h, dwx, dwh, db, scratch and tickets null)
 int launch_bwd_tc(const void* wx, const void* wh, const void* x, const void* h, const void* c,
                   const void* c_new, const void* act, const void* dh, const void* dc, void* dx,
                   void* dh_prev, void* dc_prev, void* dwx, void* dwh, void* db, void* scratch,
                   void* tickets, const void* plan, int plan_len, int rows, int in_size,
-                  int hidden, void* stream) {
+                  int hidden, void* stream, bool dx_only) {
     if (plan == nullptr || plan_len != BWD_TC_PLAN_LEN || rows < 1 || in_size < 1 || hidden < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     const int* v = static_cast<const int*>(plan);
@@ -859,11 +879,14 @@ int launch_bwd_tc(const void* wx, const void* wh, const void* x, const void* h, 
                       v[8], v[9], v[10], v[11], v[12], v[13], v[14], v[15]};
     const void* const ins[9] = {wx, wh, x, h, c, c_new, act, dh, dc};
     const void* const outs[3] = {dx, dh_prev, dc_prev};
-    if (!bwd_tc_plan_fits(p, rows, in_size, hidden, ins, outs) ||
+    if (!bwd_tc_plan_fits(p, rows, in_size, hidden, ins, outs, dx_only) ||
         (p.row_blocks == 0 && p.blocks > p.cluster && (scratch == nullptr || tickets == nullptr)))
         return static_cast<int>(cudaErrorInvalidValue);
     static repro::SmemOptIn opt_in;            // per device (common.cuh)
-    cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(lstm_cell_bwd_tc), p.smem);
+    static repro::SmemOptIn opt_in_dx;
+    const auto kernel = dx_only ? lstm_cell_bwd_tc<true> : lstm_cell_bwd_tc<false>;
+    cudaError_t err = (dx_only ? opt_in_dx : opt_in).ensure(reinterpret_cast<const void*>(kernel),
+                                                           p.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(static_cast<unsigned>(p.blocks));
@@ -880,7 +903,7 @@ int launch_bwd_tc(const void* wx, const void* wh, const void* x, const void* h, 
     const auto in = [](const void* q) { return static_cast<const __nv_bfloat16*>(q); };
     const auto out = [](void* q) { return static_cast<__nv_bfloat16*>(q); };
     const auto f = [](void* q) { return static_cast<float*>(q); };
-    err = cudaLaunchKernelEx(&cfg, lstm_cell_bwd_tc, in(wx), in(wh), in(x), in(h), in(c),
+    err = cudaLaunchKernelEx(&cfg, kernel, in(wx), in(wh), in(x), in(h), in(c),
                              in(c_new), in(act), in(dh), in(dc), out(dx), out(dh_prev),
                              out(dc_prev), f(dwx), f(dwh), f(db), f(scratch),
                              static_cast<unsigned int*>(tickets), rows, in_size, hidden, p);
@@ -900,7 +923,19 @@ extern "C" int lstm_cell_bwd_bf16(const void* wx, const void* wh, const void* x,
                                   void* tickets, const void* plan, int plan_len, int rows,
                                   int in_size, int hidden, void* stream) {
     return launch_bwd_tc(wx, wh, x, h, c, c_new, act, dh, dc, dx, dh_prev, dc_prev, dwx, dwh, db,
-                         scratch, tickets, plan, plan_len, rows, in_size, hidden, stream);
+                         scratch, tickets, plan, plan_len, rows, in_size, hidden, stream, false);
+}
+
+// K5's dx-only launch in bf16 at the presets' widths: dx, dh_prev and dc_prev
+// only (kernels/lstm_cell.py:bwd_dx_tc_plan)
+extern "C" int lstm_cell_bwd_dx_bf16(const void* wx, const void* wh, const void* c,
+                                     const void* c_new, const void* act, const void* dh,
+                                     const void* dc, void* dx, void* dh_prev, void* dc_prev,
+                                     const void* plan, int plan_len, int rows, int in_size,
+                                     int hidden, void* stream) {
+    return launch_bwd_tc(wx, wh, nullptr, nullptr, c, c_new, act, dh, dc, dx, dh_prev, dc_prev,
+                         nullptr, nullptr, nullptr, nullptr, nullptr, plan, plan_len, rows,
+                         in_size, hidden, stream, true);
 }
 
 // The constants that kernels/lstm_cell.py sizes this kernel's launches by,

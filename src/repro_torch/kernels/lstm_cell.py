@@ -48,6 +48,12 @@ thread-block cluster through distributed shared memory and across clusters
 by tickets; every order is fixed by the shape (:func:`bwd_tc_plan`). Past
 those widths the bf16 stream runs the templated K5 (:func:`bwd_launch`
 names the kernel of a call).
+
+Where the weights need no gradient (the esn head's frozen reservoir),
+:class:`LSTMCell` takes K5's dx-only launch (:func:`lstm_cell_bwd_dx`): the
+row blocks alone, in the same kernels, forming dx, dh_prev and dc_prev with
+the full launch's bits and no weight gradient, scratch or ticket
+(:func:`bwd_dx_plan`, :func:`bwd_dx_tc_plan`, :func:`bwd_dx_launch`).
 """
 
 from __future__ import annotations
@@ -78,6 +84,7 @@ BWD_CHUNK_ROWS = 32      # rows per chunk of the weight-gradient sums ...
 BWD_MAX_CHUNKS = 32      # ... up to this many chunks
 BWD_SUB_ROWS = 128       # rows a column block stages at once, at most
 BWD_SMEM = 100 * 1024    # shared memory per K5 block, at most (two blocks per SM)
+BWD_DX_MIN_K = 16        # a dx-only launch cuts k into kw / BWD_DX_MIN_K parts at most
 
 # K3/K4's bf16 geometry on the tensor cores (csrc/lstm_cell_tc.cu, lstm_cell_tc)
 TC_QMAX = 8              # quads of 4 units (16 gate columns) a warp holds, at most
@@ -117,6 +124,8 @@ fwd_launches = 0                 # K4, float32
 fwd_bf16_launches = 0            # K4, bf16
 bwd_launches = 0                 # K5, float32
 bwd_bf16_launches = 0            # K5, bf16
+bwd_dx_launches = 0              # K5's dx-only launch, float32
+bwd_dx_bf16_launches = 0         # K5's dx-only launch, bf16
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -356,6 +365,32 @@ def bwd_plan(rows: int, in_size: int, hidden: int, smem_optin: int) -> BwdPlan:
                    col_units, slices, chunks, chunk_rows, sub_rows, smem)
 
 
+@functools.lru_cache(maxsize=4096)
+def bwd_dx_plan(rows: int, in_size: int, hidden: int, smem_optin: int) -> BwdPlan:
+    """K5's dx-only launch in float32 (and bf16 past the presets' widths):
+    row blocks alone, every column field 0 -- no column blocks, chunk
+    scratch or tickets -- and the shared memory of the row blocks' layout.
+
+    The row tiles are :func:`bwd_plan`'s. Where they are fewer than
+    BWD_ROW_TARGET, k is cut into more parts (kw / BWD_DX_MIN_K at most)
+    for up to BWD_ROW_TARGET blocks: with no column blocks beside them, the
+    few row blocks of a small batch would each stage every weight. Each
+    thread sums one k over the units in the same order whatever the parts
+    and staged units, so dx, dh_prev and dc_prev are the full launch's
+    bits."""
+    p = bwd_plan(rows, in_size, hidden, smem_optin)
+    kw = in_size + hidden
+    tiles = _cdiv(rows, p.tile_rows)
+    parts = max(p.row_kparts, min(_cdiv(kw, BWD_DX_MIN_K), _cdiv(BWD_ROW_TARGET, tiles)))
+    row_k = p.row_k if parts == p.row_kparts else _cdiv(kw, parts)
+    per_unit = 16 * (row_k | 1) + 16 * p.tile_rows
+    row_units = min(hidden, min(smem_optin, BWD_SMEM) // per_unit)
+    return p._replace(row_k=row_k, row_kparts=_cdiv(kw, row_k), row_units=row_units,
+                      row_blocks=min(tiles * _cdiv(kw, row_k), BWD_ROW_BLOCKS), col_k=0,
+                      col_kparts=0, col_units=0, slices=0, chunks=0, chunk_rows=0, sub_rows=0,
+                      smem=row_units * per_unit)
+
+
 class BwdTcPlan(NamedTuple):
     """A launch of K5 in bf16 on the tensor cores (``csrc/lstm_cell_bwd_tc.cu``);
     the kernel takes these ints in this order."""
@@ -393,7 +428,8 @@ def _bwd_tc_widths(in_size: int, hidden: int):
         16 * _cdiv(4 * hidden, 16)
 
 
-def bwd_tc_smem(m_tiles: int, in_size: int, hidden: int, col_rows: int = 0) -> int:
+def bwd_tc_smem(m_tiles: int, in_size: int, hidden: int, col_rows: int = 0,
+                dx_only: bool = False) -> int:
     """Shared memory of the tensor-core K5's layout, bytes.
 
     The cluster plan (``col_rows`` 0): the weights as bf16 [k][gate column],
@@ -404,7 +440,8 @@ def bwd_tc_smem(m_tiles: int, in_size: int, hidden: int, col_rows: int = 0) -> i
     blocks' layout (the same without the partial and [x | h | 1]) and its
     column blocks' (``col_rows`` rows of [x | h | 1], of the slice's
     residuals and of its terms, and a float32 16 x 16 partial per warp's
-    k-part of each m-tile of the staged inputs)."""
+    k-part of each m-tile of the staged inputs). ``dx_only``: the split
+    plan's row-block layout alone (the dx-only launch)."""
     k_x, k_w, k_pad, n_pad = _bwd_tc_widths(in_size, hidden)
     tile = 16 * m_tiles
     run = lambda n: 16 * _cdiv(2 * n, 16)         # n bf16 in whole 16-byte units
@@ -413,6 +450,8 @@ def bwd_tc_smem(m_tiles: int, in_size: int, hidden: int, col_rows: int = 0) -> i
     split = col_rows > 0
     rows = (k_w * w_stride + run(4 * tile * hidden) + 4 * run(tile * hidden)
             + BWD_TC_TERMS * tile * w_stride + run(tile * in_size) + 2 * run(tile * hidden))
+    if dx_only:
+        return rows
     if not split:
         return rows + 4 * (in_size + hidden + 1) * (n_pad + TC_PAD) + tile * x_stride
     m2 = k_pad // 16
@@ -481,6 +520,38 @@ def bwd_tc_plan(rows: int, in_size: int, hidden: int, smem_optin: int, sm_count:
                      _copy_width(align_w, 8 * hidden), _copy_width(align_x, 2 * in_size),
                      _copy_width(align_h, 2 * hidden), _copy_width(align_r),
                      _copy_width(align_out), bwd_tc_smem(m_tiles, in_size, hidden, col_rows))
+
+
+@functools.lru_cache(maxsize=4096)
+def bwd_dx_tc_plan(rows: int, in_size: int, hidden: int, smem_optin: int, sm_count: int,
+                   align_w: int = 16, align_r: int = 16,
+                   align_out: int = 16) -> Optional[BwdTcPlan]:
+    """K5's dx-only launch in bf16 on the tensor cores, at the widths where
+    :func:`bwd_tc_plan` takes them (else None: the templated kernel's
+    dx-only launch runs), so a width's two launches run one kernel.
+
+    Row blocks alone at every batch size, cluster size 1, the split plan's
+    row-block layout (:func:`bwd_tc_smem` with ``dx_only``); x and h are not
+    read (``copy_x`` and ``copy_h`` 0). Its tiles: the fewest m-tiles (1, 2
+    or 4) that give each of the ``sm_count`` SMs at most one tile, else the
+    most whose layout fits, walked ``tiles`` to a block. The plan sets no
+    sum order: each row's dx and dh_prev sum k-step by k-step, term by term,
+    whatever the tile, so they are the full launch's bits on any card.
+    """
+    if bwd_tc_smem(1, in_size, hidden) > smem_optin:
+        return None
+    fits = [m for m in (BWD_TC_MTILES, 2, 1)
+            if bwd_tc_smem(m, in_size, hidden, dx_only=True) <= smem_optin]
+    m16 = _cdiv(rows, 16)
+    m_tiles = next((m for m in (1, 2, BWD_TC_MTILES)
+                    if m <= fits[0] and _cdiv(m16, m) <= sm_count), fits[0])
+    n_tiles = _cdiv(m16, m_tiles)
+    tiles = _cdiv(n_tiles, sm_count)
+    blocks = _cdiv(n_tiles, tiles)
+    k_x, k_w, k_pad, n_pad = _bwd_tc_widths(in_size, hidden)
+    return BwdTcPlan(m_tiles, tiles, blocks, 1, blocks, 0, k_x, k_w, k_pad, n_pad,
+                     _copy_width(align_w, 8 * hidden), 0, 0, _copy_width(align_r),
+                     _copy_width(align_out), bwd_tc_smem(m_tiles, in_size, hidden, dx_only=True))
 
 
 def split_bf16(d: torch.Tensor):
@@ -673,6 +744,63 @@ def bwd_launch(wx, wh, x, h, c, c_new, act, dh, dc, outputs=()):
     return name, bwd_plan(rows, in_size, hidden, limits.smem_optin)
 
 
+def bwd_dx_launch(wx, wh, c, c_new, act, dh, dc, outputs=()):
+    """The C entry point and the plan of K5's dx-only launch for these
+    inputs: ``lstm_cell_bwd_dx_f32`` with :func:`bwd_dx_plan` in float32; in
+    bf16 ``lstm_cell_bwd_dx_bf16`` with :func:`bwd_dx_tc_plan`, or past the
+    presets' widths ``lstm_cell_bwd_dx_wide_bf16`` with :func:`bwd_dx_plan`.
+    ``outputs``: dx, dh_prev and dc_prev as the kernel will write them."""
+    rows, hidden = c.shape
+    in_size = wx.shape[0]
+    limits = build.device_limits(c.device)
+    if c.dtype == torch.bfloat16:
+        tc = bwd_dx_tc_plan(rows, in_size, hidden, limits.smem_optin, limits.sm_count,
+                            min(_alignment(wx), _alignment(wh)),
+                            min(_alignment(t) for t in (act, c, c_new, dh, dc)),
+                            min((_alignment(t) for t in outputs), default=16))
+        if tc is not None:
+            return "lstm_cell_bwd_dx_bf16", tc
+        name = "lstm_cell_bwd_dx_wide_bf16"
+    else:
+        name = "lstm_cell_bwd_dx_f32"
+    return name, bwd_dx_plan(rows, in_size, hidden, limits.smem_optin)
+
+
+def lstm_cell_bwd_dx(wx, wh, c, c_new, act, dh, dc):
+    """Launch K5's dx-only kernel: ``(dh, dc)`` -> ``dx (B,I), dh_prev (B,H),
+    dc_prev (B,H)``, no weight gradient (the weights need none: the esn
+    head's frozen reservoir). The inputs all float32 or all bfloat16; the
+    outputs in that dtype, the bits of :func:`lstm_cell_bwd`'s first three.
+    One launch of row blocks only: no scratch and no tickets, so nothing is
+    shared with another launch."""
+    global bwd_dx_launches, bwd_dx_bf16_launches
+    rows, hidden = c.shape
+    in_size = wx.shape[0]
+    dev = c.device
+    g4 = 4 * hidden
+    _one_dtype("lstm_cell_bwd_dx", [
+        ("wx", wx, (in_size, g4)), ("wh", wh, (hidden, g4)), ("c", c, (rows, hidden)),
+        ("c_new", c_new, (rows, hidden)), ("act", act, (rows, g4)),
+        ("dh", dh, (rows, hidden)), ("dc", dc, (rows, hidden))], dev, rows, hidden)
+    stream_dt = dict(dtype=c.dtype, device=dev)
+    outs = (torch.empty((rows, in_size), **stream_dt), torch.empty((rows, hidden), **stream_dt),
+            torch.empty((rows, hidden), **stream_dt))
+    name, plan = bwd_dx_launch(wx, wh, c, c_new, act, dh, dc, outs)
+    entry = getattr(_kernel_library(), name)
+    plan_ints = _plan_ints(plan)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(wx.data_ptr(), wh.data_ptr(), c.data_ptr(), c_new.data_ptr(), act.data_ptr(),
+                    dh.data_ptr(), dc.data_ptr(), *(t.data_ptr() for t in outs),
+                    ctypes.addressof(plan_ints), len(plan_ints), rows, in_size, hidden, stream)
+    build.check(err, "lstm_cell_bwd_dx")
+    if c.dtype == torch.bfloat16:
+        bwd_dx_bf16_launches += 1
+    else:
+        bwd_dx_launches += 1
+    return outs
+
+
 def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
     """Launch K5: ``(dh, dc)`` -> ``dx (B,I), dh_prev (B,H), dc_prev (B,H),
     dwx (I,4H), dwh (H,4H), db (4H,)``. The inputs all float32 or all
@@ -739,7 +867,11 @@ def lstm_cell_bwd(wx, wh, x, h, c, c_new, act, dh, dc):
 class LSTMCell(torch.autograd.Function):
     """Differentiable fused cell: K4 forward, K5 backward on the card; the
     plain versions on the CPU. ``apply(wx, wh, b, x, h, c) -> (h', c')``,
-    all six inputs float32 or all bfloat16."""
+    all six inputs float32 or all bfloat16. Where none of wx, wh, b needs a
+    gradient (the esn head's frozen reservoir), the backward takes K5's
+    dx-only launch (:func:`lstm_cell_bwd_dx`; on the CPU
+    :func:`~repro_torch.kernels.ref.lstm_cell_bwd_dx_ref`) and returns None
+    for the three weight gradients."""
 
     @staticmethod
     def forward(ctx, wx, wh, b, x, h, c):
@@ -755,6 +887,13 @@ class LSTMCell(torch.autograd.Function):
         wx, wh, x, h, c, c_new, act = ctx.saved_tensors
         # set_materialize_grads is on (the default): the cotangent of an
         # unused output (the last step's c) comes in as zeros, never None
+        if not any(ctx.needs_input_grad[:3]):
+            if x.device.type == "cuda":
+                dx, dhp, dcp = lstm_cell_bwd_dx(wx, wh, c, c_new, act, dh.contiguous(),
+                                                dc.contiguous())
+            else:
+                dx, dhp, dcp = ref.lstm_cell_bwd_dx_ref(wx, wh, c, c_new, act, dh, dc)
+            return None, None, None, dx, dhp, dcp
         if x.device.type == "cuda":
             dx, dhp, dcp, dwx, dwh, db = lstm_cell_bwd(
                 wx, wh, x, h, c, c_new, act, dh.contiguous(), dc.contiguous())

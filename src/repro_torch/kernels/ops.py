@@ -11,8 +11,9 @@ launches or raises.
 Both wrappers are differentiable. The HW scan always runs through the
 ``torch.autograd.Function`` :class:`~repro_torch.kernels.hw_scan.HWScan`
 (K1 forward, K2 backward on the card). The LSTM cell runs through
-:class:`~repro_torch.kernels.lstm_cell.LSTMCell` (K4 forward, K5 backward)
-only when a gradient is needed, and through K3 otherwise -- the JAX
+:class:`~repro_torch.kernels.lstm_cell.LSTMCell` (K4 forward, K5 backward,
+or K5's dx-only launch when the weights need no gradient) only when a
+gradient is needed, and through K3 otherwise -- the JAX
 package's ``custom_vjp`` rule, whose primal is the activation-free kernel.
 On CPU tensors the same Functions run the plain forward and backward, so
 the CPU tests exercise the wiring the card uses.
@@ -47,12 +48,16 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`, by
     kernel and stream dtype: the names without a suffix count float32
     launches, ``_bf16`` the bf16 policy's (K1 and K2 with a bf16 y, K3, K4
-    and K5 in bf16)."""
+    and K5 in bf16). K5 counts its two launches apart: ``lstm_cell_bwd``
+    forms the weight gradients too, ``lstm_cell_bwd_dx`` only dx, dh_prev
+    and dc_prev (a step whose weights need no gradient, the esn head's)."""
     return {"hw_scan": _hw.launches, "hw_scan_bf16": _hw.bf16_launches,
             "hw_scan_bwd": _hw.bwd_launches, "hw_scan_bwd_bf16": _hw.bwd_bf16_launches,
             "lstm_cell": _lstm.launches, "lstm_cell_bf16": _lstm.bf16_launches,
             "lstm_cell_fwd": _lstm.fwd_launches, "lstm_cell_fwd_bf16": _lstm.fwd_bf16_launches,
             "lstm_cell_bwd": _lstm.bwd_launches, "lstm_cell_bwd_bf16": _lstm.bwd_bf16_launches,
+            "lstm_cell_bwd_dx": _lstm.bwd_dx_launches,
+            "lstm_cell_bwd_dx_bf16": _lstm.bwd_dx_bf16_launches,
             "flash_attention": _fa.launches}
 
 
@@ -61,6 +66,7 @@ def reset_launch_counts() -> None:
     _lstm.launches = _lstm.bf16_launches = 0
     _lstm.fwd_launches = _lstm.fwd_bf16_launches = 0
     _lstm.bwd_launches = _lstm.bwd_bf16_launches = 0
+    _lstm.bwd_dx_launches = _lstm.bwd_dx_bf16_launches = 0
     _fa.launches = 0
 
 

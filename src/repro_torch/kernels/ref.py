@@ -180,6 +180,18 @@ def lstm_cell_bwd_ref(wx, wh, x, h, c, c_new, act, dh, dc):
             dc_prev.to(out_dtype), x.t() @ dgates, h.t() @ dgates, dgates.sum(dim=0))
 
 
+def lstm_cell_bwd_dx_ref(wx, wh, c, c_new, act, dh, dc):
+    """The plain dx-only K5: :func:`lstm_cell_bwd_ref`'s ``dx (B,I), dh_prev
+    (B,H), dc_prev (B,H)`` alone, for a step whose weights need no gradient
+    (the esn head's frozen reservoir); the same arithmetic, rounded to the
+    stream dtype once in bf16."""
+    out_dtype = c.dtype
+    wx, wh = widen(wx), widen(wh)
+    dgates, dc_prev = lstm_cell_bwd_cotangents(c, c_new, act, dh, dc)
+    return ((dgates @ wx.t()).to(out_dtype), (dgates @ wh.t()).to(out_dtype),
+            dc_prev.to(out_dtype))
+
+
 def lstm_cell_bwd_cotangents(c, c_new, act, dh, dc):
     """The first half of :func:`lstm_cell_bwd_ref`: the pre-activation gate
     cotangents ``dgates = [di | df | dg | do]`` (B, 4H) and ``dc_prev``

@@ -32,7 +32,11 @@ band).
 
 ``--set KEY=VAL`` overrides any spec or model field (``--set
 precision=bf16`` runs the bf16 policy; ``--set scan_steps=K`` the
-superstep engine; ``--set sparse_adam=true`` the segment update).
+superstep engine; ``--set sparse_adam=true`` the segment update). The
+heads: ``--spec esn-quarterly`` or ``--spec ssm-quarterly`` (or ``--set
+head=esn|ssm`` on any spec) drive every subcommand through the esn head
+(a frozen reservoir; only the readout and the HW table train) or the ssm
+head.
 ``--devices N > 1`` (series data parallelism) and ``--set series_chunk=K``
 (the out-of-core path) come with later slices of the port and exit with
 an error; the JAX package's ``analyze`` subcommand (the graph auditor)

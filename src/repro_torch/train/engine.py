@@ -21,9 +21,11 @@ Steps update ``params`` and ``opt_state`` in place and return them.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, FrozenSet, Iterator, List, Tuple
 
 import torch
+from torch import nn
 
 from repro_torch.core.esrnn import (
     ESRNNConfig, combine_series, esrnn_loss_fn, gather_series, param_leaves,
@@ -45,6 +47,25 @@ def split_frozen(params, frozen: FrozenSet[str]):
     """
     return ({k: v for k, v in params.items() if k not in frozen},
             {k: v for k, v in params.items() if k in frozen})
+
+
+@contextlib.contextmanager
+def _fixed(groups):
+    """The frozen groups' parameters with no gradient requirement for the
+    body of a step, then as they were. The loss then builds no graph to
+    them (under bf16 the policy's cast of a fixed weight is a plain copy),
+    so autograd asks no weight gradient of their kernels: on the card the
+    esn reservoir's backward launches K5's dx-only kernel, while dx still
+    flows through it to the HW parameters upstream of the windows."""
+    leaves = [p for g in groups.values() if isinstance(g, nn.Module) for p in g.parameters()]
+    was = [p.requires_grad for p in leaves]
+    for p in leaves:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, r in zip(leaves, was):
+            p.requires_grad_(r)
 
 
 def _value_and_grad(loss_fn: Callable[[], torch.Tensor],
@@ -73,9 +94,10 @@ def _sparse_update(mcfg, cfg_adam, params, opt_state, frozen, rows, loss_args):
     hw_rows, shared = partition_series(params, rows)
     sh_train, sh_froz = split_frozen(shared, frozen)
     batch_train = combine_series(hw_rows, sh_train)
-    loss, grads = _value_and_grad(
-        lambda: esrnn_loss_fn(mcfg, {**batch_train, **sh_froz}, *loss_args),
-        [t for _, t in param_leaves(batch_train)])
+    with _fixed(sh_froz):
+        loss, grads = _value_and_grad(
+            lambda: esrnn_loss_fn(mcfg, {**batch_train, **sh_froz}, *loss_args),
+            [t for _, t in param_leaves(batch_train)])
     p_train, opt_state = adam_update_sparse(
         grads, opt_state, p_train, cfg_adam, idx=rows, group_fn=esrnn_group_fn)
     return {**p_train, **p_froz}, opt_state, loss
@@ -84,9 +106,10 @@ def _sparse_update(mcfg, cfg_adam, params, opt_state, frozen, rows, loss_args):
 def _dense_update(mcfg, cfg_adam, params, opt_state, frozen, rows, loss_args):
     """Gradients through the row gather (a full-table gradient); dense Adam."""
     p_train, p_froz = split_frozen(params, frozen)
-    loss, grads = _value_and_grad(
-        lambda: esrnn_loss_fn(mcfg, gather_series(params, rows), *loss_args),
-        [t for _, t in param_leaves(p_train)])
+    with _fixed(p_froz):
+        loss, grads = _value_and_grad(
+            lambda: esrnn_loss_fn(mcfg, gather_series(params, rows), *loss_args),
+            [t for _, t in param_leaves(p_train)])
     p_train, opt_state = adam_update(grads, opt_state, p_train, cfg_adam,
                                      group_fn=esrnn_group_fn)
     return {**p_train, **p_froz}, opt_state, loss

@@ -171,7 +171,8 @@ def train_esrnn(
                  else adam_init(trainable))
     start_step = 0
 
-    ckpt = Checkpointer(cfg.ckpt_dir, keep=cfg.keep) if cfg.ckpt_dir else None
+    ckpt = (Checkpointer(cfg.ckpt_dir, keep=cfg.keep, frozen=frozen)
+            if cfg.ckpt_dir else None)
     if ckpt is not None and ckpt.latest_step() is not None:
         try:
             start_step, (params, opt_state) = ckpt.restore((params, opt_state))

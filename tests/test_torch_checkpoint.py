@@ -9,7 +9,10 @@
   unsupported dtype;
 * a ``(params, opt_state)`` checkpoint written by either package restores in
   the other bit for bit, dense and sparse, flat and row-sharded
-  (``shard_rows``).
+  (``shard_rows``);
+* the same for the esn and ssm heads, dense and sparse: the treedef text,
+  and checkpoints both ways bit for bit, the esn moments covering only the
+  trainable subtree (the reservoir is frozen).
 """
 
 import os
@@ -21,6 +24,7 @@ import torch
 
 from repro.checkpoint.checkpointer import Checkpointer as JaxCheckpointer
 from repro.core import esrnn as jes
+from repro.core import heads as jheads
 from repro.data import pipeline as jpipe
 from repro.train import optimizer as jopt
 from repro.train import trainer as jtrainer
@@ -231,3 +235,97 @@ def test_shard_layouts_restore_alike(tmp_path, trained):
     for d in ("flat", "rows"):
         _, back = Checkpointer(str(tmp_path / d)).restore(tt)
         _assert_same(back, t_state)
+
+
+# -- the esn and ssm heads -------------------------------------------------------
+#
+# The moments of an (params, opt_state) cover the trainable subtree: for esn
+# the reservoir ("rnn") is frozen, so JAX renders mu / nu as {'head', 'hw'}.
+
+
+def _head_states(head, sparse, seed=0):
+    jcfg = jes.make_config("quarterly", hidden_size=HIDDEN, head=head)
+    frozen = sorted(jheads.frozen_param_groups(jcfg))
+    jp = jax.tree_util.tree_map(np.asarray, jes.esrnn_init(jax.random.PRNGKey(seed), jcfg, 3))
+    j_train = {k: v for k, v in jp.items() if k not in frozen}
+    tp = params_from_numpy(jp, "cpu")
+    t_train = {k: v for k, v in tp.items() if k not in frozen}
+    j_opt = jopt.adam_init_sparse(j_train) if sparse else jopt.adam_init(j_train)
+    t_opt = topt.adam_init_sparse(t_train) if sparse else topt.adam_init(t_train)
+    return frozenset(frozen), (jp, j_opt), (tp, t_opt)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("head", ["esn", "ssm"])
+def test_head_treedef_token_is_jax_text(head, sparse):
+    frozen, j_state, t_state = _head_states(head, sparse)
+    assert treedef_token(t_state, frozen) == str(jax.tree_util.tree_structure(j_state))
+    assert treedef_token(t_state[0]) == str(jax.tree_util.tree_structure(j_state[0]))
+    j_leaves = jax.tree_util.tree_leaves(j_state)
+    t_leaves = [leaf for _, leaf in flatten_with_path(t_state, frozen)]
+    assert len(j_leaves) == len(t_leaves)
+    for j, t in zip(j_leaves, t_leaves):
+        assert tuple(np.shape(j)) == tuple(getattr(t, "shape", ()))
+    if frozen:                                 # the moments without the reservoir
+        assert "'rnn'" not in treedef_token(t_state, frozen).split("'mu'")[1].split("'nu'")[0]
+        with pytest.raises(ValueError, match="frozen groups"):
+            treedef_token(t_state)
+
+
+@pytest.fixture(scope="module")
+def trained_heads():
+    """A 3-step (params, opt_state) of each package for the esn and ssm
+    heads, dense and sparse, from one converted init."""
+    jdata = jpipe.synthetic_prepared(N_SERIES, series_length=T_LEN, seed=2)
+    tdata = tpipe.synthetic_prepared(N_SERIES, series_length=T_LEN, seed=2)
+    out = {}
+    for head in ("esn", "ssm"):
+        jcfg = jes.make_config("quarterly", hidden_size=HIDDEN, head=head)
+        tcfg = tes.make_config("quarterly", hidden_size=HIDDEN, head=head)
+        init = jax.tree_util.tree_map(
+            np.asarray, jes.esrnn_init(jax.random.PRNGKey(1), jcfg, N_SERIES))
+        for sparse in (False, True):
+            kw = dict(batch_size=4, n_steps=3, eval_every=100, ckpt_every=100, seed=3,
+                      sparse_adam=sparse)
+            j = jtrainer.train_esrnn(jcfg, jdata, jtrainer.TrainConfig(**kw), params=init)
+            t = ttrainer.train_esrnn(tcfg, tdata, ttrainer.TrainConfig(**kw),
+                                     params=params_from_numpy(init, "cpu"), device="cpu")
+            out[head, sparse] = (jheads.frozen_param_groups(jcfg), init,
+                                 (j["params"], j["opt_state"]), (t["params"], t["opt_state"]))
+    return out
+
+
+def _head_templates(init, sparse, frozen):
+    jp = jax.tree_util.tree_map(np.asarray, init)
+    j_train = {k: v for k, v in jp.items() if k not in frozen}
+    tp = params_from_numpy(init, "cpu")
+    t_train = {k: v for k, v in tp.items() if k not in frozen}
+    return ((jp, jopt.adam_init_sparse(j_train) if sparse else jopt.adam_init(j_train)),
+            (tp, topt.adam_init_sparse(t_train) if sparse else topt.adam_init(t_train)))
+
+
+def _assert_head_state_equal(port_state, jax_state, frozen):
+    j_leaves = jax.tree_util.tree_leaves(jax_state)
+    t_leaves = flatten_with_path(port_state, frozen)
+    assert len(j_leaves) == len(t_leaves)
+    for j, (path, t) in zip(j_leaves, t_leaves):
+        t = np.asarray(t.value if not isinstance(t, torch.Tensor) else t.detach().numpy())
+        np.testing.assert_array_equal(t, np.asarray(j), err_msg=str(path))
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("head", ["esn", "ssm"])
+def test_head_checkpoints_cross_packages(tmp_path, trained_heads, head, sparse, direction):
+    frozen, init, j_state, t_state = trained_heads[head, sparse]
+    jt, tt = _head_templates(init, sparse, frozen)
+    if direction == "jax_to_port":
+        JaxCheckpointer(str(tmp_path)).save(3, j_state, metric=2.0)
+        step, back = Checkpointer(str(tmp_path), frozen=frozen).restore(tt)
+        assert step == 3 and back[1]["step"] == 3
+        _assert_head_state_equal(back, j_state, frozen)
+    else:
+        Checkpointer(str(tmp_path), frozen=frozen).save(3, t_state, metric=2.0)
+        step, back = JaxCheckpointer(str(tmp_path)).restore(jt)
+        assert step == 3 and int(back[1]["step"]) == 3
+        _assert_head_state_equal(t_state, back, frozen)

@@ -1,11 +1,13 @@
 """The port's forecast CLI (``repro_torch.launch.forecast``) on the CPU.
 
 ``main([..., "--device", "cpu"])`` runs every subcommand in process: ``specs``
-(its ``--json`` rows equal the JAX CLI's ``esrnn-*`` rows), ``fit --out-dir``,
+(its ``--json`` rows equal the JAX CLI's, every head), ``fit --out-dir``,
 ``predict`` (point and ``--quantiles``), ``eval``, ``backtest`` (default and
 explicit origins), ``serve`` (both engines), ``observe`` over stdin, and
 ``fit --ckpt-dir`` resuming a finished checkpoint. ``predict --dir`` on a
 directory the JAX CLI saved prints the JAX CLI's first-series forecast.
+The esn and ssm heads (``--spec esn-quarterly``, ``--set head=ssm``) fit,
+resume and predict through the same subcommands.
 """
 
 import io
@@ -43,9 +45,11 @@ def saved(tmp_path_factory):
 def test_specs_match_the_jax_cli(capsys):
     rows = json.loads(_run(capsys, ["specs", "--json"]))
     want = json.loads(_run(capsys, ["specs", "--json"], main=jcli.main))
-    assert rows == [r for r in want if r["name"].startswith("esrnn-")]
+    assert rows == want
+    assert {r["head"] for r in rows} == {"lstm", "esn", "ssm"}
     table = _run(capsys, ["specs"])
     assert "esrnn-quarterly" in table and "lstm" in table
+    assert "esn-quarterly" in table and "ssm-monthly" in table
 
 
 def test_fit_saves_and_resumes(capsys, saved):
@@ -140,3 +144,21 @@ def test_devices_and_bad_overrides_exit(saved):
         cli.main(_cpu("predict", "--dir", saved[0], "--devices", "2"))
     with pytest.raises(SystemExit, match="KEY=VAL"):
         cli.main(_cpu("fit", "--smoke", "--set", "hidden_size"))
+
+
+@pytest.mark.parametrize("head,args", [("esn", ["--spec", "esn-quarterly"]),
+                                       ("ssm", ["--set", "head=ssm"])])
+def test_heads_fit_resume_and_predict(capsys, tmp_path, head, args):
+    out, ckpt = str(tmp_path / "fq"), str(tmp_path / "ckpt")
+    fit = json.loads(_run(capsys, _cpu("fit", *FIT, *args, "--out-dir", out,
+                                       "--ckpt-dir", ckpt, "--json")).strip().splitlines()[-1])
+    assert len(fit["loss"]) == 4 and np.isfinite(fit["loss"]).all()
+    with open(os.path.join(out, "forecaster.json")) as f:
+        saved = json.load(f)
+    assert saved["spec"]["model"]["head"] == head
+    text = _run(capsys, _cpu("fit", *FIT, *args, "--ckpt-dir", ckpt))
+    assert "resumed from a finished checkpoint" in text
+    pred = json.loads(_run(capsys, _cpu("predict", "--dir", out, "--json")).strip()
+                      .splitlines()[-1])
+    fc = np.asarray(pred["forecast"])
+    assert fc.shape == (fit["n_series"], 8) and np.isfinite(fc).all()

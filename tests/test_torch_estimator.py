@@ -16,12 +16,17 @@ draw different inits from the same seed.
   resumes in the other's trainer, the continued losses within rtol 1e-5 of
   the unbroken JAX run;
 * the errors: not fitted, a shape mismatch, and the refusals of the slices
-  still to port (mesh, data_parallel, series_chunk).
+  still to port (mesh, data_parallel, series_chunk);
+* the esn and ssm heads: fits against the JAX estimator from one converted
+  init, resumed bit for bit, their trainer checkpoints resumed by JAX.
 """
+
+import shutil
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import esrnn as jes
 from repro.forecast import ESRNNForecaster as JaxForecaster
@@ -257,3 +262,50 @@ def test_init_params_and_serve(fits):
     fut = srv.submit(ForecastRequest(y=None, category=0, series_id=2))
     srv.drain()
     assert np.isfinite(fut.result(timeout=30)).all()
+
+
+@pytest.mark.parametrize("head", ["esn", "ssm"])
+def test_head_fit_matches_jax(tmp_path, head):
+    """An esn and an ssm estimator fitted from one converted init: histories
+    rtol 1e-5, params atol 1e-5 (the esn reservoir bit for bit: it stays the
+    init), forecasts within the forecast bound; the fit resumed from its
+    trainer checkpoint (for esn: moments without the reservoir) equals the
+    unbroken fit bit for bit, and the JAX trainer resumes the port's
+    checkpoint."""
+    jf = JaxForecaster(jax_smoke_spec(f"{head}-quarterly", **SPEC))
+    data = jf.make_data()
+    init = _np_tree(jes.esrnn_init(jax.random.PRNGKey(0), jf.config, data.n_series))
+    jf.params_ = init
+    jf.fit(data)
+    spec = get_smoke_spec(f"{head}-quarterly", **SPEC)
+    tf = ESRNNForecaster(spec, device="cpu")
+    tf.params_ = params_from_numpy(init, "cpu")
+    tf.fit(ckpt_dir=str(tmp_path / "whole"))
+    np.testing.assert_allclose(tf.history_["loss"], jf.history_["loss"], rtol=1e-5)
+    np.testing.assert_allclose([v for _, v in tf.history_["val_smape"]],
+                               [v for _, v in jf.history_["val_smape"]], rtol=1e-5)
+    _assert_params_close(tf.params_, jf.params_, atol=1e-5)
+    if head == "esn":
+        for (path, t), (_, t0) in zip(param_leaves(tf.params_),
+                                      param_leaves(params_from_numpy(init, "cpu"))):
+            if path[0] == "rnn":
+                assert torch.equal(t, t0), path
+    y = tf.data_.train
+    np.testing.assert_allclose(tf.predict(y), np.asarray(jf.predict(y)),
+                               rtol=FC_RTOL, atol=FC_ATOL)
+    part = ESRNNForecaster(spec, device="cpu")
+    part.params_ = params_from_numpy(init, "cpu")
+    part.fit(ckpt_dir=str(tmp_path / "part"), n_steps=3)
+    shutil.copytree(tmp_path / "part", tmp_path / "for_jax")
+    rest = ESRNNForecaster(spec, device="cpu")
+    rest.fit(ckpt_dir=str(tmp_path / "part"))
+    assert rest.resumed_from_ == 3
+    assert rest.history_["loss"] == tf.history_["loss"][3:]
+    for (path, a), (_, b) in zip(param_leaves(rest.params_), param_leaves(tf.params_)):
+        assert torch.equal(a, b), path
+    back = jtrainer.train_esrnn(jf.config, data, jtrainer.TrainConfig(
+        batch_size=spec.batch_size, n_steps=STEPS, eval_every=3, ckpt_every=3, seed=spec.seed,
+        lr=spec.rnn_lr, per_series_lr_mult=spec.hw_lr / spec.rnn_lr,
+        ckpt_dir=str(tmp_path / "for_jax")), params=init)
+    assert back["resumed_from"] == 3
+    np.testing.assert_allclose(back["history"]["loss"], tf.history_["loss"][3:], rtol=1e-5)

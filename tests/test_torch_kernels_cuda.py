@@ -36,6 +36,12 @@ as the fp32 K5's (atol 1e-5 * sqrt(B), the same bits on two launches). K5
 in bf16 runs on the tensor cores (``csrc/lstm_cell_bwd_tc.cu``) at every
 preset width, and is held the same way at ragged row counts and on inputs
 whose bases are off 16 bytes; past the presets it runs the templated kernel.
+K5's dx-only launch (no weight gradients, the esn head's frozen reservoir)
+is held to the plain dx-only version within K5's bounds, and to the full
+launch's dx, dh_prev and dc_prev bit for bit (fp32, the templated bf16
+kernel, and the bf16 split plan; past 512 rows in bf16, where the full
+launch takes its cluster plan, within the bf16 bound); an esn train step
+launches it and never the full K5.
 """
 
 import ctypes
@@ -886,3 +892,137 @@ def test_bf16_train_step_launches_only_the_bf16_kernels_on_card(card, sparse):
                 lstm_cell_bwd_bf16=steps)
     assert counts == want
     assert abs(losses["card"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# K5's dx-only launch: dx, dh_prev and dc_prev alone, for a step whose weights
+# need no gradient (the esn head's frozen reservoir)
+
+# the main path's K5 shapes (H = 40): the train step's layers at batch 256
+# and 2,048 (rows = batch x dilation, I = 14 then 40) and the fine-tune's
+# 8 to 64 rows; beside them ragged rows, the other preset widths and the
+# widths past the presets
+_DX_CELLS = ([(b * d, i, 40) for b in (256, 2_048, 8) for d, i in
+              ((1, 14), (2, 40), (4, 40), (8, 40))]
+             + [(rows, in_size, hidden) for in_size, hidden in ((10, 30), (18, 50), (62, 50))
+                for rows in (1, 33, 2_049)]
+             + [(rows, hid, hid) for hid in (64, 128) for rows in (1, 256)] + [(33, 1030, 1030)])
+
+
+def _dx_args(rows, in_size, hidden, bf16, dev):
+    if bf16:
+        wx, wh, x, h, c, c_new, act, dh, dc = _bwd_bf16_args(rows, in_size, hidden,
+                                                             rows + hidden, dev)
+    else:
+        wx, wh, b, x, h, c = _cell_inputs(rows, in_size, hidden, rows + hidden)
+        _, c_new, act = ref.lstm_cell_fwd_ref(wx, wh, b, x, h, c)
+        g = torch.Generator().manual_seed(rows + 1)
+        dh, dc = (torch.randn((rows, hidden), generator=g) for _ in range(2))
+        wx, wh, x, h, c, c_new, act, dh, dc = (a.to(dev) for a in (wx, wh, x, h, c, c_new, act,
+                                                                   dh, dc))
+    return [wx, wh, x, h, c, c_new, act, dh, dc]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,in_size,hidden", _DX_CELLS)
+def test_lstm_cell_bwd_dx_matches_the_full_launch_and_plain_on_card(card, bf16, rows, in_size,
+                                                                    hidden):
+    full_args = _dx_args(rows, in_size, hidden, bf16, card)
+    wx, wh, x, h, c, c_new, act, dh, dc = full_args
+    dx_args = (wx, wh, c, c_new, act, dh, dc)
+    entry, plan = lstm_cell.bwd_dx_launch(*dx_args)
+    full_entry, _ = lstm_cell.bwd_launch(*full_args)
+    assert entry == full_entry.replace("_bwd_", "_bwd_dx_")     # the same kernel, dx-only
+    ops.reset_launch_counts()
+    got = lstm_cell.lstm_cell_bwd_dx(*dx_args)
+    again = lstm_cell.lstm_cell_bwd_dx(*dx_args)
+    counts = ops.launch_counts()
+    suffix = "_bf16" if bf16 else ""
+    assert counts[f"lstm_cell_bwd_dx{suffix}"] == 2 and counts[f"lstm_cell_bwd{suffix}"] == 0
+    for name, a, b in zip(("dx", "dh_prev", "dc_prev"), got, again):
+        assert torch.equal(a, b), f"dx-only K5 {name} differs between two launches"
+    full = lstm_cell.lstm_cell_bwd(*full_args)
+    want = ref.lstm_cell_bwd_dx_ref(*dx_args)
+    for name, g, f, w in zip(("dx", "dh_prev", "dc_prev"), got, full, want):
+        assert g.dtype == c.dtype
+        if bf16:
+            _within_ulp_or_atol(g, w, f"dx-only K5 bf16 {name}")
+        else:
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+        # the full launch's row blocks, or the same per-row sums: its bits
+        # in fp32 and in the bf16 split plan; past 512 rows in bf16 (the
+        # full launch's cluster plan) held to it within the bf16 bound
+        if bf16 and rows > lstm_cell.BWD_TC_SPLIT_ROWS and isinstance(plan, lstm_cell.BwdTcPlan):
+            _within_ulp_or_atol(g, f, f"dx-only K5 bf16 {name} against the full launch")
+        else:
+            assert torch.equal(g, f), f"dx-only K5 {name} differs from the full launch's"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("fault", ["short", "smem", "geometry"])
+def test_lstm_cell_bwd_dx_refuses_a_plan_the_source_does_not_take_on_card(card, monkeypatch,
+                                                                          bf16, fault):
+    # a plan one int short, 4 bytes of shared memory short of the layout, or
+    # a plan with column blocks (fp32) or a cluster (bf16) is refused
+    lstm_cell._kernel_library()
+    name = "bwd_dx_tc_plan" if bf16 else "bwd_dx_plan"
+    real = getattr(lstm_cell, name)
+    faults = dict(smem=lambda p: p._replace(smem=p.smem - 4),
+                  geometry=lambda p: (p._replace(cluster=2, blocks=2 * p.blocks) if bf16
+                                      else p._replace(chunks=1)))
+    if fault == "short":
+        monkeypatch.setattr(lstm_cell, "_plan_ints",
+                            lambda plan: (ctypes.c_int * (len(plan) - 1))(*plan[:-1]))
+    else:
+        monkeypatch.setattr(lstm_cell, name, lambda *a: faults[fault](real(*a)))
+    wx, wh, x, h, c, c_new, act, dh, dc = _dx_args(256, 14, 40, bf16, card)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        lstm_cell.lstm_cell_bwd_dx(wx, wh, c, c_new, act, dh, dc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_esn_train_step_launches_the_dx_only_k5_on_card(card, precision, sparse):
+    from repro_torch.convert import copy_params
+    from repro_torch.core import esrnn
+    from repro_torch.train.engine import make_step_fn, split_frozen
+    from repro_torch.train.optimizer import AdamConfig, adam_init, adam_init_sparse
+
+    cfg = esrnn.make_config("quarterly", head="esn", precision=precision)
+    n, t_len, batch = 64, 40, 16
+    g = torch.Generator().manual_seed(2)
+    y = torch.rand((n, t_len), generator=g) * 100 + 50
+    cats = torch.eye(6)[torch.randint(0, 6, (n,), generator=g)]
+    mask = torch.ones((n, t_len))
+    idx = torch.randperm(n, generator=g)[:batch]
+    params = esrnn.esrnn_init(torch.Generator().manual_seed(0), cfg, n, device="cpu")
+    adam = AdamConfig(lr=1e-3, clip_norm=20.0, group_lr={"per_series": 10.0, "default": 1.0})
+    losses = {}
+    for where in ("cpu", "card"):
+        dev = torch.device("cpu") if where == "cpu" else card
+        p = copy_params(params, dev)
+        trainable = split_frozen(p, {"rnn"})[0]
+        opt = adam_init_sparse(trainable) if sparse else adam_init(trainable)
+        step = make_step_fn(cfg, adam, y.to(dev), cats.to(dev), mask.to(dev), sparse=sparse,
+                            frozen=frozenset({"rnn"}))
+        ops.reset_launch_counts()
+        p, opt, loss = step(p, opt, idx.to(dev))
+        losses[where] = float(loss)
+        if where == "card":
+            counts = ops.launch_counts()
+            for (path, leaf), (_, leaf0) in zip(esrnn.param_leaves(p),
+                                                esrnn.param_leaves(params)):
+                if path[0] == "rnn":
+                    assert torch.equal(leaf.cpu(), leaf0), path
+    positions = t_len - cfg.input_size + 1
+    steps = sum(-(-positions // d) for block in cfg.dilations for d in block)
+    s = "_bf16" if precision == "bf16" else ""
+    want = dict.fromkeys(counts, 0)
+    want.update({f"hw_scan{s}": 1, f"hw_scan_bwd{s}": 1, f"lstm_cell_fwd{s}": steps,
+                 f"lstm_cell_bwd_dx{s}": steps})
+    assert counts == want
+    rtol = 2e-2 if precision == "bf16" else 1e-5
+    assert abs(losses["card"] - losses["cpu"]) <= rtol * abs(losses["cpu"])

@@ -727,3 +727,94 @@ def test_bwd_plan_float32_plans_are_unchanged(in_size, hidden):
         for optin in (H100_SMEM_OPTIN, 166_912, 101_376):
             assert tuple(lstm_cell.bwd_plan(rows, in_size, hidden, optin)) == \
                 _parent_bwd_plan(rows, in_size, hidden, optin), (rows, optin)
+
+
+# ---------------------------------------------------------------------------
+# K5's dx-only launch (no weight gradients): lstm_cell.bwd_dx_plan (fp32, and
+# bf16 past the presets) and lstm_cell.bwd_dx_tc_plan (bf16 on the tensor cores)
+
+# the K5 shapes of the main path: the train step's layers at batch 256 and
+# 2,048 (rows = batch x dilation, I = 14 or 40), up to the largest train
+# shape, and the fine-tune's 8 to 64 rows
+_DX_ROWS = sorted(set(_ROWS + [8 * d for d in (1, 2, 4, 8)] + [256 * d for d in (1, 2, 4, 8)]
+                      + [2048 * d for d in (1, 2, 4, 8)]))
+
+
+@pytest.mark.parametrize("in_size,hidden", _PRESET_WIDTHS + _WIDE_WIDTHS + [(7, 50)])
+def test_bwd_dx_plan_is_the_row_blocks_alone(in_size, hidden):
+    kw = in_size + hidden
+    for rows in _DX_ROWS:
+        for optin in (H100_SMEM_OPTIN, 101_376):
+            full = lstm_cell.bwd_plan(rows, in_size, hidden, optin)
+            p = lstm_cell.bwd_dx_plan(rows, in_size, hidden, optin)
+            # the full launch's row tiles; its k-parts where they already give
+            # BWD_ROW_TARGET blocks, else k cut finer (into kw / BWD_DX_MIN_K
+            # parts at most) for more blocks. Each k sums the units in one order
+            # whatever the parts, so the same dx, dh_prev and dc_prev
+            assert p.tile_rows == full.tile_rows, (rows, optin)
+            tiles = -(-rows // p.tile_rows)
+            if tiles * full.row_kparts >= lstm_cell.BWD_ROW_TARGET:
+                assert p[:5] == full[:5], (rows, optin)
+            else:
+                assert full.row_kparts <= p.row_kparts and p.row_k <= full.row_k
+                assert p.row_kparts <= max(full.row_kparts,
+                                           -(-kw // lstm_cell.BWD_DX_MIN_K)), (rows, optin)
+                assert p.row_blocks == min(tiles * p.row_kparts, lstm_cell.BWD_ROW_BLOCKS)
+                assert p.row_blocks > full.row_blocks or p.row_k == min(kw, full.row_k)
+            # no column blocks, no chunk scratch (chunks 0), no tickets
+            assert (p.col_k, p.col_kparts, p.col_units, p.slices, p.chunks, p.chunk_rows,
+                    p.sub_rows) == (0,) * 7
+            assert p.blocks == p.row_blocks <= lstm_cell.BWD_ROW_BLOCKS
+            # the row blocks' layout, within the opt-in limit and the budget
+            per_unit = 16 * (p.row_k | 1) + 16 * p.tile_rows
+            assert p.smem == p.row_units * per_unit <= min(optin, lstm_cell.BWD_SMEM)
+            assert p.row_k * (p.tile_rows // 4) <= lstm_cell.BWD_THREADS
+            assert p.row_k * p.row_kparts >= kw
+
+
+@pytest.mark.parametrize("in_size,hidden", _BWD_TC_WIDTHS)
+@pytest.mark.parametrize("sm_count", [H100_SMS, 114])
+def test_bwd_dx_tc_plan_is_row_blocks_with_no_cluster(in_size, hidden, sm_count):
+    for rows in _DX_ROWS:
+        p = lstm_cell.bwd_dx_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, sm_count)
+        full = lstm_cell.bwd_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, sm_count)
+        # row blocks at every batch size: no column block, cluster 1, no
+        # chunk of [x | h | 1] (x and h are not read), so no scratch or ticket
+        assert p.row_blocks == p.blocks and p.cluster == 1 and p.col_rows == 0
+        assert (p.copy_x, p.copy_h) == (0, 0)
+        # the staged widths are the full launch's
+        assert p[6:10] == full[6:10]
+        # the row-block layout alone, within the opt-in limit
+        assert p.smem == lstm_cell.bwd_tc_smem(p.m_tiles, in_size, hidden, dx_only=True)
+        assert p.smem <= H100_SMEM_OPTIN
+        # every row in one (block, tile), no block past the batch
+        tile = 16 * p.m_tiles
+        n_tiles = -(-rows // tile)
+        assert p.blocks * p.tiles >= n_tiles > (p.blocks - 1) * p.tiles
+        # at most one tile per SM where a tile of 64 rows allows, else 64-row
+        # tiles; the fewest m-tiles that do so
+        if p.tiles > 1:
+            assert p.m_tiles == 4 and p.blocks <= sm_count
+        else:
+            assert p.blocks <= sm_count or p.m_tiles == 4
+            assert p.m_tiles == 1 or -(-rows // (8 * p.m_tiles)) > sm_count
+
+
+@pytest.mark.parametrize("in_size,hidden", _BWD_TC_WIDTHS + _WIDE_WIDTHS + _WIDE_BWD)
+def test_bwd_dx_tc_plan_takes_the_widths_the_full_launch_takes(in_size, hidden):
+    # a width's dx-only and full bf16 launches run one kernel: the tensor
+    # cores where bwd_tc_plan takes the width, else the templated kernel
+    for rows in (1, 256, 2048, 16384):
+        full = lstm_cell.bwd_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, H100_SMS)
+        p = lstm_cell.bwd_dx_tc_plan(rows, in_size, hidden, H100_SMEM_OPTIN, H100_SMS)
+        assert (p is None) == (full is None), (rows, in_size, hidden)
+
+
+def test_bwd_dx_tc_plan_at_the_main_path_shapes():
+    # (rows, I) -> (m_tiles, tiles, blocks, smem) on an H100 at H = 40
+    for (rows, in_size), want in {
+            (8, 14): (1, 1, 1, 50_880), (64, 40): (1, 1, 4, 57_088),
+            (256, 14): (1, 1, 16, 50_880), (2_048, 40): (1, 1, 128, 57_088),
+            (4_096, 40): (2, 1, 128, 87_296), (16_384, 40): (4, 2, 128, 147_712)}.items():
+        p = lstm_cell.bwd_dx_tc_plan(rows, in_size, 40, H100_SMEM_OPTIN, H100_SMS)
+        assert (p.m_tiles, p.tiles, p.blocks, p.smem) == want, (rows, in_size)

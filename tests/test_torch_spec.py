@@ -4,8 +4,9 @@
   spec's ``to_dict()`` exactly, so a ``forecaster.json`` written by one
   package describes the same forecaster in the other;
 * overrides route by field name (model fields into ``model``), unknown
-  fields and heads raise, and the reference's ``esn``/``ssm`` heads raise
-  until the port has them;
+  fields and heads raise;
+* every head of the reference resolves: ``esn-<freq>``, ``ssm-<freq>`` and
+  ``head=esn|ssm`` on any spec, each to the JAX spec's dict;
 * ``to_dict``/``from_dict`` round-trip across the two packages.
 """
 
@@ -20,8 +21,10 @@ NAMES = tspec.list_specs()
 
 
 def test_registry_lists_the_port_heads():
-    assert NAMES == [n for n in jspec.list_specs() if n.startswith("esrnn-")]
-    assert NAMES == ["esrnn-yearly", "esrnn-quarterly", "esrnn-monthly", "esrnn-hourly"]
+    assert NAMES == jspec.list_specs()
+    assert NAMES[:4] == ["esrnn-yearly", "esrnn-quarterly", "esrnn-monthly", "esrnn-hourly"]
+    assert [n for n in NAMES if n.endswith("-quarterly")] == [
+        "esrnn-quarterly", "esn-quarterly", "ssm-quarterly"]
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -60,13 +63,13 @@ def test_unknown_fields_and_heads_raise():
 
 
 @pytest.mark.parametrize("head", ["esn", "ssm"])
-def test_later_heads_name_their_slice(head):
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tspec.get_spec(f"{head}-quarterly")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tspec.get_spec("esrnn-quarterly", head=head)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tspec.get_smoke_spec("esrnn-monthly").replace(head=head)
+def test_head_overrides_resolve_as_jax(head):
+    by_name = tspec.get_spec(f"{head}-quarterly")
+    assert by_name.model.head == head and by_name.name == f"{head}-quarterly"
+    assert tspec.get_spec("esrnn-quarterly", head=head) == by_name
+    assert by_name.to_dict() == jspec.get_spec("esrnn-quarterly", head=head).to_dict()
+    smoke = tspec.get_smoke_spec("esrnn-monthly").replace(head=head)
+    assert smoke.to_dict() == jspec.get_smoke_spec("esrnn-monthly").replace(head=head).to_dict()
 
 
 @pytest.mark.parametrize("name", NAMES)
