@@ -42,7 +42,19 @@ dx-only launch 124 times each, the full K5 never; the ssm head K1 and K2
 only), esn under bf16, an esn fine-tune server, head_compare's fast cell
 per head against the reference's OWA, and each head's spec through the
 CLI with a resume bit for bit; K5's dx-only launch is also held against
-its plain version and the full K5 in phase ``kernel``. Each phase prints
+its plain version and the full K5 in phase ``kernel``. ``chunked`` then
+drives the out-of-core fit, its per-series table pinned on the host and
+streamed to the card on a copy stream: (a) at M4's quarterly count, 24,000
+series in chunks of 2,048, the streamed fit equal to the fit with the whole
+table on the card bit for bit (fp32, bf16, esn), within TRAIN_RTOL of the
+CPU's, resumed from its row-sharded checkpoint bit for bit, its launches
+counted; (b) 1,000,000 series at full width (the reference's gate size):
+steps/s, the copies' ms per visit and their overlap with the compute
+stream in a profiler trace, a streamed predict, the device peak against
+the same fit at 250,000 series (within 5 %) and against the resident fit,
+and the reference's peak_memory cell beside its 0.175; (c) the CLI with
+``--set series_chunk=2048``, every subcommand from the sharded directory
+against the CPU. Each phase prints
 one JSON line (``heads`` one per part); any failed check raises and the
 script exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
@@ -129,6 +141,31 @@ HEADS_CPU_N = 2048
 HEADS_STEPS, HEADS_BF16_STEPS = 5, 3
 HEADS_OWA_REFERENCE, HEADS_OWA_FACTOR = {"esn": 0.780, "ssm": 0.769}, 1.01
 HEADS_CLI_STEPS, HEADS_CLI_EVERY = 10, 5
+
+# the chunked cell (the out-of-core fit, the quarterly preset at full width).
+# (a) exactness at M4's quarterly count: the train cell's 24,000 series of
+# length 72, batch 256, chunks of 2,048 (12 chunks, the last 1,472 rows), 24
+# steps in supersteps of 4, eval every 12. Schedule seed 1 visits chunks 8,
+# 11 (the ragged tail, 6 steps), 4 and 7; the eval at 12 and the resume at 12
+# land inside the tail's visit (the schedule is checked, not assumed). The
+# bf16 and esn runs take the first 12 steps.
+CHUNK_ROWS, CHUNK_STEPS, CHUNK_SCAN, CHUNK_EVERY, CHUNK_SEED = 2048, 24, 4, 12, 1
+CHUNK_SHORT = 12
+# (b) scale: the reference's 1M-series gate (scripts/million_series_smoke.py)
+# at the preset's width and T = 72: chunks of 65,536, batch 8,192, supersteps
+# of 8, 32 steps (4 visits of 8), the streamed val over all series at the end
+# and a streamed predict; the same fit on the first 250,000 series for the
+# device-memory check (the two peaks within CHUNK_MEM_TOL), and a fit of 16
+# steps under the profiler for the copies' overlap with the compute stream
+SCALE_N, SCALE_SMALL_N, SCALE_CHUNK, SCALE_BATCH, SCALE_SCAN, SCALE_STEPS = (
+    1_000_000, 250_000, 65_536, 8_192, 8, 32)
+SCALE_PROFILE_STEPS, CHUNK_MEM_TOL = 16, 0.05
+# the reference's peak_memory cell (benchmarks/memory_footprint.py --fast):
+# N = 8,192, chunks of 1,024, batch 256, 12 steps in supersteps of 4, hidden
+# 8, T = 24, live device bytes sampled at every superstep boundary; its
+# chunked/resident ratio (BENCH_PR10.json peak_memory, JAX on the CPU)
+REF_MEM_N, REF_MEM_CHUNK, REF_MEM_BATCH, REF_MEM_STEPS, REF_MEM_HIDDEN = 8192, 1024, 256, 12, 8
+REF_MEM_RATIO = 0.175
 
 # tolerances, with their reasons:
 # K1 runs the plain version's operations in the same order with IEEE
@@ -1562,6 +1599,52 @@ def _predict_eval(name, out_dir, cpu, card):
     return errs, scores, eval_err, dict(predict=predict_s, eval=eval_s)
 
 
+def _backtest_serve_observe(name, out_dir, cpu, dev, errs):
+    """``backtest``, ``serve`` (both engines, EST_REQUESTS x EST_WAVES) and
+    ``observe`` (EST_OBSERVE) through the CLI on the card from the saved
+    ``out_dir``, against ``cpu`` (it loaded on the CPU) and the CLI's
+    ``observe`` on the CPU: forecasts within FC_RTOL / FC_ATOL (into
+    ``errs``), backtest scores within rtol 1e-4. The backtest, its largest
+    relative score error, its CLI seconds, the serve records and the card's
+    observe replies."""
+    import torch
+
+    card = ("--device", str(dev))
+    text, backtest_s = forecast_cli("backtest", "--dir", out_dir, "--json", *card)
+    bt, want_bt = _last_json(text), cpu.backtest()
+    errs["backtest"] = check_close(f"{name} backtest forecasts", torch.tensor(bt["forecasts"]),
+                                   torch.from_numpy(want_bt["forecasts"]),
+                                   rtol=FC_RTOL, atol=FC_ATOL)
+    bt_err = max(_check_scores(f"{name} backtest origin {w.get('origin', 'overall')}", g, w,
+                               ("smape", "mase"), 1e-4)
+                 for g, w in zip(bt["per_origin"] + [bt], want_bt["per_origin"] + [want_bt]))
+    serve = {}
+    for engine in ("continuous", "batch"):
+        text, seconds = forecast_cli("serve", "--dir", out_dir, "--engine", engine,
+                                     "--requests", str(EST_REQUESTS), "--waves",
+                                     str(EST_WAVES), *card)
+        m = re.search(r"served (\d+) requests .*?: (\d+) series/s wall \((\d+) req/s", text)
+        if not m or int(m.group(1)) != EST_REQUESTS * EST_WAVES:
+            raise AssertionError(f"{name} serve {engine}: {text}")
+        serve[engine] = dict(requests=int(m.group(1)), series_per_s_wall=int(m.group(2)),
+                             requests_per_s_dispatch=int(m.group(3)), cli_s=seconds,
+                             output=text.strip().splitlines())
+    observed = {}
+    for where in (str(dev), "cpu"):
+        text, _ = forecast_cli("observe", "--dir", out_dir, "--device", where,
+                               stdin=EST_OBSERVE)
+        observed[where] = [json.loads(line) for line in text.strip().splitlines()]
+    card_obs, cpu_obs = observed[str(dev)], observed["cpu"]
+    if len(card_obs) != len(EST_OBSERVE) or card_obs[0].get("ok") is not True \
+            or card_obs[2].get("observes") != 1:
+        raise AssertionError(f"{name} observe: {card_obs}")
+    errs["observe"] = check_close(f"{name} observe forecast",
+                                  torch.tensor(card_obs[1]["forecast"]),
+                                  torch.tensor(cpu_obs[1]["forecast"]),
+                                  rtol=FC_RTOL, atol=FC_ATOL)
+    return bt, bt_err, backtest_s, serve, card_obs
+
+
 def run_estimator(dev, tmp):
     """The user surface at full width, fp32, on the card against the CPU.
 
@@ -1617,37 +1700,8 @@ def run_estimator(dev, tmp):
     cpu = ESRNNForecaster.load(out_dir, device="cpu")
     cpu.data_ = data
     errs, scores, eval_err, cli_s = _predict_eval("estimator", out_dir, cpu, card)
-    text, backtest_s = forecast_cli("backtest", "--dir", out_dir, "--json", *card)
-    bt, want_bt = _last_json(text), cpu.backtest()
-    errs["backtest"] = check_close("backtest forecasts", torch.tensor(bt["forecasts"]),
-                                   torch.from_numpy(want_bt["forecasts"]),
-                                   rtol=FC_RTOL, atol=FC_ATOL)
-    bt_err = max(_check_scores(f"backtest origin {w.get('origin', 'overall')}", g, w,
-                               ("smape", "mase"), 1e-4)
-                 for g, w in zip(bt["per_origin"] + [bt], want_bt["per_origin"] + [want_bt]))
-    serve = {}
-    for engine in ("continuous", "batch"):
-        text, seconds = forecast_cli("serve", "--dir", out_dir, "--engine", engine,
-                                     "--requests", str(EST_REQUESTS), "--waves",
-                                     str(EST_WAVES), *card)
-        m = re.search(r"served (\d+) requests .*?: (\d+) series/s wall \((\d+) req/s", text)
-        if not m or int(m.group(1)) != EST_REQUESTS * EST_WAVES:
-            raise AssertionError(f"serve {engine}: {text}")
-        serve[engine] = dict(requests=int(m.group(1)), series_per_s_wall=int(m.group(2)),
-                             requests_per_s_dispatch=int(m.group(3)), cli_s=seconds,
-                             output=text.strip().splitlines())
-    observed = {}
-    for where in (str(dev), "cpu"):
-        text, _ = forecast_cli("observe", "--dir", out_dir, "--device", where,
-                               stdin=EST_OBSERVE)
-        observed[where] = [json.loads(line) for line in text.strip().splitlines()]
-    card_obs, cpu_obs = observed[str(dev)], observed["cpu"]
-    if len(card_obs) != len(EST_OBSERVE) or card_obs[0].get("ok") is not True \
-            or card_obs[2].get("observes") != 1:
-        raise AssertionError(f"observe: {card_obs}")
-    errs["observe"] = check_close("observe forecast", torch.tensor(card_obs[1]["forecast"]),
-                                  torch.tensor(cpu_obs[1]["forecast"]),
-                                  rtol=FC_RTOL, atol=FC_ATOL)
+    bt, bt_err, backtest_s, serve, card_obs = _backtest_serve_observe(
+        "estimator", out_dir, cpu, dev, errs)
 
     # timings of the estimator's own calls on the card, at the phase's N
     t0 = time.perf_counter()
@@ -1891,6 +1945,459 @@ def run_head_cli(head, dev, tmp):
                 losses=fit["loss"], val_smape=fit["val_smape"], cli_fit_s=fit_s,
                 fit_steps_per_s=1.0 / step_s, resume=resume, predict_max_abs_err=errs,
                 eval=scores, eval_max_rel_err=eval_err, cli_s=cli_s)
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: the out-of-core chunked fit (the table pinned on the host and
+# streamed to the card on a copy stream), chunked predict, eval, backtest
+# ---------------------------------------------------------------------------
+
+
+def _launch_diff(before):
+    from repro_torch.kernels import ops
+
+    return {k: v - before[k] for k, v in ops.launch_counts().items()}
+
+
+def _fit_state(out):
+    """Params, then moments, ``t_hw`` and the step count, as host tensors."""
+    import torch
+
+    from repro_torch.core.esrnn import param_leaves
+
+    opt = out["opt_state"]
+    return ([t.detach().cpu() for _, t in param_leaves(out["params"])]
+            + [t.detach().cpu() for t in opt["mu"] + opt["nu"]]
+            + [opt["t_hw"].cpu(), torch.tensor(opt["step"])])
+
+
+def _same_fits(what, a, b):
+    """Two fits equal bit for bit: per-step losses and every state leaf."""
+    import torch
+
+    diff = max(abs(x - y) for x, y in zip(a["history"]["loss"], b["history"]["loss"],
+                                          strict=True))
+    leaves = [i for i, (x, y) in enumerate(zip(_fit_state(a), _fit_state(b), strict=True))
+              if not torch.equal(x, y)]
+    if diff != 0.0 or leaves:
+        raise AssertionError(f"{what}: loss absdiff {diff}, state leaves differing {leaves}")
+    return diff
+
+
+def _chunk_fit(cfg, data, device, steps, **kw):
+    """``train_esrnn`` with the chunked cell's settings: ``(out, seconds)``."""
+    import torch
+
+    from repro_torch.train.trainer import TrainConfig, train_esrnn
+
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, n_steps=steps, scan_steps=CHUNK_SCAN,
+                       series_chunk=CHUNK_ROWS, eval_every=CHUNK_EVERY, ckpt_every=1000,
+                       seed=CHUNK_SEED, straggler_factor=float("inf"), **kw)
+    t0 = time.perf_counter()
+    out = train_esrnn(cfg, data, tcfg, device=device, generator=torch.Generator().manual_seed(0))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_chunked_exact(cfg, data, dev, tmp):
+    """(a) The streamed fit at M4's quarterly count, fp32: on the card
+    against the ``chunk_resident`` fit on the card (losses, params and
+    optimizer state bit for bit, val sMAPE rtol 1e-5) and against the
+    streamed fit on the CPU (losses and val sMAPE within TRAIN_RTOL); its
+    launches K1 once a step and once a chunk of each streamed eval, K2 once
+    a step, K4 and K5 once a cell step, K3 once a cell step of each eval
+    chunk; stopped at 12 and resumed from the row-sharded checkpoint, equal
+    to the unbroken run bit for bit. Then 12 bf16 steps (streamed equal to
+    chunk_resident bit for bit, losses within TRAIN16_VS_FP32_RTOL of the
+    fp32 run's) and 12 esn steps (streamed equal to chunk_resident; K5's
+    dx-only launch once a cell step, the full K5 never; the reservoir
+    bit-identical to the init's)."""
+    import torch
+
+    from repro_torch.core.esrnn import esrnn_init, make_config, param_leaves
+    from repro_torch.data.pipeline import chunk_layout, chunk_visit_plan
+    from repro_torch.kernels import ops
+
+    n = data.n_series
+    per_chunk, _ = chunk_layout(n, CHUNK_ROWS, TRAIN_BATCH)
+    visits = list(chunk_visit_plan(n, CHUNK_ROWS, TRAIN_BATCH, 0, CHUNK_STEPS, seed=CHUNK_SEED))
+    tail = len(per_chunk) - 1
+    if len(visits) < 3 or tail not in [v.chunk_id for v in visits]:
+        raise AssertionError(f"the chunked schedule misses the ragged tail: {visits}")
+    cells = forecast_steps(cfg, TRAIN_T)
+
+    before = ops.launch_counts()
+    stream, stream_s = _chunk_fit(cfg, data, dev, CHUNK_STEPS)
+    launches = _launch_diff(before)
+    evals = len(stream["history"]["val_smape"])
+    want = dict.fromkeys(launches, 0)
+    want.update(hw_scan=CHUNK_STEPS + evals * len(per_chunk), hw_scan_bwd=CHUNK_STEPS,
+                lstm_cell_fwd=CHUNK_STEPS * cells, lstm_cell_bwd=CHUNK_STEPS * cells,
+                lstm_cell=evals * len(per_chunk) * cells)
+    if launches != want:
+        raise AssertionError(f"the streamed fit launched {launches}, want {want}")
+    losses = torch.tensor(stream["history"]["loss"], dtype=torch.float64)
+    if len(losses) != CHUNK_STEPS or not torch.isfinite(losses).all():
+        raise AssertionError(f"streamed fit losses {stream['history']['loss']}")
+    if not stream["params"]["hw"].alpha_logit.is_pinned():
+        raise AssertionError("the streamed fit's table is not in pinned memory")
+    resident, resident_s = _chunk_fit(cfg, data, dev, CHUNK_STEPS, chunk_resident=True)
+    _same_fits("streamed vs chunk_resident (fp32)", stream, resident)
+    vs = lambda out: torch.tensor([v for _, v in out["history"]["val_smape"]], dtype=torch.float64)
+    check_close("streamed vs chunk_resident val sMAPE", vs(stream), vs(resident),
+                rtol=1e-5, atol=0.0)
+    cpu, cpu_s = _chunk_fit(cfg, data, "cpu", CHUNK_STEPS)
+    check_close("streamed card vs CPU losses", losses,
+                torch.tensor(cpu["history"]["loss"], dtype=torch.float64),
+                rtol=TRAIN_RTOL, atol=0.0)
+    check_close("streamed card vs CPU val sMAPE", vs(stream), vs(cpu), rtol=TRAIN_RTOL,
+                atol=0.0)
+
+    ckpt = str(Path(tmp) / "chunked_ckpt")
+    part, _ = _chunk_fit(cfg, data, dev, CHUNK_EVERY, ckpt_dir=ckpt)
+    shards = sorted(f for f in Path(ckpt, f"step_{CHUNK_EVERY}").iterdir()
+                    if ".shard_" in f.name)
+    if not shards:
+        raise AssertionError(f"no row-sharded table files in {ckpt}")
+    rest, _ = _chunk_fit(cfg, data, dev, CHUNK_STEPS, ckpt_dir=ckpt)
+    if rest["resumed_from"] != CHUNK_EVERY:
+        raise AssertionError(f"resumed from {rest['resumed_from']}")
+    joined = dict(rest, history=dict(rest["history"],
+                                     loss=part["history"]["loss"] + rest["history"]["loss"]))
+    resume_diff = _same_fits("resumed vs unbroken", joined, stream)
+
+    cfg16 = dataclasses.replace(cfg, precision="bf16")
+    s16, _ = _chunk_fit(cfg16, data, dev, CHUNK_SHORT)
+    r16, _ = _chunk_fit(cfg16, data, dev, CHUNK_SHORT, chunk_resident=True)
+    _same_fits("streamed vs chunk_resident (bf16)", s16, r16)
+    err16 = check_close("bf16 streamed vs fp32 streamed losses",
+                        torch.tensor(s16["history"]["loss"], dtype=torch.float64),
+                        losses[:CHUNK_SHORT], rtol=TRAIN16_VS_FP32_RTOL, atol=0.0)
+
+    cfg_esn = make_config("quarterly", head="esn")
+    before = ops.launch_counts()
+    esn, _ = _chunk_fit(cfg_esn, data, dev, CHUNK_SHORT)
+    esn_launches = _launch_diff(before)
+    if (esn_launches["lstm_cell_bwd_dx"] != CHUNK_SHORT * cells
+            or esn_launches["lstm_cell_bwd"] or esn_launches["lstm_cell_bwd_bf16"]):
+        raise AssertionError(f"the esn chunked fit launched {esn_launches}")
+    esn_res, _ = _chunk_fit(cfg_esn, data, dev, CHUNK_SHORT, chunk_resident=True)
+    _same_fits("streamed vs chunk_resident (esn)", esn, esn_res)
+    init = esrnn_init(torch.Generator().manual_seed(0), cfg_esn, 1, device="cpu")
+    reservoir = [(p, t) for p, t in param_leaves(esn["params"]) if p[0] == "rnn"]
+    moved = [p for (p, t), (_, t0) in zip(reservoir, [lf for lf in param_leaves(init)
+                                                       if lf[0][0] == "rnn"])
+             if not torch.equal(t.detach().cpu(), t0)]
+    if not reservoir or moved:
+        raise AssertionError(f"esn reservoir leaves moved in the chunked fit: {moved}")
+
+    return dict(
+        N=n, T=TRAIN_T, batch=TRAIN_BATCH, series_chunk=CHUNK_ROWS, chunks=len(per_chunk),
+        tail_rows=per_chunk[-1][1] - per_chunk[-1][0], steps=CHUNK_STEPS, scan_steps=CHUNK_SCAN,
+        seed=CHUNK_SEED, visits=[(v.chunk_id, v.n_steps) for v in visits],
+        launches=launches, losses=stream["history"]["loss"],
+        val_smape=stream["history"]["val_smape"],
+        resident_val_smape=resident["history"]["val_smape"],
+        cpu_val_smape=cpu["history"]["val_smape"],
+        max_rel_loss_err_vs_cpu=max_rel(losses, torch.tensor(cpu["history"]["loss"],
+                                                             dtype=torch.float64)),
+        loss_absdiff_vs_chunk_resident=0.0, resume=dict(resumed_from=CHUNK_EVERY,
+                                                        loss_absdiff=resume_diff,
+                                                        shard_files=len(shards)),
+        h2d_per_visit=stream["history"].get("h2d"),
+        wall_s=dict(streamed=stream_s, chunk_resident=resident_s, cpu=cpu_s),
+        bf16=dict(steps=CHUNK_SHORT, loss_absdiff_vs_chunk_resident=0.0,
+                  max_rel_vs_fp32=max_rel(torch.tensor(s16["history"]["loss"],
+                                                       dtype=torch.float64),
+                                          losses[:CHUNK_SHORT]), err=err16),
+        esn=dict(steps=CHUNK_SHORT, loss_absdiff_vs_chunk_resident=0.0,
+                 launches={k: v for k, v in esn_launches.items() if v},
+                 reservoir_leaves=len(reservoir), reservoir_bit_identical=True))
+
+
+def _first_series(data, n):
+    """``data`` cut to its first ``n`` series."""
+    return dataclasses.replace(data, **{
+        f.name: getattr(data, f.name)[:n] for f in dataclasses.fields(data)
+        if isinstance(getattr(data, f.name), np.ndarray)})
+
+
+def _host_rss_mb():
+    """The process's resident set now and at its peak, in MB."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        now = next(int(line.split()[1]) for line in f if line.startswith("VmRSS:"))
+    return now / 1024, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def _scale_fit(cfg, data, dev, steps, allow_oom=False, **kw):
+    """One fit of the scale cell, with the device peak above the memory in
+    use before it (``max_memory_allocated``), the peak sampled at every
+    superstep boundary up to the last one before the final eval, and the
+    boundaries' wall clock. With ``allow_oom`` a fit that runs out of device
+    memory returns ``None`` and the record so far, the error in it."""
+    import torch
+
+    from repro_torch.train.trainer import TrainConfig, train_esrnn
+
+    tcfg = TrainConfig(batch_size=SCALE_BATCH, n_steps=steps, scan_steps=SCALE_SCAN,
+                       eval_every=steps, ckpt_every=10**9, seed=0,
+                       straggler_factor=float("inf"), **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stamps, peaks = [], []
+
+    def on_step(last, losses, params):
+        stamps.append((last + 1, time.perf_counter()))
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+
+    t0 = time.perf_counter()
+    try:
+        out = train_esrnn(cfg, data, tcfg, device=dev, hooks={"on_step": on_step},
+                          generator=torch.Generator().manual_seed(0))
+        error = None
+    except torch.cuda.OutOfMemoryError as e:
+        if not allow_oom:
+            raise
+        out, error = None, str(e).splitlines()[0]
+    torch.cuda.synchronize()
+    before_eval = peaks if error else peaks[:-1]     # the last boundary ran the eval
+    rec = dict(wall_s=time.perf_counter() - t0,
+               peak_bytes=None if error else torch.cuda.max_memory_allocated() - base,
+               peak_bytes_before_final_eval=before_eval[-1] if before_eval else None,
+               boundaries=stamps)
+    if error:
+        rec["out_of_memory"] = error
+    return out, rec
+
+
+def _h2d_overlap(trace_path):
+    """From a profiler trace: the device time of the host-to-device copies
+    that ran on another stream than the compute stream (the stream with
+    the most kernels), the share of it during which a kernel ran on the
+    compute stream, and the compute stream's busy share over the trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels.setdefault(e["args"].get("stream"), []).append((e["ts"], e["ts"] + e["dur"]))
+    if not kernels:
+        return dict(error="no kernel events in the trace")
+    compute = max(kernels, key=lambda k: len(kernels[k]))
+    merged = []
+    for a, b in sorted(kernels[compute]):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    copies = [(e["ts"], e["ts"] + e["dur"], e["args"].get("stream")) for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    side = [(a, b) for a, b, st in copies if st != compute]
+    total = sum(b - a for a, b in side)
+    covered = sum(max(0.0, min(b, kb) - max(a, ka)) for a, b in side for ka, kb in merged)
+    busy = sum(b - a for a, b in merged)
+    span = max(b for _, b in merged) - min(a for a, _ in merged)
+    return dict(copies=len(side), kernel_streams=sorted(kernels),
+                copy_streams=sorted({st for _, _, st in copies if st != compute}),
+                compute_stream=compute, h2d_ms=total / 1e3, window_ms=span / 1e3,
+                h2d_overlapped_share=covered / total if total else None,
+                compute_busy_share=busy / span if span else None,
+                compute_stream_h2d_copies=sum(1 for *_, st in copies if st == compute))
+
+
+def run_chunked_scale(dev, tmp):
+    """(b) The scale cell: the streamed fit of SCALE_N series at the preset's
+    width (losses finite, the table pinned), its steps/s between the first
+    and the third visit's ends, the copies' device ms per visit, the
+    streamed predict of SCALE_N x 8 (finite); the device peak of the same
+    fit on SCALE_SMALL_N series within CHUNK_MEM_TOL of it; the resident
+    sparse fit's peak at SCALE_N (or its out-of-memory error); host RSS; and
+    a 16-step streamed fit under ``torch.profiler``, read for the copies'
+    overlap with the compute stream."""
+    import torch
+
+    from repro_torch.core.esrnn import make_config
+    from repro_torch.data.pipeline import synthetic_prepared
+    from repro_torch.forecast import ESRNNForecaster, get_spec
+
+    cfg = make_config("quarterly")
+    t0 = time.perf_counter()
+    data = synthetic_prepared(SCALE_N, series_length=TRAIN_T)
+    data_s = time.perf_counter() - t0
+    big, big_rec = _scale_fit(cfg, data, dev, SCALE_STEPS, series_chunk=SCALE_CHUNK)
+    losses = big["history"]["loss"]
+    if len(losses) != SCALE_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"the {SCALE_N}-series chunked fit: losses {losses}")
+    table = [big["params"]["hw"].alpha_logit, big["params"]["hw"].init_seas_logit,
+             big["opt_state"]["t_hw"]]
+    table += [m for m in big["opt_state"]["mu"] if m.device.type == "cpu"]
+    if not all(t.device.type == "cpu" and t.is_pinned() for t in table):
+        raise AssertionError("the fitted host table is not pinned")
+    (s1, t1), (s3, t3) = big_rec["boundaries"][0], big_rec["boundaries"][2]
+    steps_per_s = (s3 - s1) / (t3 - t1)
+    rss_fit = _host_rss_mb()
+
+    spec = get_spec("esrnn-quarterly", series_chunk=SCALE_CHUNK)
+    f = ESRNNForecaster(spec, device=dev)
+    f.params_, f.n_series_, f.data_, f.cats_ = big["params"], SCALE_N, data, data.cats
+    fc = f.predict()
+    if fc.shape != (SCALE_N, cfg.output_size) or not np.isfinite(fc).all():
+        raise AssertionError(f"the streamed predict: {fc.shape}, finite {np.isfinite(fc).all()}")
+    predict_ms = _timed_ms(f.predict, reps=2)
+    del f, fc
+
+    small, small_rec = _scale_fit(cfg, _first_series(data, SCALE_SMALL_N), dev, SCALE_STEPS,
+                                  series_chunk=SCALE_CHUNK)
+    del small
+    mem_ratio = big_rec["peak_bytes"] / small_rec["peak_bytes"]
+    if abs(mem_ratio - 1.0) > CHUNK_MEM_TOL:
+        raise AssertionError(f"the chunked fit's device peak at {SCALE_N} series is "
+                             f"{mem_ratio:.4f} x its peak at {SCALE_SMALL_N}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    trace = str(Path(tmp) / "chunked_trace.json")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _scale_fit(cfg, data, dev, SCALE_PROFILE_STEPS, series_chunk=SCALE_CHUNK)
+    prof.export_chrome_trace(trace)
+    overlap = _h2d_overlap(trace)
+    del prof
+    if len(overlap.get("kernel_streams", [None])) != 1:
+        raise AssertionError(f"the chunked fit launched kernels on several streams: {overlap}")
+
+    torch.cuda.empty_cache()
+    resident, res_rec = _scale_fit(cfg, data, dev, SCALE_STEPS, allow_oom=True,
+                                   sparse_adam=True)
+    del resident
+    resident_peak = {k: v for k, v in res_rec.items() if k != "boundaries"}
+    torch.cuda.empty_cache()
+    rss_end = _host_rss_mb()
+    ratio = (big_rec["peak_bytes"] / resident_peak["peak_bytes"]
+             if resident_peak["peak_bytes"] else None)
+    ratio_train = (big_rec["peak_bytes_before_final_eval"]
+                   / resident_peak["peak_bytes_before_final_eval"]
+                   if resident_peak.get("peak_bytes_before_final_eval") else None)
+    strip = lambda rec: {k: v for k, v in rec.items() if k != "boundaries"}
+    return dict(
+        N=SCALE_N, T=TRAIN_T, hidden=cfg.hidden_size, batch=SCALE_BATCH,
+        series_chunk=SCALE_CHUNK, scan_steps=SCALE_SCAN, steps=SCALE_STEPS,
+        data_s=data_s, losses=losses, val_smape=big["history"]["val_smape"],
+        fit=strip(big_rec), fit_steps_per_s=steps_per_s,
+        h2d_per_visit=big["history"].get("h2d"),
+        h2d_mb_per_visit=_visit_bytes(cfg, SCALE_CHUNK, TRAIN_T) / 1e6,
+        predict=dict(shape=[SCALE_N, cfg.output_size], ms=predict_ms),
+        table_pinned=True, host_rss_mb=dict(after_fit=rss_fit, end=rss_end),
+        memory=dict(chunked_peak_mb=big_rec["peak_bytes"] / 2**20,
+                    chunked_small_n=SCALE_SMALL_N,
+                    chunked_small_peak_mb=small_rec["peak_bytes"] / 2**20,
+                    peak_ratio_n_vs_small_n=mem_ratio, tolerance=CHUNK_MEM_TOL,
+                    resident=resident_peak, chunked_vs_resident=ratio,
+                    chunked_vs_resident_before_final_eval=ratio_train),
+        profile=dict(steps=SCALE_PROFILE_STEPS, **overlap))
+
+
+def _visit_bytes(cfg, rows, t_len):
+    """Bytes one visit copies to the card: the HW rows, their two moments
+    and clocks, y, mask and the one-hots, float32 (clocks int32)."""
+    hw = 2 + max(cfg.seasonality, 1)
+    return rows * 4 * (3 * hw + 1 + 2 * t_len + cfg.n_categories)
+
+
+def run_chunked_memory_reference(dev):
+    """(b) The reference's peak_memory cell: the resident sparse fit and the
+    streamed fit, live device bytes (``memory_allocated`` above the memory
+    in use before the fit) sampled at every superstep boundary; the
+    chunked/resident ratio beside the reference's (reported, not gated)."""
+    import torch
+
+    from repro_torch.core.esrnn import make_config
+    from repro_torch.data.pipeline import synthetic_prepared
+    from repro_torch.train.trainer import TrainConfig, train_esrnn
+
+    cfg = make_config("quarterly", hidden_size=REF_MEM_HIDDEN)
+    data = synthetic_prepared(REF_MEM_N, seasonality=cfg.seasonality,
+                              horizon=cfg.output_size, series_length=24)
+    out = {}
+    for name, chunk in (("resident", 0), ("chunked", REF_MEM_CHUNK)):
+        tcfg = TrainConfig(batch_size=REF_MEM_BATCH, n_steps=REF_MEM_STEPS, scan_steps=4,
+                           sparse_adam=True, series_chunk=chunk, eval_every=10**9,
+                           ckpt_every=10**9)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        peak = [0]
+
+        def on_step(last, losses, params):
+            peak[0] = max(peak[0], torch.cuda.memory_allocated() - base)
+
+        fit = train_esrnn(cfg, data, tcfg, device=dev, hooks={"on_step": on_step},
+                          generator=torch.Generator().manual_seed(0))
+        out[name] = dict(peak_live_bytes=peak[0], final_loss=fit["history"]["loss"][-1])
+        del fit
+    return dict(N=REF_MEM_N, series_chunk=REF_MEM_CHUNK, batch=REF_MEM_BATCH,
+                steps=REF_MEM_STEPS, hidden=REF_MEM_HIDDEN, T=24, **out,
+                ratio_chunked_vs_resident=out["chunked"]["peak_live_bytes"]
+                / out["resident"]["peak_live_bytes"],
+                reference_ratio=REF_MEM_RATIO,
+                reference_of="JAX on the CPU, BENCH_PR10.json peak_memory")
+
+
+def run_chunked_cli(dev, tmp):
+    """(c) ``esrnn-quarterly`` at ``data_scale=1.0`` through the CLI with
+    ``--set series_chunk=2048``: a 20-step ``fit`` (eval and checkpoints
+    every 10) that logs "streaming chunked fit" and leaves row-sharded
+    table files in its checkpoint directory; ``predict --quantiles``,
+    ``eval``, ``backtest``, ``serve`` (both engines) and ``observe`` from
+    the saved directory on the card against it loaded on the CPU (its
+    table on the host, the verbs streamed there too), rtol 1e-4 / atol
+    1e-5, scores rtol 1e-4."""
+    import logging
+
+    from repro_torch.forecast import ESRNNForecaster
+
+    sets = EST_SETS + (f"series_chunk={CHUNK_ROWS}",)
+    ckpt, out_dir = (str(Path(tmp) / n) for n in ("cli_chunked_ckpt", "cli_chunked_fq"))
+    card = ("--device", str(dev))
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: records.append(rec.getMessage())
+    logger = logging.getLogger("repro_torch.train")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        text, fit_s = forecast_cli("fit", "--spec", EST_SPEC, "--steps", str(EST_STEPS),
+                                   *_sets(sets), "--ckpt-dir", ckpt, "--out-dir", out_dir,
+                                   "--json", *card)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    fit = _last_json(text)
+    if len(fit["loss"]) != EST_STEPS or not np.isfinite(fit["loss"]).all():
+        raise AssertionError(f"chunked CLI fit: losses {fit['loss']}")
+    if not any("streaming chunked fit" in m for m in records):
+        raise AssertionError(f"the chunked CLI fit did not stream: {records}")
+    shards = [p.name for p in Path(ckpt, f"step_{EST_STEPS}").iterdir()
+              if p.name.startswith("leaf_") and ".shard_" in p.name]
+    if not shards:
+        raise AssertionError(f"no leaf_*.shard_*.bin in {ckpt}/step_{EST_STEPS}")
+    cpu = ESRNNForecaster.load(out_dir, device="cpu")
+    if cpu.spec.series_chunk != CHUNK_ROWS or cpu.n_series_ <= CHUNK_ROWS:
+        raise AssertionError(f"saved spec series_chunk {cpu.spec.series_chunk}, "
+                             f"{cpu.n_series_} series")
+    cpu.data_ = cpu.make_data()
+    errs, scores, eval_err, cli_s = _predict_eval("chunked CLI", out_dir, cpu, card)
+    bt, bt_err, backtest_s, serve, card_obs = _backtest_serve_observe(
+        "chunked CLI", out_dir, cpu, dev, errs)
+    return dict(spec=EST_SPEC, sets=list(sets), n_series=fit["n_series"], steps=EST_STEPS,
+                losses=fit["loss"], val_smape=fit["val_smape"], cli_fit_s=fit_s,
+                shard_files=len(shards), max_abs_err=errs, eval=scores,
+                eval_max_rel_err=eval_err, backtest_max_rel_err=bt_err,
+                backtest=dict(per_origin=bt["per_origin"], smape=bt["smape"], mase=bt["mase"]),
+                cli_s=dict(cli_s, backtest=backtest_s), serve=serve, observe=card_obs)
 
 
 # ---------------------------------------------------------------------------
@@ -2437,6 +2944,25 @@ def main() -> int:
                 lambda: run_head_cli(head, dev, tmp))
             head_launches(head, f"the {head} CLI", cli_launches)
             emit(dict(phase="heads", part="cli", card=smi, launches=cli_launches, **rec))
+    torch.cuda.empty_cache()
+
+    # phase 6e: the out-of-core chunked fit and the chunked verbs. K1, K2,
+    # K4 and K5 in every chunk step, K1 and K3 in the streamed eval and
+    # predict; the table pinned on the host, copied on a copy stream
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chunked_") as tmp:
+        exact, exact_launches = counted(train_kernels + ("lstm_cell",), "the chunked fit",
+                                        lambda: run_chunked_exact(cfg, data, dev, tmp))
+        emit(dict(phase="chunked", part="exact", card=smi, phase_launches=exact_launches,
+                  **exact))
+        scale, scale_launches = counted(train_kernels + ("lstm_cell",), "the chunked scale cell",
+                                        lambda: run_chunked_scale(dev, tmp))
+        emit(dict(phase="chunked", part="scale", card=smi, launches=scale_launches, **scale))
+        memref, _ = counted(train_kernels, "the peak_memory cell",
+                            lambda: run_chunked_memory_reference(dev))
+        emit(dict(phase="chunked", part="memory_reference", card=smi, **memref))
+        cli_rec, cli_launches = counted(train_kernels + ("lstm_cell",), "the chunked CLI",
+                                        lambda: run_chunked_cli(dev, tmp))
+        emit(dict(phase="chunked", part="cli", card=smi, launches=cli_launches, **cli_rec))
     torch.cuda.empty_cache()
 
     # phase 7: the LM serving path. Card against CPU at full width, two

@@ -55,7 +55,7 @@ from torch import nn
 from repro_torch.core.esrnn import param_leaves
 from repro_torch.core.holt_winters import HWParams
 
-__all__ = ["Checkpointer", "treedef_token", "flatten_with_path"]
+__all__ = ["Checkpointer", "treedef_token", "flatten_with_path", "is_table_path"]
 
 _DTYPES = (torch.float32, torch.int32)
 _NP_DTYPES = {"float32": torch.float32, "int32": torch.int32}
@@ -186,7 +186,7 @@ def _to_numpy(leaf, index: int) -> np.ndarray:
     return leaf.detach().cpu().contiguous().numpy()
 
 
-def _is_table_path(path) -> bool:
+def is_table_path(path) -> bool:
     """True for leaves of the per-series state: HW rows, moments, clocks."""
     return any(k in ("hw", "t_hw") for k in path)
 
@@ -262,7 +262,7 @@ class Checkpointer:
         for i, (tpath, leaf) in enumerate(flat):
             arr = _to_numpy(leaf, i)
             entry = {"index": i, "shape": list(arr.shape), "dtype": str(arr.dtype)}
-            if (shard_rows and _is_table_path(tpath) and arr.ndim
+            if (shard_rows and is_table_path(tpath) and arr.ndim
                     and arr.shape[0] > shard_rows):
                 n = arr.shape[0]
                 bounds = [(lo, min(lo + shard_rows, n))
@@ -342,8 +342,9 @@ class Checkpointer:
         Each tensor leaf lands on its template leaf's device as a new,
         writable tensor (the template is not touched); the step count comes
         back as an int. ``host_paths``: an optional predicate over leaf paths
-        (:func:`flatten_with_path`); the leaves it accepts come back as
-        writable numpy arrays instead. Row-sharded table leaves are
+        (:func:`flatten_with_path`, e.g. :func:`is_table_path`); the leaves
+        it accepts come back as writable numpy arrays that own their memory
+        instead (a table pins copies of them). Row-sharded table leaves are
         reassembled, so either save layout restores.
         """
         if step is None:

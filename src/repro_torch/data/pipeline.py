@@ -11,16 +11,15 @@
   support via left-padding + masks; `equalize` remains the faithful default.
 
 A numpy copy of ``repro.data.pipeline`` for the port (which imports nothing
-of the JAX package): the same arrays and the same stateless schedule, bit
-for bit. The chunk-major schedule of the out-of-core fit comes with the
-chunked-fit slice.
+of the JAX package): the same arrays, the same stateless schedule and the
+same chunk-major schedule of the out-of-core fit, bit for bit.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -206,7 +205,7 @@ class _BoundedPermCache:
         self.nbytes = self.hits = self.misses = 0
 
 
-# One budget for the cached epoch permutations.
+# One shared budget for the global-epoch and the chunk-local permutations.
 PERM_CACHE_BYTES = 64 << 20
 _perm_cache = _BoundedPermCache(PERM_CACHE_BYTES)
 
@@ -228,6 +227,25 @@ def epoch_permutation(n_series: int, epoch: int, seed: int = 0) -> np.ndarray:
         return rng.permutation(n_series)
 
     return _perm_cache.get_or_draw(("epoch", n_series, epoch, seed), draw)
+
+
+def chunk_permutation(
+    n_rows: int, epoch: int, chunk_id: int, seed: int = 0
+) -> np.ndarray:
+    """Chunk-local epoch permutation: the rows *within* one series chunk.
+
+    Deterministic in ``(seed, epoch, chunk_id)`` and independent of the
+    total series count. The entropy tuple ends in ``1 + chunk_id``, so no
+    stream collides with the global epoch permutation or the chunk visit
+    order. Cached in the same byte budget as :func:`epoch_permutation`.
+    """
+    def draw():
+        rng = np.random.default_rng(
+            np.random.SeedSequence([seed, epoch, 1 + chunk_id]))
+        return rng.permutation(n_rows)
+
+    return _perm_cache.get_or_draw(
+        ("chunk", n_rows, epoch, chunk_id, seed), draw)
 
 
 def batch_indices(
@@ -267,6 +285,124 @@ def batch_schedule(
         batch_indices(n_series, batch_size, s, seed=seed)
         for s in range(start_step, start_step + n_steps)
     ])
+
+
+# ---------------------------------------------------------------------------
+# Chunk-major schedule (the out-of-core fit)
+# ---------------------------------------------------------------------------
+#
+# With ``series_chunk = K`` the N series are cut into contiguous row ranges
+# of K; an epoch visits the chunks in a per-epoch permuted order and runs each
+# chunk's whole within-chunk epoch (ceil(rows / batch) steps over a
+# chunk-local permutation) before moving on. Batches are chunk-pure, so the
+# streaming trainer needs one chunk's rows on the device, and the schedule
+# stays stateless in the global step, so a resume lands anywhere in it.
+
+
+def chunk_bounds(n_series: int, chunk: int) -> List[Tuple[int, int]]:
+    """Contiguous ``[lo, hi)`` row ranges cutting N series into chunks."""
+    if chunk <= 0:
+        raise ValueError(f"series chunk must be positive, got {chunk}")
+    return [(lo, min(lo + chunk, n_series))
+            for lo in range(0, n_series, chunk)]
+
+
+def chunk_visit_order(n_chunks: int, epoch: int, seed: int = 0) -> np.ndarray:
+    """The order an epoch visits the chunks in (deterministic, stateless)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, 0]))
+    return rng.permutation(n_chunks)
+
+
+def chunk_layout(
+    n_series: int, chunk: int, batch_size: int
+) -> Tuple[List[Tuple[int, int, int, int]], int]:
+    """Static shape plan of the chunk-major schedule.
+
+    Returns ``(per_chunk, steps_per_epoch)``; ``per_chunk[c]`` is ``(lo, hi,
+    bs_c, steps_c)``: the chunk's rows, its batch ``min(batch_size, rows)``
+    (only a ragged last chunk can differ) and its steps per epoch
+    ``ceil(rows / bs_c)``.
+    """
+    per_chunk = []
+    for lo, hi in chunk_bounds(n_series, chunk):
+        bs_c = min(batch_size, hi - lo)
+        per_chunk.append((lo, hi, bs_c, -(-(hi - lo) // bs_c)))
+    return per_chunk, sum(s for _, _, _, s in per_chunk)
+
+
+def chunk_batch_indices(
+    n_rows: int, batch_size: int, epoch: int, chunk_id: int, k: int, *,
+    seed: int = 0,
+) -> np.ndarray:
+    """Chunk-local row indices of step ``k`` of a chunk's epoch visit.
+
+    :func:`batch_indices` against the chunk-local permutation (the short
+    tail wraps to keep shapes static); add the chunk's ``lo`` for global rows.
+    """
+    perm = chunk_permutation(n_rows, epoch, chunk_id, seed)
+    sl = perm[k * batch_size : (k + 1) * batch_size]
+    if len(sl) < batch_size:
+        sl = np.concatenate([sl, perm[: batch_size - len(sl)]])
+    return np.array(sl)
+
+
+def chunk_batch_schedule(
+    n_rows: int, batch_size: int, epoch: int, chunk_id: int, start_k: int,
+    n_steps: int, *, seed: int = 0,
+) -> np.ndarray:
+    """``(n_steps, batch_size)`` chunk-local schedule (cf. :func:`batch_schedule`)."""
+    if n_steps <= 0:
+        return np.empty((0, batch_size), dtype=np.int64)
+    return np.stack([
+        chunk_batch_indices(n_rows, batch_size, epoch, chunk_id, k, seed=seed)
+        for k in range(start_k, start_k + n_steps)
+    ])
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkVisit:
+    """One chunk's (possibly partial) epoch visit, in global steps.
+
+    ``start_k`` is the step offset within the visit (non-zero only when a
+    resume lands mid-visit); ``step`` is the global step of the visit's
+    first scheduled step.
+    """
+
+    epoch: int
+    chunk_id: int
+    lo: int
+    hi: int
+    batch_size: int
+    step: int
+    start_k: int
+    n_steps: int
+
+
+def chunk_visit_plan(
+    n_series: int, chunk: int, batch_size: int, start_step: int,
+    n_steps: int, *, seed: int = 0,
+) -> Iterator[ChunkVisit]:
+    """Yield the chunk visits covering global steps ``[start_step, n_steps)``.
+
+    Stateless in ``start_step``: a resumed run re-enters the same schedule
+    mid-visit (same chunks, permutations and order).
+    """
+    per_chunk, spe = chunk_layout(n_series, chunk, batch_size)
+    epoch = start_step // spe
+    base = epoch * spe
+    while base < n_steps:
+        for c in chunk_visit_order(len(per_chunk), epoch, seed):
+            lo, hi, bs_c, steps_c = per_chunk[c]
+            s0 = max(base, start_step)
+            s1 = min(base + steps_c, n_steps)
+            if s1 > s0:
+                yield ChunkVisit(epoch=epoch, chunk_id=int(c), lo=lo, hi=hi,
+                                 batch_size=bs_c, step=s0, start_k=s0 - base,
+                                 n_steps=s1 - s0)
+            base += steps_c
+            if base >= n_steps:
+                break
+        epoch += 1
 
 
 def iterate_batches(

@@ -20,10 +20,17 @@ estimator's layout (params under ``<dir>/params/`` in the JAX checkpoint
 format, plus ``forecaster.json``), so a forecaster saved by either package
 loads in the other.
 
-Series data parallelism (``mesh=``, ``data_parallel > 1``) and the
-out-of-core chunked path (``series_chunk > 0``) come with later slices of
-the port and raise; an estimator fitted data-parallel elsewhere still
-predicts here, on the one device, with a warning.
+``spec.series_chunk > 0`` is the out-of-core path: ``fit`` streams the
+per-series table through the device in chunks of rows
+(:func:`repro_torch.train.trainer.train_esrnn`), after which the fitted
+table stays in host memory (pinned on the card), and ``predict``,
+``predict_quantiles``, ``evaluate`` and ``backtest`` stream it the same way:
+each chunk's rows are copied to the device on the table's copy stream while
+the chunk before computes, and scores add up exact per-chunk terms.
+
+Series data parallelism (``mesh=``, ``data_parallel > 1``) comes with a
+later slice of the port and raises; an estimator fitted data-parallel
+elsewhere still predicts here, on the one device, with a warning.
 """
 
 from __future__ import annotations
@@ -36,17 +43,21 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.checkpoint.checkpointer import Checkpointer, is_table_path
 from repro_torch.core import losses as L
 from repro_torch.core.comb import comb_forecast, naive2_forecast
 from repro_torch.core.esrnn import (
     esrnn_forecast, esrnn_forecast_at, esrnn_init, esrnn_loss,
-    esrnn_loss_and_grad, esrnn_predict_stats, gather_series, param_leaves,
+    esrnn_loss_and_grad, esrnn_predict_stats, param_leaves,
 )
-from repro_torch.data.pipeline import PreparedData, prepare
+from repro_torch.core.holt_winters import hw_init_params
+from repro_torch.data.pipeline import PreparedData, chunk_bounds, prepare
 from repro_torch.data.synthetic_m4 import M4Dataset, generate
 from repro_torch.device import resolve_device
 from repro_torch.forecast.spec import ForecastSpec, get_spec
+from repro_torch.train.host_table import (
+    HostStateTable, pinned_copy, stream_chunks, to_device,
+)
 from repro_torch.train.trainer import train_from_spec
 
 log = logging.getLogger("repro_torch.forecast")
@@ -103,18 +114,10 @@ class ESRNNForecaster:
                 "this ESRNNForecaster has no params; call fit(), "
                 "init_params(), or load() first")
 
-    def _check_resident(self):
-        if self.spec.series_chunk and self.spec.series_chunk > 0:
-            raise NotImplementedError(
-                f"series_chunk={self.spec.series_chunk}: the out-of-core chunked "
-                "path comes with its slice of the port (ROADMAP.md, section 1, "
-                "item 4)")
-
     def _check_inference(self, mesh) -> None:
         """The reference's mesh rule, on one device: an explicit mesh raises;
         a spec fitted data-parallel runs single-device with a warning."""
         _refuse_mesh(mesh)
-        self._check_resident()
         if self.spec.data_parallel > 1:
             log.warning(
                 "spec.data_parallel=%d: the port runs inference on one device "
@@ -162,7 +165,9 @@ class ESRNNForecaster:
         generator, so the init is the same on every device). ``ckpt_dir``
         checkpoints the fit and resumes it from the latest checkpoint there.
         ``spec.scan_steps > 1`` runs the superstep engine, and
-        ``spec.sparse_adam`` the segment update of the per-series table.
+        ``spec.sparse_adam`` the segment update of the per-series table;
+        ``spec.series_chunk > 0`` the streamed chunked fit, which leaves the
+        fitted table in host memory.
         """
         _refuse_mesh(mesh)
         if self.spec.data_parallel > 1:
@@ -170,7 +175,6 @@ class ESRNNForecaster:
                 f"data_parallel={self.spec.data_parallel}: data-parallel training "
                 "comes with the series data parallelism slice of the port "
                 "(ROADMAP.md, section 1, item 5)")
-        self._check_resident()
         dev = self._dev
         pdata = self._coerce_data(data)
         out = train_from_spec(self.spec, pdata, ckpt_dir=ckpt_dir,
@@ -186,14 +190,17 @@ class ESRNNForecaster:
 
     # -- predict -------------------------------------------------------------
 
-    def _resolve_inputs(self, y, cats, series_idx):
-        """Resolve (params, y, cats) on the estimator's device."""
+    def _resolve_inputs(self, y, cats, series_idx, *, host: bool = False):
+        """Resolve ``(params, y, cats)``: on the estimator's device, or with
+        ``host=True`` as host float32 arrays and the params as they are (the
+        chunked verbs slice rows out before any copy, so an out-of-core table
+        never lands on the device whole)."""
         self._check_fitted()
         if y is None:
             if self.data_ is None:
                 raise NotFittedError("predict() without y requires fit(data)")
             y = self.data_.train
-        y = self._tensor(y)
+        y = np.asarray(y, np.float32) if host else self._tensor(y)
         if cats is None and self.cats_ is not None:
             # fitted categories: the rows of y are (a subset of) the fitted
             # series, so reuse their one-hots rather than zeroing the feature
@@ -203,17 +210,49 @@ class ESRNNForecaster:
                 cats = self.cats_
         if cats is None:
             cats = np.zeros((y.shape[0], self.config.n_categories), np.float32)
-        cats = self._tensor(cats)
+        cats = np.asarray(cats, np.float32) if host else self._tensor(cats)
         params = self.params_
+        hw = params["hw"]
         if series_idx is not None:
-            params = gather_series(params, torch.as_tensor(
-                np.asarray(series_idx), device=self._dev))
-        n_hw = params["hw"].alpha_logit.shape[0]
+            rows = torch.as_tensor(np.asarray(series_idx), device=hw.alpha_logit.device)
+            hw = hw.map(lambda a: a[rows])
+        if not host:
+            # a table fitted out of core lives on the host: its rows move here
+            hw = hw.map(lambda a: a if a.device == self._dev else to_device(a, self._dev))
+        params = {**params, "hw": hw}
+        n_hw = hw.alpha_logit.shape[0]
         if y.shape[0] != n_hw:
             raise ValueError(
                 f"y has {y.shape[0]} series but the fitted per-series table "
                 f"has {n_hw}; pass series_idx to select rows")
         return params, y, cats
+
+    # -- the out-of-core verbs -----------------------------------------------
+
+    def _chunk_ranges(self, n: int):
+        """``[lo, hi)`` series chunks when the spec streams, else None."""
+        c = self.spec.series_chunk
+        if c and c > 0 and n > c:
+            return chunk_bounds(n, c)
+        return None
+
+    def _each_chunk(self, params, arrays, ranges, compute, finish) -> None:
+        """:func:`~repro_torch.train.host_table.stream_chunks` over the
+        fitted table: ``compute(params_c, arrays_c)`` on the device for each
+        chunk (its HW rows and the rows of ``arrays``, host arrays with the
+        series axis leading, copied there on the table's copy stream), then
+        ``finish(lo, hi, result)`` on the host, one chunk behind."""
+        dev = self._dev
+        hw = params["hw"]
+        if hw.alpha_logit.device.type == "cpu" and (
+                dev.type == "cpu" or hw.alpha_logit.is_pinned()):
+            table = HostStateTable(hw, device=dev)
+        else:   # a table on the device, or unpinned: one pinned host copy
+            table = HostStateTable.adopt(hw.map(lambda a: a.detach().cpu()), device=dev)
+        shared = {k: v for k, v in params.items() if k != "hw"}
+        stream_chunks(
+            table, ranges, lambda lo, hi: [pinned_copy(a[lo:hi], dev) for a in arrays],
+            lambda rows: compute({"hw": rows.state["hw"], **shared}, rows.extra), finish)
 
     def predict(self, y=None, cats=None, *,
                 series_idx: Optional[Sequence[int]] = None,
@@ -223,8 +262,21 @@ class ESRNNForecaster:
         With no arguments, forecasts the fitted training series. ``y`` may be
         any history for the fitted series (e.g. train+val to forecast the test
         window); ``series_idx`` selects per-series HW rows when y is a subset.
+        ``spec.series_chunk > 0`` streams the forecast chunk by chunk.
         """
         self._check_inference(mesh)
+        n_in = self.n_series_ if y is None else np.shape(y)[0]
+        ranges = self._chunk_ranges(n_in or 0) if series_idx is None else None
+        if ranges:
+            params, y, cats = self._resolve_inputs(y, cats, None, host=True)
+            out = np.empty((y.shape[0], self.horizon), np.float32)
+
+            def finish(lo, hi, fc):
+                out[lo:hi] = fc.cpu().numpy()
+
+            self._each_chunk(params, (y, cats), ranges,
+                             lambda p_c, a: esrnn_forecast(self.config, p_c, *a), finish)
+            return out
         params, y, cats = self._resolve_inputs(y, cats, series_idx)
         return esrnn_forecast(self.config, params, y, cats).cpu().numpy()
 
@@ -241,8 +293,23 @@ class ESRNNForecaster:
         point forecast exactly). Point and sigma come off one forward pass.
         """
         self._check_inference(mesh)
+        n_in = self.n_series_ if y is None else np.shape(y)[0]
+        ranges = self._chunk_ranges(n_in or 0) if series_idx is None else None
+        if ranges:
+            params, y, cats = self._resolve_inputs(y, cats, None, host=True)
+            out = {tau: np.empty((y.shape[0], self.horizon), np.float32) for tau in taus}
+
+            def finish(lo, hi, stats):
+                for tau, band in self._bands(*stats, taus).items():
+                    out[tau][lo:hi] = band
+
+            self._each_chunk(params, (y, cats), ranges,
+                             lambda p_c, a: esrnn_predict_stats(self.config, p_c, *a), finish)
+            return out
         params, y, cats = self._resolve_inputs(y, cats, series_idx)
-        point, sigma = esrnn_predict_stats(self.config, params, y, cats)
+        return self._bands(*esrnn_predict_stats(self.config, params, y, cats), taus)
+
+    def _bands(self, point, sigma, taus) -> Dict[float, np.ndarray]:
         steps = torch.sqrt(torch.arange(1, self.horizon + 1, dtype=torch.float32,
                                         device=point.device))[None, :]
         out = {}
@@ -290,6 +357,9 @@ class ESRNNForecaster:
         else:
             raise ValueError(f"split must be 'val' or 'test', got {split!r}")
         m, h = data.seasonality, min(self.horizon, target.shape[1])
+        if self._chunk_ranges(insample.shape[0]):
+            self._check_inference(mesh)
+            return self._evaluate_chunked(data, insample, target, m, h, split)
         fc = self.predict(insample, data.cats, mesh=mesh)[:, :h]
         host = lambda a: torch.from_numpy(np.asarray(a, np.float32))
         target_t, insample_t = host(target[:, :h]), host(insample)
@@ -302,6 +372,51 @@ class ESRNNForecaster:
         s_es, m_es = score(fc)
         s_cb, m_cb = score(comb_forecast(insample, h, m))
         s_n2, m_n2 = score(naive2_forecast(insample, h, m))
+        return {
+            "split": split,
+            "smape": s_es, "mase": m_es,
+            "owa": float(L.owa(s_es, m_es, s_n2, m_n2)),
+            "smape_comb": s_cb, "mase_comb": m_cb,
+            "owa_comb": float(L.owa(s_cb, m_cb, s_n2, m_n2)),
+            "smape_naive2": s_n2, "mase_naive2": m_n2,
+        }
+
+    def _evaluate_chunked(self, data, insample, target, m, h, split):
+        """Streamed scores: the model and the Comb / Naive2 baselines chunk
+        by chunk (:meth:`_each_chunk`). sMAPE and MASE are sums over counts
+        and every per-series scale is row-local, so each chunk's
+        ``smape_terms`` / ``mase_terms`` (on the host in float32, as the
+        resident scores), added in float64 and divided once, give the
+        resident means."""
+        params, y, cats = self._resolve_inputs(insample, data.cats, None, host=True)
+        tgt = np.asarray(target[:, :h], np.float32)
+        acc = {k: np.zeros(4, np.float64) for k in ("esrnn", "comb", "naive2")}
+        host = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+
+        def add(name, fc, tgt_c, ins_c):
+            fc, tgt_c, ins_c = host(fc), host(tgt_c), host(ins_c)
+            s0, s1 = L.smape_terms(fc, tgt_c)
+            m0, m1 = L.mase_terms(fc, tgt_c, ins_c, m)
+            acc[name] += np.array([float(s0), float(s1), float(m0), float(m1)])
+
+        def finish(lo, hi, fc):
+            # the baselines' fits on the host run while the next chunk's
+            # forecast runs on the device
+            ins_c = y[lo:hi]
+            add("esrnn", fc[:, :h].cpu().numpy(), tgt[lo:hi], ins_c)
+            add("comb", comb_forecast(ins_c, h, m), tgt[lo:hi], ins_c)
+            add("naive2", naive2_forecast(ins_c, h, m), tgt[lo:hi], ins_c)
+
+        self._each_chunk(params, (y, cats), self._chunk_ranges(y.shape[0]),
+                         lambda p_c, a: esrnn_forecast(self.config, p_c, *a), finish)
+
+        def score(name):
+            s0, s1, m0, m1 = acc[name]
+            return 200.0 * s0 / max(s1, 1.0), m0 / max(m1, 1.0)
+
+        s_es, m_es = score("esrnn")
+        s_cb, m_cb = score("comb")
+        s_n2, m_n2 = score("naive2")
         return {
             "split": split,
             "smape": s_es, "mase": m_es,
@@ -344,14 +459,15 @@ class ESRNNForecaster:
         elif origins is None:
             raise ValueError("backtest(y=...) needs explicit origins")
         self._check_inference(mesh)
-        params, y, cats = self._resolve_inputs(y, cats, None)
+        ranges = self._chunk_ranges(np.shape(y)[0])
+        params, y, cats = self._resolve_inputs(y, cats, None, host=bool(ranges))
         m = max(self.config.seasonality, 1)
         h = self.horizon
         n, t_len = y.shape
         origins = tuple(int(o) for o in origins)
 
         # per-origin scoring windows + validity masks (numpy, host-side)
-        y_np = y.cpu().numpy()
+        y_np = y if ranges else y.cpu().numpy()
         target = np.zeros((n, len(origins), h), np.float32)
         tmask = np.zeros((n, len(origins), h), np.float32)
         for k, o in enumerate(origins):
@@ -359,11 +475,31 @@ class ESRNNForecaster:
             target[:, k, :avail] = y_np[:, o:o + avail]
             tmask[:, k, :avail] = 1.0
 
-        fc = esrnn_forecast_at(self.config, params, y, cats, origins)
-        terms = L.rolling_metric_terms(
-            fc, self._tensor(target, torch.float32), self._tensor(tmask, torch.float32),
-            y, origins, m)
-        s_sum, s_cnt, m_sum, m_cnt = (t.cpu().numpy().astype(np.float64) for t in terms)
+        if ranges:
+            # chunks through the one-pass multi-origin forecast; the
+            # per-origin metric terms are exact sums, so they add up
+            fc = np.empty((n, len(origins), h), np.float32)
+            acc = np.zeros((4, len(origins)), np.float64)
+
+            def compute(p_c, a):
+                y_c, c_c, t_c, tm_c = a
+                fc_c = esrnn_forecast_at(self.config, p_c, y_c, c_c, origins)
+                return fc_c, L.rolling_metric_terms(fc_c, t_c, tm_c, y_c, origins, m)
+
+            def finish(lo, hi, out):
+                fc[lo:hi] = out[0].cpu().numpy()
+                acc[:] += np.stack([t.cpu().numpy().astype(np.float64) for t in out[1]])
+
+            self._each_chunk(params, (y, cats, target, tmask), ranges, compute, finish)
+            s_sum, s_cnt, m_sum, m_cnt = acc
+        else:
+            fc = esrnn_forecast_at(self.config, params, y, cats, origins)
+            terms = L.rolling_metric_terms(
+                fc, self._tensor(target, torch.float32),
+                self._tensor(tmask, torch.float32), y, origins, m)
+            s_sum, s_cnt, m_sum, m_cnt = (t.cpu().numpy().astype(np.float64)
+                                          for t in terms)
+            fc = fc.cpu().numpy()
 
         def ratio(num, cnt):
             # an origin with no scorable targets (e.g. origin == T) is
@@ -381,7 +517,7 @@ class ESRNNForecaster:
             "per_origin": per_origin,
             "smape": ratio(200.0 * s_sum.sum(), s_cnt.sum()),
             "mase": ratio(m_sum.sum(), m_cnt.sum()),
-            "forecasts": fc.cpu().numpy(),
+            "forecasts": fc,
         }
 
     # -- serving -------------------------------------------------------------
@@ -450,15 +586,25 @@ class ESRNNForecaster:
     @classmethod
     def load(cls, directory: str, *, device=None) -> "ESRNNForecaster":
         """A saved forecaster (either package's), its params on ``device``
-        (default: the card)."""
+        (default: the card). Under ``spec.series_chunk > 0`` the per-series
+        table stays in host memory (pinned on the card) for the chunked
+        verbs to stream."""
         with open(os.path.join(directory, _META_FILE)) as f:
             meta = json.load(f)
         spec = ForecastSpec.from_dict(meta["spec"])
         f = cls(spec, device=device)
-        template = esrnn_init(torch.Generator().manual_seed(spec.seed), spec.model,
-                              meta["n_series"], device=f._dev)
-        _, f.params_ = Checkpointer(
-            os.path.join(directory, "params")).restore(template, step=meta["step"])
+        n, gen = meta["n_series"], torch.Generator().manual_seed(spec.seed)
+        ckpt = Checkpointer(os.path.join(directory, "params"))
+        if spec.series_chunk and spec.series_chunk > 0:
+            template = {**esrnn_init(gen, spec.model, 1, device=f._dev),
+                        "hw": hw_init_params(n, spec.model.seasonality,
+                                             seasonality2=spec.model.seasonality2,
+                                             dtype=spec.model.tdtype, device="cpu")}
+            _, params = ckpt.restore(template, step=meta["step"], host_paths=is_table_path)
+            f.params_ = {**params, "hw": HostStateTable.adopt(params["hw"], device=f._dev).hw}
+        else:
+            template = esrnn_init(gen, spec.model, n, device=f._dev)
+            _, f.params_ = ckpt.restore(template, step=meta["step"])
         f.n_series_ = meta["n_series"]
         if meta.get("cats") is not None:
             f.cats_ = np.asarray(meta["cats"], np.float32)

@@ -37,10 +37,15 @@ heads: ``--spec esn-quarterly`` or ``--spec ssm-quarterly`` (or ``--set
 head=esn|ssm`` on any spec) drive every subcommand through the esn head
 (a frozen reservoir; only the readout and the HW table train) or the ssm
 head.
-``--devices N > 1`` (series data parallelism) and ``--set series_chunk=K``
-(the out-of-core path) come with later slices of the port and exit with
-an error; the JAX package's ``analyze`` subcommand (the graph auditor)
-has no counterpart here.
+``--set series_chunk=K`` turns on the out-of-core path: ``fit`` streams
+the per-series table through the device in K-row chunks (it implies
+``sparse_adam`` and logs "streaming chunked fit"; its ``--ckpt-dir``
+checkpoints hold the table as ``leaf_*.shard_*.bin`` row shards), and
+``predict``, ``eval``, ``backtest``, ``serve`` and ``observe`` on the saved
+directory keep the table in host memory, streaming it chunk by chunk.
+``--devices N > 1`` (series data parallelism) comes with a later slice of
+the port and exits with an error; the JAX package's ``analyze`` subcommand
+(the graph auditor) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -335,7 +340,8 @@ def main(argv=None):
                        help="spec/model override, e.g. --set hidden_size=16, "
                             "--set precision=bf16, --set scan_steps=8 "
                             "(superstep engine), --set sparse_adam=true "
-                            "(segment per-series Adam)")
+                            "(segment per-series Adam), --set series_chunk=65536 "
+                            "(out-of-core table, streamed in chunks)")
 
     p_specs = sub.add_parser(
         "specs", help="list the spec registry (name/frequency/horizon/head)")

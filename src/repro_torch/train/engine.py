@@ -13,6 +13,9 @@
   both walk the same trajectory. (Capturing a superstep into a CUDA
   graph, the counterpart of the reference's one ``lax.scan`` dispatch, is
   later speed work.)
+* :func:`make_chunk_step_fn` / :func:`make_chunk_superstep_fn` -- the
+  out-of-core fit's step and superstep: the sparse step over one chunk's
+  rows, with the chunk's series tensors passed in.
 * :func:`segment_steps` -- chops ``[start, n_steps)`` into superstep
   segments that end on every eval/checkpoint boundary.
 
@@ -168,6 +171,45 @@ def make_online_step_fn(
                       (y, cats, mask))
 
     return step
+
+
+def make_chunk_step_fn(
+    mcfg: ESRNNConfig,
+    cfg_adam: AdamConfig,
+    *,
+    frozen: FrozenSet[str] = frozenset(),
+) -> StepFn:
+    """The chunked fit's training step.
+
+    ``step(params, opt_state, y_c, cats_c, mask_c, idx)``: the sparse
+    step's math (gathered-row gradients, segment Adam with the closed-form
+    moment catch-up), where ``(y_c, cats_c, mask_c)`` are the current
+    chunk's series tensors and ``params``/``opt_state`` the chunk-assembled
+    state: the ``hw`` leaves, their moments and ``t_hw`` hold the chunk's
+    rows only (``idx`` is chunk-local), while the shared weights and the
+    global step count persist across chunks. ``t_hw`` carries global
+    last-touch steps, which makes the per-chunk updates exact.
+    """
+    def step(params, opt_state, y_c, cats_c, mask_c, idx):
+        return _sparse_update(mcfg, cfg_adam, params, opt_state, frozen, idx,
+                              (y_c[idx], cats_c[idx], mask_c[idx]))
+
+    return step
+
+
+def make_chunk_superstep_fn(step_fn: StepFn) -> StepFn:
+    """:func:`make_superstep_fn` over one chunk: ``(params, opt_state, y_c,
+    cats_c, mask_c, idx_schedule (K, B)) -> (params, opt_state, losses
+    (K,))``, the chunk's tensors passed through to every step unchanged."""
+    def superstep(params, opt_state, y_c, cats_c, mask_c, idx_schedule):
+        losses = []
+        for idx in idx_schedule:
+            params, opt_state, loss = step_fn(params, opt_state, y_c, cats_c,
+                                              mask_c, idx)
+            losses.append(loss)
+        return params, opt_state, torch.stack(losses)
+
+    return superstep
 
 
 def make_superstep_fn(step_fn: StepFn) -> StepFn:

@@ -15,8 +15,9 @@ draw different inits from the same seed.
   unbroken fit bit for bit; a trainer checkpoint directory of either package
   resumes in the other's trainer, the continued losses within rtol 1e-5 of
   the unbroken JAX run;
-* the errors: not fitted, a shape mismatch, and the refusals of the slices
-  still to port (mesh, data_parallel, series_chunk);
+* the errors: not fitted, a shape mismatch, and the refusals of the slice
+  still to port (mesh, data_parallel, alone or with series_chunk); a
+  chunked fit and predict run;
 * the esn and ssm heads: fits against the JAX estimator from one converted
   init, resumed bit for bit, their trainer checkpoints resumed by JAX.
 """
@@ -231,12 +232,18 @@ def test_errors_and_refusals(tmp_path, fits):
         tf.predict(mesh=object())
     with pytest.raises(NotImplementedError, match="item 5"):
         ESRNNForecaster(tf.spec, device="cpu", data_parallel=2).fit()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ESRNNForecaster(tf.spec, device="cpu", series_chunk=8).fit()
+    # the chunked path runs (tests/test_torch_chunked.py holds it to the
+    # resident one); with a mesh or data parallelism it is still item 5
+    fitted = ESRNNForecaster(tf.spec, device="cpu", series_chunk=8, n_steps=2).fit()
+    assert fitted.params_["hw"].alpha_logit.device.type == "cpu"
     chunked = ESRNNForecaster(tf.spec.replace(series_chunk=8), device="cpu")
-    chunked.params_, chunked.data_ = tf.params_, tf.data_
-    with pytest.raises(NotImplementedError, match="item 4"):
-        chunked.predict()
+    chunked.params_, chunked.data_, chunked.cats_ = tf.params_, tf.data_, tf.cats_
+    chunked.n_series_ = tf.n_series_
+    np.testing.assert_allclose(chunked.predict(), tf.predict(), rtol=0, atol=1e-6)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ESRNNForecaster(tf.spec, device="cpu", series_chunk=8, data_parallel=2).fit()
+    with pytest.raises(NotImplementedError, match="item 5"):
+        chunked.predict(mesh=object())
 
 
 def test_data_parallel_spec_predicts_on_one_device(caplog, fits):

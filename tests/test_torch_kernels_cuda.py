@@ -41,11 +41,17 @@ is held to the plain dx-only version within K5's bounds, and to the full
 launch's dx, dh_prev and dc_prev bit for bit (fp32, the templated bf16
 kernel, and the bf16 split plan; past 512 rows in bf16, where the full
 launch takes its cluster plan, within the bf16 bound); an esn train step
-launches it and never the full K5.
+launches it and never the full K5. The out-of-core fit's host table: its
+leaves are pinned, ``device_slice`` copies on the table's own (not the
+default) stream, and its event orders the compute stream's first read
+after a delayed copy; an unpinned table raises; a chunked fit whose visits
+run A, B, A over two chunks (A restaged while B computes, after A's rows
+were written back) equals the ``chunk_resident`` fit bit for bit.
 """
 
 import ctypes
 
+import numpy as np
 import pytest
 import torch
 
@@ -1026,3 +1032,64 @@ def test_esn_train_step_launches_the_dx_only_k5_on_card(card, precision, sparse)
     assert counts == want
     rtol = 2e-2 if precision == "bf16" else 1e-5
     assert abs(losses["card"] - losses["cpu"]) <= rtol * abs(losses["cpu"])
+
+
+# -- the out-of-core fit's host table and copy stream ---------------------------
+
+
+@pytest.mark.cuda
+def test_host_table_device_slice_on_a_copy_stream_on_card(card):
+    from repro_torch.train.host_table import HostStateTable, pinned_copy
+
+    n, lo, hi = 200_000, 70_000, 190_000
+    table = HostStateTable.init(n, 4, device=card)
+    assert table.is_pinned()
+    table.hw.alpha_logit.copy_(torch.arange(n, dtype=torch.float32))
+    table.t_hw.copy_(torch.arange(n, dtype=torch.int32))
+    data = pinned_copy(torch.arange(n * 3, dtype=torch.float32).reshape(n, 3), card)
+    stream = table.copy_stream()
+    assert stream != torch.cuda.current_stream() and stream != torch.cuda.default_stream()
+    # hold the copy stream back, so that a read not ordered after the copy
+    # would find the destination unwritten
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(200_000_000)
+    rows = table.device_slice(lo, hi, (data[lo:hi],))
+    assert rows.stream is stream and rows.done is not None
+    rows.wait()
+    got = [rows.state["hw"].alpha_logit * 1, rows.state["t_hw"] + 0, rows.extra[0] * 1]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), table.hw.alpha_logit[lo:hi])
+    assert torch.equal(got[1].cpu(), table.t_hw[lo:hi])
+    assert torch.equal(got[2].cpu(), data[lo:hi])
+    unpinned = HostStateTable(table.hw.map(lambda a: a.clone()), device=card)
+    with pytest.raises(RuntimeError, match="pinned"):
+        unpinned.device_slice(0, 10)
+
+
+@pytest.mark.cuda
+def test_chunked_fit_restaging_a_chunk_equals_chunk_resident_on_card(card):
+    from repro_torch.core.esrnn import make_config, param_leaves
+    from repro_torch.data.pipeline import chunk_visit_order, chunk_visit_plan, synthetic_prepared
+    from repro_torch.train.trainer import TrainConfig, train_esrnn
+
+    n, chunk, batch = 4096, 2048, 256
+    # a seed whose first two epochs visit the two chunks in the same order:
+    # A, B, A, B -- A's rows are staged again while B computes
+    seed = next(s for s in range(100)
+                if np.array_equal(chunk_visit_order(2, 0, s), chunk_visit_order(2, 1, s)))
+    kw = dict(batch_size=batch, n_steps=24, scan_steps=4, series_chunk=chunk, eval_every=24,
+              ckpt_every=1000, seed=seed, straggler_factor=float("inf"))
+    visits = [(v.lo, v.hi) for v in chunk_visit_plan(n, chunk, batch, 0, 24, seed=seed)]
+    assert len(visits) == 3 and visits[0] == visits[2] != visits[1]
+    cfg = make_config("quarterly")
+    data = synthetic_prepared(n, series_length=36)
+    runs = [train_esrnn(cfg, data, TrainConfig(chunk_resident=resident, **kw), device=card,
+                        generator=torch.Generator().manual_seed(0))
+            for resident in (False, True)]
+    assert runs[0]["history"]["loss"] == runs[1]["history"]["loss"]
+    assert len(runs[0]["history"]["h2d"]) == 3
+    for (path, a), (_, b) in zip(param_leaves(runs[0]["params"]),
+                                 param_leaves(runs[1]["params"])):
+        assert torch.equal(a.cpu(), b.cpu()), path
+    assert runs[0]["params"]["hw"].alpha_logit.is_pinned()
+    assert torch.equal(runs[0]["opt_state"]["t_hw"], runs[1]["opt_state"]["t_hw"].cpu())
