@@ -54,7 +54,16 @@ stream in a profiler trace, a streamed predict, the device peak against
 the same fit at 250,000 series (within 5 %) and against the resident fit,
 and the reference's peak_memory cell beside its 0.175; (c) the CLI with
 ``--set series_chunk=2048``, every subcommand from the sharded directory
-against the CPU. Each phase prints
+against the CPU; (d) the reference's own 1M gate (hidden 8, T = 24) in a
+fresh process (``chip_smoke.py --million``): wall time and peak host RSS,
+split by owner. ``dp`` then drives series data parallelism: two gloo ranks
+sharing the card (``repro_torch.sharding.run_ranks``) fit the train cell
+dense and sparse, fp32 and bf16, esn and chunked, predict, backtest and
+eval the forecast cell and serve the serve cell's requests, against the
+same calls on one device of the card (ranks bit-identical, collectives and
+each rank's launches counted); the sharded loss, eval and backtest on one
+NCCL rank equal one device bit for bit; ``fit --devices 2`` through the CLI
+against ``--devices 1``. Each phase prints
 one JSON line (``heads`` one per part); any failed check raises and the
 script exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
@@ -73,6 +82,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -166,6 +176,35 @@ SCALE_PROFILE_STEPS, CHUNK_MEM_TOL = 16, 0.05
 # chunked/resident ratio (BENCH_PR10.json peak_memory, JAX on the CPU)
 REF_MEM_N, REF_MEM_CHUNK, REF_MEM_BATCH, REF_MEM_STEPS, REF_MEM_HIDDEN = 8192, 1024, 256, 12, 8
 REF_MEM_RATIO = 0.175
+# (b') the reference's own 1M gate (scripts/million_series_smoke.py:37-45,
+# :52-59): esrnn-quarterly at hidden 8, T = 24, the scale cell's chunks,
+# batch, supersteps and steps, sparse Adam, then a predict of 1M x 8, in a
+# fresh process: fit + predict within 900 s and peak host RSS within 4,096 MB
+MILLION_HIDDEN, MILLION_T, MILLION_WALL_S, MILLION_RSS_MB = 8, 24, 900.0, 4096.0
+RSS_SAMPLE_S = 0.005
+
+# the dp cell: the train cell (24,000 series of length 72, batch 256) on two
+# gloo ranks sharing the card, 12 steps with eval every 6: dense and sparse
+# (supersteps of 4) in fp32 and bf16, an esn fit, the chunked fit in chunks
+# of 2,048; the forecast cell's predict, backtest and eval and the serve
+# cell's requests; the CLI's fit at data_scale 0.1 for 6 steps
+DP_RANKS, DP_STEPS, DP_EVERY = 2, 12, 6
+DP_FITS = {
+    "dense": ({}, {}),
+    "sparse": ({}, dict(sparse_adam=True, scan_steps=4)),
+    "dense_bf16": (dict(precision="bf16"), {}),
+    "sparse_bf16": (dict(precision="bf16"), dict(sparse_adam=True, scan_steps=4)),
+    "esn": (dict(head="esn"), {}),
+    "chunked": ({}, dict(series_chunk=CHUNK_ROWS, scan_steps=4)),
+}
+DP_ORIGINS = (40, 56, 72)
+DP_CLI_STEPS, DP_CLI_SETS = 6, ("data_scale=0.1",)
+# sharded against one device on the card, the same kernels on both sides:
+# losses within the CPU tests' fit bounds (tests/test_torch_dp.py FIT_RTOL,
+# and BF16_RTOL in bf16: only the order of fp32 sums differs); inference
+# within 1e-6 relative (rows are computed alone; only the metric sums change
+# order)
+DP_FIT_RTOL, DP_FIT16_RTOL, DP_INFER_RTOL = 1e-5, 1e-3, 1e-6
 
 # tolerances, with their reasons:
 # K1 runs the plain version's operations in the same order with IEEE
@@ -1280,7 +1319,7 @@ class TrainSteps:
     """One dense or sparse train step on the card at a given batch, over
     the train cell's data (the step ``train_esrnn`` runs)."""
 
-    def __init__(self, cfg, data, dev, batch: int, sparse: bool):
+    def __init__(self, cfg, data, dev, batch: int, sparse: bool, mesh=None):
         import torch
 
         from repro_torch.core.esrnn import esrnn_init
@@ -1298,7 +1337,7 @@ class TrainSteps:
         adam = AdamConfig(lr=1e-3, clip_norm=20.0,
                           group_lr={"per_series": 10.0, "default": 1.0})
         self.step_fn = make_step_fn(cfg, adam, to_dev(data.train), to_dev(data.cats),
-                                    to_dev(data.mask), sparse=sparse, frozen=frozen)
+                                    to_dev(data.mask), sparse=sparse, frozen=frozen, mesh=mesh)
         self.idx = [to_dev(batch_indices(n, batch, s)) for s in range(TIMED_STEPS + 4)]
         self.k = 0
 
@@ -1960,7 +1999,8 @@ def _launch_diff(before):
 
 
 def _fit_state(out):
-    """Params, then moments, ``t_hw`` and the step count, as host tensors."""
+    """Params, then moments, ``t_hw`` (sparse Adam) and the step count, as
+    host tensors."""
     import torch
 
     from repro_torch.core.esrnn import param_leaves
@@ -1968,7 +2008,7 @@ def _fit_state(out):
     opt = out["opt_state"]
     return ([t.detach().cpu() for _, t in param_leaves(out["params"])]
             + [t.detach().cpu() for t in opt["mu"] + opt["nu"]]
-            + [opt["t_hw"].cpu(), torch.tensor(opt["step"])])
+            + ([opt["t_hw"].cpu()] if "t_hw" in opt else []) + [torch.tensor(opt["step"])])
 
 
 def _same_fits(what, a, b):
@@ -2401,6 +2441,453 @@ def run_chunked_cli(dev, tmp):
 
 
 # ---------------------------------------------------------------------------
+# phase 6f: series data parallelism (two gloo ranks sharing the card, one
+# NCCL rank)
+# ---------------------------------------------------------------------------
+
+
+def _dp_fit_config(name, steps=DP_STEPS):
+    """The model and TrainConfig of one dp fit: the train cell at batch
+    256, eval every DP_EVERY (chunked: chunks of CHUNK_ROWS)."""
+    from repro_torch.core.esrnn import make_config
+    from repro_torch.train.trainer import TrainConfig
+
+    over, kw = DP_FITS[name]
+    cfg = make_config("quarterly", **over)
+    return cfg, TrainConfig(batch_size=TRAIN_BATCH, n_steps=steps, eval_every=DP_EVERY,
+                            ckpt_every=1000, seed=0, straggler_factor=float("inf"), **kw)
+
+
+def _dp_fit(name, data, dev, mesh=None):
+    """One dp fit from the seed's init: its losses, val sMAPE, a digest of
+    its params and optimizer state, its kernel launches and collectives."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import train_esrnn
+
+    cfg, tcfg = _dp_fit_config(name)
+    before = ops.launch_counts()          # deltas: the phase's own count runs on
+    if mesh is not None:
+        mesh.reset_counts()
+    t0 = time.perf_counter()
+    out = train_esrnn(cfg, data, tcfg, mesh=mesh, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    digest = hashlib.sha256()
+    for t in _fit_state(out):
+        digest.update(t.contiguous().numpy().tobytes())
+    return dict(loss=out["history"]["loss"], val_smape=out["history"]["val_smape"],
+                state_sha256=digest.hexdigest(), launches=_launch_diff(before),
+                collectives=None if mesh is None else mesh.collective_counts(), wall_s=wall)
+
+
+def _dp_inference(fc_cfg, params, y, cats, data, dev, mesh=None):
+    """The estimator's predict, backtest and evaluate of the forecast cell
+    (24,000 series), and the serve cell's 96 requests through a server:
+    outputs, kernel launches and collectives by call."""
+    from repro_torch.forecast import ESRNNForecaster, get_spec, synthetic_request_stream
+    from repro_torch.forecast.server import ForecastServer
+    from repro_torch.kernels import ops
+
+    spec = get_spec("esrnn-quarterly")
+    f = ESRNNForecaster(spec, device=dev)
+    f.params_, f.n_series_, f.cats_ = params, N_SERIES, cats
+    reqs = synthetic_request_stream(fc_cfg, N_REQUESTS, n_known=N_SERIES, seed=2)
+    calls = {
+        "predict": lambda: f.predict(y, cats, mesh=mesh),
+        "backtest": lambda: f.backtest(y=y, cats=cats, origins=ORIGINS, mesh=mesh),
+        "evaluate": lambda: f.evaluate(data, split="test", mesh=mesh),
+        "serve": lambda: np.stack(ForecastServer(
+            fc_cfg, params, mesh=mesh, device=dev, length_buckets=LENGTH_BUCKETS,
+            batch_buckets=BATCH_BUCKETS).forecast_batch(reqs)),
+    }
+    out = {}
+    for name, call in calls.items():
+        before = ops.launch_counts()
+        if mesh is not None:
+            mesh.reset_counts()
+        t0 = time.perf_counter()
+        value = call()
+        out[name] = dict(value=value, wall_ms=(time.perf_counter() - t0) * 1e3,
+                         launches=_launch_diff(before),
+                         collectives=None if mesh is None else mesh.collective_counts())
+    return out
+
+
+def _dp_steps_per_s(data, dev, mesh=None):
+    """Steps/s of the dense fp32 step at batch 256 (TIMED_STEPS after two
+    warm-up steps, each synced by its loss)."""
+    import torch
+
+    from repro_torch.core.esrnn import make_config
+
+    bench = TrainSteps(make_config("quarterly"), data, dev, TRAIN_BATCH, sparse=False,
+                       mesh=mesh)
+    for _ in range(2):
+        bench.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        bench.step()
+    torch.cuda.synchronize()
+    return TIMED_STEPS / (time.perf_counter() - t0)
+
+
+def _dp_collective_ms(mesh, n_grad: int, reps: int = 50):
+    """Wall ms per all-reduce of a train step's two buffers on this mesh:
+    the three loss terms and the gradient buffer of ``n_grad`` floats."""
+    import torch
+
+    out = {}
+    for name, n in (("loss_terms", 3), ("grad_buffer", n_grad)):
+        buf = torch.ones(n, device=mesh.device)
+        mesh.all_reduce(buf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            mesh.all_reduce(buf)
+        torch.cuda.synchronize()
+        out[name] = dict(floats=n, ms=(time.perf_counter() - t0) * 1e3 / reps)
+    mesh.reset_counts()
+    return out
+
+
+def _dp_rank(mesh, fc_cfg, fc_params, y, cats):
+    """One rank of the dp phase (a spawned process): every fit, the
+    inference calls and the timings, on this rank's share of the rows."""
+    from repro_torch import strict_fp32
+    from repro_torch.convert import params_to_device
+    from repro_torch.core.esrnn import param_leaves
+    from repro_torch.data.pipeline import synthetic_prepared
+
+    strict_fp32()
+    dev = mesh.device
+    data = synthetic_prepared(TRAIN_N, series_length=TRAIN_T)
+    out = {"rank": mesh.rank, "fits": {name: _dp_fit(name, data, dev, mesh) for name in DP_FITS}}
+    infer = _dp_inference(fc_cfg, params_to_device(fc_params, dev), y, cats, data, dev, mesh)
+    out["inference"] = infer
+    out["steps_per_s"] = _dp_steps_per_s(data, dev, mesh)
+    n_grad = TRAIN_BATCH * 6 + sum(t.numel() for path, t in param_leaves(fc_params)
+                                   if path[0] != "hw")
+    out["collective_ms"] = _dp_collective_ms(mesh, n_grad)
+    return out
+
+
+def _dp_nccl(dev, tmp):
+    """The sharded loss, eval and backtest called directly on a 1-rank
+    NCCL group (no 1-rank degeneration): bit for bit the single-device
+    results, every collective launched on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.convert import copy_params
+    from repro_torch.core import losses as L
+    from repro_torch.core.esrnn import (
+        esrnn_forecast, esrnn_forecast_at, esrnn_loss_fn, param_leaves, value_and_grad,
+    )
+    from repro_torch.sharding import series as S
+
+    cfg, params = make_model(TRAIN_BATCH, seed=3)
+    y, cats = (torch.from_numpy(a).to(dev) for a in make_batch(cfg, TRAIN_BATCH, TRAIN_T))
+    mask = torch.ones_like(y)
+    mask[:16, :20] = 0.0
+    tgt = y[:, -cfg.output_size:]
+    ins = y[:, :-cfg.output_size]
+    tm = torch.ones((TRAIN_BATCH, len(DP_ORIGINS), cfg.output_size), device=dev)
+    tm[:, -1, 4:] = 0.0
+    bt_tgt = torch.stack([y[:, o - cfg.output_size:o] for o in DP_ORIGINS], dim=1)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+                            world_size=1)
+    try:
+        mesh = S.make_series_mesh(1, device=dev)
+        got, want = {}, {}
+        p = copy_params(params, dev)
+        leaves = [t.requires_grad_(True) for _, t in param_leaves(p)]
+        got["loss"], got["grads"] = S.esrnn_loss_and_grad_dp(cfg, p, y, cats, mask, mesh=mesh)
+        want["loss"], want["grads"] = value_and_grad(
+            lambda: esrnn_loss_fn(cfg, p, y, cats, mask), leaves)
+        ev = S.esrnn_eval_dp(cfg, p, ins, cats, tgt, ins, seasonality=cfg.seasonality,
+                             mesh=mesh)
+        got["eval"] = [ev["smape"], ev["mase"]]
+        fc = esrnn_forecast(cfg, p, ins, cats)
+        s0, s1 = L.smape_terms(fc, tgt)
+        m0, m1 = L.mase_terms(fc, tgt, ins, cfg.seasonality)
+        want["eval"] = [200.0 * s0 / torch.clamp_min(s1, 1.0), m0 / torch.clamp_min(m1, 1.0)]
+        got["backtest"] = S.esrnn_backtest_dp(cfg, p, y, cats, DP_ORIGINS, bt_tgt, tm,
+                                              seasonality=cfg.seasonality, mesh=mesh)
+        fc_at = esrnn_forecast_at(cfg, p, y, cats, DP_ORIGINS)
+        want["backtest"] = (fc_at, tuple(L.rolling_metric_terms(
+            fc_at, bt_tgt, tm, y, DP_ORIGINS, cfg.seasonality)))
+        torch.cuda.synchronize()
+        counts = mesh.collective_counts()
+    finally:
+        dist.destroy_process_group()
+    flat = lambda v: [t.detach().float().cpu() for t in (
+        v if isinstance(v, (list, tuple)) else [v])]
+    for key in got:
+        g = flat(got[key]) if key != "backtest" else flat([got[key][0], *got[key][1]])
+        w = flat(want[key]) if key != "backtest" else flat([want[key][0], *want[key][1]])
+        for a, b in zip(g, w, strict=True):
+            if not torch.equal(a, b):
+                raise AssertionError(f"the 1-rank NCCL {key} differs from one device: "
+                                     f"max abs {float((a - b).abs().max())}")
+    want_counts = {"all_reduce": 2 + 1 + 1}
+    if counts != want_counts:
+        raise AssertionError(f"NCCL collectives {counts}, want {want_counts}")
+    return dict(backend="nccl", ranks=1, calls=["esrnn_loss_dp", "esrnn_eval_dp",
+                                                "esrnn_backtest_dp"],
+                collectives=counts, bit_identical=True)
+
+
+def _dp_values(value) -> np.ndarray:
+    """An inference call's numbers as one vector: the forecasts, or the
+    scores (sMAPE and MASE, overall and per origin)."""
+    if isinstance(value, np.ndarray):
+        return value.ravel().astype(np.float64)
+    nums = [value["smape"], value["mase"]]
+    if "forecasts" in value:
+        nums += [v for row in value["per_origin"] for v in (row["smape"], row["mase"])]
+        return np.concatenate([value["forecasts"].ravel(), nums])
+    return np.asarray(nums, np.float64)
+
+
+def run_dp(dev, tmp):
+    """The dp phase: two gloo ranks sharing the card against the same calls
+    on one device of the card, then one NCCL rank."""
+    import torch
+
+    from repro_torch.convert import params_to_device
+    from repro_torch.data.pipeline import synthetic_prepared
+    from repro_torch.sharding import run_ranks
+    from repro_torch.sharding import series as S
+
+    data = synthetic_prepared(TRAIN_N, series_length=TRAIN_T)
+    fc_cfg, fc_params = make_model(N_SERIES)
+    y, cats = make_batch(fc_cfg, N_SERIES, T_LEN)
+    single = {name: _dp_fit(name, data, dev) for name in DP_FITS}
+    single_inf = _dp_inference(fc_cfg, params_to_device(fc_params, dev), y, cats, data, dev)
+    single_sps = _dp_steps_per_s(data, dev)
+    t0 = time.perf_counter()
+    ranks = run_ranks(_dp_rank, DP_RANKS, device="cuda", args=(fc_cfg, fc_params, y, cats))
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    fits = {}
+    for name in DP_FITS:
+        got, want = r0["fits"][name], single[name]
+        for r in ranks[1:]:
+            if r["fits"][name]["state_sha256"] != got["state_sha256"] or (
+                    r["fits"][name]["loss"] != got["loss"]):
+                raise AssertionError(f"dp fit {name}: the ranks' states differ")
+        rtol = DP_FIT16_RTOL if "bf16" in name else DP_FIT_RTOL
+        err = max(abs(g - w) / abs(w) for g, w in zip(got["loss"], want["loss"], strict=True))
+        verr = max(abs(g[1] - w[1]) / abs(w[1])
+                   for g, w in zip(got["val_smape"], want["val_smape"], strict=True))
+        if not (err <= rtol and verr <= rtol):
+            raise AssertionError(f"dp fit {name}: loss rel {err}, val rel {verr} > {rtol}")
+        evals = len(want["val_smape"])
+        want_coll = {"all_reduce": 2 * DP_STEPS + evals}
+        if got["collectives"] != want_coll:
+            raise AssertionError(f"dp fit {name}: collectives {got['collectives']}, "
+                                 f"want {want_coll}")
+        for r in ranks:
+            if r["fits"][name]["launches"] != want["launches"]:
+                raise AssertionError(f"dp fit {name}: rank {r['rank']} launched "
+                                     f"{r['fits'][name]['launches']}, one device "
+                                     f"{want['launches']}")
+        fits[name] = dict(loss_max_rel=err, val_smape_max_rel=verr, rtol=rtol,
+                          collectives=got["collectives"], launches=got["launches"],
+                          rank_wall_s=got["wall_s"], single_wall_s=want["wall_s"],
+                          ranks_bit_identical=True)
+    inference = {}
+    want_coll = dict.fromkeys(("predict", "backtest", "evaluate"), S.VERB_COLLECTIVES)
+    for name, want in single_inf.items():
+        got = r0["inference"][name]
+        g, w = _dp_values(got["value"]), _dp_values(want["value"])
+        for r in ranks[1:]:
+            if not np.array_equal(_dp_values(r["inference"][name]["value"]), g,
+                                  equal_nan=True):
+                raise AssertionError(f"dp {name}: the ranks' results differ")
+        if not np.array_equal(np.isnan(g), np.isnan(w)):
+            raise AssertionError(f"dp {name}: unscored (NaN) entries differ from one device")
+        rel = float(np.nanmax(np.abs(g - w) / np.maximum(np.abs(w), 1e-30)))
+        if not rel <= DP_INFER_RTOL:
+            raise AssertionError(f"dp {name}: max rel {rel} > {DP_INFER_RTOL}")
+        wc = want_coll.get(name, {"all_reduce": None})
+        if name == "serve":
+            wc = {"all_reduce": got["collectives"].get("all_reduce")}
+            if not wc["all_reduce"]:
+                raise AssertionError(f"dp serve: no collectives {got['collectives']}")
+        if got["collectives"] != wc:
+            raise AssertionError(f"dp {name}: collectives {got['collectives']}, want {wc}")
+        for r in ranks:
+            if r["inference"][name]["launches"] != want["launches"]:
+                raise AssertionError(f"dp {name}: rank {r['rank']} launched "
+                                     f"{r['inference'][name]['launches']}, one device "
+                                     f"{want['launches']}")
+        inference[name] = dict(max_rel=rel, bound=DP_INFER_RTOL, collectives=got["collectives"],
+                               rank_ms=got["wall_ms"], single_ms=want["wall_ms"])
+    nccl = _dp_nccl(dev, tmp)
+    torch.cuda.empty_cache()
+    return dict(ranks=DP_RANKS, backend="gloo", device_shared=torch.cuda.get_device_name(0),
+                fits=fits, inference=inference, steps_per_s=dict(
+                    two_ranks=r0["steps_per_s"], one_device=single_sps),
+                collective_ms=r0["collective_ms"], ranks_wall_s=ranks_s, nccl=nccl,
+                note="two ranks share one card's SMs: overhead, not scaling")
+
+
+def run_dp_cli(dev, tmp):
+    """``fit --devices 2`` through the CLI (it spawns the ranks) against
+    ``--devices 1``, and the sharded fit's saved directory predicted with
+    ``--devices 2`` against ``--devices 1``."""
+    args = ["--spec", EST_SPEC, "--device", "cuda", "--steps", str(DP_CLI_STEPS),
+            *_sets(DP_CLI_SETS), "--json"]
+    fits, secs = {}, {}
+    for d in (1, DP_RANKS):
+        out, secs[d] = forecast_cli("fit", *args, "--devices", str(d),
+                                    "--out-dir", f"{tmp}/dp_cli_{d}")
+        fits[d] = _last_json(out)
+    g, w = fits[DP_RANKS]["loss"], fits[1]["loss"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(g, w, strict=True))
+    if not err <= DP_FIT_RTOL:
+        raise AssertionError(f"fit --devices {DP_RANKS}: loss rel {err} > {DP_FIT_RTOL}")
+    preds = {}
+    for d in (1, DP_RANKS):
+        out, _ = forecast_cli("predict", "--dir", f"{tmp}/dp_cli_{DP_RANKS}", "--device", "cuda",
+                              "--devices", str(d), "--json")
+        preds[d] = np.asarray(_last_json(out)["forecast"])
+    prel = float(np.max(np.abs(preds[DP_RANKS] - preds[1]) / np.abs(preds[1])))
+    if not prel <= DP_INFER_RTOL:
+        raise AssertionError(f"predict --devices {DP_RANKS}: max rel {prel}")
+    return dict(n_series=fits[1]["n_series"], steps=DP_CLI_STEPS, loss_max_rel=err,
+                predict_max_rel=prel, fit_s={str(d): s for d, s in secs.items()})
+
+
+# ---------------------------------------------------------------------------
+# phase 6e (b'): the reference's 1M-series gate, in a fresh process
+# ---------------------------------------------------------------------------
+
+
+def million_main(dev=None) -> int:
+    """The reference's cell (scripts/million_series_smoke.py) on the card
+    (``dev``, default the first): its host RSS split by owner, its wall
+    time; one JSON line."""
+    import resource
+
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch import strict_fp32
+    from repro_torch.core.esrnn import param_leaves
+    from repro_torch.data.pipeline import synthetic_prepared
+    from repro_torch.forecast import ESRNNForecaster, get_spec
+    from repro_torch.kernels import build
+
+    rss = lambda: _host_rss_mb()[0]
+    # the pinned-host allocator's bytes in use and at their peak, in MB
+    pinned = lambda: {k: torch.cuda.host_memory_stats()[f"allocated_bytes.{k}"] / 2**20
+                      for k in ("current", "peak")}
+    strict_fp32()
+    rec = {"rss_mb": {"python_torch": rss()}}
+    # this process's peak RSS: VmRSS sampled every RSS_SAMPLE_S on a thread
+    peak_seen, stop = [rec["rss_mb"]["python_torch"]], threading.Event()
+
+    def sample():
+        while not stop.wait(RSS_SAMPLE_S):
+            peak_seen[0] = max(peak_seen[0], rss())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    dev = torch.device("cuda", 0) if dev is None else dev
+    if dev.type == "cuda":
+        build.library()
+    spec = get_spec("esrnn-quarterly", hidden_size=MILLION_HIDDEN, batch_size=SCALE_BATCH,
+                    n_steps=SCALE_STEPS, series_chunk=SCALE_CHUNK, sparse_adam=True,
+                    scan_steps=SCALE_SCAN, eval_every=10**9, ckpt_every=10**9, smoke=True)
+    # the bare context: the kernel library loaded, one forecast launched
+    warm = ESRNNForecaster(spec.replace(series_chunk=0), device=dev)
+    warm.init_params(8)
+    warm.predict(np.full((8, MILLION_T), 100.0, np.float32))
+    torch.cuda.synchronize()
+    rec["rss_mb"]["cuda_context"] = rss()
+    del warm
+    t0 = time.perf_counter()
+    data = synthetic_prepared(SCALE_N, seasonality=spec.model.seasonality,
+                              horizon=spec.horizon, series_length=MILLION_T)
+    rec["data_s"] = time.perf_counter() - t0
+    rec["data_mb"] = sum(getattr(data, f.name).nbytes for f in dataclasses.fields(data)
+                         if isinstance(getattr(data, f.name), np.ndarray)) / 2**20
+    rec["rss_mb"]["data"] = rss()
+    t0 = time.perf_counter()
+    f = ESRNNForecaster(spec, device=dev).fit(data)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    losses = np.asarray(f.history_["loss"], np.float64)
+    if len(losses) != SCALE_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"the 1M fit's losses: {losses}")
+    val = f.history_["val_smape"]
+    if not (val and np.isfinite(val[-1][1])):
+        raise AssertionError(f"the 1M fit's val sMAPE: {val}")
+    rec["rss_mb"]["fit"] = rss()
+    rec["pinned_mb_after_fit"] = pinned()
+    rec["table_mb"] = sum(t.nbytes for _, t in param_leaves({"hw": f.params_["hw"]})) / 2**20
+    t0 = time.perf_counter()
+    fc = f.predict()
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    if fc.shape != (SCALE_N, spec.horizon) or not np.isfinite(fc).all():
+        raise AssertionError(f"the 1M predict: {fc.shape}")
+    rec["rss_mb"]["predict"] = rss()
+    rec["pinned_mb_after_predict"] = pinned()
+    # the table and its moments are pinned whole; the data set is the
+    # caller's, each visit pinning a copy of its own rows only
+    if rec["pinned_mb_after_predict"]["peak"] >= rec["data_mb"]:
+        print(f"the 1M cell pinned {rec['pinned_mb_after_predict']['peak']:.0f} MB at its peak, "
+              f"as much as its {rec['data_mb']:.0f} MB data set", file=sys.stderr)
+        return 1
+    stop.set()
+    sampler.join()
+    # the peak is the sampled VmRSS: ru_maxrss keeps, across exec, the
+    # resident set of the process that started this one (reported beside)
+    peak = max(peak_seen[0], rss())
+    rec["ru_maxrss_mb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    wall = t_fit + t_pred
+    context = rec["rss_mb"]["cuda_context"]
+    # the reference's budget; above the bare context's RSS where that alone
+    # takes more than half of it (a CUDA process's fixed cost)
+    above_context = context > MILLION_RSS_MB / 2
+    gated = peak - context if above_context else peak
+    rec.update(n_series=SCALE_N, T=MILLION_T, hidden=MILLION_HIDDEN, chunk=SCALE_CHUNK,
+               batch=SCALE_BATCH, steps=SCALE_STEPS, scan_steps=SCALE_SCAN, fit_s=t_fit,
+               predict_s=t_pred, wall_s=wall, wall_gate_s=MILLION_WALL_S, peak_rss_mb=peak,
+               rss_gate_mb=MILLION_RSS_MB, rss_gated_mb=gated,
+               rss_gate_above_context=above_context, final_loss=float(losses[-1]),
+               val_smape=float(val[-1][1]))
+    print(json.dumps(rec), flush=True)
+    if wall > MILLION_WALL_S or gated > MILLION_RSS_MB:
+        print(f"the 1M gate failed: {wall:.1f} s (gate {MILLION_WALL_S}), {gated:.0f} MB "
+              f"(gate {MILLION_RSS_MB})", file=sys.stderr)
+        return 1
+    return 0
+
+
+def run_million():
+    """:func:`million_main` in a fresh process, so that its peak RSS is the
+    cell's own; its record."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--million"],
+                          capture_output=True, text=True, timeout=MILLION_WALL_S + 300)
+    sys.stderr.write(proc.stderr[-4000:])
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the 1M cell exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the LM serving path (yi-6b prefill + greedy decode)
 # ---------------------------------------------------------------------------
 
@@ -2599,6 +3086,10 @@ def _leaves(tree):
 def main() -> int:
     import torch
 
+    if "--million" in sys.argv[1:]:
+        if not torch.cuda.is_available():
+            return 1
+        return million_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -2963,6 +3454,21 @@ def main() -> int:
         cli_rec, cli_launches = counted(train_kernels + ("lstm_cell",), "the chunked CLI",
                                         lambda: run_chunked_cli(dev, tmp))
         emit(dict(phase="chunked", part="cli", card=smi, launches=cli_launches, **cli_rec))
+    torch.cuda.empty_cache()
+    # (b') the reference's own 1M gate, in a fresh process: its launches are
+    # that process's, checked there by its losses and forecasts
+    emit(dict(phase="chunked", part="million", card=smi, **run_million()))
+
+    # phase 6f: series data parallelism. Two gloo ranks share the card (each
+    # launches K1 to K5 on its share of the rows; their launches are checked
+    # against this process's single-device runs), then one NCCL rank here
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        dp, dp_launches = counted(train_kernels + ("lstm_cell",), "the dp phase",
+                                  lambda: run_dp(dev, tmp))
+        emit(dict(phase="dp", part="ranks", card=smi, launches=dp_launches, **dp))
+        dp_cli, dp_cli_launches = counted(train_kernels, "the dp CLI",
+                                          lambda: run_dp_cli(dev, tmp))
+        emit(dict(phase="dp", part="cli", card=smi, launches=dp_cli_launches, **dp_cli))
     torch.cuda.empty_cache()
 
     # phase 7: the LM serving path. Card against CPU at full width, two

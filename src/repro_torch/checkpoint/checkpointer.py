@@ -32,7 +32,15 @@ port's own objects stand for the JAX trees they mirror:
   esn reservoir, ``"rnn"``), the moments cover the rest only (the JAX
   trainer's ``adam_init(split_frozen(params, frozen)[0])``), and the
   :class:`Checkpointer` is told the frozen groups; ``step`` is a Python
-  int, stored as a 0-d int32 and read back as an int.
+  int, stored as a 0-d int32 and read back as an int;
+* a fit with gradient compression, ``(params, (opt_state, residuals))``:
+  the residuals are a list in ``param_leaves`` order of the trainable
+  shared weights and render as that tree (the reference's
+  ``init_error_state`` of the trainable groups without ``hw``).
+
+Over a series mesh (``Checkpointer(..., mesh=)``) every rank holds the same
+replicated state: rank 0 alone writes, and every rank waits at a barrier
+until the checkpoint is published; every rank restores.
 
 Leaves are float32 or int32 tensors (under ``precision="bf16"`` too: the
 master weights and moments stay float32). Any other dtype is refused.
@@ -107,13 +115,24 @@ def _shaped_like(params, leaves: List[torch.Tensor], frozen: FrozenSet[str]):
 
 def _canonical(state, frozen: FrozenSet[str] = frozenset()):
     """A ``(params, opt_state)`` pair with the optimizer's moment lists
-    shaped as its trainable params and its step count marked; any other
-    state as is."""
-    if isinstance(state, tuple) and len(state) == 2 and _is_opt_state(state[1]):
-        params, opt = state
-        return (params, dict(opt, mu=_Moments(_shaped_like(params, opt["mu"], frozen)),
-                             nu=_Moments(_shaped_like(params, opt["nu"], frozen)),
-                             step=_Step(opt["step"])))
+    shaped as its trainable params and its step count marked, and a
+    ``(params, (opt_state, residuals))`` pair with the residuals shaped as
+    the trainable shared weights too; any other state as is."""
+    if not (isinstance(state, tuple) and len(state) == 2):
+        return state
+    params, opt = state
+
+    def adam(opt):
+        return dict(opt, mu=_Moments(_shaped_like(params, opt["mu"], frozen)),
+                    nu=_Moments(_shaped_like(params, opt["nu"], frozen)),
+                    step=_Step(opt["step"]))
+
+    if _is_opt_state(opt):
+        return (params, adam(opt))
+    if (isinstance(opt, tuple) and len(opt) == 2 and _is_opt_state(opt[0])
+            and isinstance(opt[1], list)):
+        shared = {k: v for k, v in params.items() if k != "hw"}
+        return (params, (adam(opt[0]), _Moments(_shaped_like(shared, opt[1], frozen))))
     return state
 
 
@@ -221,13 +240,15 @@ def _unflatten(obj, it: Iterator):
 
 class Checkpointer:
     """``frozen``: the param groups the moments of a saved or restored
-    ``(params, opt_state)`` leave out (the trainer passes its head's)."""
+    ``(params, opt_state)`` leave out (the trainer passes its head's).
+    ``mesh``: the series mesh of a data-parallel run; rank 0 writes."""
 
     def __init__(self, directory: str, *, keep: int = 3,
-                 frozen: FrozenSet[str] = frozenset()):
+                 frozen: FrozenSet[str] = frozenset(), mesh=None):
         self.directory = directory
         self.keep = keep
         self.frozen = frozenset(frozen)
+        self.mesh = mesh
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
@@ -240,8 +261,19 @@ class Checkpointer:
         is split along its leading axis into ``leaf_<i>.shard_<j>.bin`` files
         of ``shard_rows`` rows each, the grid recorded in the manifest.
         Shared-weight leaves are never sharded; the treedef is the same
-        either way, so both layouts restore into the same template.
+        either way, so both layouts restore into the same template. Over a
+        mesh rank 0 writes and every rank returns after the barrier that
+        follows the publish.
         """
+        final = os.path.join(self.directory, f"step_{step}")
+        if self.mesh is None or self.mesh.rank == 0:
+            self._write(step, state, metric, shard_rows)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        return final
+
+    def _write(self, step: int, state: Any, metric: Optional[float],
+               shard_rows: Optional[int]) -> None:
         flat = flatten_with_path(state, self.frozen)
         tmp = os.path.join(self.directory, f"step_{step}.tmp-{uuid.uuid4().hex[:8]}")
         final = os.path.join(self.directory, f"step_{step}")
@@ -285,7 +317,6 @@ class Checkpointer:
         os.replace(tmp, final)  # atomic publish
         self._update_best(step, metric)
         self._gc()
-        return final
 
     def _update_best(self, step: int, metric: Optional[float]):
         if metric is None:
@@ -335,13 +366,17 @@ class Checkpointer:
         template: Any,
         *,
         step: Optional[int] = None,
+        shardings=None,
         host_paths: Optional[Callable[[Tuple], bool]] = None,
     ) -> Tuple[int, Any]:
         """Restore into the structure of ``template``: ``(step, state)``.
 
         Each tensor leaf lands on its template leaf's device as a new,
         writable tensor (the template is not touched); the step count comes
-        back as an int. ``host_paths``: an optional predicate over leaf paths
+        back as an int. ``shardings``, a series mesh, places the leaves for
+        it instead, as the reference's does: every leaf on the rank's device
+        (the port's replicated layout, whatever mesh wrote the checkpoint).
+        ``host_paths``: an optional predicate over leaf paths
         (:func:`flatten_with_path`, e.g. :func:`is_table_path`); the leaves
         it accepts come back as writable numpy arrays that own their memory
         instead (a table pins copies of them). Row-sharded table leaves are
@@ -389,5 +424,6 @@ class Checkpointer:
                 if tl.dtype != _NP_DTYPES[spec["dtype"]]:
                     raise TypeError(f"leaf {i}: stored {spec['dtype']}, template "
                                     f"{tl.dtype}")
-                leaves.append(torch.from_numpy(arr).to(tl.device))
+                leaves.append(torch.from_numpy(arr).to(
+                    tl.device if shardings is None else shardings.device))
         return step, _unflatten(_canonical(template, self.frozen), iter(leaves))

@@ -189,8 +189,8 @@ def gather_series(params, idx):
     """Per-series row gather: hw rows at ``idx``, shared weights untouched.
 
     Differentiated, the gather scatters the gradient back over the full
-    (N, ...) table (the dense optimizer path); :func:`partition_series` is
-    the sparse path's alternative.
+    (N, ...) table; the training steps take per-row gradients through
+    :func:`partition_series` instead.
     """
     return {k: (v.map(lambda a: a[idx]) if k == "hw" else v)
             for k, v in params.items()}

@@ -19,6 +19,7 @@ __all__ = [
     "ForecastSpec", "get_spec", "get_smoke_spec", "list_specs",
     "ESRNNForecaster", "NotFittedError",
     "BucketDispatcher", "ForecastRequest", "ServeStats", "synthetic_request_stream",
+    "CompileBudgetExceeded", "check_compile_budget",
     "ForecastServer", "ServerConfig", "ObserveWrite",
 ]
 
@@ -29,6 +30,8 @@ _LAZY = {
     "ForecastRequest": "repro_torch.forecast.serving",
     "ServeStats": "repro_torch.forecast.serving",
     "synthetic_request_stream": "repro_torch.forecast.serving",
+    "CompileBudgetExceeded": "repro_torch.forecast.serving",
+    "check_compile_budget": "repro_torch.forecast.serving",
     "ForecastServer": "repro_torch.forecast.server",
     "ServerConfig": "repro_torch.forecast.server",
     "ObserveWrite": "repro_torch.forecast.server",

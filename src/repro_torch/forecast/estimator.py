@@ -28,9 +28,16 @@ table stays in host memory (pinned on the card), and ``predict``,
 each chunk's rows are copied to the device on the table's copy stream while
 the chunk before computes, and scores add up exact per-chunk terms.
 
-Series data parallelism (``mesh=``, ``data_parallel > 1``) comes with a
-later slice of the port and raises; an estimator fitted data-parallel
-elsewhere still predicts here, on the one device, with a warning.
+Series data parallelism: every verb takes ``mesh=`` (a
+:class:`~repro_torch.sharding.series.SeriesMesh`; without one,
+``spec.data_parallel > 1`` builds one over the initialized process group).
+``fit`` trains series-data-parallel (:mod:`repro_torch.train.trainer`);
+``predict``, ``predict_quantiles``, ``evaluate`` and ``backtest`` give each
+rank its contiguous block of the rows (or, streamed, of every chunk's rows),
+the blocks of ``numpy.array_split`` so no row count need divide the mesh,
+and return the full result on every rank after one all-reduce of the
+rows' outputs and score terms. ``save`` writes on rank 0. With no process group, ``spec.data_parallel > 1`` runs inference on one
+device with a warning and makes ``fit`` raise, as in the reference.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from repro_torch.data.pipeline import PreparedData, chunk_bounds, prepare
 from repro_torch.data.synthetic_m4 import M4Dataset, generate
 from repro_torch.device import resolve_device
 from repro_torch.forecast.spec import ForecastSpec, get_spec
+from repro_torch.sharding.series import make_series_mesh
 from repro_torch.train.host_table import (
     HostStateTable, pinned_copy, stream_chunks, to_device,
 )
@@ -69,15 +77,9 @@ class NotFittedError(RuntimeError):
     pass
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: series-sharded fit and inference come with the series data "
-            "parallelism slice of the port (ROADMAP.md, section 1, item 5)")
-
-
 class ESRNNForecaster:
-    """Scikit-style estimator over the vectorized ES-RNN, on one device."""
+    """Scikit-style estimator over the vectorized ES-RNN, on one device or
+    the ranks of a series mesh."""
 
     def __init__(self, spec: Union[str, ForecastSpec] = "esrnn-quarterly",
                  *, device=None, **overrides):
@@ -93,6 +95,7 @@ class ESRNNForecaster:
         self.n_series_: Optional[int] = None
         self.data_: Optional[PreparedData] = None
         self.cats_: Optional[np.ndarray] = None   # fitted one-hots, persisted
+        self.mesh_ = None                        # the series mesh of the fit
 
     # -- config shortcuts ----------------------------------------------------
 
@@ -114,14 +117,37 @@ class ESRNNForecaster:
                 "this ESRNNForecaster has no params; call fit(), "
                 "init_params(), or load() first")
 
-    def _check_inference(self, mesh) -> None:
-        """The reference's mesh rule, on one device: an explicit mesh raises;
-        a spec fitted data-parallel runs single-device with a warning."""
-        _refuse_mesh(mesh)
-        if self.spec.data_parallel > 1:
-            log.warning(
-                "spec.data_parallel=%d: the port runs inference on one device "
-                "(%s)", self.spec.data_parallel, self._dev)
+    def _resolve_mesh(self, mesh):
+        """Explicit mesh, else one over the process group when
+        ``spec.data_parallel > 1``. An estimator fitted data-parallel must
+        still predict where no process group of that size runs: inference
+        is the same on any device count, so it runs on one device with a
+        warning. A 1-rank mesh is the single-device path."""
+        if mesh is None and self.spec.data_parallel > 1:
+            try:
+                mesh = make_series_mesh(self.spec.data_parallel, device=self._dev)
+            except ValueError as e:
+                log.warning("spec.data_parallel=%d: inference runs on one device (%s): %s",
+                            self.spec.data_parallel, self._dev, e)
+                mesh = None
+        if mesh is not None and mesh.size == 1:
+            mesh = None
+        return mesh
+
+    @staticmethod
+    def _blocks(ranges, mesh):
+        """The ``[lo, hi)`` ranges, or this rank's block of each over a mesh
+        (empty blocks left out)."""
+        if mesh is None:
+            return ranges
+        return [b for b in (mesh.block(lo, hi) for lo, hi in ranges) if b[1] > b[0]]
+
+    @staticmethod
+    def _sum_ranks(a: np.ndarray, mesh) -> np.ndarray:
+        """The host array ``a`` summed over the ranks: one all-reduce. A
+        zero-filled output in which each rank wrote its own rows comes back
+        with every rank's rows."""
+        return mesh.all_reduce(torch.from_numpy(a).to(mesh.device)).cpu().numpy()
 
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(a).to(self._dev, dtype or self.config.tdtype)
@@ -167,19 +193,18 @@ class ESRNNForecaster:
         ``spec.scan_steps > 1`` runs the superstep engine, and
         ``spec.sparse_adam`` the segment update of the per-series table;
         ``spec.series_chunk > 0`` the streamed chunked fit, which leaves the
-        fitted table in host memory.
+        fitted table in host memory. ``mesh`` (or ``spec.data_parallel >
+        1``, which raises without a process group of that size) trains
+        series-data-parallel; ``save`` then writes on rank 0.
         """
-        _refuse_mesh(mesh)
-        if self.spec.data_parallel > 1:
-            raise NotImplementedError(
-                f"data_parallel={self.spec.data_parallel}: data-parallel training "
-                "comes with the series data parallelism slice of the port "
-                "(ROADMAP.md, section 1, item 5)")
         dev = self._dev
+        if mesh is None and self.spec.data_parallel > 1:
+            mesh = make_series_mesh(self.spec.data_parallel, device=dev)
+        self.mesh_ = mesh if mesh is not None and mesh.size > 1 else None
         pdata = self._coerce_data(data)
         out = train_from_spec(self.spec, pdata, ckpt_dir=ckpt_dir,
                               n_steps=n_steps, params=self.params_, hooks=hooks,
-                              device=dev)
+                              mesh=self.mesh_, device=dev)
         self.params_ = out["params"]
         self.history_ = out["history"]
         self.resumed_from_ = out["resumed_from"]
@@ -254,6 +279,18 @@ class ESRNNForecaster:
             table, ranges, lambda lo, hi: [pinned_copy(a[lo:hi], dev) for a in arrays],
             lambda rows: compute({"hw": rows.state["hw"], **shared}, rows.extra), finish)
 
+    def _each_block(self, params, arrays, ranges, mesh, compute, finish) -> None:
+        """``compute(params_b, arrays_b)`` on the device for each ``[lo, hi)``
+        of ``ranges`` (this rank's block of each over a mesh), then
+        ``finish(lo, hi, result)`` on the host. ``ranges`` None is one
+        resident block of every row; otherwise the chunks stream
+        (:meth:`_each_chunk`)."""
+        if ranges:
+            return self._each_chunk(params, arrays, self._blocks(ranges, mesh), compute, finish)
+        for lo, hi in self._blocks([(0, arrays[0].shape[0])], mesh):
+            finish(lo, hi, compute({**params, "hw": params["hw"].map(lambda a: a[lo:hi])},
+                                   [a[lo:hi] for a in arrays]))
+
     def predict(self, y=None, cats=None, *,
                 series_idx: Optional[Sequence[int]] = None,
                 mesh=None) -> np.ndarray:
@@ -263,22 +300,22 @@ class ESRNNForecaster:
         any history for the fitted series (e.g. train+val to forecast the test
         window); ``series_idx`` selects per-series HW rows when y is a subset.
         ``spec.series_chunk > 0`` streams the forecast chunk by chunk.
+        ``mesh`` shards the rows (see the module docstring).
         """
-        self._check_inference(mesh)
+        mesh = self._resolve_mesh(mesh)
         n_in = self.n_series_ if y is None else np.shape(y)[0]
         ranges = self._chunk_ranges(n_in or 0) if series_idx is None else None
-        if ranges:
-            params, y, cats = self._resolve_inputs(y, cats, None, host=True)
-            out = np.empty((y.shape[0], self.horizon), np.float32)
+        params, y, cats = self._resolve_inputs(y, cats, series_idx, host=bool(ranges))
+        if not ranges and mesh is None:
+            return esrnn_forecast(self.config, params, y, cats).cpu().numpy()
+        out = np.zeros((y.shape[0], self.horizon), np.float32)
 
-            def finish(lo, hi, fc):
-                out[lo:hi] = fc.cpu().numpy()
+        def finish(lo, hi, fc):
+            out[lo:hi] = fc.cpu().numpy()
 
-            self._each_chunk(params, (y, cats), ranges,
-                             lambda p_c, a: esrnn_forecast(self.config, p_c, *a), finish)
-            return out
-        params, y, cats = self._resolve_inputs(y, cats, series_idx)
-        return esrnn_forecast(self.config, params, y, cats).cpu().numpy()
+        self._each_block(params, (y, cats), ranges, mesh,
+                         lambda p_b, a: esrnn_forecast(self.config, p_b, *a), finish)
+        return out if mesh is None else self._sum_ranks(out, mesh)
 
     def predict_quantiles(
         self, y=None, cats=None, *, taus: Tuple[float, ...] = (0.1, 0.5, 0.9),
@@ -290,24 +327,26 @@ class ESRNNForecaster:
         output is one quantile path. Bands come from the fitted Holt-Winters
         in-sample residuals: the per-series log-residual spread sigma gives
         q_tau(h) = yhat * exp(z_tau * sigma * sqrt(h)) (tau = 0.5 returns the
-        point forecast exactly). Point and sigma come off one forward pass.
+        point forecast exactly). Point and sigma come off one forward pass;
+        ``mesh`` shards it like ``predict``.
         """
-        self._check_inference(mesh)
+        mesh = self._resolve_mesh(mesh)
         n_in = self.n_series_ if y is None else np.shape(y)[0]
         ranges = self._chunk_ranges(n_in or 0) if series_idx is None else None
-        if ranges:
-            params, y, cats = self._resolve_inputs(y, cats, None, host=True)
-            out = {tau: np.empty((y.shape[0], self.horizon), np.float32) for tau in taus}
+        params, y, cats = self._resolve_inputs(y, cats, series_idx, host=bool(ranges))
+        if not ranges and mesh is None:
+            return self._bands(*esrnn_predict_stats(self.config, params, y, cats), taus)
+        bands = np.zeros((len(taus), y.shape[0], self.horizon), np.float32)
 
-            def finish(lo, hi, stats):
-                for tau, band in self._bands(*stats, taus).items():
-                    out[tau][lo:hi] = band
+        def finish(lo, hi, stats):
+            for k, band in enumerate(self._bands(*stats, taus).values()):
+                bands[k, lo:hi] = band
 
-            self._each_chunk(params, (y, cats), ranges,
-                             lambda p_c, a: esrnn_predict_stats(self.config, p_c, *a), finish)
-            return out
-        params, y, cats = self._resolve_inputs(y, cats, series_idx)
-        return self._bands(*esrnn_predict_stats(self.config, params, y, cats), taus)
+        self._each_block(params, (y, cats), ranges, mesh,
+                         lambda p_b, a: esrnn_predict_stats(self.config, p_b, *a), finish)
+        if mesh is not None:
+            bands = self._sum_ranks(bands, mesh)
+        return dict(zip(taus, bands))
 
     def _bands(self, point, sigma, taus) -> Dict[float, np.ndarray]:
         steps = torch.sqrt(torch.arange(1, self.horizon + 1, dtype=torch.float32,
@@ -345,6 +384,8 @@ class ESRNNForecaster:
         ``split="test"`` forecasts from train+val and scores on the test
         window (Eq. 7); ``split="val"`` forecasts from train and scores on
         the validation window. Scores are taken on the host in float32.
+        ``mesh`` scores each rank's rows (the model on its device, the Comb
+        / Naive2 baselines on the host) and reduces the metric terms once.
         """
         self._check_fitted()
         data = data if data is not None else self.data_
@@ -357,10 +398,10 @@ class ESRNNForecaster:
         else:
             raise ValueError(f"split must be 'val' or 'test', got {split!r}")
         m, h = data.seasonality, min(self.horizon, target.shape[1])
-        if self._chunk_ranges(insample.shape[0]):
-            self._check_inference(mesh)
-            return self._evaluate_chunked(data, insample, target, m, h, split)
-        fc = self.predict(insample, data.cats, mesh=mesh)[:, :h]
+        mesh = self._resolve_mesh(mesh)
+        ranges = self._chunk_ranges(insample.shape[0])
+        if ranges or mesh is not None:
+            return self._evaluate_blocks(data, insample, target, m, h, split, mesh, ranges)
         host = lambda a: torch.from_numpy(np.asarray(a, np.float32))
         target_t, insample_t = host(target[:, :h]), host(insample)
 
@@ -369,7 +410,7 @@ class ESRNNForecaster:
             return (float(L.smape(f, target_t)),
                     float(L.mase(f, target_t, insample_t, m)))
 
-        s_es, m_es = score(fc)
+        s_es, m_es = score(self.predict(insample, data.cats)[:, :h])
         s_cb, m_cb = score(comb_forecast(insample, h, m))
         s_n2, m_n2 = score(naive2_forecast(insample, h, m))
         return {
@@ -381,14 +422,17 @@ class ESRNNForecaster:
             "smape_naive2": s_n2, "mase_naive2": m_n2,
         }
 
-    def _evaluate_chunked(self, data, insample, target, m, h, split):
-        """Streamed scores: the model and the Comb / Naive2 baselines chunk
-        by chunk (:meth:`_each_chunk`). sMAPE and MASE are sums over counts
-        and every per-series scale is row-local, so each chunk's
+    def _evaluate_blocks(self, data, insample, target, m, h, split, mesh, ranges):
+        """Scores by blocks of rows: the model and the Comb / Naive2
+        baselines block by block (:meth:`_each_block`; streamed chunk by
+        chunk when ``ranges``). sMAPE and MASE are sums over counts and
+        every per-series scale is row-local, so each block's
         ``smape_terms`` / ``mase_terms`` (on the host in float32, as the
         resident scores), added in float64 and divided once, give the
-        resident means."""
-        params, y, cats = self._resolve_inputs(insample, data.cats, None, host=True)
+        resident means. Over a mesh each rank scores its block of the rows
+        (of every chunk) and the sums are reduced once."""
+        params, y, cats = self._resolve_inputs(insample, data.cats, None, host=bool(ranges))
+        ins = np.asarray(insample, np.float32)
         tgt = np.asarray(target[:, :h], np.float32)
         acc = {k: np.zeros(4, np.float64) for k in ("esrnn", "comb", "naive2")}
         host = lambda a: torch.from_numpy(np.asarray(a, np.float32))
@@ -402,13 +446,15 @@ class ESRNNForecaster:
         def finish(lo, hi, fc):
             # the baselines' fits on the host run while the next chunk's
             # forecast runs on the device
-            ins_c = y[lo:hi]
+            ins_c = ins[lo:hi]
             add("esrnn", fc[:, :h].cpu().numpy(), tgt[lo:hi], ins_c)
             add("comb", comb_forecast(ins_c, h, m), tgt[lo:hi], ins_c)
             add("naive2", naive2_forecast(ins_c, h, m), tgt[lo:hi], ins_c)
 
-        self._each_chunk(params, (y, cats), self._chunk_ranges(y.shape[0]),
-                         lambda p_c, a: esrnn_forecast(self.config, p_c, *a), finish)
+        self._each_block(params, (y, cats), ranges, mesh,
+                         lambda p_b, a: esrnn_forecast(self.config, p_b, *a), finish)
+        if mesh is not None:
+            acc = dict(zip(acc, self._sum_ranks(np.stack(list(acc.values())), mesh)))
 
         def score(name):
             s0, s1, m0, m1 = acc[name]
@@ -458,7 +504,7 @@ class ESRNNForecaster:
                 origins = (train_len, train_len + data.horizon)
         elif origins is None:
             raise ValueError("backtest(y=...) needs explicit origins")
-        self._check_inference(mesh)
+        mesh = self._resolve_mesh(mesh)
         ranges = self._chunk_ranges(np.shape(y)[0])
         params, y, cats = self._resolve_inputs(y, cats, None, host=bool(ranges))
         m = max(self.config.seasonality, 1)
@@ -475,22 +521,29 @@ class ESRNNForecaster:
             target[:, k, :avail] = y_np[:, o:o + avail]
             tmask[:, k, :avail] = 1.0
 
-        if ranges:
-            # chunks through the one-pass multi-origin forecast; the
+        if ranges or mesh is not None:
+            # blocks of rows through the one-pass multi-origin forecast; the
             # per-origin metric terms are exact sums, so they add up
-            fc = np.empty((n, len(origins), h), np.float32)
+            fc = np.zeros((n, len(origins), h), np.float32)
             acc = np.zeros((4, len(origins)), np.float64)
 
-            def compute(p_c, a):
-                y_c, c_c, t_c, tm_c = a
-                fc_c = esrnn_forecast_at(self.config, p_c, y_c, c_c, origins)
-                return fc_c, L.rolling_metric_terms(fc_c, t_c, tm_c, y_c, origins, m)
+            def compute(p_b, a):
+                y_b, c_b, t_b, tm_b = a
+                fc_b = esrnn_forecast_at(self.config, p_b, y_b, c_b, origins)
+                return fc_b, L.rolling_metric_terms(fc_b, t_b, tm_b, y_b, origins, m)
 
             def finish(lo, hi, out):
                 fc[lo:hi] = out[0].cpu().numpy()
                 acc[:] += np.stack([t.cpu().numpy().astype(np.float64) for t in out[1]])
 
-            self._each_chunk(params, (y, cats, target, tmask), ranges, compute, finish)
+            windows = (target, tmask) if ranges else (self._tensor(target, torch.float32),
+                                                      self._tensor(tmask, torch.float32))
+            self._each_block(params, (y, cats, *windows), ranges, mesh, compute, finish)
+            if mesh is not None:
+                # the ranks' forecast rows and their terms in one buffer
+                both = self._sum_ranks(np.concatenate([fc.ravel(), acc.ravel()]), mesh)
+                fc = both[:fc.size].reshape(fc.shape).astype(np.float32)
+                acc = both[fc.size:].reshape(acc.shape)
             s_sum, s_cnt, m_sum, m_cnt = acc
         else:
             fc = esrnn_forecast_at(self.config, params, y, cats, origins)
@@ -534,15 +587,16 @@ class ESRNNForecaster:
         pre-registers every fitted series' training history in the online
         store (masked left-padding stripped), so ``observe`` and
         history-less forecasts work for known ids from the first request.
+        ``mesh`` shards every dispatched bucket over the ranks (a sharded
+        server is driven synchronously: ``step``/``drain``).
         """
         self._check_fitted()
-        self._check_inference(mesh)
         from repro_torch.forecast.server import ForecastServer
 
         srv = ForecastServer(
             self.config, self.params_, server_config=server_config,
             length_buckets=length_buckets, batch_buckets=batch_buckets,
-            device=self._dev)
+            mesh=self._resolve_mesh(mesh), device=self._dev)
         if seed_histories:
             if self.data_ is None:
                 raise NotFittedError(
@@ -566,8 +620,17 @@ class ESRNNForecaster:
         Params live under ``<directory>/params/`` so a saved estimator can
         share a directory with trainer checkpoints (``fit(ckpt_dir=...)``
         writes ``step_<n>/`` trees of (params, opt_state) at the top level).
+        After a fit over a series mesh rank 0 writes and every rank returns
+        once the directory is complete.
         """
         self._check_fitted()
+        if self.mesh_ is None or self.mesh_.rank == 0:
+            self._write(directory)
+        if self.mesh_ is not None:
+            self.mesh_.barrier()
+        return directory
+
+    def _write(self, directory: str) -> None:
         ckpt = Checkpointer(os.path.join(directory, "params"), keep=self.spec.keep)
         step = len(self.history_["loss"]) if self.history_ else 0
         ckpt.save(step, self.params_)
@@ -581,7 +644,6 @@ class ESRNNForecaster:
         with open(tmp, "w") as f:
             json.dump(meta, f, indent=2)
         os.replace(tmp, os.path.join(directory, _META_FILE))
-        return directory
 
     @classmethod
     def load(cls, directory: str, *, device=None) -> "ESRNNForecaster":

@@ -11,7 +11,11 @@ nearly the wall time of a batch-64 one through the same kernels), so
   is dispatched as soon as it fills a batch, or when its oldest request has
   waited ``max_wait_ms``.
 * **batched dispatch** through the shared
-  :class:`~repro_torch.forecast.serving.BucketDispatcher`, on its device.
+  :class:`~repro_torch.forecast.serving.BucketDispatcher`, on its device, or
+  sharded over a series mesh (``mesh=``). A sharded server is driven
+  synchronously (``step``/``drain``/``forecast_batch``), so every rank makes
+  the same dispatch decisions; the background thread's deadlines would
+  not. The fine-tune then runs replicated, the same on every rank.
 * **online state ingestion** -- ``observe`` enqueues
   :class:`~repro_torch.forecast.server.state.ObserveWrite` records; the
   scheduler absorbs the write queue before every dispatch, so a forecast
@@ -40,7 +44,7 @@ import numpy as np
 
 from repro_torch.core.esrnn import ESRNNConfig
 from repro_torch.forecast.serving import (
-    BucketDispatcher, ForecastRequest, ServeStats,
+    BucketDispatcher, ForecastRequest, ServeStats, check_compile_budget,
 )
 from repro_torch.forecast.server.finetune import IdleFineTuner
 from repro_torch.forecast.server.state import ObserveWrite, OnlineStateStore
@@ -59,6 +63,9 @@ class ServerConfig:
     max_batch: Optional[int] = None   # per-dispatch cap (None: largest bucket)
     history_cap: Optional[int] = None  # online store tail (None: largest
                                        # length bucket -- what forecasts use)
+    compile_budget: Optional[int] = None  # declared bound on distinct bucket
+                                       # shapes (None: length x batch
+                                       # bucket-grid size)
     # idle fine-tune hook (0 steps = off)
     finetune_steps: int = 0
     finetune_batch: int = 32
@@ -120,6 +127,7 @@ class ForecastServer:
         server_config: Optional[ServerConfig] = None,
         length_buckets: Tuple[int, ...] = (32, 64, 128, 256),
         batch_buckets: Tuple[int, ...] = (1, 4, 16, 64),
+        mesh=None,
         device=None,
     ):
         self.config = config
@@ -128,8 +136,8 @@ class ForecastServer:
         self.stats = ServeStats()
         self.dispatcher = BucketDispatcher(
             config, params, length_buckets=length_buckets,
-            batch_buckets=batch_buckets, max_batch=sc.max_batch,
-            stats=self.stats, device=device)
+            batch_buckets=batch_buckets, max_batch=sc.max_batch, mesh=mesh,
+            stats=self.stats, compile_budget=sc.compile_budget, device=device)
         cap = (sc.history_cap if sc.history_cap is not None
                else self.dispatcher.length_buckets[-1])
         self.store = OnlineStateStore(
@@ -204,6 +212,13 @@ class ForecastServer:
         if self._thread is None:
             self.drain()
         return [f.result() for f in futs]
+
+    def check_compile_budget(self) -> int:
+        """Hold the distinct bucket shapes served (``ServeStats.compiles``)
+        to the declared budget: raises
+        :class:`~repro_torch.forecast.serving.CompileBudgetExceeded` past it,
+        returns the count otherwise."""
+        return check_compile_budget(self.stats)
 
     # -- scheduler -----------------------------------------------------------
 
@@ -336,6 +351,11 @@ class ForecastServer:
         """Run the scheduler on a background thread (idempotent)."""
         if self._thread is not None:
             return self
+        if self.dispatcher.mesh is not None:
+            raise RuntimeError(
+                "a server sharded over a series mesh is driven synchronously "
+                "(step/drain/forecast_batch): every rank must make the same "
+                "dispatch decisions, which the thread's deadlines do not give")
         self._stop = False
         self._thread = threading.Thread(
             target=self._serve_loop, name="forecast-server", daemon=True)

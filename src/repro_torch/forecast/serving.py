@@ -11,15 +11,23 @@ sees ``len(length_buckets) * len(batch_buckets)`` distinct shapes.
 The JAX package counts XLA compiles per shape; the port runs eagerly and has
 no compile listener, so ``ServeStats.compiles``/``cache_hits`` are the
 bucket-shape accounting alone, and ``ServeStats.kernel_launches`` records
-how many times each CUDA kernel ran on behalf of the served batches.
+how many times each CUDA kernel ran on behalf of the served batches. The
+dispatcher declares a budget of distinct shapes (``compile_budget``, by
+default the bucket grid's size), and :func:`check_compile_budget` holds
+``ServeStats.compiles`` to it -- the counterpart of the reference's
+recompile sentinel.
 
 Per-series HW parameters are looked up by ``series_id`` for series seen at
 fit time; unknown series fall back to a primer row (alpha = gamma = 0.5,
 flat seasonality -- section 3.3), the cold-start behaviour of a forecast
 service. The table is snapshot to host memory once; per-request resolution
 is a numpy row gather and only the gathered ``(B, ...)`` rows move to the
-device. Series data parallelism (the JAX ``mesh`` argument) comes later,
-and the deprecated ``BatchedForecastServer`` is not ported.
+device. With a series mesh (``mesh=``) every rank serves the same request
+stream: the batch buckets are snapped up to the mesh multiple at
+construction, each rank forecasts its rows of every bucket
+(:func:`~repro_torch.sharding.series.esrnn_forecast_dp`) and every rank
+returns the same responses. The deprecated ``BatchedForecastServer`` is not
+ported.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from repro_torch.core.esrnn import ESRNNConfig, esrnn_forecast
 from repro_torch.core.holt_winters import hw_init_params
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.sharding.series import esrnn_forecast_dp
 from repro_torch.train.host_table import HostStateTable
 
 log = logging.getLogger("repro_torch.forecast.serving")
@@ -123,6 +132,25 @@ class ServeStats:
                 "p99_ms": float(p99)}
 
 
+class CompileBudgetExceeded(AssertionError):
+    """Serving dispatched more distinct bucket shapes than it declared."""
+
+
+def check_compile_budget(stats: ServeStats, budget: Optional[int] = None) -> int:
+    """Hold ``stats.compiles`` (distinct bucket shapes dispatched) to
+    ``budget`` (default ``stats.compile_budget``); returns the count, or
+    raises :class:`CompileBudgetExceeded` past it."""
+    if budget is None:
+        budget = stats.compile_budget
+    if budget is None:
+        raise ValueError("no compile budget declared on stats or passed in")
+    if stats.compiles > budget:
+        raise CompileBudgetExceeded(
+            f"serving dispatched {stats.compiles} distinct bucket shapes, over the "
+            f"declared budget of {budget} ({stats.cache_hits} repeats)")
+    return stats.compiles
+
+
 def _pick_bucket(value: int, buckets: Sequence[int]) -> int:
     """Smallest bucket >= value; the largest bucket when value exceeds all."""
     for b in buckets:
@@ -136,6 +164,9 @@ class BucketDispatcher:
 
     ``device`` defaults to the card; the shared weights are copied there once
     (the caller's modules are not moved), the HW table is snapshot to host.
+    ``mesh``: a series mesh to shard every bucket over (its device is this
+    rank's); ``compile_budget``: the declared bound on distinct bucket
+    shapes (default: len(length buckets) x len(batch buckets)).
     """
 
     def __init__(
@@ -146,20 +177,29 @@ class BucketDispatcher:
         length_buckets: Tuple[int, ...] = (32, 64, 128, 256),
         batch_buckets: Tuple[int, ...] = (1, 4, 16, 64),
         max_batch: Optional[int] = None,
+        mesh=None,
         stats: Optional[ServeStats] = None,
+        compile_budget: Optional[int] = None,
         device=None,
     ):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         min_len = config.input_size + max(config.seasonality, 1)
         self.length_buckets = tuple(sorted(max(b, min_len) for b in length_buckets))
+        if self.mesh is not None:
+            # every padded chunk still lands on a bucket that divides the
+            # mesh, so max_batch and the shape budget keep their meaning
+            d = self.mesh.size
+            batch_buckets = {b + (-b) % d for b in batch_buckets}
         self.batch_buckets = tuple(sorted(batch_buckets))
         # a chunk must always fit the largest batch bucket
         self.max_batch = min(max_batch or self.batch_buckets[-1],
                              self.batch_buckets[-1])
         self.stats = stats if stats is not None else ServeStats()
         # the bound on distinct dispatch shapes the bucketing guarantees
-        self.compile_budget = len(self.length_buckets) * len(self.batch_buckets)
+        self.compile_budget = (compile_budget if compile_budget is not None
+                               else len(self.length_buckets) * len(self.batch_buckets))
         self.stats.compile_budget = self.compile_budget
         self._seen_shapes = set()
         self._warned_truncation = False
@@ -239,7 +279,10 @@ class BucketDispatcher:
             self._seen_shapes.add(shape)
             self.stats.compiles += 1
         before = kernel_ops.launch_counts()
-        fc = esrnn_forecast(self.config, params, to_dev(y), to_dev(cats))
+        if self.mesh is None:
+            fc = esrnn_forecast(self.config, params, to_dev(y), to_dev(cats))
+        else:
+            fc = esrnn_forecast_dp(self.config, params, to_dev(y), to_dev(cats), mesh=self.mesh)
         out = fc.cpu().numpy()[:n]
         self.stats.note_launches(before, kernel_ops.launch_counts())
         self.stats.batches += 1

@@ -58,8 +58,8 @@ class ForecastSpec:
     sparse_adam: bool = False        # segment per-series Adam: touch only
                                      # the batch's HW rows
 
-    # -- multi-device scaling (later slices of the port; > 1 / > 0 raise) --
-    data_parallel: int = 0           # devices to shard the series axis over
+    # -- multi-device scaling --
+    data_parallel: int = 0           # ranks to shard the series axis over
     series_chunk: int = 0            # > 0: out-of-core chunked fit/predict
 
     @property

@@ -43,14 +43,21 @@ the per-series table through the device in K-row chunks (it implies
 checkpoints hold the table as ``leaf_*.shard_*.bin`` row shards), and
 ``predict``, ``eval``, ``backtest``, ``serve`` and ``observe`` on the saved
 directory keep the table in host memory, streaming it chunk by chunk.
-``--devices N > 1`` (series data parallelism) comes with a later slice of
-the port and exits with an error; the JAX package's ``analyze`` subcommand
-(the graph auditor) has no counterpart here.
+``--devices N`` applies to every subcommand: with N > 1 one command spawns
+N ranks (:func:`repro_torch.sharding.run_ranks`; NCCL when each rank has a
+card of its own, else gloo), which run the subcommand over a series mesh --
+``fit`` trains series-data-parallel (it sets ``data_parallel``), and
+``predict``, ``eval``, ``backtest``, ``serve`` and ``observe`` shard their
+rows. Rank 0 alone writes files and prints. A sharded ``serve`` drives the
+server synchronously, wave by wave. The JAX package's ``analyze``
+subcommand (the graph auditor) has no counterpart here.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import logging
 import sys
@@ -86,19 +93,17 @@ def _parse_overrides(pairs):
     return out
 
 
-def _check_devices(args) -> None:
-    d = getattr(args, "devices", None)
-    if d is not None and d > 1:
-        raise SystemExit(
-            f"error: --devices {d}: series data parallelism comes with its slice "
-            "of the port (ROADMAP.md, section 1, item 5); the port runs on one device")
+def _mesh(args):
+    """The series mesh of a sharded run (``--devices N > 1``), else None."""
+    return getattr(args, "mesh", None)
 
 
 def _build(args) -> ESRNNForecaster:
-    _check_devices(args)
     over = _parse_overrides(getattr(args, "set", None))
     if getattr(args, "steps", None) is not None:
         over["n_steps"] = args.steps
+    if getattr(args, "devices", None) is not None:
+        over["data_parallel"] = args.devices
     spec = (get_smoke_spec(args.spec, **over) if args.smoke
             else get_spec(args.spec, **over))
     return ESRNNForecaster(spec, device=args.device)
@@ -107,13 +112,12 @@ def _build(args) -> ESRNNForecaster:
 def _fitted(args) -> ESRNNForecaster:
     """Saved estimator if --dir given, else a freshly fitted one."""
     if getattr(args, "dir", None):
-        _check_devices(args)
         f = ESRNNForecaster.load(args.dir, device=args.device)
         f.data_ = f.make_data()
         return f
     f = _build(args)
     log.info("no --dir: fitting %s for %d steps", f.spec.name, f.spec.n_steps)
-    return f.fit()
+    return f.fit(mesh=_mesh(args))
 
 
 def cmd_specs(args):
@@ -134,7 +138,7 @@ def cmd_specs(args):
 
 def cmd_fit(args):
     f = _build(args)
-    f.fit(ckpt_dir=args.ckpt_dir)
+    f.fit(ckpt_dir=args.ckpt_dir, mesh=_mesh(args))
     h = f.history_["loss"]
     if args.json:
         out = {"spec": f.spec.name, "n_series": f.n_series_,
@@ -162,14 +166,14 @@ def cmd_predict(args):
     f = _fitted(args)
     if args.quantiles:
         taus = tuple(float(t) for t in args.quantiles.split(","))
-        bands = f.predict_quantiles(taus=taus)
+        bands = f.predict_quantiles(taus=taus, mesh=_mesh(args))
         if args.json:
             print(json.dumps({"quantiles": {str(t): bands[t].tolist() for t in taus}}))
             return 0
         for tau in taus:
             print(f"tau={tau}: first series", np.round(bands[tau][0], 2))
     else:
-        fc = f.predict()
+        fc = f.predict(mesh=_mesh(args))
         if args.json:
             print(json.dumps({"forecast": fc.tolist()}))
             return 0
@@ -179,7 +183,7 @@ def cmd_predict(args):
 
 def cmd_eval(args):
     f = _fitted(args)
-    scores = f.evaluate(split=args.split)
+    scores = f.evaluate(split=args.split, mesh=_mesh(args))
     if args.json:
         print(json.dumps(scores))
         return 0
@@ -197,7 +201,7 @@ def cmd_backtest(args):
     f = _fitted(args)
     origins = (tuple(int(o) for o in args.origins.split(","))
                if args.origins else None)
-    out = f.backtest(origins=origins)
+    out = f.backtest(origins=origins, mesh=_mesh(args))
     if args.json:
         print(json.dumps(dict(out, forecasts=out["forecasts"].tolist())))
         return 0
@@ -217,9 +221,10 @@ def cmd_serve(args):
         length_buckets=tuple(int(b) for b in args.length_buckets.split(",")),
         batch_buckets=tuple(int(b) for b in args.batch_buckets.split(",")),
     )
+    mesh = _mesh(args)
     if args.engine == "batch":
         srv = BucketDispatcher(
-            f.config, f.params_, max_batch=args.max_batch, device=f.device,
+            f.config, f.params_, max_batch=args.max_batch, mesh=mesh, device=f.device,
             **buckets)
         t0 = time.perf_counter()
         for w in range(args.waves):
@@ -235,13 +240,16 @@ def cmd_serve(args):
             server_config=ServerConfig(
                 max_queue=args.queue_size, max_wait_ms=args.max_wait_ms,
                 max_batch=args.max_batch),
-            **buckets)
+            mesh=mesh, **buckets)
         t0 = time.perf_counter()
-        with srv:
+        # a sharded server runs synchronously, a wave at a time
+        with srv if mesh is None else contextlib.nullcontext():
             for w in range(args.waves):
                 reqs = synthetic_request_stream(
                     f.config, args.requests, n_known=f.n_series_ or 0, seed=w)
                 futs = [srv.submit(r) for r in reqs]
+                if mesh is not None:
+                    srv.drain()
                 for fut in futs:
                     assert np.isfinite(fut.result(timeout=120)).all()
         wall = time.perf_counter() - t0
@@ -275,7 +283,7 @@ def cmd_observe(args):
         server_config=ServerConfig(
             max_queue=args.queue_size, max_wait_ms=args.max_wait_ms,
             finetune_steps=args.finetune_steps),
-        seed_histories=args.seed_histories)
+        mesh=_mesh(args), seed_histories=args.seed_histories)
     for line in sys.stdin:
         line = line.strip()
         if not line:
@@ -319,7 +327,24 @@ def cmd_observe(args):
     return 0
 
 
-def main(argv=None):
+def _rank_cli(mesh, argv, stdin_text):
+    """One rank of a sharded command: the subcommand over ``mesh``, its
+    standard output returned (the launcher prints rank 0's)."""
+    if mesh.rank == 0:
+        logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
+    args.mesh = mesh
+    out = io.StringIO()
+    stdin, sys.stdin = sys.stdin, io.StringIO(stdin_text)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = args.fn(args)
+    finally:
+        sys.stdin = stdin
+    return rc, out.getvalue()
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.forecast",
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -334,8 +359,10 @@ def main(argv=None):
         p.add_argument("--device", default="cuda",
                        help="torch device to run on (default cuda; cpu for the CPU)")
         p.add_argument("--devices", type=int, metavar="N",
-                       help="series data parallelism: only N = 1 until its "
-                            "slice of the port lands")
+                       help="shard the series axis over N ranks (spawned by "
+                            "this command; rank 0 writes and prints): fit "
+                            "trains data-parallel, the other subcommands shard "
+                            "their rows")
         p.add_argument("--set", action="append", metavar="KEY=VAL",
                        help="spec/model override, e.g. --set hidden_size=16, "
                             "--set precision=bf16, --set scan_steps=8 "
@@ -421,9 +448,23 @@ def main(argv=None):
                        help="pre-register every fitted series' training "
                             "history in the online store")
     p_obs.set_defaults(fn=cmd_observe)
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    d = getattr(args, "devices", None)
+    if d is not None and d > 1:
+        from repro_torch.sharding import run_ranks
+
+        stdin_text = sys.stdin.read() if args.cmd == "observe" else ""
+        (rc, text), *_ = run_ranks(_rank_cli, d, device=args.device,
+                                   args=(argv, stdin_text))
+        sys.stdout.write(text)
+        sys.stdout.flush()
+        return rc
     return args.fn(args)
 
 

@@ -79,8 +79,8 @@ def serve(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
           seed: int = 0, device=None, model_parallel: int = 1):
     if model_parallel != 1:
         raise NotImplementedError(
-            "model_parallel > 1: sharded serving is not ported yet (ROADMAP.md, "
-            "section 1, series data parallelism and the LM stack)")
+            "model_parallel > 1: sharded LM serving comes with the rest of the "
+            "LM stack (ROADMAP.md, section 1, item 7)")
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = build_model(cfg)

@@ -16,6 +16,9 @@
 * :func:`make_chunk_step_fn` / :func:`make_chunk_superstep_fn` -- the
   out-of-core fit's step and superstep: the sparse step over one chunk's
   rows, with the chunk's series tensors passed in.
+* with a series mesh, the steps are series-data-parallel
+  (:mod:`repro_torch.sharding.series`), and the dense step takes int8
+  error-feedback gradient compression (``compress``);
 * :func:`segment_steps` -- chops ``[start, n_steps)`` into superstep
   segments that end on every eval/checkpoint boundary.
 
@@ -31,8 +34,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.esrnn import (
-    ESRNNConfig, combine_series, esrnn_loss_fn, gather_series, param_leaves,
-    partition_series, value_and_grad,
+    ESRNNConfig, combine_series, esrnn_loss_fn, param_leaves, partition_series,
+    value_and_grad,
 )
 from repro_torch.train.optimizer import (
     AdamConfig, adam_update, adam_update_sparse, esrnn_group_fn,
@@ -80,41 +83,67 @@ def _value_and_grad(loss_fn: Callable[[], torch.Tensor],
     return value_and_grad(loss_fn, leaves)
 
 
-def _refuse(mesh, compress: bool) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: series-data-parallel training comes with the series data "
-            "parallelism slice of the port (ROADMAP.md, section 1)")
-    if compress:
-        raise NotImplementedError(
-            "compress: int8 gradient compression comes with the series data "
-            "parallelism slice of the port (ROADMAP.md, section 1)")
+def _loss_and_grads(mcfg, batch_params, loss_args, leaves, mesh):
+    """The loss and its gradients w.r.t. ``leaves``; with a ``mesh`` the
+    series-data-parallel loss, the gradients summed over the ranks by one
+    all-reduce (:func:`~repro_torch.sharding.series.value_and_grad_dp`)."""
+    if mesh is None:
+        return _value_and_grad(lambda: esrnn_loss_fn(mcfg, batch_params, *loss_args), leaves)
+    from repro_torch.sharding.series import esrnn_loss_dp, value_and_grad_dp
+
+    for t in leaves:
+        t.requires_grad_(True)
+    return value_and_grad_dp(
+        lambda: esrnn_loss_dp(mcfg, batch_params, *loss_args, mesh=mesh), leaves, mesh)
 
 
-def _sparse_update(mcfg, cfg_adam, params, opt_state, frozen, rows, loss_args):
-    """Gradients w.r.t. the gathered rows ``rows``; segment Adam on them."""
+def _row_grads(mcfg, params, frozen, rows, loss_args, mesh):
+    """The loss and the gradients of the trainable leaves w.r.t. the
+    gathered rows ``rows`` (the HW leaves hold the batch's rows only):
+    ``(p_train, p_froz, loss, grads)``."""
     p_train, p_froz = split_frozen(params, frozen)
     hw_rows, shared = partition_series(params, rows)
     sh_train, sh_froz = split_frozen(shared, frozen)
     batch_train = combine_series(hw_rows, sh_train)
     with _fixed(sh_froz):
-        loss, grads = _value_and_grad(
-            lambda: esrnn_loss_fn(mcfg, {**batch_train, **sh_froz}, *loss_args),
-            [t for _, t in param_leaves(batch_train)])
+        loss, grads = _loss_and_grads(mcfg, {**batch_train, **sh_froz}, loss_args,
+                                      [t for _, t in param_leaves(batch_train)], mesh)
+    return p_train, p_froz, loss, grads
+
+
+def _sparse_update(mcfg, cfg_adam, params, opt_state, frozen, rows, loss_args, mesh=None):
+    """Gradients w.r.t. the gathered rows ``rows``; segment Adam on them."""
+    p_train, p_froz, loss, grads = _row_grads(mcfg, params, frozen, rows, loss_args, mesh)
     p_train, opt_state = adam_update_sparse(
         grads, opt_state, p_train, cfg_adam, idx=rows, group_fn=esrnn_group_fn)
     return {**p_train, **p_froz}, opt_state, loss
 
 
-def _dense_update(mcfg, cfg_adam, params, opt_state, frozen, rows, loss_args):
-    """Gradients through the row gather (a full-table gradient); dense Adam."""
-    p_train, p_froz = split_frozen(params, frozen)
-    with _fixed(p_froz):
-        loss, grads = _value_and_grad(
-            lambda: esrnn_loss_fn(mcfg, gather_series(params, rows), *loss_args),
-            [t for _, t in param_leaves(p_train)])
+def _dense_update(mcfg, cfg_adam, params, opt_state, frozen, rows, loss_args, mesh=None,
+                  compress=False):
+    """Dense Adam over the full table; with ``compress`` the shared-weight
+    gradients go through int8 error-feedback compression first and
+    ``opt_state`` is ``(adam_state, residuals)``."""
+    p_train, p_froz, loss, grads = _row_grads(mcfg, params, frozen, rows, loss_args, mesh)
+    # the rows' gradients scattered over the full table, as autograd's
+    # backward of the row gather accumulates them
+    grads = [torch.zeros_like(p, dtype=g.dtype).index_add_(0, rows, g) if path[0] == "hw"
+             else g for (path, p), g in zip(param_leaves(p_train), grads, strict=True)]
+    if compress:
+        from repro_torch.train.grad_compression import batch_generator, compress_tree_int8
+
+        opt_state, err = opt_state
+        shared = [path[0] != "hw" for path, _ in param_leaves(p_train)]
+        # the batch's own noise: a resumed run, and every rank, draws the
+        # same noise at the same step
+        g_sh, err = compress_tree_int8([g for g, s in zip(grads, shared) if s], err,
+                                       batch_generator(rows))
+        it = iter(g_sh)
+        grads = [next(it) if s else g for g, s in zip(grads, shared)]
     p_train, opt_state = adam_update(grads, opt_state, p_train, cfg_adam,
                                      group_fn=esrnn_group_fn)
+    if compress:
+        opt_state = (opt_state, err)
     return {**p_train, **p_froz}, opt_state, loss
 
 
@@ -138,15 +167,31 @@ def make_step_fn(
     those rows (:func:`~repro_torch.train.optimizer.adam_update_sparse`);
     otherwise the gradient scatters over the full table and dense Adam runs
     over it. ``frozen`` names top-level groups left untrained; ``opt_state``
-    must cover exactly the rest. ``mesh`` and ``compress`` belong to slices
-    of the port that have not landed, and raise.
+    must cover exactly the rest.
+
+    ``mesh`` (a :class:`~repro_torch.sharding.series.SeriesMesh`) makes it
+    the series-data-parallel step: every rank computes its block of the
+    batch's rows (:func:`~repro_torch.sharding.series.esrnn_loss_dp`), the
+    gradients are summed over the ranks in one flat all-reduce, and the
+    update runs identically on every rank. ``compress`` turns on int8
+    error-feedback compression of the shared-weight gradients
+    (:mod:`repro_torch.train.grad_compression`); ``opt_state`` is then
+    ``(adam_state, residuals)``, the residuals over the shared trainable
+    leaves. Dense optimizer path only, as in the reference.
     """
-    _refuse(mesh, compress)
-    update = _sparse_update if sparse else _dense_update
+    if sparse and compress:
+        raise ValueError(
+            "compress=True requires the dense optimizer path: the sparse "
+            "segment update only ever touches per-series HW rows locally, "
+            "so there is no shared-gradient exchange to compress")
 
     def step(params, opt_state, idx):
         loss_args = (y_all[idx], cats_all[idx], mask_all[idx])
-        return update(mcfg, cfg_adam, params, opt_state, frozen, idx, loss_args)
+        if sparse:
+            return _sparse_update(mcfg, cfg_adam, params, opt_state, frozen, idx, loss_args,
+                                  mesh)
+        return _dense_update(mcfg, cfg_adam, params, opt_state, frozen, idx, loss_args,
+                             mesh, compress)
 
     return step
 
@@ -177,6 +222,7 @@ def make_chunk_step_fn(
     mcfg: ESRNNConfig,
     cfg_adam: AdamConfig,
     *,
+    mesh=None,
     frozen: FrozenSet[str] = frozenset(),
 ) -> StepFn:
     """The chunked fit's training step.
@@ -188,11 +234,12 @@ def make_chunk_step_fn(
     state: the ``hw`` leaves, their moments and ``t_hw`` hold the chunk's
     rows only (``idx`` is chunk-local), while the shared weights and the
     global step count persist across chunks. ``t_hw`` carries global
-    last-touch steps, which makes the per-chunk updates exact.
+    last-touch steps, which makes the per-chunk updates exact. ``mesh`` as
+    in :func:`make_step_fn`.
     """
     def step(params, opt_state, y_c, cats_c, mask_c, idx):
         return _sparse_update(mcfg, cfg_adam, params, opt_state, frozen, idx,
-                              (y_c[idx], cats_c[idx], mask_c[idx]))
+                              (y_c[idx], cats_c[idx], mask_c[idx]), mesh)
 
     return step
 

@@ -26,11 +26,16 @@ per-series table resident on it:
   a time on a copy stream, while the shared weights stay on the device;
   ``chunk_resident=True`` walks the same chunk-major schedule with the
   whole table on the device, the trajectory the streamed fit reproduces
-  bit for bit.
-
-Series data parallelism and gradient compression belong to a later slice
-of the port (ROADMAP.md, section 1); asking for them raises
-:class:`NotImplementedError`.
+  bit for bit;
+* series data parallelism (``mesh=``, or ``data_parallel > 1`` over an
+  initialized process group, :mod:`repro_torch.sharding`): every rank holds
+  the whole replicated state, computes its block of each batch's rows and
+  takes the same update, so the ranks stay bit-identical; a 1-rank mesh
+  is the single-device path. The batch (each chunk's batch, chunked) must
+  divide the mesh. Rank 0 alone writes checkpoints;
+* int8 error-feedback compression of the shared-weight gradients
+  (``compress_grads``, dense Adam only), its residuals carried in the
+  optimizer state and in checkpoints.
 """
 
 from __future__ import annotations
@@ -80,10 +85,11 @@ class TrainConfig:
     ckpt_dir: Optional[str] = None      # checkpoint/restart directory
     keep: int = 3
     straggler_factor: float = 3.0
-    data_parallel: int = 0              # > 1: a later slice
+    data_parallel: int = 0              # > 1: ranks of a series mesh
     scan_steps: int = 1                 # steps per superstep (1 = per-step)
     sparse_adam: bool = False           # segment per-series Adam
-    compress_grads: bool = False        # a later slice
+    compress_grads: bool = False        # int8 error-feedback compression
+                                        # of the shared-weight gradients
     series_chunk: int = 0               # > 0: the out-of-core chunked fit,
                                         # the table streamed in K-row chunks
     chunk_resident: bool = False        # debug reference: the chunk-major
@@ -133,16 +139,25 @@ class PreemptionHandler:
             signal.signal(sig, prev)
 
 
-def _refuse_unported(cfg: TrainConfig, mesh) -> None:
-    later = {
-        "data_parallel > 1 / mesh": (cfg.data_parallel or 0) > 1 or mesh is not None,
-        "compress_grads": cfg.compress_grads,
-    }
-    for what, asked in later.items():
-        if asked:
-            raise NotImplementedError(
-                f"TrainConfig {what}: comes with the series data parallelism "
-                f"slice of the port (ROADMAP.md, section 1, item 5)")
+def _resolve_train_mesh(cfg: TrainConfig, mesh, dev: torch.device):
+    """The series mesh of a fit: ``mesh``, else one over the process group
+    when ``cfg.data_parallel > 1`` (raising when none of that size is
+    initialized); a 1-rank mesh is the single-device path."""
+    if mesh is None and cfg.data_parallel and cfg.data_parallel > 1:
+        from repro_torch.sharding.series import make_series_mesh
+
+        mesh = make_series_mesh(cfg.data_parallel, device=dev)
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    if mesh is not None and mesh.device != dev:
+        raise ValueError(f"the series mesh puts this rank on {mesh.device}, the fit on {dev}")
+    return mesh
+
+
+def _shared_leaves(trainable) -> List[torch.Tensor]:
+    """The trainable shared-weight leaves (``param_leaves`` order, no ``hw``):
+    what gradient compression and its residuals cover."""
+    return [t for path, t in param_leaves(trainable) if path[0] != "hw"]
 
 
 def _chunked_config(cfg: TrainConfig) -> TrainConfig:
@@ -189,16 +204,34 @@ def train_esrnn(
     chunked fit (:func:`_train_chunked`), whose returned ``params["hw"]``
     stays on the host; with ``chunk_resident`` the same chunk-major
     schedule runs over the whole table on ``device``.
+
+    ``mesh`` (or ``data_parallel > 1``) trains series-data-parallel: the
+    same trajectory as one device up to float summation order, the ranks
+    bit-identical (:mod:`repro_torch.sharding.series`). ``compress_grads``
+    sends the shared-weight gradients through int8 error-feedback
+    compression (dense Adam only); ``opt_state`` is then ``(adam_state,
+    residuals)``.
     """
     chunked = (cfg.series_chunk or 0) > 0
     if chunked:
         cfg = _chunked_config(cfg)
-    _refuse_unported(cfg, mesh)
     if chunked and not cfg.chunk_resident:
         return _train_chunked(model, data, cfg, params=params, hooks=hooks,
-                              device=device, generator=generator)
+                              mesh=mesh, device=device, generator=generator)
     mcfg = model
     dev = resolve_device(device)
+    mesh = _resolve_train_mesh(cfg, mesh, dev)
+    if mesh is not None:
+        from repro_torch.sharding.series import check_series_divisible
+
+        if chunked:
+            for _, _, bs_c, _ in chunk_layout(data.n_series, cfg.series_chunk,
+                                              cfg.batch_size)[0]:
+                check_series_divisible(bs_c, mesh)
+        else:
+            check_series_divisible(min(cfg.batch_size, data.n_series), mesh)
+        log.info("series-data-parallel training: rank %d of %d (%s)", mesh.rank,
+                 mesh.size, mesh.backend)
     cfg_adam = AdamConfig(
         lr=cfg.lr,
         clip_norm=cfg.clip_norm,
@@ -214,9 +247,18 @@ def train_esrnn(
     trainable, _ = split_frozen(params, frozen)
     opt_state = (adam_init_sparse(trainable) if cfg.sparse_adam
                  else adam_init(trainable))
+    if cfg.compress_grads:
+        if cfg.sparse_adam:
+            raise ValueError(
+                "compress_grads requires dense Adam (sparse_adam=False): "
+                "the sparse path has no shared-gradient exchange to compress")
+        from repro_torch.train.grad_compression import init_error_state
+
+        opt_state = (opt_state, init_error_state(_shared_leaves(trainable)))
+        log.info("error-feedback int8 compression of shared grads enabled")
     start_step = 0
 
-    ckpt = (Checkpointer(cfg.ckpt_dir, keep=cfg.keep, frozen=frozen)
+    ckpt = (Checkpointer(cfg.ckpt_dir, keep=cfg.keep, frozen=frozen, mesh=mesh)
             if cfg.ckpt_dir else None)
     if ckpt is not None and ckpt.latest_step() is not None:
         try:
@@ -241,12 +283,21 @@ def train_esrnn(
     h_val = min(mcfg.output_size, data.val_target.shape[1])
     val_target = to_dev(data.val_target)[:, :h_val]
     bs = min(cfg.batch_size, n)
-    step_fn = make_step_fn(mcfg, cfg_adam, y_all, cats_all, mask_all,
-                           sparse=cfg.sparse_adam, frozen=frozen)
+    step_fn = make_step_fn(mcfg, cfg_adam, y_all, cats_all, mask_all, mesh=mesh,
+                           sparse=cfg.sparse_adam, frozen=frozen,
+                           compress=cfg.compress_grads)
 
     def val_smape(params) -> float:
-        fc = esrnn_forecast(mcfg, params, y_all, cats_all)
-        return float(L.smape(fc[:, :h_val], val_target))
+        if mesh is None:
+            fc = esrnn_forecast(mcfg, params, y_all, cats_all)
+            return float(L.smape(fc[:, :h_val], val_target))
+        # each rank scores its block of the rows; one all-reduce of the terms
+        lo, hi = mesh.block(0, n)
+        fc = esrnn_forecast(mcfg, {**params, "hw": params["hw"].map(lambda a: a[lo:hi])},
+                            y_all[lo:hi], cats_all[lo:hi])
+        s, c = mesh.all_reduce(torch.stack(
+            L.smape_terms(fc[:, :h_val], val_target[lo:hi])).float())
+        return float(200.0 * s / torch.clamp_min(c, 1.0))
 
     pre = PreemptionHandler()
     pre.install()
@@ -353,6 +404,7 @@ def _train_chunked(
     *,
     params=None,
     hooks: Optional[Dict[str, Callable]] = None,
+    mesh=None,
     device=None,
     generator: Optional[torch.Generator] = None,
 ) -> Dict:
@@ -360,8 +412,9 @@ def _train_chunked(
 
     The N-series state -- HW rows, their sparse-Adam moments, the ``t_hw``
     clocks -- lives in a :class:`HostStateTable` (pinned host tensors on
-    the card), and the training tensors in pinned host memory; only one
-    ``series_chunk``-row slice of them is on the device at a time. The
+    the card), and the training tensors stay the caller's (each visit pins
+    a copy of its own rows); only one ``series_chunk``-row slice of them is
+    on the device at a time. The
     shared weights, their moments and the global Adam step count stay on
     the device across chunks. Epochs visit the chunks in permuted order with
     chunk-pure batches (:func:`chunk_visit_plan`); within a visit the
@@ -378,10 +431,24 @@ def _train_chunked(
     Checkpoints hold the tree of a resident sparse fit (table leaves
     row-sharded), so the two resume into each other. The returned
     ``params["hw"]`` and the table's moments and clocks stay on the host.
+
+    Over a series mesh every rank holds the whole host table and stages
+    each visit's chunk whole: the steps split each batch's rows and reduce
+    the gradients (every chunk's batch must divide the mesh), every rank
+    absorbs the same rows, and the streamed val scores each rank's block of
+    every chunk, reduced once.
     """
     dev = resolve_device(device)
+    mesh = _resolve_train_mesh(cfg, mesh, dev)
     n = data.n_series
     per_chunk, _ = chunk_layout(n, cfg.series_chunk, cfg.batch_size)
+    if mesh is not None:
+        from repro_torch.sharding.series import check_series_divisible
+
+        for _, _, bs_c, _ in per_chunk:
+            check_series_divisible(bs_c, mesh)
+        log.info("chunked + series-data-parallel: %d chunks, rank %d of %d",
+                 len(per_chunk), mesh.rank, mesh.size)
     cfg_adam = AdamConfig(
         lr=cfg.lr,
         clip_norm=cfg.clip_norm,
@@ -417,7 +484,7 @@ def _train_chunked(
                  "step": step_count, "t_hw": table.t_hw})
 
     start_step = 0
-    ckpt = (Checkpointer(cfg.ckpt_dir, keep=cfg.keep, frozen=frozen)
+    ckpt = (Checkpointer(cfg.ckpt_dir, keep=cfg.keep, frozen=frozen, mesh=mesh)
             if cfg.ckpt_dir else None)
     if ckpt is not None and ckpt.latest_step() is not None:
         try:
@@ -441,18 +508,27 @@ def _train_chunked(
         step_count = o_full["step"]
         log.info("resumed from step %d", start_step)
 
-    # the training tensors, pinned once: every visit copies its rows from them
-    y_h, cats_h, mask_h, val_h = (pinned_copy(np.ascontiguousarray(a), dev) for a in (
-        data.train, data.cats, data.mask, data.val_target))
+    def data_rows(arrays, lo, hi):
+        """Pinned copies of rows [lo, hi) of the training arrays. Only a
+        chunk's rows are pinned at a time: a pinned copy of the whole set
+        would hold a second copy of the caller's data in host memory (the
+        pinned-host allocator caches the chunk-sized blocks for reuse)."""
+        return [pinned_copy(np.ascontiguousarray(a[lo:hi]), dev) for a in arrays]
+
     h_val = min(mcfg.output_size, data.val_target.shape[1])
 
-    superstep_fn = make_chunk_superstep_fn(make_chunk_step_fn(mcfg, cfg_adam, frozen=frozen))
+    superstep_fn = make_chunk_superstep_fn(make_chunk_step_fn(mcfg, cfg_adam, mesh=mesh,
+                                                              frozen=frozen))
 
     def streamed_val_smape() -> float:
         """Validation sMAPE with no full-table residency: every chunk's
         forecast scored as exact sum and count terms, added in float64 on
-        the host in chunk order (:func:`stream_chunks`)."""
+        the host in chunk order (:func:`stream_chunks`); over a mesh each
+        rank streams its block of every chunk and the sums are reduced once."""
         acc = [0.0, 0.0]
+        ranges = [(lo, hi) for lo, hi, _, _ in per_chunk]
+        if mesh is not None:
+            ranges = [mesh.block(lo, hi) for lo, hi in ranges]
 
         def compute(rows):
             y_c, cats_c, tgt_c = rows.extra
@@ -463,15 +539,19 @@ def _train_chunked(
             acc[0] += float(terms[0])
             acc[1] += float(terms[1])
 
-        stream_chunks(table, [(lo, hi) for lo, hi, _, _ in per_chunk],
-                      lambda lo, hi: (y_h[lo:hi], cats_h[lo:hi], val_h[lo:hi]),
+        stream_chunks(table, [r for r in ranges if r[1] > r[0]],
+                      lambda lo, hi: data_rows((data.train, data.cats, data.val_target),
+                                               lo, hi),
                       compute, finish)
+        if mesh is not None:
+            acc = mesh.all_reduce(torch.tensor(acc, dtype=torch.float64,
+                                               device=mesh.device)).tolist()
         return 200.0 * acc[0] / max(acc[1], 1.0)
 
     def stage(v):
         """Issue the copies of one visit's rows: table rows and data."""
-        return table.device_slice(v.lo, v.hi, (y_h[v.lo:v.hi], cats_h[v.lo:v.hi],
-                                               mask_h[v.lo:v.hi]))
+        return table.device_slice(v.lo, v.hi, data_rows((data.train, data.cats, data.mask),
+                                                        v.lo, v.hi))
 
     pre = PreemptionHandler()
     pre.install()

@@ -194,12 +194,11 @@ def test_entry_rules(caplog):
     assert "enabling sparse per-series Adam" in caplog.text
     assert "streaming chunked fit" in caplog.text
     assert len(out["history"]["loss"]) == 4 and "t_hw" in out["opt_state"]
+    # over a mesh: tests/test_torch_dp.py; with no process group,
+    # data_parallel raises in either chunked mode
     for kw in (dict(data_parallel=2), dict(chunk_resident=True, data_parallel=2)):
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(ValueError, match="process group"):
             _torch_fit(**kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ttrainer.train_esrnn(tes.make_config("quarterly", **MODEL), _data(tpipe),
-                             _cfg(ttrainer.TrainConfig), mesh=object(), device="cpu")
 
 
 def test_host_table_streams_copies():

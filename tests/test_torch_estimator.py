@@ -15,9 +15,9 @@ draw different inits from the same seed.
   unbroken fit bit for bit; a trainer checkpoint directory of either package
   resumes in the other's trainer, the continued losses within rtol 1e-5 of
   the unbroken JAX run;
-* the errors: not fitted, a shape mismatch, and the refusals of the slice
-  still to port (mesh, data_parallel, alone or with series_chunk); a
-  chunked fit and predict run;
+* the errors: not fitted, a shape mismatch, ``data_parallel`` with no
+  process group (alone or with series_chunk), and a 1-rank mesh taken as one
+  device; a chunked fit and predict run;
 * the esn and ssm heads: fits against the JAX estimator from one converted
   init, resumed bit for bit, their trainer checkpoints resumed by JAX.
 """
@@ -38,6 +38,7 @@ from repro_torch.core.esrnn import param_leaves
 from repro_torch.forecast import (
     ESRNNForecaster, ForecastRequest, NotFittedError, get_smoke_spec,
 )
+from repro_torch.sharding import make_series_mesh
 from repro_torch.train import trainer as ttrainer
 
 STEPS = 6
@@ -228,22 +229,28 @@ def test_errors_and_refusals(tmp_path, fits):
         tf.predict(tf.data_.train[:3])
     with pytest.raises(ValueError, match="split"):
         tf.evaluate(split="train")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tf.predict(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="process group"):
         ESRNNForecaster(tf.spec, device="cpu", data_parallel=2).fit()
+    # a 1-rank mesh is the single-device path (sharded runs:
+    # tests/test_torch_dp.py)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        mesh = make_series_mesh(device="cpu")
+        np.testing.assert_array_equal(tf.predict(mesh=mesh), tf.predict())
+        assert mesh.collective_counts() == {}
+    finally:
+        torch.distributed.destroy_process_group()
     # the chunked path runs (tests/test_torch_chunked.py holds it to the
-    # resident one); with a mesh or data parallelism it is still item 5
+    # resident one); data parallelism needs a process group there too
     fitted = ESRNNForecaster(tf.spec, device="cpu", series_chunk=8, n_steps=2).fit()
     assert fitted.params_["hw"].alpha_logit.device.type == "cpu"
     chunked = ESRNNForecaster(tf.spec.replace(series_chunk=8), device="cpu")
     chunked.params_, chunked.data_, chunked.cats_ = tf.params_, tf.data_, tf.cats_
     chunked.n_series_ = tf.n_series_
     np.testing.assert_allclose(chunked.predict(), tf.predict(), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="process group"):
         ESRNNForecaster(tf.spec, device="cpu", series_chunk=8, data_parallel=2).fit()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        chunked.predict(mesh=object())
 
 
 def test_data_parallel_spec_predicts_on_one_device(caplog, fits):

@@ -272,3 +272,36 @@ def test_vectorized_absorb_equals_scalar_rolls(model):
         a, b = stores[0].get(sid), stores[1].get(sid)
         assert np.float32(a.level) == np.float32(b.level)
         np.testing.assert_array_equal(a.s_ring, b.s_ring)
+
+
+@pytest.mark.parametrize("budget", [64, 1])
+def test_compile_budget_parity(budget):
+    """P3: ``ServerConfig(compile_budget=)`` on both servers from one
+    config: both pass the check, or both raise. The JAX server counts the
+    XLA compiles of its dispatches, the port its distinct bucket shapes; a
+    width of this test's own keeps the JAX compiles fresh."""
+    from repro.analysis.recompile import CompileBudgetExceeded as JExceeded
+    from repro_torch.forecast.serving import CompileBudgetExceeded
+
+    hidden = 5 if budget > 1 else 7
+    cfg = jes.make_config("quarterly", hidden_size=hidden, dilations=((1, 2), (4,)))
+    jp = jax.tree_util.tree_map(np.asarray, jes.esrnn_init(jax.random.PRNGKey(1), cfg, N_KNOWN))
+    tcfg = tes.make_config("quarterly", hidden_size=hidden, dilations=((1, 2), (4,)))
+    buckets = dict(length_buckets=LENGTHS, batch_buckets=BATCHES)
+    jsrv = JServer(cfg, jp, server_config=JServerConfig(compile_budget=budget), **buckets)
+    tsrv = ForecastServer(tcfg, params_from_numpy(jp, "cpu"), device="cpu",
+                          server_config=ServerConfig(compile_budget=budget), **buckets)
+    reqs = synthetic_request_stream(tcfg, 11, n_known=N_KNOWN, seed=3, len_range=(12, 30))
+    for srv in (jsrv, tsrv):
+        srv.forecast_batch(reqs)
+        assert srv.stats.compile_budget == budget
+    outcomes = []
+    for srv, exceeded in ((jsrv, JExceeded), (tsrv, CompileBudgetExceeded)):
+        try:
+            outcomes.append(("pass", srv.check_compile_budget()))
+        except exceeded as e:
+            outcomes.append(("raise", str(e)))
+    assert outcomes[0][0] == outcomes[1][0] == ("pass" if budget > 1 else "raise"), outcomes
+    if budget > 1:
+        assert outcomes[1][1] == tsrv.stats.compiles >= 2
+    assert issubclass(CompileBudgetExceeded, AssertionError)

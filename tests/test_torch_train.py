@@ -152,11 +152,20 @@ def test_on_step_hook_and_unported_options(data, tmp_path):
                                                                ckpt_dir=str(tmp_path)),
                                device="cpu")
     assert out["resumed_from"] == 0 and (tmp_path / "step_1" / "manifest.json").exists()
-    # series_chunk is ported (tests/test_torch_chunked.py); these are not
-    for kw in (dict(data_parallel=2), dict(compress_grads=True)):
-        with pytest.raises(NotImplementedError, match="slice of the port"):
-            ttrainer.train_esrnn(cfg, data, ttrainer.TrainConfig(n_steps=1, **kw),
-                                 device="cpu")
+    # series data parallelism and gradient compression are ported
+    # (tests/test_torch_dp.py, tests/test_torch_grad_compression.py): with no
+    # process group data_parallel raises, as the reference does without the
+    # devices; compression runs on the dense path and is refused on the sparse
+    with pytest.raises(ValueError, match="process group"):
+        ttrainer.train_esrnn(cfg, data, ttrainer.TrainConfig(n_steps=1, data_parallel=2),
+                             device="cpu")
+    out = ttrainer.train_esrnn(cfg, data, ttrainer.TrainConfig(n_steps=1, batch_size=4,
+                                                               compress_grads=True),
+                               device="cpu")
+    assert isinstance(out["opt_state"], tuple) and np.isfinite(out["history"]["loss"]).all()
+    with pytest.raises(ValueError, match="dense Adam"):
+        ttrainer.train_esrnn(cfg, data, ttrainer.TrainConfig(n_steps=1, compress_grads=True,
+                                                             sparse_adam=True), device="cpu")
 
 
 @pytest.mark.parametrize("freq,scale", [("quarterly", 0.002), ("yearly", 0.001)])
