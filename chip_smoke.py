@@ -63,7 +63,13 @@ eval the forecast cell and serve the serve cell's requests, against the
 same calls on one device of the card (ranks bit-identical, collectives and
 each rank's launches counted); the sharded loss, eval and backtest on one
 NCCL rank equal one device bit for bit; ``fit --devices 2`` through the CLI
-against ``--devices 1``. Each phase prints
+against ``--devices 1``. ``analyze`` then runs the invariant auditor
+(``repro_torch.analysis``) through the CLI at full width: the lstm fp32,
+bf16, esn, ssm and chunked fits, forecasts and dispatchers, ``--devices
+2`` on two gloo ranks sharing the card and one NCCL rank, each report
+``ok`` (the esn step launching K5's dx-only kernel once per cell step, the
+full K5 never), one seeded violation per lint found on the card, and the
+recorders' cost per step. Each phase prints
 one JSON line (``heads`` one per part); any failed check raises and the
 script exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
@@ -271,6 +277,13 @@ LM_ARCH = "yi-6b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
 # the LM parity cell: full width, depth cut to 2 layers for the CPU's sake
 LM_PARITY_LAYERS, LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_GEN = 2, 2, 128, 8
+
+# phase analyze: the CLI's audits at full width, by part: (name, spec, --set)
+ANALYZE_RUNS = (("lstm", "esrnn-quarterly", ()), ("bf16", "esrnn-quarterly", ("precision=bf16",)),
+                ("esn", "esn-quarterly", ()), ("ssm", "ssm-quarterly", ()),
+                ("chunked", "esrnn-quarterly", ("series_chunk=2048",)))
+ANALYZE_COST_STEPS = 10   # train steps a turn when the recorders' cost is timed
+ANALYZE_DISPATCH_REPS = 30   # dispatches a turn when the serving counter's cost is timed
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 CUDA-core flop/s and
 # dense bf16 tensor-core flop/s
@@ -2888,6 +2901,232 @@ def run_million():
 
 
 # ---------------------------------------------------------------------------
+# phase 6g: the invariant auditor (repro_torch.analysis) on the card
+# ---------------------------------------------------------------------------
+
+
+def _loss_with_broadcast(cfg, params, y, cats, mask=None, *, mesh):
+    """The sharded loss plus a broadcast past the mesh: the collective
+    audit's seeded violation (module level: the ranks unpickle it)."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import series as S
+
+    loss = S.esrnn_loss_dp(cfg, params, y, cats, mask, mesh=mesh)
+    dist.broadcast(loss.detach().clone(), src=0)
+    return loss
+
+
+def _analyze_report(name, tmp, *argv):
+    """``analyze`` through the CLI in process on the card (it exits 1 on a
+    violation, which raises); its report."""
+    path = f"{tmp}/analyze_{name}.json"
+    _, seconds = forecast_cli("analyze", "--device", "cuda", "--json-out", path, *argv)
+    report = json.loads(Path(path).read_text())
+    if not report["ok"]:
+        raise AssertionError(f"analyze {name}: {report}")
+    return report, seconds
+
+
+def _seeded_violations(dev):
+    """One seeded violation per lint, run on the card through the real entry
+    points; each must land in its section's violations under its lint."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.analysis import audit as A
+    from repro_torch.core.heads import frozen_param_groups
+    from repro_torch.forecast import get_spec
+    from repro_torch.forecast.serving import BucketDispatcher
+    from repro_torch.train import engine
+
+    out = {}
+
+    def seeded(lint, section):
+        lints = {f.lint for f in section.violations}
+        if lint not in lints:
+            raise AssertionError(f"the seeded {lint} violation was not found: {section}")
+        out[lint] = dict(section=section.name, found=sorted(lints),
+                         violations=len(section.violations))
+        return section
+
+    # gradient-leak: the esn step built with no frozen group trains its reservoir
+    spec = get_spec("esn-quarterly")
+    cfg, params, y, cats = A.probe_model(spec, dev)
+    step, opt_init, _ = A.fit_step(spec, cfg, y, cats, frozenset())
+    leak = seeded("gradient-leak", A.audit_step(cfg, step, params, opt_init(params),
+                                                frozen_param_groups(cfg)))
+    # on the card the recorder sees K5's weight gradients as the allocation
+    # of its outputs: the full K5's must show as frozen-weight-shaped values
+    metrics = leak.metrics["gradient_leak"]
+    k5 = metrics["k5_launches"]
+    if not (k5["full"] > 0 and k5["dx_only"] == 0 and metrics["grad_op_hits"] > 0):
+        raise AssertionError(f"the trainable reservoir's step: {metrics}")
+    out["gradient-leak"].update({k: metrics[k] for k in (
+        "k5_launches", "grad_op_hits", "frozen_accumulate_grads", "passthrough_ok")})
+    # dtype-policy: a float64 zero added to the step's loss
+    real = engine.esrnn_loss_fn
+
+    def f64_loss(*args, **kwargs):
+        loss = real(*args, **kwargs)
+        return loss + torch.zeros((), dtype=torch.float64, device=loss.device)
+
+    with mock.patch.object(engine, "esrnn_loss_fn", f64_loss):
+        seeded("dtype-policy", A.audit_fit(get_spec("esrnn-quarterly"), device=dev))
+    # donation: a step that rebinds a moment to a fresh tensor
+    spec = get_spec("esrnn-quarterly")
+    cfg, params, y, cats = A.probe_model(spec, dev)
+    step, opt_init, _ = A.fit_step(spec, cfg, y, cats, frozenset())
+
+    def replacing(p, o, idx):
+        p, o, loss = step(p, o, idx)
+        o["mu"][0] = o["mu"][0].clone()
+        return p, o, loss
+
+    seeded("donation", A.audit_step(cfg, replacing, params, opt_init(params), frozenset()))
+
+    # recompile: a dispatcher that skips the batch padding
+    class Unpadded(BucketDispatcher):
+        def pad_batch(self, requests, bb):
+            return requests
+
+    serve = seeded("recompile", A.audit_serve(spec, device=dev, dispatcher=Unpadded))
+    out["recompile"]["repeat_launch_shapes"] = serve.metrics["repeat_launch_shapes"]
+    # collectives: a broadcast in the loss, on two gloo ranks sharing the card
+    coll = seeded("collectives", A.audit_collectives(spec, 2, device=dev,
+                                                     loss_fn=_loss_with_broadcast))
+    out["collectives"]["loss_grad"] = coll.metrics["counts"]["loss_grad"]
+    return out
+
+
+def _recorder_cost(dev, steps=ANALYZE_COST_STEPS):
+    """ms per training step of the full-width quarterly model (dense fp32,
+    the audit's probe batch) with the recorders disarmed and armed (a
+    Trace and a LaunchShapeCounter around each step), in turns."""
+    import torch
+
+    from repro_torch.analysis import audit as A
+    from repro_torch.analysis.recompile import LaunchShapeCounter
+    from repro_torch.analysis.trace import Trace
+    from repro_torch.forecast import get_spec
+
+    spec = get_spec("esrnn-quarterly")
+    cfg, params, y, cats = A.probe_model(spec, dev)
+    step, opt_init, _ = A.fit_step(spec, cfg, y, cats, frozenset())
+    opt = opt_init(params)
+    idx = torch.arange(5, device=dev)
+
+    def run(armed):
+        nonlocal params, opt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            if armed:
+                with Trace(), LaunchShapeCounter():
+                    params, opt, _ = step(params, opt, idx)
+            else:
+                params, opt, _ = step(params, opt, idx)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    run(False)
+    run(True)                                   # warm-up, both ways
+    times = {"disarmed": [], "armed": []}
+    for armed in (False, True, True, False):
+        times["armed" if armed else "disarmed"].append(run(armed))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    return dict(steps=steps, batch=5, ms_per_step=med, runs_ms=times,
+                armed_over_disarmed=med["armed"] / med["disarmed"])
+
+
+def _dispatch_cost(dev, reps=ANALYZE_DISPATCH_REPS):
+    """ms per serving dispatch of the full-width quarterly model (8 requests
+    on the (8, 64) bucket, its shape already counted, so the dispatcher runs
+    it unarmed) alone and inside a warm LaunchShapeCounter (what arming
+    every dispatch costs), in turns."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.analysis import audit as A
+    from repro_torch.analysis.recompile import LaunchShapeCounter
+    from repro_torch.forecast import get_spec
+    from repro_torch.forecast.serving import BucketDispatcher, synthetic_request_stream
+
+    cfg, params, _, _ = A.probe_model(get_spec("esrnn-quarterly"), dev)
+    srv = BucketDispatcher(cfg, params, length_buckets=(32, 64), batch_buckets=(1, 8),
+                           device=dev)
+    reqs = synthetic_request_stream(cfg, 8, n_known=A.PROBE_SERIES, seed=0,
+                                    len_range=(40, 60))
+    counter = LaunchShapeCounter()
+
+    def run(armed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            with counter if armed else contextlib.nullcontext():
+                srv.run_bucket(reqs, 64)
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    run(False)
+    run(True)                                   # warm-up, both ways
+    times = {"unarmed": [], "armed": []}
+    for armed in (False, True, True, False) * 2:
+        times["armed" if armed else "unarmed"].append(run(armed))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    launches = sum(srv.stats.kernel_launches.values()) / srv.stats.batches
+    return dict(reps=reps, ms_per_dispatch=med, runs_ms=times, keys=counter.count,
+                kernel_calls_per_dispatch=launches,
+                armed_over_unarmed=med["armed"] / med["unarmed"])
+
+
+def run_analyze(dev, tmp):
+    """Phase analyze: the CLI's ``analyze`` at full width for every head and
+    precision the port serves, ``--devices 2`` on two gloo ranks sharing the
+    card, one NCCL rank, one seeded violation per lint, the recorders' cost
+    and the serving counter's; one JSON line per part, the phase's wall time
+    on the last."""
+    from repro_torch.analysis import audit as A
+    from repro_torch.analysis.gradleak import cell_steps
+    from repro_torch.forecast import get_spec
+
+    t_phase = time.perf_counter()
+    for name, spec_name, sets in ANALYZE_RUNS:
+        report, seconds = _analyze_report(name, tmp, "--spec", spec_name, "--entries",
+                                          "fit,predict,serve", *_sets(sets))
+        fit = report["sections"][0]["metrics"]
+        k5 = fit["gradient_leak"]["k5_launches"]
+        cfg = get_spec(spec_name).model
+        if name == "esn" and k5 != {"full": 0, "dx_only": cell_steps(cfg, A.PROBE_T)}:
+            raise AssertionError(f"the esn fit launched K5 {k5}")
+        emit(dict(phase="analyze", part=name, spec=report["spec"], sets=list(sets),
+                  ok=report["ok"], seconds=seconds,
+                  metrics={s["name"]: s["metrics"] for s in report["sections"]}))
+    report, seconds = _analyze_report("devices2", tmp, "--spec", "esrnn-quarterly",
+                                      "--entries", "predict", "--devices", "2")
+    coll = report["sections"][-1]["metrics"]
+    want = {"predict": {"all_reduce": 1}, "loss_grad": {"all_reduce": 2}}
+    for call, counts in want.items():
+        if not coll["counts"][call] == coll["counts"][f"mesh_{call}"] == counts:
+            raise AssertionError(f"analyze --devices 2: {coll}")
+    emit(dict(phase="analyze", part="devices2", ok=True, seconds=seconds, collectives=coll))
+    t0 = time.perf_counter()
+    nccl = A.audit_collectives(get_spec("esrnn-quarterly"), 1, device=dev)
+    if nccl.violations or nccl.metrics["backend"] != "nccl":
+        raise AssertionError(f"the 1-rank NCCL collective audit: {nccl}")
+    emit(dict(phase="analyze", part="nccl", ok=True, seconds=time.perf_counter() - t0,
+              collectives=nccl.metrics))
+    t0 = time.perf_counter()
+    seeded = _seeded_violations(dev)
+    emit(dict(phase="analyze", part="seeded", seconds=time.perf_counter() - t0, found=seeded))
+    cost = _recorder_cost(dev)
+    dispatch = _dispatch_cost(dev)
+    return dict(part="summary", wall_s=time.perf_counter() - t_phase, recorder_cost=cost,
+                dispatch_cost=dispatch)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the LM serving path (yi-6b prefill + greedy decode)
 # ---------------------------------------------------------------------------
 
@@ -3469,6 +3708,17 @@ def main() -> int:
         dp_cli, dp_cli_launches = counted(train_kernels, "the dp CLI",
                                           lambda: run_dp_cli(dev, tmp))
         emit(dict(phase="dp", part="cli", card=smi, launches=dp_cli_launches, **dp_cli))
+    torch.cuda.empty_cache()
+
+    # phase 6g: the invariant auditor. Its fp32 and bf16 fits, forecasts and
+    # dispatchers launch K1 to K5 in both streams (the esn fit K5's dx-only
+    # launch); the gloo ranks' launches are theirs, checked by their audits
+    analyze_kernels = train_kernels + ("lstm_cell", "lstm_cell_bwd_dx") + train16_kernels + (
+        "lstm_cell_bf16",)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analyze_") as tmp:
+        analyze, analyze_launches = counted(analyze_kernels, "the analyze phase",
+                                            lambda: run_analyze(dev, tmp))
+    emit(dict(phase="analyze", card=smi, launches=analyze_launches, **analyze))
     torch.cuda.empty_cache()
 
     # phase 7: the LM serving path. Card against CPU at full width, two

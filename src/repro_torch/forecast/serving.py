@@ -8,14 +8,20 @@ observations, counted in ``ServeStats.truncated_series``) and each group to
 a batch bucket (padded by repeating the last row), so the device only ever
 sees ``len(length_buckets) * len(batch_buckets)`` distinct shapes.
 
-The JAX package counts XLA compiles per shape; the port runs eagerly and has
-no compile listener, so ``ServeStats.compiles``/``cache_hits`` are the
-bucket-shape accounting alone, and ``ServeStats.kernel_launches`` records
-how many times each CUDA kernel ran on behalf of the served batches. The
-dispatcher declares a budget of distinct shapes (``compile_budget``, by
-default the bucket grid's size), and :func:`check_compile_budget` holds
-``ServeStats.compiles`` to it -- the counterpart of the reference's
-recompile sentinel.
+The JAX package counts XLA compiles per shape; the port runs eagerly, so
+``ServeStats.compiles``/``cache_hits`` are the dispatcher's bucket-shape
+accounting, ``ServeStats.launch_shapes`` the distinct ``(kernel, input
+shapes, dtype)`` keys its dispatches actually issued (a
+:class:`~repro_torch.kernels.shapes.LaunchShapeCounter` armed around the
+first dispatch of each distinct input shape: the forecast's kernel shapes
+follow from its input shapes alone, so a repeat adds no key and runs
+unarmed; the counterpart of the reference's ``xla_compiles``), and
+``ServeStats.kernel_launches`` how many times each CUDA kernel ran on
+behalf of the served batches. The dispatcher declares a budget of distinct
+shapes (``compile_budget``, by default the bucket grid's size), and
+:func:`check_compile_budget` holds ``ServeStats.compiles`` to it; the
+kernels' keys are bounded by ``compile_budget x``
+:func:`bucket_launch_shapes`.
 
 Per-series HW parameters are looked up by ``series_id`` for series seen at
 fit time; unknown series fall back to a primer row (alpha = gamma = 0.5,
@@ -33,6 +39,7 @@ ported.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import time
@@ -46,6 +53,7 @@ from repro_torch.core.esrnn import ESRNNConfig, esrnn_forecast
 from repro_torch.core.holt_winters import hw_init_params
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.shapes import CompileBudgetExceeded, LaunchShapeCounter
 from repro_torch.sharding.series import esrnn_forecast_dp
 from repro_torch.train.host_table import HostStateTable
 
@@ -78,6 +86,10 @@ class ServeStats:
     compiles: int = 0                # distinct bucket shapes dispatched
     compile_budget: Optional[int] = None  # len(length) x len(batch buckets)
     cache_hits: int = 0              # dispatches of an already-seen shape
+    launch_shapes: int = 0           # distinct kernel launch shapes issued
+    repeat_launch_shapes: int = 0    # of those, first issued by a dispatch of an
+                                     # already-seen bucket shape (0 while the
+                                     # buckets bound what the kernels see)
     padded_series: int = 0           # batch-padding rows added (wasted lanes)
     truncated_series: int = 0        # histories longer than the largest
                                      # length bucket (served on the tail)
@@ -109,8 +121,10 @@ class ServeStats:
                                           + count - before.get(name, 0))
 
     def reset(self) -> None:
-        """Zero every counter and drop the latency window (the budget stays)."""
+        """Zero every counter and drop the latency window (the budget stays,
+        and so do the launch shapes already seen, as a kernel cache would)."""
         self.requests = self.batches = self.compiles = self.cache_hits = 0
+        self.launch_shapes = self.repeat_launch_shapes = 0
         self.padded_series = self.truncated_series = 0
         self.observes = self.write_batches = self.finetunes = 0
         self.queue_depth = self.queue_peak = 0
@@ -132,10 +146,6 @@ class ServeStats:
                 "p99_ms": float(p99)}
 
 
-class CompileBudgetExceeded(AssertionError):
-    """Serving dispatched more distinct bucket shapes than it declared."""
-
-
 def check_compile_budget(stats: ServeStats, budget: Optional[int] = None) -> int:
     """Hold ``stats.compiles`` (distinct bucket shapes dispatched) to
     ``budget`` (default ``stats.compile_budget``); returns the count, or
@@ -149,6 +159,26 @@ def check_compile_budget(stats: ServeStats, budget: Optional[int] = None) -> int
             f"serving dispatched {stats.compiles} distinct bucket shapes, over the "
             f"declared budget of {budget} ({stats.cache_hits} repeats)")
     return stats.compiles
+
+
+def bucket_launch_shapes(config: ESRNNConfig) -> int:
+    """Distinct kernel keys one bucket's forecast issues.
+
+    K1 once, for the single-ring HW scan (``seasonality2 == 0``; the double
+    ring runs no kernel), plus, for a head with the dilated LSTM stack (lstm,
+    esn), K3 once per distinct ``(d, I)`` over its layers: the layer of
+    dilation d runs every step on ``B * d`` rows (``core/drnn.py``), its
+    input width I is ``input_size + n_categories`` for the first layer and
+    ``hidden_size`` after. The ssm head adds none. For the quarterly preset
+    ((1, 2), (4, 8), I = 14 then 40): 1 + 4 = 5.
+    """
+    n = 1 if config.seasonality2 == 0 else 0
+    if config.head in ("lstm", "esn"):
+        dilations = [d for block in config.dilations for d in block]
+        widths = ([config.input_size + config.n_categories]
+                  + [config.hidden_size] * (len(dilations) - 1))
+        n += len(set(zip(dilations, widths)))
+    return n
 
 
 def _pick_bucket(value: int, buckets: Sequence[int]) -> int:
@@ -166,7 +196,9 @@ class BucketDispatcher:
     (the caller's modules are not moved), the HW table is snapshot to host.
     ``mesh``: a series mesh to shard every bucket over (its device is this
     rank's); ``compile_budget``: the declared bound on distinct bucket
-    shapes (default: len(length buckets) x len(batch buckets)).
+    shapes (default: len(length buckets) x len(batch buckets)); the kernel
+    launch shapes those buckets can issue are bounded by
+    ``launch_shape_budget``.
     """
 
     def __init__(
@@ -202,6 +234,10 @@ class BucketDispatcher:
                                else len(self.length_buckets) * len(self.batch_buckets))
         self.stats.compile_budget = self.compile_budget
         self._seen_shapes = set()
+        self._launch_shape_counter = LaunchShapeCounter(stats=self.stats)
+        self._counted_inputs = set()     # the y shapes a dispatch was counted on
+        # the kernel keys the bucket grid can issue
+        self.launch_shape_budget = self.compile_budget * bucket_launch_shapes(config)
         self._warned_truncation = False
         self.set_params(params)
 
@@ -255,15 +291,19 @@ class BucketDispatcher:
 
     # -- dispatch ------------------------------------------------------------
 
+    def pad_batch(self, requests: List[ForecastRequest], bb: int) -> List[ForecastRequest]:
+        """``requests`` padded to the batch bucket ``bb`` by repeating the last."""
+        return requests + [requests[-1]] * (bb - len(requests))
+
     def run_bucket(self, requests: List[ForecastRequest], bucket: int):
         """Forecast one length-bucket group, padded to a batch bucket."""
         n = len(requests)
         bb = _pick_bucket(n, self.batch_buckets)
-        padded = requests + [requests[-1]] * (bb - n)
-        self.stats.padded_series += bb - n
+        padded = self.pad_batch(requests, bb)
+        self.stats.padded_series += len(padded) - n
 
         y = np.stack([self.shape_history(r.y, bucket) for r in padded])
-        cats = np.zeros((bb, self.config.n_categories), np.float32)
+        cats = np.zeros((len(padded), self.config.n_categories), np.float32)
         for row, r in enumerate(padded):
             # out-of-range category -> all-zero one-hot (cold start)
             if 0 <= r.category < self.config.n_categories:
@@ -273,16 +313,26 @@ class BucketDispatcher:
         params = dict(self.params, hw=self.hw_rows(padded).map(to_dev))
 
         shape = (bb, bucket)
-        if shape in self._seen_shapes:
+        repeat = shape in self._seen_shapes
+        if repeat:
             self.stats.cache_hits += 1
         else:
             self._seen_shapes.add(shape)
             self.stats.compiles += 1
         before = kernel_ops.launch_counts()
-        if self.mesh is None:
-            fc = esrnn_forecast(self.config, params, to_dev(y), to_dev(cats))
-        else:
-            fc = esrnn_forecast_dp(self.config, params, to_dev(y), to_dev(cats), mesh=self.mesh)
+        shapes_before = self.stats.launch_shapes
+        # y's shape fixes every kernel key of the forecast: count its first
+        # dispatch only
+        counted = y.shape in self._counted_inputs
+        self._counted_inputs.add(y.shape)
+        with contextlib.nullcontext() if counted else self._launch_shape_counter:
+            if self.mesh is None:
+                fc = esrnn_forecast(self.config, params, to_dev(y), to_dev(cats))
+            else:
+                fc = esrnn_forecast_dp(self.config, params, to_dev(y), to_dev(cats),
+                                       mesh=self.mesh)
+        if repeat:
+            self.stats.repeat_launch_shapes += self.stats.launch_shapes - shapes_before
         out = fc.cpu().numpy()[:n]
         self.stats.note_launches(before, kernel_ops.launch_counts())
         self.stats.batches += 1

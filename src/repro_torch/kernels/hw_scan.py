@@ -34,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, shapes
 
 SCAN_BLOCK = 32                  # series per block: one warp, a thread per series
 SCAN_TILES = (128, 64, 32, 16, 8)   # rows per staged tile, the plan takes the largest that fits
@@ -233,6 +233,7 @@ class HWScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y_tm, alpha, gamma, init_seas_tm):
+        shapes.note("hw_scan", y_tm, alpha, gamma, init_seas_tm)
         if y_tm.device.type == "cuda":
             levels, seas = hw_scan_tm(y_tm, alpha, gamma, init_seas_tm)
         else:
@@ -248,6 +249,7 @@ class HWScan(torch.autograd.Function):
         y_tm, alpha, gamma, levels, seas = ctx.saved_tensors
         # set_materialize_grads is on (the default): an unused output comes
         # in as zeros, never None
+        shapes.note("hw_scan_bwd", y_tm, alpha, gamma, levels, seas)
         if y_tm.device.type == "cuda":
             return hw_scan_bwd_tm(y_tm, alpha, gamma, levels, seas,
                                   dlev.contiguous(), dseas.contiguous())

@@ -64,7 +64,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, shapes
 
 # K3/K4's geometry (csrc/lstm_cell.cu, lstm_cell_smem)
 CELL_GROUPS = 8          # row groups of threads per block, at most
@@ -875,6 +875,7 @@ class LSTMCell(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, wx, wh, b, x, h, c):
+        shapes.note("lstm_cell_fwd", wx, wh, b, x, h, c)
         if x.device.type == "cuda":
             h_new, c_new, act = lstm_cell_fwd(wx, wh, b, x, h, c)
         else:
@@ -888,12 +889,14 @@ class LSTMCell(torch.autograd.Function):
         # set_materialize_grads is on (the default): the cotangent of an
         # unused output (the last step's c) comes in as zeros, never None
         if not any(ctx.needs_input_grad[:3]):
+            shapes.note("lstm_cell_bwd_dx", wx, wh, c, c_new, act)
             if x.device.type == "cuda":
                 dx, dhp, dcp = lstm_cell_bwd_dx(wx, wh, c, c_new, act, dh.contiguous(),
                                                 dc.contiguous())
             else:
                 dx, dhp, dcp = ref.lstm_cell_bwd_dx_ref(wx, wh, c, c_new, act, dh, dc)
             return None, None, None, dx, dhp, dcp
+        shapes.note("lstm_cell_bwd", wx, wh, x, h, c, c_new, act)
         if x.device.type == "cuda":
             dx, dhp, dcp, dwx, dwh, db = lstm_cell_bwd(
                 wx, wh, x, h, c, c_new, act, dh.contiguous(), dc.contiguous())

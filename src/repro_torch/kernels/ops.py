@@ -18,6 +18,10 @@ package's ``custom_vjp`` rule, whose primal is the activation-free kernel.
 On CPU tensors the same Functions run the plain forward and backward, so
 the CPU tests exercise the wiring the card uses.
 
+Every entry point reports each call's ``(kernel, input shapes, dtype)`` to
+the launch-shape hook (:mod:`~repro_torch.kernels.shapes`) before it runs,
+the plain versions too: what a launch-shape counter counts.
+
 The constrained-space transforms (sigmoid/exp) and the layout changes
 (time-major for the HW scan) run here, outside the kernels, as in the JAX
 package's ``kernels/ops.py``. The CUDA kernels mask their ragged edges
@@ -33,7 +37,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hw_scan as _hw
 from repro_torch.kernels import lstm_cell as _lstm
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, shapes
 
 
 def _on_cuda(t) -> bool:
@@ -100,6 +104,7 @@ def lstm_cell(wx, wh, b, x, h, c):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (wx, wh, b, x, h, c)):
         return _lstm.LSTMCell.apply(wx, wh, b, x, h, c)
+    shapes.note("lstm_cell", wx, wh, b, x, h, c)
     if not cuda:
         return ref.lstm_cell_ref(wx, wh, b, x, h, c)
     return _lstm.lstm_cell(wx, wh, b, x, h, c)
@@ -113,6 +118,7 @@ def flash_attention(q, k, v, *, causal: bool, scale=None):
     version. Unlike the JAX wrapper nothing is padded: the kernel masks
     ragged Tq and Tk itself.
     """
+    shapes.note("flash_attention", q, k, v)
     if not _on_cuda(q):
         return ref.attention_ref(q, k, v, causal=causal, scale=scale)
     return _fa.flash_attention(q, k, v, causal=causal, scale=scale)

@@ -8,6 +8,7 @@
     PYTHONPATH=src python -m repro_torch.launch.forecast serve    --dir /tmp/fq --requests 64
     echo '{"op":"observe","series_id":0,"y":105.2}' | \\
         PYTHONPATH=src python -m repro_torch.launch.forecast observe --dir /tmp/fq
+    PYTHONPATH=src python -m repro_torch.launch.forecast analyze  --smoke --set head=esn --json-out /tmp/a.json
 
 The PyTorch counterpart of ``repro.launch.forecast``, subcommand for
 subcommand and flag for flag, plus ``--device`` (default ``cuda``: every
@@ -49,8 +50,20 @@ card of its own, else gloo), which run the subcommand over a series mesh --
 ``fit`` trains series-data-parallel (it sets ``data_parallel``), and
 ``predict``, ``eval``, ``backtest``, ``serve`` and ``observe`` shard their
 rows. Rank 0 alone writes files and prints. A sharded ``serve`` drives the
-server synchronously, wave by wave. The JAX package's ``analyze``
-subcommand (the graph auditor) has no counterpart here.
+server synchronously, wave by wave.
+
+``analyze`` is the invariant auditor (:mod:`repro_torch.analysis`): it
+runs the spec's fit step, forecast and serving dispatcher once each
+(``--entries``, default ``fit,predict,serve``) on the probe's 15 series
+with recorders armed, and lints five invariants -- ``recompile`` (kernel
+launch shapes within the bucket grid), ``gradient-leak`` (frozen groups take
+no gradient; on the card the esn step launches K5's dx-only kernel and
+never the full K5), ``donation`` (the superstep updates its state in
+place), ``collectives`` (with ``--devices N > 1``, or the entry
+``collectives``: the sharded predict and loss gradient on N spawned ranks
+issue their documented collectives) and ``dtype-policy``. It prints the
+JSON report (``--json-out`` writes it too) and exits 0 when the report is
+``ok``, else 1.
 """
 
 from __future__ import annotations
@@ -327,6 +340,28 @@ def cmd_observe(args):
     return 0
 
 
+def cmd_analyze(args):
+    """The invariant auditor: a JSON report of every lint on this spec."""
+    from repro_torch.analysis import run_audit
+
+    over = _parse_overrides(args.set)
+    if args.steps is not None:
+        over["n_steps"] = args.steps
+    spec = (get_smoke_spec(args.spec, **over) if args.smoke
+            else get_spec(args.spec, **over))
+    entries = tuple(e.strip() for e in args.entries.split(",") if e.strip())
+    report = run_audit(spec, entries=entries, devices=args.devices, device=args.device)
+    text = json.dumps(report.to_dict(), indent=2)
+    if args.json_out:
+        with open(args.json_out, "w") as fh:
+            fh.write(text + "\n")
+        log.info("report written to %s", args.json_out)
+    print(text)
+    for f in report.violations:
+        log.error("violation [%s]: %s", f.lint, f.message)
+    return 0 if report.ok else 1
+
+
 def _rank_cli(mesh, argv, stdin_text):
     """One rank of a sharded command: the subcommand over ``mesh``, its
     standard output returned (the launcher prints rank 0's)."""
@@ -362,7 +397,8 @@ def build_parser() -> argparse.ArgumentParser:
                        help="shard the series axis over N ranks (spawned by "
                             "this command; rank 0 writes and prints): fit "
                             "trains data-parallel, the other subcommands shard "
-                            "their rows")
+                            "their rows; analyze audits the collectives of the "
+                            "sharded calls on N ranks")
         p.add_argument("--set", action="append", metavar="KEY=VAL",
                        help="spec/model override, e.g. --set hidden_size=16, "
                             "--set precision=bf16, --set scan_steps=8 "
@@ -434,6 +470,19 @@ def build_parser() -> argparse.ArgumentParser:
                        help="max hold before a partial bucket dispatches")
     p_srv.set_defaults(fn=cmd_serve)
 
+    p_an = sub.add_parser(
+        "analyze",
+        help="invariant auditor: lints (launch-shape budget, gradient leaks, "
+             "in-place state, collectives, dtype policy) over the real fit, "
+             "predict and serve entry points; exits 1 on any violation")
+    common(p_an)
+    p_an.add_argument("--entries", default="fit,predict,serve",
+                      help="comma list from fit,predict,serve,collectives "
+                           "(collectives also implied by --devices N > 1)")
+    p_an.add_argument("--json-out", metavar="PATH",
+                      help="also write the JSON report to PATH")
+    p_an.set_defaults(fn=cmd_analyze)
+
     p_obs = sub.add_parser(
         "observe",
         help="JSONL op loop: online observe/forecast/stats over stdin")
@@ -456,7 +505,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     d = getattr(args, "devices", None)
-    if d is not None and d > 1:
+    # analyze spawns the ranks of its collective audit itself
+    if d is not None and d > 1 and args.cmd != "analyze":
         from repro_torch.sharding import run_ranks
 
         stdin_text = sys.stdin.read() if args.cmd == "observe" else ""

@@ -58,6 +58,12 @@ def test_port_imports_neither_jax_nor_repro(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
 
 
+def test_the_scan_covers_the_auditor():
+    auditor = sorted(p.name for p in PORT_FILES if p.parent.name == "analysis")
+    assert auditor == ["__init__.py", "audit.py", "collectives.py", "donation.py",
+                       "dtypes.py", "gradleak.py", "recompile.py", "trace.py"]
+
+
 def test_port_imports_with_jax_blocked():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")

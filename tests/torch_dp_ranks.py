@@ -326,3 +326,49 @@ def session_compress(mesh, init, tmp):
                                    params=copy_params(init, "cpu"), mesh=mesh, device="cpu")
     return {"unbroken": unbroken, "resumed": fit_record(resumed),
             "resumed_from": resumed["resumed_from"]}
+
+
+# ---------------------------------------------------------------------------
+# the collective audit (tests/test_torch_analysis.py)
+# ---------------------------------------------------------------------------
+
+
+def loss_with_broadcast(cfg, params, y, cats, mask=None, *, mesh):
+    """The sharded loss plus one broadcast that bypasses the mesh: the
+    collective audit's seeded violation."""
+    import torch.distributed as dist
+
+    loss = S.esrnn_loss_dp(cfg, params, y, cats, mask, mesh=mesh)
+    dist.broadcast(loss.detach().clone(), src=0)
+    return loss
+
+
+def collective_cases(mesh):
+    """The collective recorder on its own, then the audit's rank counts,
+    healthy and with :func:`loss_with_broadcast`."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d
+
+    from repro_torch.analysis.collectives import (
+        COLLECTIVES, CollectiveRecorder, rank_collective_counts,
+    )
+
+    originals = {k: getattr(distributed_c10d, k) for k in COLLECTIVES}
+    t = torch.ones(4)
+    with CollectiveRecorder() as rec:
+        dist.all_reduce(t)
+        dist.all_reduce(t)
+        dist.all_gather([torch.zeros(4) for _ in range(mesh.size)], t)
+        dist.broadcast(t, src=0)
+        dist.barrier()
+        distributed_c10d.all_reduce(t)          # a direct call, past the namespace
+    kinds = dict(rec.counts)
+    restored = all(getattr(dist, k) is originals[k] and getattr(distributed_c10d, k)
+                   is originals[k] for k in COLLECTIVES)
+    with CollectiveRecorder() as rec:
+        pass
+    dist.all_reduce(t)                          # outside every block
+    cfg = model()
+    return {"kinds": kinds, "restored": restored, "idle": dict(rec.counts),
+            "healthy": rank_collective_counts(mesh, cfg),
+            "broadcast": rank_collective_counts(mesh, cfg, loss_with_broadcast)}
