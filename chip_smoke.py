@@ -19,7 +19,15 @@ fine-tune trains on the card against a CPU server. Last, the LM serving path: yi
 and two layers in fp32 on the card against the CPU (``lm_parity``), then at
 full width and depth in bf16 (``lm_serve``: batch 8, prompt 2048, 32
 generated tokens; K6 once per layer in the prefill), and one profiled
-prefill and decode step. Between the fp32 serving phases and training, the
+prefill and decode step; then the MoE family: qwen3-moe-30b-a3b at full
+width and two layers in fp32 on the card against the CPU, its routing held
+equal on the same layer input and its dropped share equal on both devices,
+with deepseek-v2-lite's MoE layer (routed and shared experts) alone
+(``lm_moe_parity``), the full 48-layer model in bf16 through the serve
+launcher (``lm_moe_serve``), and one profiled prefill and decode step with
+their device time split into the expert products, the dispatch, K6, the
+attention projections and the rest (``profile_lm_moe``,
+``profile_lm_moe_decode``). Between the fp32 serving phases and training, the
 same forecast and server run under the bf16 policy (``precision="bf16"``:
 K1 with a bf16 y, K3 in bf16 on the tensor cores; phases ``forecast_bf16``, ``profile_bf16``
 and ``serve_bf16``), against the CPU and the card's fp32 forecast. After
@@ -277,6 +285,13 @@ LM_ARCH = "yi-6b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
 # the LM parity cell: full width, depth cut to 2 layers for the CPU's sake
 LM_PARITY_LAYERS, LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_GEN = 2, 2, 128, 8
+# the MoE cells: qwen3-moe-30b-a3b (128 experts top-8, GQA 32/4 with
+# QK-norm) served at full width and depth in bf16 with the LM serve cell's
+# batch, prompt and tokens; its parity cell at full width, 2 layers, fp32,
+# with LM parity's batch, prompt and steps; deepseek-v2-lite's MoE layer
+# (64 routed top-6 + 2 shared) alone, as its MLA attention is not ported
+MOE_ARCH, MOE_DEEPSEEK = "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"
+MOE_PARITY_LAYERS = 2
 
 # phase analyze: the CLI's audits at full width, by part: (name, spec, --set)
 ANALYZE_RUNS = (("lstm", "esrnn-quarterly", ()), ("bf16", "esrnn-quarterly", ("precision=bf16",)),
@@ -1084,7 +1099,17 @@ def profile_forecast(cfg, params_dev, y, cats, dev, top: int = 8):
     return profile_call(lambda: esrnn_forecast(cfg, params_dev, y_d, c_d), top, match)
 
 
-def profile_call(call, top: int = 8, match=None):
+def device_work(prof, ranges=()):
+    """The profile's device activities (kernels and copies), without the
+    device-side spans of ``record_function`` ranges."""
+    from torch.autograd import DeviceType
+
+    return [evt for evt in prof.events()
+            if evt.device_type == DeviceType.CUDA and evt.name not in ranges
+            and not getattr(evt, "is_user_annotation", False)]
+
+
+def profile_call(call, top: int = 8, match=None, keep_profile=False, ranges=()):
     """Where one warm ``call()`` spends the card's time.
 
     torch.profiler (CUPTI) over one call after a warm one: device time by
@@ -1092,11 +1117,13 @@ def profile_call(call, top: int = 8, match=None):
     the device-busy share of the call's wall time (the union of kernel and
     copy intervals over the host-clock wall); with ``match`` (a substring of
     kernel names, or a dict of labels to tuples of substrings a name must
-    all hold) also the calls and device ms of the kernels it names.
-    ``None`` fields when the profiler saw no device activity.
+    all hold) also the calls and device ms of the kernels it names; with
+    ``keep_profile`` the profile itself under ``profile``. ``None`` fields
+    when the profiler saw no device activity. The device-side spans of
+    ``record_function`` ranges (user annotations, or named in ``ranges``)
+    are not device work and are left out.
     """
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()
@@ -1107,9 +1134,7 @@ def profile_call(call, top: int = 8, match=None):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
+    for evt in device_work(prof, ranges):
         start, end = evt.time_range.start, evt.time_range.end
         spans.append((start, end))
         calls, us = by_name.get(evt.name, (0, 0.0))
@@ -1124,9 +1149,10 @@ def profile_call(call, top: int = 8, match=None):
     elif match is not None:
         matched = {label: dict(parts=list(parts), **matching(parts))
                    for label, parts in match.items()}
+    kept = dict(profile=prof) if keep_profile else {}
     if not spans:
         return dict(wall_ms=wall_ms, device_busy_ms=None, busy_share=None,
-                    device_calls=0, kernels=None, matched=matched)
+                    device_calls=0, kernels=None, matched=matched, **kept)
     busy_us, cur_start, cur_end = 0.0, None, None
     for start, end in sorted(spans):
         if cur_end is None or start > cur_end:
@@ -1139,7 +1165,7 @@ def profile_call(call, top: int = 8, match=None):
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                 busy_share=busy_us / 1e3 / wall_ms, device_calls=len(spans),
                 kernels=[dict(name=name[:90], calls=calls, ms=us / 1e3)
-                         for name, (calls, us) in ranked], matched=matched)
+                         for name, (calls, us) in ranked], matched=matched, **kept)
 
 
 # ---------------------------------------------------------------------------
@@ -3289,14 +3315,15 @@ def run_lm_serve(lm, gen=LM_GEN):
     k6 = (out["kernel_launches"]["prefill"]["flash_attention"],
           out["kernel_launches"]["decode"]["flash_attention"])
     if k6 != (cfg.n_layers, 0):
-        raise AssertionError(f"lm_serve: K6 launches (prefill, decode) {k6}, want "
+        raise AssertionError(f"{cfg.name} serving: K6 launches (prefill, decode) {k6}, want "
                              f"({cfg.n_layers}, 0)")
     if not out["logits_finite"]:
-        raise AssertionError("lm_serve: non-finite logits")
+        raise AssertionError(f"{cfg.name} serving: non-finite logits")
     generated = out["generated"]
     batch, prompt_len = lm.prompts.shape
     if generated.shape != (batch, gen) or not ((0 <= generated) & (generated < cfg.vocab_size)).all():
-        raise AssertionError(f"lm_serve: generated {generated.shape}, ids out of range")
+        raise AssertionError(f"{cfg.name} serving: generated {generated.shape}, "
+                             f"ids out of range")
     return dict(arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype, batch=batch,
                 prompt_len=prompt_len, gen=gen, init_s=lm.init_s,
                 prefill_ms=out["prefill_s"] * 1e3,
@@ -3317,6 +3344,332 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the MoE family (qwen3-moe-30b-a3b; deepseek-v2-lite's MoE layer)
+# ---------------------------------------------------------------------------
+
+
+def moe_config(arch=MOE_ARCH, n_layers=None, dtype=None):
+    """``arch``'s config, its depth and dtype optionally cut."""
+    from repro_torch.configs import get_config
+
+    changes = {k: v for k, v in (("n_layers", n_layers), ("dtype", dtype)) if v is not None}
+    return dataclasses.replace(get_config(arch), **changes)
+
+
+@contextlib.contextmanager
+def moe_layers_seen(on_call):
+    """``on_call(p, cfg, x)`` at each ``moe_apply`` the model makes, with the
+    layer's params and its input, before the layer runs. The transformer
+    calls ``moe_apply`` through its module, so swapping the module's
+    attribute sees every MoE layer; the port itself is unchanged."""
+    from repro_torch.models import moe
+
+    real = moe.moe_apply
+
+    def spy(p, cfg, x, **kw):
+        on_call(p, cfg, x)
+        return real(p, cfg, x, **kw)
+
+    moe.moe_apply = spy
+    try:
+        yield
+    finally:
+        moe.moe_apply = real
+
+
+def moe_margin(r, k):
+    """The smallest gap, over tokens, between the K-th and (K+1)-th router
+    probability: how near a token came to another expert."""
+    import torch
+
+    top = torch.topk(r.probs, k + 1, dim=-1).values
+    return float((top[..., k - 1] - top[..., k]).min())
+
+
+def moe_routing_same(what, r_cpu, r_dev):
+    """Top-k ids, positions and ``keep`` equal on both devices."""
+    import torch
+
+    for field in ("top_ids", "pos", "keep"):
+        a, b = getattr(r_cpu, field), getattr(r_dev, field).cpu()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: routing differs in {field} at "
+                                 f"{int((a != b).sum())} of {a.numel()} entries")
+
+
+def dropped_share(routings) -> float:
+    kept = sum(int(r.keep.sum()) for r in routings)
+    total = sum(r.keep.numel() for r in routings)
+    return 1.0 - kept / total
+
+
+def run_lm_moe_parity(dev, n_layers=MOE_PARITY_LAYERS, batch=LM_PARITY_BATCH,
+                      prompt_len=LM_PARITY_PROMPT, gen=LM_PARITY_GEN, seed=7):
+    """qwen3-moe-30b-a3b at full width, ``n_layers`` deep, fp32: the prefill
+    (K6 on the card, the plain chunked path on the CPU) and every decode
+    step's logits, card against CPU, decoding the CPU's greedy tokens as
+    ``lm_parity`` does. The prompt's capacity (10 for a mean of 8
+    assignments per expert) drops tokens: the routing of each MoE layer is
+    also held equal on the same input (the CPU's), with the CPU's least
+    K-th/(K+1)-th probability gap beside it, and each device's dropped
+    share of its own prefill. Part ``deepseek_moe``: one MoE layer at
+    deepseek-v2-lite's width (64 routed top-6 + 2 shared experts)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import moe_route
+
+    cfg = moe_config(n_layers=n_layers, dtype="float32")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params_cpu = model.init(torch.Generator().manual_seed(seed))
+    params_dev = _params_to(params_cpu, dev)
+    init_s = time.perf_counter() - t0
+    prompts = lm_prompts(cfg, batch, prompt_len, seed)
+    max_len = prompt_len + gen
+    seen = {"cpu": [], "card": []}
+
+    def route_on(where):
+        return lambda p, cfg, x: seen[where].append((p, x, moe_route(p, cfg, x)))
+
+    errs, agree = [], []
+    with torch.no_grad():
+        before = ops.launch_counts()["flash_attention"]
+        with moe_layers_seen(route_on("cpu")):
+            log_c, cache_c = model.prefill(params_cpu, {"tokens": prompts}, max_len)
+        with moe_layers_seen(route_on("card")):
+            log_d, cache_d = model.prefill(params_dev, {"tokens": prompts.to(dev)}, max_len)
+        torch.cuda.synchronize()
+        prefill_launches = ops.launch_counts()["flash_attention"] - before
+        # each MoE layer's routing on the CPU's own layer input, on both devices
+        margins, own_same = [], []
+        for i, ((p_c, x_c, r_c), (p_d, _, r_d)) in enumerate(zip(seen["cpu"], seen["card"])):
+            moe_routing_same(f"lm_moe_parity layer {i}", r_c, moe_route(p_d, cfg, x_c.to(dev)))
+            margins.append(moe_margin(r_c, cfg.top_k))
+            own_same.append(all(torch.equal(getattr(r_c, f), getattr(r_d, f).cpu())
+                                for f in ("top_ids", "pos", "keep")))
+        dropped = {where: dropped_share([r for _, _, r in seen[where]]) for where in seen}
+        dropped_per_layer = [dropped_share([r]) for _, _, r in seen["cpu"]]
+        capacity = r_c.capacity
+        if dropped["cpu"] != dropped["card"]:
+            raise AssertionError(f"lm_moe_parity: dropped shares differ {dropped}")
+        seen = None
+        decode_launches = 0
+        for step in range(gen):
+            errs.append(check_close(f"lm_moe_parity logits, step {step}", log_d, log_c,
+                                    rtol=LM_RTOL, atol=LM_ATOL))
+            tok = log_c[:, -1].argmax(dim=-1)
+            agree.append(bool((log_d[:, -1].argmax(dim=-1).cpu() == tok).all()))
+            if step == gen - 1:
+                break
+            pos = torch.full((batch, 1), prompt_len + step, dtype=torch.int64)
+            log_c, cache_c = model.decode(
+                params_cpu, {"tokens": tok[:, None], "positions": pos}, cache_c)
+            before = ops.launch_counts()["flash_attention"]
+            log_d, cache_d = model.decode(
+                params_dev, {"tokens": tok[:, None].to(dev), "positions": pos.to(dev)},
+                cache_d)
+            decode_launches += ops.launch_counts()["flash_attention"] - before
+    if (prefill_launches, decode_launches) != (n_layers, 0):
+        raise AssertionError(f"lm_moe_parity: K6 launches (prefill, decode) "
+                             f"{(prefill_launches, decode_launches)}, want ({n_layers}, 0)")
+    del params_dev, cache_d, params_cpu, cache_c
+    torch.cuda.empty_cache()
+    deepseek = run_deepseek_moe(dev, batch, prompt_len, seed)
+    return dict(arch=cfg.name, n_layers=n_layers, dtype="float32", batch=batch,
+                prompt_len=prompt_len, steps=gen, init_s=init_s,
+                capacity_prefill=capacity,
+                k6_launches_prefill=prefill_launches, k6_launches_decode=decode_launches,
+                max_abs_err_per_step=errs, max_abs_err=max(errs),
+                logits_scale=float(log_c.abs().max()),
+                routing_same_input_equal=True, routing_own_input_equal=own_same,
+                min_topk_margin_per_layer=margins, dropped_share=dropped,
+                dropped_share_per_layer_cpu=dropped_per_layer,
+                greedy_tokens_agree=all(agree), tokens_agree_per_step=agree,
+                rtol=LM_RTOL, atol=LM_ATOL, deepseek_moe=deepseek)
+
+
+def run_deepseek_moe(dev, batch, seq_len, seed):
+    """One ``moe_apply`` at deepseek-v2-lite's MoE width (64 routed experts
+    top-6, 2 shared, expert d_ff 1,408) on a (batch, seq_len, 2048) fp32
+    input, card against CPU: output and aux loss within the LM bounds,
+    routing equal on the same input. Its attention (MLA) is not ported and
+    not run."""
+    import torch
+
+    from repro_torch.models.moe import moe_apply, moe_init, moe_route
+
+    cfg = moe_config(MOE_DEEPSEEK, dtype="float32")
+    p_cpu = moe_init(torch.Generator().manual_seed(seed), cfg, torch.float32)
+    p_dev = _params_to(p_cpu, dev)
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn((batch, seq_len, cfg.d_model), generator=gen)
+    with torch.no_grad():
+        y_c, aux_c = moe_apply(p_cpu, cfg, x)
+        y_d, aux_d = moe_apply(p_dev, cfg, x.to(dev))
+        r_c, r_d = moe_route(p_cpu, cfg, x), moe_route(p_dev, cfg, x.to(dev))
+    err = check_close("deepseek_moe output", y_d, y_c, rtol=LM_RTOL, atol=LM_ATOL)
+    aux_err = check_close("deepseek_moe aux", aux_d, aux_c, rtol=LM_RTOL, atol=LM_ATOL)
+    moe_routing_same("deepseek_moe", r_c, r_d)
+    dropped = {"cpu": dropped_share([r_c]), "card": dropped_share([r_d])}
+    if dropped["cpu"] != dropped["card"]:
+        raise AssertionError(f"deepseek_moe: dropped shares differ {dropped}")
+    del p_dev
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, part="deepseek_moe", batch=batch, seq_len=seq_len,
+                n_experts=cfg.n_experts, top_k=cfg.top_k, n_shared_experts=cfg.n_shared_experts,
+                moe_d_ff=cfg.moe_d_ff, capacity=r_c.capacity, max_abs_err=err,
+                output_scale=float(y_c.abs().max()), aux=float(aux_c), aux_abs_err=aux_err,
+                min_topk_margin=moe_margin(r_c, cfg.top_k), dropped_share=dropped)
+
+
+def moe_prefill_routing(lm):
+    """The capacity and dropped share of one prefill of the serve cell, its
+    routing recomputed on each MoE layer's input."""
+    import torch
+
+    from repro_torch.models.moe import moe_route
+
+    counts = []
+
+    def count(p, cfg, x):
+        r = moe_route(p, cfg, x)
+        counts.append((r.keep.sum(), r.keep.numel(), r.capacity))
+
+    with torch.no_grad(), moe_layers_seen(count):
+        lm.prefill()
+    share = 1.0 - sum(int(k) for k, _, _ in counts) / sum(n for _, n, _ in counts)
+    return dict(capacity_prefill=counts[0][2], dropped_share_prefill=share,
+                dropped_share_per_layer=[1.0 - int(k) / n for k, n, _ in counts])
+
+
+# the profiled MoE step's parts: each function, while profiled, runs inside
+# a profiler range of its label; a kernel counts for the innermost range
+# around the ATen op that launched it (K6, a ctypes launch, by its name)
+MOE_PROFILE_LABELS = (
+    ("repro_torch.models.moe", "moe_route", "moe.route"),
+    ("repro_torch.models.moe", "moe_aux", "moe.aux"),
+    ("repro_torch.models.moe", "moe_scatter", "moe.scatter"),
+    ("repro_torch.models.moe", "moe_experts", "moe.experts"),
+    ("repro_torch.models.moe", "moe_gather", "moe.gather"),
+    ("repro_torch.models.attention", "gqa_apply", "attention"),
+    ("repro_torch.models.attention", "gqa_qkv", "attention.qkv"),
+    ("repro_torch.models.attention", "cached_attention", "attention.cached"),
+    ("repro_torch.models.transformer", "_logits", "lm_head"),
+)
+
+
+@contextlib.contextmanager
+def profiler_ranges(labels=MOE_PROFILE_LABELS):
+    """Each listed module function wrapped in a ``record_function`` range."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    def ranged(fn, label):
+        def call(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return call
+
+    saved = []
+    try:
+        for module, name, label in labels:
+            mod = importlib.import_module(module)
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, ranged(getattr(mod, name), label))
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def device_ms_by_range(prof, labels):
+    """Device ms of a profile by the innermost range (of ``labels``) whose
+    device-side span holds each kernel; K6 by its kernel name; what no
+    range holds under ``rest``. A range's device span runs from the first
+    to the last kernel launched inside it, and the kernels of one stream
+    do not overlap, so the spans split the kernels without double counts."""
+    from torch.autograd import DeviceType
+
+    names = set(labels)
+    spans = sorted((evt.time_range.end - evt.time_range.start, evt.time_range.start,
+                    evt.time_range.end, evt.name) for evt in prof.events()
+                   if evt.device_type == DeviceType.CUDA and evt.name in names)
+    parts = dict.fromkeys(list(labels) + ["K6 flash_attention", "rest"], 0.0)
+    work = device_work(prof, names)
+    for evt in work:
+        start, end = evt.time_range.start, evt.time_range.end
+        part = "K6 flash_attention" if "flash_" in evt.name else next(
+            (name for _, s0, s1, name in spans if s0 <= start and end <= s1), "rest")
+        parts[part] += end - start
+    ms = {k: v / 1e3 for k, v in parts.items()}
+    return dict(
+        total_ms=sum(ms.values()), range_spans=len(spans), by_range_ms=ms,
+        split_ms=dict(experts=ms["moe.experts"],
+                      dispatch=ms["moe.route"] + ms["moe.scatter"] + ms["moe.gather"],
+                      k6=ms["K6 flash_attention"],
+                      attention_proj=ms["attention"] + ms["attention.qkv"],
+                      cached_attention=ms["attention.cached"],
+                      rest=ms["lm_head"] + ms["moe.aux"] + ms["rest"]))
+
+
+def profile_moe(call, top: int = 12):
+    """``profile_call`` of one MoE step, its device time split by part."""
+    labels = [label for _, _, label in MOE_PROFILE_LABELS]
+    with profiler_ranges():
+        out = profile_call(call, top=top, keep_profile=True, ranges=set(labels))
+    prof = out.pop("profile")
+    out["split"] = device_ms_by_range(prof, labels)
+    return out
+
+
+def run_moe_phases(dev, smi, counted, lm_kernels, gen):
+    """Phase 7b: qwen3-moe-30b-a3b at full width, 2 layers, fp32, card
+    against CPU with its routing held equal (and deepseek-v2-lite's MoE
+    layer); then the full model in bf16 through ``generate``, K6 once per
+    layer of each prefill, one profiled prefill and decode step split by
+    part, and K6 on layer 0's own q, k, v. ``counted`` is ``main``'s: the
+    launches of the parity run and of ``generate`` join the main path's."""
+    import torch
+
+    moe_parity, moe_parity_launches = counted(lm_kernels, "the MoE parity run",
+                                              lambda: run_lm_moe_parity(dev))
+    deepseek = moe_parity.pop("deepseek_moe")
+    emit(dict(phase="lm_moe_parity", card=smi, launches=moe_parity_launches, **moe_parity))
+    emit(dict(phase="lm_moe_parity", card=smi, **deepseek))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    moe_lm = LMServe(dev, cfg=moe_config())
+    init_peak = torch.cuda.max_memory_allocated()
+    moe_serve, moe_launches = counted(lm_kernels, "MoE serving",
+                                      lambda: run_lm_serve(moe_lm))
+    moe_serve.update(init_peak_gb=init_peak / 1e9, **moe_prefill_routing(moe_lm))
+    with torch.no_grad():
+        moe_prefill = profile_moe(lambda: moe_lm.prefill())
+        moe_decode = profile_moe(moe_lm.decode_step())
+        qkv = moe_lm.layer0_qkv()
+    moe_cfg = moe_lm.cfg
+    del moe_lm
+    torch.cuda.empty_cache()
+    # K6 on layer 0's own q, k, v, once the weights are freed (its plain
+    # version's fp32 scores take 4.3 GB a copy)
+    with torch.no_grad():
+        layer0 = check_flash_attention(LM_BATCH, moe_cfg.n_heads, moe_cfg.n_kv_heads,
+                                       LM_PROMPT, LM_PROMPT, moe_cfg.hd, "bfloat16", True,
+                                       gen, qkv=qkv)
+    del qkv
+    emit(dict(phase="lm_moe_serve", card=smi, launches=moe_launches, k6_layer0=layer0,
+              **moe_serve))
+    emit(dict(phase="profile_lm_moe", call=f"one {MOE_ARCH} prefill", batch=LM_BATCH,
+              prompt_len=LM_PROMPT, card=smi, **moe_prefill))
+    emit(dict(phase="profile_lm_moe_decode", call=f"one {MOE_ARCH} decode step",
+              batch=LM_BATCH, cache_len=LM_PROMPT + LM_GEN, card=smi, **moe_decode))
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3744,6 +4097,9 @@ def main() -> int:
               cache_len=LM_PROMPT + LM_GEN, **decode))
     del lm
     torch.cuda.empty_cache()
+
+    # phase 7b: the MoE family
+    run_moe_phases(dev, smi, counted, lm_kernels, gen)
 
     # phase 8: summary, one entry per ported kernel and stream dtype.
     # Launches: the main-path phases 3 to 7. Times at the first listed shape

@@ -123,12 +123,16 @@ def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):      # the reference's unstacked prefix_layers
+        return [_map(v, fn) for v in tree]
     return fn(tree)
 
 
 def lm_params_from_numpy(tree, device=None):
     """The port's LM params from a numpy-leaved JAX ``lm_init`` tree, on
-    ``device``: ``tree["layers"]``'s stacked leaves become one dict per layer."""
+    ``device``: ``tree["layers"]``'s stacked leaves (MoE experts too:
+    (L, E, ...)) become one dict per layer; ``prefix_layers``, a list of
+    per-layer dicts in both packages, keeps its layout."""
     dev = resolve_device(device)
     stacked = tree["layers"]
     n_layers = len(next(iter(_leaves(stacked))))

@@ -1,8 +1,9 @@
 """Unified model API: ``build_model(config) -> Model`` with init/prefill/decode.
 
-The port of the JAX package's ``models/model.py``. This slice runs the dense
-family (serving: prefill + decode); every other family raises, naming the
-part of ``ROADMAP.md`` that brings it. ``lm_loss`` (and with it the
+The port of the JAX package's ``models/model.py``. The dense and MoE
+families run (serving: prefill + decode); MLA attention (deepseek-v2-lite)
+and every other family raise, naming the part of ``ROADMAP.md`` that brings
+them, before any weight is made. ``lm_loss`` (and with it the
 ``loss`` entry) comes with LM training. There is no ``use_pallas`` switch:
 as everywhere in the port, a CUDA tensor runs the kernels and a CPU tensor
 the plain versions.
@@ -18,7 +19,6 @@ from repro_torch.models.config import ArchConfig
 
 # the ROADMAP.md queue item that brings each family not yet ported
 _LATER = {
-    "moe": "the LM stack's MoE slice (models/moe.py)",
     "vlm": "the LM stack's vlm slice (the image-embedding prefix)",
     "hybrid": "the LM stack's hybrid/ssm slice (models/hybrid.py)",
     "ssm": "the LM stack's hybrid/ssm slice (models/ssm_lm.py)",
@@ -37,7 +37,12 @@ class Model:
 
 def build_model(cfg: ArchConfig) -> Model:
     fam = cfg.family
-    if fam == "dense":
+    if cfg.use_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention is not ported yet; it comes with the LM "
+            f"stack's MLA slice (models/attention.py mla_*, its absorbed decode; "
+            f"ROADMAP.md, section 1, item 7)")
+    if fam in ("dense", "moe"):
         return Model(
             cfg=cfg,
             init=lambda gen: TF.lm_init(cfg, gen),

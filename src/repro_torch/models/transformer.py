@@ -1,17 +1,22 @@
-"""Decoder-only transformer assembly, dense family.
+"""Decoder-only transformer assembly, dense and MoE families.
 
-The port of the JAX package's ``models/transformer.py`` for ``family ==
-"dense"``: ``lm_init``, the pre-norm residual block, and the serving entry
-points ``lm_make_caches``, ``lm_prefill`` (build KV caches + last-position
-logits) and ``lm_decode`` (single-token step). A Python loop over the layers
-takes the place of ``lax.scan``; params hold one dict per layer
-(``params["layers"][i]``), and the reference's stacked ``(L, ...)`` leaves
-are kept at the converter (:mod:`repro_torch.convert`), not here. Caches are
-``{"layers": [KVCache, ...]}``, one per layer. The activation-sharding
-``constrain`` is the identity on one device and is not ported.
+The port of the JAX package's ``models/transformer.py`` for ``family`` in
+``("dense", "moe")``: ``lm_init``, the pre-norm residual block (a SwiGLU
+MLP, or :func:`repro_torch.models.moe.moe_apply` in a MoE layer), and the
+serving entry points ``lm_make_caches``, ``lm_prefill`` (build KV caches +
+last-position logits) and ``lm_decode`` (single-token step). A Python loop
+over the layers takes the place of ``lax.scan``; params hold one dict per
+layer (``params["layers"][i]``), and the reference's stacked ``(L, ...)``
+leaves are kept at the converter (:mod:`repro_torch.convert`), not here.
+DeepSeek's ``first_dense_layers`` (MoE family only) are dense blocks of
+``first_dense_d_ff`` held apart as ``params["prefix_layers"]``, run before
+the others, with their own caches under ``"prefix"``. Caches are
+``{"layers": [KVCache, ...]}`` (plus ``"prefix"``), one per layer. The
+activation-sharding ``constrain`` is the identity on one device and is not
+ported.
 
-The MoE / DeepSeek prefix layers, the vlm image prefix and ``lm_loss`` wait
-for their slices (``ROADMAP.md``).
+The vlm image prefix and ``lm_loss`` (which adds 0.01 x the summed MoE aux
+loss) wait for their slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     apply_norm,
@@ -35,25 +41,41 @@ from repro_torch.models.layers import (
 # ---------------------------------------------------------------------------
 
 
-def _layer_init(gen, cfg: ArchConfig, dtype):
+def _layer_init(gen, cfg: ArchConfig, *, moe_layer: bool, d_ff: int, dtype):
     dev = gen.device
-    return {
+    p = {
         "attn_norm": norm_init(cfg.d_model, cfg.norm, dtype, dev),
         "attn": A.gqa_init(gen, cfg, dtype),
         "mlp_norm": norm_init(cfg.d_model, cfg.norm, dtype, dev),
-        "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype),
     }
+    if moe_layer:
+        p["moe"] = MOE.moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = swiglu_init(gen, cfg.d_model, d_ff, dtype)
+    return p
+
+
+def _n_prefix(cfg: ArchConfig) -> int:
+    return cfg.first_dense_layers if cfg.family == "moe" else 0
 
 
 def lm_init(cfg: ArchConfig, gen, dtype=None):
     """Random params from ``gen``, on ``gen``'s device, in ``cfg``'s dtype."""
     dtype = dtype or cfg.tdtype
-    layers = [_layer_init(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+    n_prefix = _n_prefix(cfg)
+    prefix = [_layer_init(gen, cfg, moe_layer=False,
+                          d_ff=cfg.first_dense_d_ff or cfg.d_ff, dtype=dtype)
+              for _ in range(n_prefix)]
+    layers = [_layer_init(gen, cfg, moe_layer=cfg.family == "moe", d_ff=cfg.d_ff,
+                          dtype=dtype)
+              for _ in range(cfg.n_layers - n_prefix)]
     params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "layers": layers,
         "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, gen.device),
     }
+    if prefix:
+        params["prefix_layers"] = prefix
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).t()
     return params
@@ -65,26 +87,46 @@ def lm_init(cfg: ArchConfig, gen, dtype=None):
 
 
 def _block(cfg: ArchConfig, p, h, positions, *, cache=None, cache_max_len=None):
-    """Pre-norm residual block. Returns (h, new_cache)."""
+    """Pre-norm residual block. Returns (h, new_cache, aux_loss); the aux
+    loss of a dense block is the float 0.0 (no launch on the card)."""
     a_out, new_cache = A.gqa_apply(
         p["attn"], cfg, apply_norm(h, p["attn_norm"], cfg.norm), positions,
         cache=cache, cache_max_len=cache_max_len)
     h = h + cfg.residual_multiplier * a_out
     x = apply_norm(h, p["mlp_norm"], cfg.norm)
-    h = h + cfg.residual_multiplier * swiglu_apply(p["mlp"], x)
-    return h, new_cache
+    if "moe" in p:
+        m_out, aux = MOE.moe_apply(p["moe"], cfg, x)
+    else:
+        m_out, aux = swiglu_apply(p["mlp"], x), 0.0
+    h = h + cfg.residual_multiplier * m_out
+    return h, new_cache, aux
 
 
-def _run_layers(cfg: ArchConfig, params, h, positions, *, caches=None,
+def _run_layers(cfg: ArchConfig, layers, h, positions, *, caches=None,
                 cache_max_len=None):
-    """All layers in order; caches: one per layer or None. Returns (h, caches)."""
-    new_caches = []
-    for i, lp in enumerate(params["layers"]):
-        h, nc = _block(cfg, lp, h, positions,
-                       cache=None if caches is None else caches[i],
-                       cache_max_len=cache_max_len)
+    """``layers`` in order; caches: one per layer or None.
+    Returns (h, new caches, the layers' summed aux loss)."""
+    new_caches, aux = [], 0.0
+    for i, lp in enumerate(layers):
+        h, nc, a = _block(cfg, lp, h, positions,
+                          cache=None if caches is None else caches[i],
+                          cache_max_len=cache_max_len)
         new_caches.append(nc)
-    return h, new_caches
+        aux = aux + a
+    return h, new_caches, aux
+
+
+def _run_all(cfg: ArchConfig, params, h, positions, *, caches=None, cache_max_len=None):
+    """The prefix layers (if any), then the others. Returns (h, caches)."""
+    out = {}
+    if "prefix_layers" in params:
+        h, out["prefix"], _ = _run_layers(
+            cfg, params["prefix_layers"], h, positions, cache_max_len=cache_max_len,
+            caches=None if caches is None else caches["prefix"])
+    h, out["layers"], _ = _run_layers(
+        cfg, params["layers"], h, positions, cache_max_len=cache_max_len,
+        caches=None if caches is None else caches["layers"])
+    return h, out
 
 
 def _embed_h(cfg, params, tokens):
@@ -105,8 +147,14 @@ def _logits(cfg, params, h):
 
 
 def lm_make_caches(cfg: ArchConfig, batch_size: int, max_len: int, dtype, device=None):
-    return {"layers": [A.make_kv_cache(cfg, batch_size, max_len, dtype, device)
-                       for _ in range(cfg.n_layers)]}
+    def make(n):
+        return [A.make_kv_cache(cfg, batch_size, max_len, dtype, device) for _ in range(n)]
+
+    n_prefix = _n_prefix(cfg)
+    caches = {"layers": make(cfg.n_layers - n_prefix)}
+    if n_prefix:
+        caches["prefix"] = make(n_prefix)
+    return caches
 
 
 def lm_prefill(cfg: ArchConfig, params, batch, *, max_len: int):
@@ -114,9 +162,8 @@ def lm_prefill(cfg: ArchConfig, params, batch, *, max_len: int):
     tokens = batch["tokens"]
     h = _embed_h(cfg, params, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    h, new_caches = _run_layers(cfg, params, h, positions, cache_max_len=max_len)
-    logits = _logits(cfg, params, h[:, -1:, :])
-    return logits, {"layers": new_caches}
+    h, caches = _run_all(cfg, params, h, positions, cache_max_len=max_len)
+    return _logits(cfg, params, h[:, -1:, :]), caches
 
 
 def lm_decode(cfg: ArchConfig, params, batch, caches):
@@ -126,6 +173,5 @@ def lm_decode(cfg: ArchConfig, params, batch, caches):
     """
     tokens, positions = batch["tokens"], batch["positions"]
     h = _embed_h(cfg, params, tokens)
-    h, new_caches = _run_layers(cfg, params, h, positions, caches=caches["layers"])
-    logits = _logits(cfg, params, h)
-    return logits, {"layers": new_caches}
+    h, caches = _run_all(cfg, params, h, positions, caches=caches)
+    return _logits(cfg, params, h), caches

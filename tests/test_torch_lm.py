@@ -1,4 +1,4 @@
-"""The port's LM serving path (dense family) against the JAX package's.
+"""The port's LM serving path (dense and MoE families) against the JAX package's.
 
 Same numpy weights (``repro.models.transformer.lm_init`` converted with
 ``repro_torch.convert.lm_params_from_numpy``) and the same token ids through
@@ -9,7 +9,9 @@ whose scale is 1/sqrt(head_dim), ``use_pallas=True`` (the Pallas kernel K6
 in interpret mode; for other scales that path is wrong, ROADMAP F4).
 Logits and caches within rtol 1e-5 / atol 1e-5: fp32 sums of at most a few
 hundred terms in another order (a second layer's K/V carry the first
-layer's rounding: 1.4e-6 apart at most here).
+layer's rounding: 1.4e-6 apart at most here). The MoE family runs at the
+qwen3-moe SMOKE config and at DeepSeek's layout on GQA (one dense prefix
+layer of ``first_dense_d_ff`` and a shared expert: ``DEEPSEEK_LAYOUT``).
 """
 
 import dataclasses
@@ -34,6 +36,10 @@ from repro_torch.models import layers as TL
 from repro_torch.models.model import build_model
 
 DENSE = ["yi-6b", "granite-3-2b", "qwen2.5-14b", "chatglm3-6b"]
+MOE = "qwen3-moe-30b-a3b"
+# qwen3-moe's SMOKE config with deepseek-v2's prefix layer and shared expert
+DEEPSEEK_LAYOUT = "qwen3-moe-30b-a3b+prefix"
+_LAYOUT = dict(first_dense_layers=1, first_dense_d_ff=128, n_shared_experts=1)
 LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)
 CACHE_TOL = LOGIT_TOL
 BATCH, PROMPT = 2, 12
@@ -118,8 +124,16 @@ def test_gqa_apply_prefill_and_decode_match_jax(arch):
     assert tcache.length == int(jcache.length) == 10
 
 
+def _smoke(arch):
+    """(the JAX config, the port's) at ``arch``'s SMOKE size."""
+    if arch == DEEPSEEK_LAYOUT:
+        return tuple(dataclasses.replace(pkg.get_smoke_config(MOE), **_LAYOUT)
+                     for pkg in (jconfigs, tconfigs))
+    return jconfigs.get_smoke_config(arch), tconfigs.get_smoke_config(arch)
+
+
 def _models(arch, seed=0):
-    jcfg, tcfg = jconfigs.get_smoke_config(arch), tconfigs.get_smoke_config(arch)
+    jcfg, tcfg = _smoke(arch)
     jp = _np(JTF.lm_init(jcfg, jax.random.PRNGKey(seed)))
     return jcfg, jp, build_model(tcfg), lm_params_from_numpy(jp, "cpu")
 
@@ -129,14 +143,17 @@ def _prompts(vocab, seed=3):
 
 
 def _assert_caches(tcaches, jcaches):
-    jc = jcaches["layers"]
-    for i, tc in enumerate(tcaches["layers"]):
-        np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k[i]), **CACHE_TOL)
-        np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v[i]), **CACHE_TOL)
-        assert tc.length == int(jc.length[i])
+    assert set(tcaches) == set(jcaches)
+    for part, jc in jcaches.items():
+        assert len(tcaches[part]) == jc.k.shape[0]
+        for i, tc in enumerate(tcaches[part]):
+            np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k[i]), **CACHE_TOL)
+            np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v[i]), **CACHE_TOL)
+            assert tc.length == int(jc.length[i])
 
 
-@pytest.mark.parametrize("arch,use_pallas", [(a, False) for a in DENSE] + [("yi-6b", True)])
+@pytest.mark.parametrize("arch,use_pallas", [(a, False) for a in DENSE] + [("yi-6b", True)]
+                         + [(a, p) for a in (MOE, DEEPSEEK_LAYOUT) for p in (False, True)])
 def test_prefill_and_decode_match_jax(arch, use_pallas):
     jcfg, jp, model, tp = _models(arch)
     jmodel = jbuild_model(jcfg, use_pallas=use_pallas)
@@ -164,11 +181,8 @@ def test_prefill_and_decode_match_jax(arch, use_pallas):
         step = step + 1
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_greedy_tokens_match_jax(use_pallas):
-    """Prefill plus 4 greedy decode steps: the same tokens as the same loop
-    on the JAX model."""
-    jcfg, jp, model, tp = _models("yi-6b", seed=4)
+def _greedy_tokens_match_jax(arch, use_pallas):
+    jcfg, jp, model, tp = _models(arch, seed=4)
     jmodel = jbuild_model(jcfg, use_pallas=use_pallas)
     toks = _prompts(jcfg.vocab_size, seed=5)
     max_len = PROMPT + 5
@@ -186,6 +200,18 @@ def test_greedy_tokens_match_jax(use_pallas):
     assert out["logits_finite"]
 
 
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_greedy_tokens_match_jax(use_pallas):
+    """Prefill plus 4 greedy decode steps: the same tokens as the same loop
+    on the JAX model."""
+    _greedy_tokens_match_jax("yi-6b", use_pallas)
+
+
+@pytest.mark.parametrize("arch", [MOE, DEEPSEEK_LAYOUT])
+def test_moe_greedy_tokens_match_jax(arch):
+    _greedy_tokens_match_jax(arch, use_pallas=True)
+
+
 def test_make_caches_match_reference_layout():
     jcfg, _, model, _ = _models("yi-6b")
     want = JTF.lm_make_caches(jcfg, BATCH, 20, jnp.float32)["layers"]
@@ -194,6 +220,18 @@ def test_make_caches_match_reference_layout():
     for c in got:
         assert c.k.shape == c.v.shape == want.k.shape[1:] and c.length == 0
         assert c.k.dtype == torch.float32 and not c.k.any()
+
+
+def test_moe_make_caches_match_reference_layout():
+    """The prefix layers' caches apart, under ``"prefix"``, as the reference's."""
+    jcfg, _, model, _ = _models(DEEPSEEK_LAYOUT)
+    want = JTF.lm_make_caches(jcfg, BATCH, 20, jnp.float32)
+    got = model.make_caches(BATCH, 20, torch.float32)
+    assert set(got) == set(want) == {"layers", "prefix"}
+    for part in want:
+        assert len(got[part]) == want[part].k.shape[0]
+        for c in got[part]:
+            assert c.k.shape == want[part].k.shape[1:] and c.length == 0
 
 
 def test_serve_runs_end_to_end_on_cpu():
@@ -212,6 +250,15 @@ def test_serve_runs_end_to_end_on_cpu():
     assert got["kernel_launches"]["decode"]["flash_attention"] == 0
 
 
+def test_serve_moe_runs_end_to_end_on_cpu():
+    got = tserve.serve(MOE, smoke=True, batch=2, prompt_len=8, gen=4, device="cpu")
+    assert got["generated"].shape == (2, 4) and got["generated"].dtype == np.int32
+    assert (0 <= got["generated"]).all() and (got["generated"] < 128).all()
+    assert got["logits_finite"]
+    assert got["kernel_launches"]["prefill"]["flash_attention"] == 0
+    assert got["kernel_launches"]["decode"]["flash_attention"] == 0
+
+
 def test_serve_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="model_parallel"):
         tserve.serve("yi-6b", smoke=True, batch=1, prompt_len=4, gen=2, device="cpu",
@@ -221,16 +268,20 @@ def test_serve_refuses_what_is_not_ported():
             tserve.serve("yi-6b", smoke=True, batch=1, prompt_len=4, gen=2)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "internvl2-2b", "whisper-base",
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "internvl2-2b", "whisper-base",
                                   "zamba2-2.7b", "mamba2-1.3b"])
 def test_build_model_raises_for_families_not_ported(arch):
+    """deepseek-v2-lite (a MoE) raises for its MLA attention, the others for
+    their family; each names the slice that brings it."""
     cfg = tconfigs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=f"the {cfg.family} family"):
+    match = "MLA attention is not ported yet.*MLA slice" if cfg.use_mla else \
+        f"the {cfg.family} family"
+    with pytest.raises(NotImplementedError, match=match):
         build_model(cfg)
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-@pytest.mark.parametrize("arch", ["yi-6b", "granite-3-2b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-3-2b", MOE])
 def test_lm_converter_round_trips_bitwise(arch, dtype):
     cfg = jconfigs.get_smoke_config(arch)
     jp = _np(JTF.lm_init(cfg, jax.random.PRNGKey(6), dtype=dtype))
@@ -241,6 +292,30 @@ def test_lm_converter_round_trips_bitwise(arch, dtype):
     np.testing.assert_array_equal(
         tp["layers"][1]["attn"]["wq"].float().numpy(),
         np.asarray(jp["layers"]["attn"]["wq"][1]).astype(np.float32))
+    back = lm_params_to_numpy(tp)
+    w_leaves, w_def = jax.tree_util.tree_flatten(jp)
+    g_leaves, g_def = jax.tree_util.tree_flatten(back)
+    assert w_def == g_def
+    for w, g in zip(w_leaves, g_leaves):
+        assert w.dtype == g.dtype and w.shape == g.shape
+        np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("arch", [DEEPSEEK_LAYOUT, "deepseek-v2-lite-16b"])
+def test_lm_converter_round_trips_prefix_layers_bitwise(arch, dtype):
+    """``prefix_layers``, a list of per-layer dicts in both packages, and the
+    stacked expert leaves (L, E, ...) split per layer; deepseek-v2-lite's
+    own tree (MLA leaves, which the converter passes through) too."""
+    cfg = _smoke(arch)[0]
+    jp = _np(JTF.lm_init(cfg, jax.random.PRNGKey(7), dtype=dtype))
+    tp = lm_params_from_numpy(jp, "cpu")
+    assert len(tp["prefix_layers"]) == cfg.first_dense_layers == 1
+    assert len(tp["layers"]) == cfg.n_layers - 1
+    np.testing.assert_array_equal(
+        tp["layers"][-1]["moe"]["w_gate"].float().numpy(),
+        np.asarray(jp["layers"]["moe"]["w_gate"][-1]).astype(np.float32))
+    assert tp["prefix_layers"][0]["mlp"]["w_up"].shape == (cfg.d_model, cfg.first_dense_d_ff)
     back = lm_params_to_numpy(tp)
     w_leaves, w_def = jax.tree_util.tree_flatten(jp)
     g_leaves, g_def = jax.tree_util.tree_flatten(back)
