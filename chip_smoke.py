@@ -27,7 +27,14 @@ with deepseek-v2-lite's MoE layer (routed and shared experts) alone
 launcher (``lm_moe_serve``), and one profiled prefill and decode step with
 their device time split into the expert products, the dispatch, K6, the
 attention projections and the rest (``profile_lm_moe``,
-``profile_lm_moe_decode``). Between the fp32 serving phases and training, the
+``profile_lm_moe_decode``); then MLA: deepseek-v2-lite-16b at full width
+and two layers in fp32 on the card against the CPU, its MLA caches and
+routing equal and its absorbed decode held to the up-projected one
+(``lm_mla_parity``), the full 27-layer model in bf16 through the serve
+launcher, K6 once per layer at q . k 192 and v 128 (``lm_mla_serve``), and
+one profiled prefill and decode step split the same way, with the MLA
+projections and the absorbed attention apart (``profile_lm_mla``,
+``profile_lm_mla_decode``). Between the fp32 serving phases and training, the
 same forecast and server run under the bf16 policy (``precision="bf16"``:
 K1 with a bf16 y, K3 in bf16 on the tensor cores; phases ``forecast_bf16``, ``profile_bf16``
 and ``serve_bf16``), against the CPU and the card's fp32 forecast. After
@@ -883,38 +890,61 @@ def check_lstm_cell_bwd_dx(rows, in_size, hidden, gen, bf16=False):
 
 
 def k6_shapes():
-    """K6's checks: (B, Hq, Hkv, Tq, Tk, D, dtype, causal). The first is the
-    LM serve path's own (one launch per layer of the yi-6b prefill); the
+    """K6's checks: (B, Hq, Hkv, Tq, Tk, D, DV, dtype, causal). The first is
+    the LM serve path's own (one launch per layer of the yi-6b prefill); the
     others cover fp32, ragged tiles, decode-append, non-causal, D = 64 and
-    MHA."""
+    MHA; the last two MLA's (q . k 192, v 128): one layer of the
+    deepseek-v2-lite serve prefill in bf16 and of its parity prefill in
+    fp32."""
     return [
-        (LM_BATCH, 32, 4, LM_PROMPT, LM_PROMPT, 128, "bfloat16", True),
-        (2, 32, 4, LM_PROMPT, LM_PROMPT, 128, "float32", True),
-        (2, 32, 4, 1000, 1000, 128, "bfloat16", True),
-        (LM_BATCH, 32, 4, 33, 1024, 128, "bfloat16", True),
-        (LM_BATCH, 32, 4, 33, 1024, 128, "float32", True),
-        (2, 32, 4, 512, 1024, 128, "bfloat16", False),
-        (2, 16, 16, 1024, 1024, 64, "bfloat16", True),
-        (2, 16, 16, 300, 300, 64, "float32", False),
+        (LM_BATCH, 32, 4, LM_PROMPT, LM_PROMPT, 128, 128, "bfloat16", True),
+        (2, 32, 4, LM_PROMPT, LM_PROMPT, 128, 128, "float32", True),
+        (2, 32, 4, 1000, 1000, 128, 128, "bfloat16", True),
+        (LM_BATCH, 32, 4, 33, 1024, 128, 128, "bfloat16", True),
+        (LM_BATCH, 32, 4, 33, 1024, 128, 128, "float32", True),
+        (2, 32, 4, 512, 1024, 128, 128, "bfloat16", False),
+        (2, 16, 16, 1024, 1024, 64, 64, "bfloat16", True),
+        (2, 16, 16, 300, 300, 64, 64, "float32", False),
+        (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 192, 128, "bfloat16", True),
+        (LM_PARITY_BATCH, 16, 16, LM_PARITY_PROMPT, LM_PARITY_PROMPT, 192, 128, "float32", True),
     ]
 
 
-def k6_work(b, hq, hkv, tq, tk, d, elem_bytes, causal):
-    """Bytes K6 must move (q, k, v read once, o written once) and flops it
-    must do: 4 D per visible (query, key) pair, which the causal mask cuts
-    to sum_i min(Tk, i + Tk - Tq + 1) pairs."""
+def k6_work(b, hq, hkv, tq, tk, d, dv, elem_bytes, causal):
+    """Bytes K6 must move (q and k read once at D, v once and o written
+    once at DV) and flops it must do: 2 (D + DV) per visible (query, key)
+    pair (S = Q . K^T, then P . V), which the causal mask cuts to sum_i
+    min(Tk, i + Tk - Tq + 1) pairs."""
     if causal:
         pairs = sum(min(tk, i + tk - tq + 1) for i in range(tq))
     else:
         pairs = tq * tk
-    n_bytes = elem_bytes * (2 * b * hq * tq * d + 2 * b * hkv * tk * d)
-    return n_bytes, 4.0 * b * hq * d * pairs
+    n_bytes = elem_bytes * (b * hq * tq * (d + dv) + b * hkv * tk * (d + dv))
+    return n_bytes, 2.0 * b * hq * (d + dv) * pairs
 
 
-def check_flash_attention(b, hq, hkv, tq, tk, d, dtype_name, causal, gen, qkv=None):
+def device_kernel_names(call):
+    """The device kernels one ``call()`` runs, by device time, under
+    torch.profiler (which backend a library call picked); empty where the
+    profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    by_name = {}
+    for evt in device_work(prof):
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.end - evt.time_range.start
+    return [name[:90] for name, _ in sorted(by_name.items(), key=lambda kv: -kv[1])]
+
+
+def check_flash_attention(b, hq, hkv, tq, tk, d, dv, dtype_name, causal, gen, qkv=None):
     """K6 against its plain version on the card; SDPA (timed only) as the
     library yardstick, with an explicit end-aligned mask where Tq != Tk
-    (its ``is_causal`` aligns the starts)."""
+    (its ``is_causal`` aligns the starts). Where DV != D, the record names
+    the kernels SDPA ran (``library_kernels``: which backend it picked)."""
     import torch
     import torch.nn.functional as F
 
@@ -924,7 +954,7 @@ def check_flash_attention(b, hq, hkv, tq, tk, d, dtype_name, causal, gen, qkv=No
     dev = torch.device("cuda")
     if qkv is None:
         qkv = [torch.randn(shape, generator=gen).to(dev, dtype)
-               for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))]
+               for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, dv))]
     q, k, v = qkv
     kernel = lambda: flash_attention.flash_attention(q, k, v, causal=causal)
     plain = lambda: ref.attention_ref(q, k, v, causal=causal)
@@ -944,15 +974,16 @@ def check_flash_attention(b, hq, hkv, tq, tk, d, dtype_name, causal, gen, qkv=No
     del want
     ms, host_ms, library_ms = time_ms(kernel), wrapper_ms(kernel), time_ms(library)
     plain_ms = time_ms(plain, iters=3, warmup=1)
-    n_bytes, n_flops = k6_work(b, hq, hkv, tq, tk, d, q.element_size(), causal)
+    sdpa = dict(library_kernels=device_kernel_names(library)) if dv != d else {}
+    n_bytes, n_flops = k6_work(b, hq, hkv, tq, tk, d, dv, q.element_size(), causal)
     bound_ms, bound_by = bound(n_bytes, n_flops,
                                FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
     return dict(name="flash_attention",
                 kernel="flash_tc_bf16" if dtype == torch.bfloat16 else "flash_simt_f32",
-                shape=dict(B=b, Hq=hq, Hkv=hkv, Tq=tq, Tk=tk, D=d, causal=causal),
+                shape=dict(B=b, Hq=hq, Hkv=hkv, Tq=tq, Tk=tk, D=d, DV=dv, causal=causal),
                 dtype=dtype_name, max_abs_err=err, tol=tol, ms=ms, wrapper_ms=host_ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, tflops=n_flops / ms / 1e9)
+                bound_by=bound_by, tflops=n_flops / ms / 1e9, **sdpa)
 
 
 # ---------------------------------------------------------------------------
@@ -3283,20 +3314,25 @@ class LMServe:
         return lambda: self.model.decode(self.params, step, caches)
 
     def layer0_qkv(self):
-        """Layer 0's own q, k, v of this prefill, (B, H, T, D) contiguous."""
+        """The first layer's own q, k, v of this prefill, (B, H, T, D)
+        contiguous: DeepSeek's first prefix layer, through ``mla_qkv`` under
+        MLA (q and k 192 wide, v 128), else ``gqa_qkv``."""
         import torch
 
-        from repro_torch.models.attention import gqa_qkv
+        from repro_torch.models.attention import gqa_qkv, mla_qkv
         from repro_torch.models.layers import apply_norm
         from repro_torch.models.transformer import _embed_h
 
-        layer = self.params["layers"][0]
+        layer = (self.params.get("prefix_layers") or self.params["layers"])[0]
         with torch.no_grad():
             h = _embed_h(self.cfg, self.params, self.prompts)
             x = apply_norm(h, layer["attn_norm"], self.cfg.norm)
             pos = torch.arange(h.shape[1], device=h.device)[None, :]
-            return [t.transpose(1, 2).contiguous()
-                    for t in gqa_qkv(layer["attn"], self.cfg, x, pos)]
+            if self.cfg.use_mla:
+                qkv = mla_qkv(layer["attn"], self.cfg, x, pos)[:3]
+            else:
+                qkv = [t.transpose(1, 2) for t in gqa_qkv(layer["attn"], self.cfg, x, pos)]
+            return [t.contiguous() for t in qkv]
 
 
 def run_lm_serve(lm, gen=LM_GEN):
@@ -3559,6 +3595,9 @@ MOE_PROFILE_LABELS = (
     ("repro_torch.models.attention", "gqa_apply", "attention"),
     ("repro_torch.models.attention", "gqa_qkv", "attention.qkv"),
     ("repro_torch.models.attention", "cached_attention", "attention.cached"),
+    ("repro_torch.models.attention", "mla_apply", "mla"),
+    ("repro_torch.models.attention", "mla_qkv", "mla.qkv"),
+    ("repro_torch.models.attention", "_mla_absorbed", "mla.absorbed"),
     ("repro_torch.models.transformer", "_logits", "lm_head"),
 )
 
@@ -3615,6 +3654,8 @@ def device_ms_by_range(prof, labels):
                       k6=ms["K6 flash_attention"],
                       attention_proj=ms["attention"] + ms["attention.qkv"],
                       cached_attention=ms["attention.cached"],
+                      mla_projections=ms["mla"] + ms["mla.qkv"],
+                      mla_absorbed=ms["mla.absorbed"],
                       rest=ms["lm_head"] + ms["moe.aux"] + ms["rest"]))
 
 
@@ -3660,8 +3701,8 @@ def run_moe_phases(dev, smi, counted, lm_kernels, gen):
     # version's fp32 scores take 4.3 GB a copy)
     with torch.no_grad():
         layer0 = check_flash_attention(LM_BATCH, moe_cfg.n_heads, moe_cfg.n_kv_heads,
-                                       LM_PROMPT, LM_PROMPT, moe_cfg.hd, "bfloat16", True,
-                                       gen, qkv=qkv)
+                                       LM_PROMPT, LM_PROMPT, moe_cfg.hd, moe_cfg.hd,
+                                       "bfloat16", True, gen, qkv=qkv)
     del qkv
     emit(dict(phase="lm_moe_serve", card=smi, launches=moe_launches, k6_layer0=layer0,
               **moe_serve))
@@ -3669,6 +3710,174 @@ def run_moe_phases(dev, smi, counted, lm_kernels, gen):
               prompt_len=LM_PROMPT, card=smi, **moe_prefill))
     emit(dict(phase="profile_lm_moe_decode", call=f"one {MOE_ARCH} decode step",
               batch=LM_BATCH, cache_len=LM_PROMPT + LM_GEN, card=smi, **moe_decode))
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: MLA (deepseek-v2-lite-16b: its attention in every layer)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def mla_decode_up_projected():
+    """The model's MLA decode up-projects the cache to per-head K/V and runs
+    ``cached_attention`` (``absorbed_decode=False``) while this is open. The
+    transformer calls ``mla_apply`` through its module, as ``moe_layers_seen``
+    relies on; the port itself is unchanged."""
+    from repro_torch.models import attention
+
+    real = attention.mla_apply
+
+    def up_projected(*args, **kw):
+        return real(*args, **kw, absorbed_decode=False)
+
+    attention.mla_apply = up_projected
+    try:
+        yield
+    finally:
+        attention.mla_apply = real
+
+
+def mla_cache_err(what, caches_dev, caches_cpu) -> float:
+    """The largest difference of the MLA caches (c_kv and k_rope of every
+    layer, prefix layers too) between the devices, within the LM bounds;
+    their lengths equal."""
+    errs = []
+    for part, cpu in caches_cpu.items():
+        for i, (d, c) in enumerate(zip(caches_dev[part], cpu)):
+            if d.length != c.length:
+                raise AssertionError(f"{what}: {part} {i} length {d.length} != {c.length}")
+            errs += [check_close(f"{what}: {part} {i} {f}", getattr(d, f), getattr(c, f),
+                                 rtol=LM_RTOL, atol=LM_ATOL) for f in ("c_kv", "k_rope")]
+    return max(errs)
+
+
+def run_lm_mla_parity(dev, n_layers=MOE_PARITY_LAYERS, batch=LM_PARITY_BATCH,
+                      prompt_len=LM_PARITY_PROMPT, gen=LM_PARITY_GEN, seed=7):
+    """deepseek-v2-lite-16b at full width, ``n_layers`` deep (its dense
+    prefix layer and one MoE layer, MLA in both), fp32: the prefill (K6 at
+    q . k 192 and v 128 on the card, the plain chunked path on the CPU) and
+    every decode step's logits and MLA caches, card against CPU, decoding the
+    CPU's greedy tokens as ``lm_parity`` does; the MoE layer's routing held
+    equal on the CPU's layer input (capacity 15 at this prompt). At every
+    step the card's absorbed decode is also held against its up-projected
+    one (``absorbed_decode=False``) on the same cache."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import moe_route
+
+    cfg = moe_config(MOE_DEEPSEEK, n_layers=n_layers, dtype="float32")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params_cpu = model.init(torch.Generator().manual_seed(seed))
+    params_dev = _params_to(params_cpu, dev)
+    init_s = time.perf_counter() - t0
+    prompts = lm_prompts(cfg, batch, prompt_len, seed)
+    max_len = prompt_len + gen
+    seen = {"cpu": [], "card": []}
+
+    def route_on(where):
+        return lambda p, cfg, x: seen[where].append((p, x, moe_route(p, cfg, x)))
+
+    errs, cache_errs, absorbed_errs, agree = [], [], [], []
+    with torch.no_grad():
+        before = ops.launch_counts()["flash_attention"]
+        with moe_layers_seen(route_on("cpu")):
+            log_c, cache_c = model.prefill(params_cpu, {"tokens": prompts}, max_len)
+        with moe_layers_seen(route_on("card")):
+            log_d, cache_d = model.prefill(params_dev, {"tokens": prompts.to(dev)}, max_len)
+        torch.cuda.synchronize()
+        prefill_launches = ops.launch_counts()["flash_attention"] - before
+        margins = []
+        for i, ((p_c, x_c, r_c), (p_d, _, _)) in enumerate(zip(seen["cpu"], seen["card"])):
+            moe_routing_same(f"lm_mla_parity layer {i}", r_c, moe_route(p_d, cfg, x_c.to(dev)))
+            margins.append(moe_margin(r_c, cfg.top_k))
+        dropped = {where: dropped_share([r for _, _, r in seen[where]]) for where in seen}
+        capacity = r_c.capacity
+        if dropped["cpu"] != dropped["card"]:
+            raise AssertionError(f"lm_mla_parity: dropped shares differ {dropped}")
+        seen = None
+        decode_launches = 0
+        for step in range(gen):
+            errs.append(check_close(f"lm_mla_parity logits, step {step}", log_d, log_c,
+                                    rtol=LM_RTOL, atol=LM_ATOL))
+            cache_errs.append(mla_cache_err(f"lm_mla_parity caches, step {step}",
+                                            cache_d, cache_c))
+            tok = log_c[:, -1].argmax(dim=-1)
+            agree.append(bool((log_d[:, -1].argmax(dim=-1).cpu() == tok).all()))
+            if step == gen - 1:
+                break
+            pos = torch.full((batch, 1), prompt_len + step, dtype=torch.int64)
+            log_c, cache_c = model.decode(
+                params_cpu, {"tokens": tok[:, None], "positions": pos}, cache_c)
+            batch_d = {"tokens": tok[:, None].to(dev), "positions": pos.to(dev)}
+            before = ops.launch_counts()["flash_attention"]
+            # the up-projected decode first: both write this step's latents
+            # at the same slots, and the absorbed one's stay for the next
+            with mla_decode_up_projected():
+                log_u, _ = model.decode(params_dev, batch_d, cache_d)
+            log_d, cache_d = model.decode(params_dev, batch_d, cache_d)
+            decode_launches += ops.launch_counts()["flash_attention"] - before
+            absorbed_errs.append(check_close(
+                f"lm_mla_parity absorbed vs up-projected decode, step {step}", log_d, log_u,
+                rtol=LM_RTOL, atol=LM_ATOL))
+    if (prefill_launches, decode_launches) != (n_layers, 0):
+        raise AssertionError(f"lm_mla_parity: K6 launches (prefill, decode) "
+                             f"{(prefill_launches, decode_launches)}, want ({n_layers}, 0)")
+    del params_dev, cache_d, params_cpu, cache_c
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, n_layers=n_layers, prefix_layers=cfg.first_dense_layers,
+                dtype="float32", batch=batch, prompt_len=prompt_len, steps=gen, init_s=init_s,
+                k6_shape=dict(D=cfg.qk_nope_dim + cfg.qk_rope_dim, DV=cfg.v_head_dim),
+                capacity_prefill=capacity,
+                k6_launches_prefill=prefill_launches, k6_launches_decode=decode_launches,
+                max_abs_err_per_step=errs, max_abs_err=max(errs),
+                cache_max_abs_err_per_step=cache_errs,
+                absorbed_vs_up_projected_max_abs_err_per_step=absorbed_errs,
+                logits_scale=float(log_c.abs().max()),
+                routing_same_input_equal=True, min_topk_margin_per_layer=margins,
+                dropped_share=dropped, greedy_tokens_agree=all(agree),
+                tokens_agree_per_step=agree, rtol=LM_RTOL, atol=LM_ATOL)
+
+
+def run_mla_phases(dev, smi, counted, lm_kernels, gen):
+    """Phase 7c: deepseek-v2-lite-16b at full width, 2 layers, fp32, card
+    against CPU (``lm_mla_parity``); then the full 27-layer model in bf16
+    through ``generate``, K6 once per layer of each prefill at q . k 192 and
+    v 128, none in the absorbed decode (``lm_mla_serve``), one profiled
+    prefill and decode step split by part, and K6 on the prefix layer's own
+    q, k, v. ``counted`` is ``main``'s: these launches join the main path's."""
+    import torch
+
+    parity, parity_launches = counted(lm_kernels, "the MLA parity run",
+                                      lambda: run_lm_mla_parity(dev))
+    emit(dict(phase="lm_mla_parity", card=smi, launches=parity_launches, **parity))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LMServe(dev, cfg=moe_config(MOE_DEEPSEEK))
+    init_peak = torch.cuda.max_memory_allocated()
+    serve, launches = counted(lm_kernels, "MLA serving", lambda: run_lm_serve(lm))
+    serve.update(init_peak_gb=init_peak / 1e9, **moe_prefill_routing(lm))
+    with torch.no_grad():
+        prefill = profile_moe(lambda: lm.prefill())
+        decode = profile_moe(lm.decode_step())
+        qkv = lm.layer0_qkv()
+    cfg = lm.cfg
+    del lm
+    torch.cuda.empty_cache()
+    # K6 on the prefix layer's own q, k, v, once the weights are freed
+    with torch.no_grad():
+        layer0 = check_flash_attention(LM_BATCH, cfg.n_heads, cfg.n_heads, LM_PROMPT, LM_PROMPT,
+                                       cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim,
+                                       "bfloat16", True, gen, qkv=qkv)
+    del qkv
+    emit(dict(phase="lm_mla_serve", card=smi, launches=launches, k6_layer0=layer0, **serve))
+    emit(dict(phase="profile_lm_mla", call=f"one {MOE_DEEPSEEK} prefill", batch=LM_BATCH,
+              prompt_len=LM_PROMPT, card=smi, **prefill))
+    emit(dict(phase="profile_lm_mla_decode", call=f"one {MOE_DEEPSEEK} decode step",
+              batch=LM_BATCH, cache_len=LM_PROMPT + LM_GEN, card=smi, **decode))
     torch.cuda.empty_cache()
 
 
@@ -4098,8 +4307,10 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    # phase 7b: the MoE family
+    # phase 7b: the MoE family; 7c: MLA
     run_moe_phases(dev, smi, counted, lm_kernels, gen)
+    torch.cuda.empty_cache()
+    run_mla_phases(dev, smi, counted, lm_kernels, gen)
 
     # phase 8: summary, one entry per ported kernel and stream dtype.
     # Launches: the main-path phases 3 to 7. Times at the first listed shape

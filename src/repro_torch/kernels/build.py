@@ -55,8 +55,8 @@ _SIGNATURES = {
     "lstm_cell_bwd_dx_f32": (11, 4, 0),    # K5's dx-only launch (no weight gradients)
     "lstm_cell_bwd_dx_bf16": (11, 4, 0),   # the same, bf16, tensor cores
     "lstm_cell_bwd_dx_wide_bf16": (11, 4, 0),  # the same, bf16, past the presets' widths
-    "flash_attention_f32": (4, 7, 1),      # K6, fp32
-    "flash_attention_bf16": (4, 7, 1),     # K6, bf16
+    "flash_attention_f32": (4, 8, 1),      # K6, fp32
+    "flash_attention_bf16": (4, 8, 1),     # K6, bf16
 }
 
 _lock = threading.Lock()

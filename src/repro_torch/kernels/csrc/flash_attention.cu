@@ -4,9 +4,11 @@
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py:_flash_kernel (called at :108).
 //
-// For q (B, Hq, Tq, D) and k, v (B, Hkv, Tk, D), all contiguous, query head
-// h reads kv head h / (Hq / Hkv) (GQA as an index map: K/V heads are never
-// repeated in memory). Per query row, over the keys in tiles:
+// For q (B, Hq, Tq, D), k (B, Hkv, Tk, D) and v (B, Hkv, Tk, DV), all
+// contiguous, with DV <= D (MLA: q . k 192 wide, v 128; every other model
+// DV = D), query head h reads kv head h / (Hq / Hkv) (GQA as an index map:
+// K/V heads are never repeated in memory); o is (B, Hq, Tq, DV). Per query
+// row, over the keys in tiles:
 //   s      = (q . k^T) * scale                                  fp32
 //   s      = -1e30 where causal and k_idx > q_idx + (Tk - Tq)   end-aligned
 //   m_new  = max(m, rowmax(s));  p = exp(s - m_new);  c = exp(m - m_new)
@@ -16,9 +18,11 @@
 // which is what _flash_kernel computes with (m, l, acc) in VMEM scratch.
 //
 // Bound on the card: operations. At the LM serve path's shape (B = 8, Hq =
-// 32, Hkv = 4, Tq = Tk = 2048, D = 128, bf16, causal) the kernel must do
-// 2 * 2 * B * Hq * Tq * Tk * D / 2 = 2.7e11 flops (0.28 ms at 989 TFLOP/s)
-// and move q, k, v and o once, 0.30 GB (0.09 ms at 3.35 TB/s).
+// 32, Hkv = 4, Tq = Tk = 2048, D = DV = 128, bf16, causal) the kernel must
+// do 2 * B * Hq * (D + DV) * Tq * Tk / 2 = 2.7e11 flops (0.28 ms at 989
+// TFLOP/s) and move q, k, v and o once, 0.30 GB (0.09 ms at 3.35 TB/s); at
+// deepseek-v2-lite's MLA prefill (B = 8, Hq = Hkv = 16, T = 2048, D = 192,
+// DV = 128) 1.72e11 flops (0.174 ms) against 0.34 GB (0.100 ms).
 //
 // Design. On the TPU the key loop is the sequential third grid axis; CUDA
 // blocks run in no order, so here one block owns one (batch * q head, query
@@ -27,9 +31,10 @@
 // masked in the kernel, so nothing is padded. Under the causal mask the
 // block stops after the last key tile its last row can see (the skipped
 // tiles would add exactly nothing), and tiles are issued longest first.
-// * bf16 (D = 64 or 128), flash_tc_bf16: 128 query rows per block, 128-key
-//   tiles, three warpgroups. The producer warpgroup gives up registers
-//   (setmaxnreg) and one of its threads issues TMA loads: Q once, then K
+// * bf16, flash_tc_bf16<D, DV> at (D, DV) = (64, 64), (128, 128) and (192,
+//   128): 128 query rows per block, 128-key tiles, three warpgroups. The
+//   producer warpgroup gives up registers (setmaxnreg) and one of its
+//   threads issues TMA loads: Q once, then K
 //   and V tiles into a 2-stage ring guarded by full/empty mbarriers. The
 //   two consumer warpgroups (64 query rows each, registers raised) run
 //   S = Q . K^T as wgmma m64n128k16 with both operands in shared memory,
@@ -37,16 +42,32 @@
 //   in registers: the fp32 score accumulators, cast to bf16x2 in place,
 //   are the A fragments (the m64nN accumulator layout is the register-A
 //   layout), and V is read in its [key][d] layout through the descriptor's
-//   transpose bit. The tensor maps are 3-D (D, T, B * H), so TMA zero-fills
-//   keys past Tk and query rows past Tq per head; all tiles use the 128-byte
-//   swizzle (a D = 128 row is two 64-element boxes), and the wgmma
-//   descriptors describe the same layout. The mask runs only on tiles that
-//   cross the diagonal or Tk; exp2 with scale * log2(e) folded in.
-// * fp32 (D <= 128): 4 warps x 4 query rows, 32-key tiles; lane j scores
-//   key j against the warp's rows (the K tile padded to D + 1 floats a row),
-//   the row max and sum go through warp shuffles, and each lane accumulates
-//   D / 32 output columns. fp32 products stay off the tensor cores (TF32
-//   would cost digits the fp32 path is held to).
+//   transpose bit. The tensor maps are 3-D (D or DV, T, B * H), so TMA
+//   zero-fills keys past Tk and query rows past Tq per head; all tiles use
+//   the 128-byte swizzle (a row is D / 64 or DV / 64 boxes of 64 elements),
+//   and the wgmma descriptors describe the same layout. Q and K tiles are D
+//   wide, V tiles DV wide: S = Q . K^T takes D / 16 k-steps, O and P . V are
+//   DV wide. The mask runs only on tiles that cross the diagonal or Tk; exp2
+//   with scale * log2(e) folded in. Shared memory (TcSmem): Q + 2 K + 2 V
+//   tiles, 80 KB at D = DV = 64, 160 KB at 128, 208 KB at (192, 128), under
+//   the 227 KB a block may opt into. ptxas -v (sm_90a) reports, for each of
+//   <64, 64>, <128, 128> and <192, 128>: 168 registers, 0 bytes of stack
+//   and spills (the __launch_bounds__ ceiling; setmaxnreg then moves them
+//   to 40 for the producer and 232 for the consumers). D = 192 adds k-steps
+//   to S = Q . K^T, not registers: acc stays DV / 2 = 64 floats.
+// * fp32 (D <= 192, DV <= min(D, 128)), flash_simt_f32<DMAX>: 4 warps x 4
+//   query rows, 32-key tiles; lane j scores key j against the warp's rows
+//   (the K tile padded to DMAX + 1 floats a row), the row max and sum go
+//   through warp shuffles, and each lane accumulates DV / 32 output
+//   columns. Two instantiations: <128, false> for D = DV <= 128, the
+//   kernel as it was before v had a head dim of its own (static tiles,
+//   41,088 B; ptxas -v: 96 registers, no spills), and <192, true> for every
+//   other pair (tiles at row strides 192 / 193 / 128 in 53,376 B of
+//   dynamic shared memory, past the 48 KB static limit: opted in; 64
+//   registers, no spills). One kernel for both, with v's stride and the
+//   predicates on DV at run time, compiled to 64 registers and ran the D =
+//   DV = 128 shapes 1.5-2.1x slower on the H100. fp32 products stay off
+//   the tensor cores (TF32 would cost digits the fp32 path is held to).
 // No --use_fast_math: the fp32 path's expf and the divisions are IEEE, as
 // in the plain version.
 
@@ -76,15 +97,21 @@ constexpr int BOX_BYTES = 128 * BOX * 2;   // one box: 128 rows x 128 B
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int CONSUMER_WARPS = 8;
 
+constexpr int MAX_OPT_IN_SMEM = 232448;   // the most a block may opt into (227 KB)
+
 // dynamic shared memory: Q | K ring | V ring | mbarriers, 1024-byte aligned
-template <int D>
+template <int D, int DV>
 struct TcSmem {
-    static constexpr int TILE = 128 * D * 2;                 // 128 rows x D
+    static constexpr int TILE = 128 * D * 2;                 // 128 rows x D: Q, K
+    static constexpr int V_TILE = 128 * DV * 2;              // 128 rows x DV
     static constexpr int Q = 0;
     static constexpr int K = TILE;
     static constexpr int V = K + TC_STAGES * TILE;
-    static constexpr int BAR = V + TC_STAGES * TILE;
+    static constexpr int BAR = V + TC_STAGES * V_TILE;
     static constexpr int BYTES = BAR + 64 + 1024;            // + alignment slack
+    static_assert(BYTES <= MAX_OPT_IN_SMEM, "K6 bf16 tiles exceed the shared-memory opt-in");
+    static_assert(D % 64 == 0 && (DV == 64 || DV == 128) && DV <= D,
+                  "K6 bf16 takes D a multiple of 64 and DV of 64 or 128, DV <= D");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -243,15 +270,16 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 // 16 w + g + 8 hr, column 8 i + 2 t4 + e. The register-A fragment of
 // m64k16 for k-step kk is {P(g, 16kk + 2t4..), P(g + 8, ..), P(g, 16kk + 8
 // + 2t4..), P(g + 8, ..)}: chunks 2kk and 2kk + 1 of the score accumulators.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_tc_bf16(const __grid_constant__ CUtensorMap q_map,
               const __grid_constant__ CUtensorMap k_map,
               const __grid_constant__ CUtensorMap v_map,
               __nv_bfloat16* __restrict__ o, int hq, int hkv, int tq, int tk,
               float scale_log2, int causal) {
-    using L = TcSmem<D>;
-    constexpr int BOXES = D / BOX;             // 64-element boxes per tile row
+    using L = TcSmem<D, DV>;
+    constexpr int BOXES = D / BOX;             // 64-element boxes per Q or K tile row
+    constexpr int V_BOXES = DV / BOX;          // and per V tile row
     extern __shared__ uint8_t smem_raw[];
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
     const uint32_t q_full = base + L::BAR;     // then K full [2], V full [2], empty [2]
@@ -290,14 +318,14 @@ flash_tc_bf16(const __grid_constant__ CUtensorMap q_map,
             for (int j = 0; j < n_tiles; ++j) {
                 const int s = j % TC_STAGES;
                 if (j >= TC_STAGES) mbar_wait(empty(s), (j / TC_STAGES - 1) & 1);
-                const uint32_t kt = base + L::K + s * L::TILE, vt = base + L::V + s * L::TILE;
+                const uint32_t kt = base + L::K + s * L::TILE, vt = base + L::V + s * L::V_TILE;
                 mbar_expect_tx(k_full(s), TC_BK * D * 2);
 #pragma unroll
                 for (int x = 0; x < BOXES; ++x)
                     tma_load_3d(kt + x * BOX_BYTES, &k_map, k_full(s), x * BOX, j * TC_BK, kv_bh);
-                mbar_expect_tx(v_full(s), TC_BK * D * 2);
+                mbar_expect_tx(v_full(s), TC_BK * DV * 2);
 #pragma unroll
-                for (int x = 0; x < BOXES; ++x)
+                for (int x = 0; x < V_BOXES; ++x)
                     tma_load_3d(vt + x * BOX_BYTES, &v_map, v_full(s), x * BOX, j * TC_BK, kv_bh);
             }
         }
@@ -312,9 +340,9 @@ flash_tc_bf16(const __grid_constant__ CUtensorMap q_map,
         const int row0 = first_row + warp * 16 + g;        // this thread's rows: row0, row0 + 8
         const uint32_t q_at = base + L::Q + ci * 64 * 128; // row ci * 64 of each Q box
 
-        float acc[D / 2];
+        float acc[DV / 2];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
         float m[2] = {NEG_INF, NEG_INF};
         float l[2] = {0.f, 0.f};
         float s[64];
@@ -324,7 +352,7 @@ flash_tc_bf16(const __grid_constant__ CUtensorMap q_map,
         for (int j = 0; j < n_tiles; ++j) {
             const int st = j % TC_STAGES, parity = (j / TC_STAGES) & 1;
             const int kv0 = j * TC_BK;
-            const uint32_t kt = base + L::K + st * L::TILE, vt = base + L::V + st * L::TILE;
+            const uint32_t kt = base + L::K + st * L::TILE, vt = base + L::V + st * L::V_TILE;
 
             // S = Q . K^T: D / 16 k-steps, 32 bytes apart inside a box
             mbar_wait(k_full(st), parity);
@@ -379,7 +407,7 @@ flash_tc_bf16(const __grid_constant__ CUtensorMap q_map,
                 l[hr] = corr * l[hr] + sum;
                 m[hr] = m_new;
 #pragma unroll
-                for (int i = 0; i < D / 8; ++i) {
+                for (int i = 0; i < DV / 8; ++i) {
                     acc[4 * i + 2 * hr] *= corr;
                     acc[4 * i + 2 * hr + 1] *= corr;
                 }
@@ -401,7 +429,7 @@ flash_tc_bf16(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
             for (int kk = 0; kk < TC_BK / 16; ++kk) {
                 const uint64_t db = gmma_desc(vt + kk * 16 * 128, BOX_BYTES, 1024);
-                if constexpr (D == 128) wgmma_rs_m64n128(acc, p[kk], db);
+                if constexpr (DV == 128) wgmma_rs_m64n128(acc, p[kk], db);
                 else wgmma_rs_m64n64(acc, p[kk], db);
             }
             wgmma_commit();
@@ -416,9 +444,9 @@ flash_tc_bf16(const __grid_constant__ CUtensorMap q_map,
             const int row = row0 + hr * 8;
             if (row >= tq) continue;
             const float denom = fmaxf(l[hr], 1e-30f);
-            __nv_bfloat16* orow = o + (static_cast<long>(bh) * tq + row) * D + t4 * 2;
+            __nv_bfloat16* orow = o + (static_cast<long>(bh) * tq + row) * DV + t4 * 2;
 #pragma unroll
-            for (int i = 0; i < D / 8; ++i) {
+            for (int i = 0; i < DV / 8; ++i) {
                 *reinterpret_cast<uint32_t*>(orow + i * 8) =
                     pack_f32(acc[4 * i + 2 * hr] / denom, acc[4 * i + 2 * hr + 1] / denom);
             }
@@ -434,8 +462,38 @@ constexpr int S_ROWS = 4;                // query rows per warp
 constexpr int S_WARPS = 4;
 constexpr int S_BQ = S_ROWS * S_WARPS;   // query rows per block
 constexpr int S_BK = 32;                 // keys per tile: one per lane
-constexpr int S_DMAX = 128;
+constexpr int S_DMAX = 192;              // q and k head dim
+constexpr int S_DVMAX = 128;             // v head dim: S_DVMAX / 32 columns a lane
 constexpr int S_THREADS = 32 * S_WARPS;
+
+// the tiles of flash_simt_f32<DMAX>: Q (S_BQ x DMAX), K padded to DMAX + 1
+// floats a row (lane j reads row j: no bank conflicts), V (S_BK x S_DVMAX);
+// 41,088 B at DMAX = 128, 53,376 B at 192
+template <int DMAX>
+struct SimtTiles {
+    float qs[S_BQ][DMAX];
+    float ks[S_BK][DMAX + 1];
+    float vs[S_BK][S_DVMAX];
+};
+
+// static shared memory where the tiles fit the 48 KB a block has without
+// opting in (DMAX = 128: the kernel as it was before v had a head dim of its
+// own), else dynamic shared memory, opted in at launch (DMAX = 192)
+template <int DMAX>
+__host__ __device__ constexpr int simt_dynamic_smem() {
+    return sizeof(SimtTiles<DMAX>) <= 48 * 1024 ? 0 : static_cast<int>(sizeof(SimtTiles<DMAX>));
+}
+
+template <int DMAX>
+__device__ __forceinline__ SimtTiles<DMAX>& simt_tiles() {
+    if constexpr (simt_dynamic_smem<DMAX>() == 0) {
+        __shared__ SimtTiles<DMAX> tiles;
+        return tiles;
+    } else {
+        extern __shared__ float simt_dynamic[];
+        return *reinterpret_cast<SimtTiles<DMAX>*>(simt_dynamic);
+    }
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -449,13 +507,20 @@ __device__ __forceinline__ float warp_sum(float x) {
     return x;
 }
 
+// d <= DMAX; the tiles' row strides are DMAX, DMAX + 1 and S_DVMAX whatever
+// d, so shared addresses fold to constants. OWN_DV: v's head dim is dv_arg
+// <= min(d, S_DVMAX); else it is d, and every index is the one the kernel
+// computed before v had a head dim of its own (same code, same registers)
+template <int DMAX, bool OWN_DV>
 __global__ void __launch_bounds__(S_THREADS)
 flash_simt_f32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
-               int hq, int hkv, int tq, int tk, int d, float scale, int causal) {
-    __shared__ float qs[S_BQ][S_DMAX];
-    __shared__ float ks[S_BK][S_DMAX + 1];   // lane j reads row j: no conflicts
-    __shared__ float vs[S_BK][S_DMAX];
+               int hq, int hkv, int tq, int tk, int d, int dv_arg, float scale, int causal) {
+    const int dv = OWN_DV ? dv_arg : d;
+    SimtTiles<DMAX>& tiles = simt_tiles<DMAX>();
+    auto& qs = tiles.qs;
+    auto& ks = tiles.ks;
+    auto& vs = tiles.vs;
 
     const int bh = blockIdx.x;
     const int b = bh / hq, h = bh % hq;
@@ -465,31 +530,32 @@ flash_simt_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int offset = tk - tq;
     const float* qp = q + static_cast<long>(bh) * tq * d;
     const float* kp = k + (static_cast<long>(b) * hkv + kvh) * tk * d;
-    const float* vp = v + (static_cast<long>(b) * hkv + kvh) * tk * d;
+    const float* vp = v + (static_cast<long>(b) * hkv + kvh) * tk * dv;
 
     for (int i = threadIdx.x; i < S_BQ * d; i += S_THREADS) {
         const int r = i / d, c = i % d;
         qs[r][c] = q0 + r < tq ? qp[static_cast<long>(q0 + r) * d + c] : 0.f;
     }
     const int r0 = warp * S_ROWS;            // the warp's first row in the block
-    float m[S_ROWS], l[S_ROWS], acc[S_ROWS][S_DMAX / 32];
+    float m[S_ROWS], l[S_ROWS], acc[S_ROWS][S_DVMAX / 32];
 #pragma unroll
     for (int r = 0; r < S_ROWS; ++r) {
         m[r] = NEG_INF;
         l[r] = 0.f;
 #pragma unroll
-        for (int i = 0; i < S_DMAX / 32; ++i) acc[r][i] = 0.f;
+        for (int i = 0; i < S_DVMAX / 32; ++i) acc[r][i] = 0.f;
     }
 
     const int kv_end = causal ? min(tk, q0 + S_BQ + offset) : tk;
     for (int kv0 = 0; kv0 < kv_end; kv0 += S_BK) {
         __syncthreads();
         for (int i = threadIdx.x; i < S_BK * d; i += S_THREADS) {
-            const int r = i / d, c = i % d;
+            const int r = i / d, c = i % d;    // a V row is the first dv of these columns
             const bool in = kv0 + r < tk;
             const long at = static_cast<long>(kv0 + r) * d + c;
             ks[r][c] = in ? kp[at] : 0.f;
-            vs[r][c] = in ? vp[at] : 0.f;
+            if (!OWN_DV) vs[r][c] = in ? vp[at] : 0.f;
+            else if (c < dv) vs[r][c] = in ? vp[static_cast<long>(kv0 + r) * dv + c] : 0.f;
         }
         __syncthreads();
 
@@ -512,19 +578,19 @@ flash_simt_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float corr = expf(m[r] - m_new);
             l[r] = corr * l[r] + warp_sum(p);
             m[r] = m_new;
-            float part[S_DMAX / 32];
+            float part[S_DVMAX / 32];
 #pragma unroll
-            for (int i = 0; i < S_DMAX / 32; ++i) part[i] = 0.f;
+            for (int i = 0; i < S_DVMAX / 32; ++i) part[i] = 0.f;
             for (int j = 0; j < S_BK; ++j) {
                 const float pj = __shfl_sync(FULL, p, j);
 #pragma unroll
-                for (int i = 0; i < S_DMAX / 32; ++i) {
+                for (int i = 0; i < S_DVMAX / 32; ++i) {
                     const int c = lane + 32 * i;
-                    if (c < d) part[i] = fmaf(pj, vs[j][c], part[i]);
+                    if (c < dv) part[i] = fmaf(pj, vs[j][c], part[i]);
                 }
             }
 #pragma unroll
-            for (int i = 0; i < S_DMAX / 32; ++i) acc[r][i] = acc[r][i] * corr + part[i];
+            for (int i = 0; i < S_DVMAX / 32; ++i) acc[r][i] = acc[r][i] * corr + part[i];
         }
     }
 
@@ -533,13 +599,30 @@ flash_simt_f32(const float* __restrict__ q, const float* __restrict__ k,
         const int row = q0 + r0 + r;
         if (row >= tq) continue;
         const float denom = fmaxf(l[r], 1e-30f);
-        float* orow = o + (static_cast<long>(bh) * tq + row) * d;
+        float* orow = o + (static_cast<long>(bh) * tq + row) * dv;
 #pragma unroll
-        for (int i = 0; i < S_DMAX / 32; ++i) {
+        for (int i = 0; i < S_DVMAX / 32; ++i) {
             const int c = lane + 32 * i;
-            if (c < d) orow[c] = acc[r][i] / denom;
+            if (c < dv) orow[c] = acc[r][i] / denom;
         }
     }
+}
+
+template <int DMAX, bool OWN_DV>
+int launch_simt(const void* q, const void* k, const void* v, void* o, int batch, int hq,
+                int hkv, int tq, int tk, int d, int dv, int causal, float scale,
+                cudaStream_t stream) {
+    static repro::SmemOptIn opt_in;          // per device (common.cuh)
+    constexpr int smem = simt_dynamic_smem<DMAX>();
+    cudaError_t err = opt_in.ensure(
+        reinterpret_cast<const void*>(flash_simt_f32<DMAX, OWN_DV>), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(batch * hq, (tq + S_BQ - 1) / S_BQ);
+    flash_simt_f32<DMAX, OWN_DV><<<grid, S_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, tq, tk, d, dv,
+        scale, causal);
+    return static_cast<int>(cudaGetLastError());
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -582,45 +665,51 @@ bool tile_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d, int 
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int batch, int hq,
               int hkv, int tq, int tk, int causal, float scale, cudaStream_t stream) {
     static repro::SmemOptIn opt_in;          // per device (common.cuh)
-    constexpr int smem = TcSmem<D>::BYTES;
-    cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(flash_tc_bf16<D>), smem);
+    constexpr int smem = TcSmem<D, DV>::BYTES;
+    cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(flash_tc_bf16<D, DV>), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     EncodeTiled encode = tensor_map_encoder();
     if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
     CUtensorMap qm, km, vm;
     if (!tile_map(encode, &qm, q, D, tq, batch * hq) || !tile_map(encode, &km, k, D, tk, batch * hkv)
-        || !tile_map(encode, &vm, v, D, tk, batch * hkv))
+        || !tile_map(encode, &vm, v, DV, tk, batch * hkv))
         return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(batch * hq, (tq + TC_BQ - 1) / TC_BQ);
     const float scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
-    flash_tc_bf16<D><<<grid, TC_THREADS, smem, stream>>>(
+    flash_tc_bf16<D, DV><<<grid, TC_THREADS, smem, stream>>>(
         qm, km, vm, static_cast<__nv_bfloat16*>(o), hq, hkv, tq, tk, scale_log2, causal);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// (D, DV) pairs outside the instantiations below are refused
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                    int batch, int hq, int hkv, int tq, int tk, int d,
+                                    int batch, int hq, int hkv, int tq, int tk, int d, int dv,
                                     int causal, float scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (d == 128) return launch_tc<128>(q, k, v, o, batch, hq, hkv, tq, tk, causal, scale, s);
-    if (d == 64) return launch_tc<64>(q, k, v, o, batch, hq, hkv, tq, tk, causal, scale, s);
+    if (d == 128 && dv == 128)
+        return launch_tc<128, 128>(q, k, v, o, batch, hq, hkv, tq, tk, causal, scale, s);
+    if (d == 64 && dv == 64)
+        return launch_tc<64, 64>(q, k, v, o, batch, hq, hkv, tq, tk, causal, scale, s);
+    if (d == 192 && dv == 128)
+        return launch_tc<192, 128>(q, k, v, o, batch, hq, hkv, tq, tk, causal, scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                                   int batch, int hq, int hkv, int tq, int tk, int d,
+                                   int batch, int hq, int hkv, int tq, int tk, int d, int dv,
                                    int causal, float scale, void* stream) {
-    if (d < 1 || d > S_DMAX) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(batch * hq, (tq + S_BQ - 1) / S_BQ);
-    flash_simt_f32<<<grid, S_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, tq, tk, d,
-        scale, causal);
-    return static_cast<int>(cudaGetLastError());
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (d < 1 || d > S_DMAX || dv < 1 || dv > S_DVMAX || dv > d)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (d <= 128 && dv == d)
+        return launch_simt<128, false>(q, k, v, o, batch, hq, hkv, tq, tk, d, dv, causal, scale,
+                                       s);
+    return launch_simt<S_DMAX, true>(q, k, v, o, batch, hq, hkv, tq, tk, d, dv, causal, scale,
+                                     s);
 }

@@ -113,10 +113,10 @@ def lstm_cell(wx, wh, b, x, h, c):
 def flash_attention(q, k, v, *, causal: bool, scale=None):
     """GQA attention, end-aligned causal; signature mirrors ref.attention_ref.
 
-    q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D). A CUDA tensor launches K6 (no
-    gradient: the JAX kernel has none either); a CPU tensor takes the plain
-    version. Unlike the JAX wrapper nothing is padded: the kernel masks
-    ragged Tq and Tk itself.
+    q: (B, Hq, Tq, D); k: (B, Hkv, Tk, D); v: (B, Hkv, Tk, DV) -> (B, Hq,
+    Tq, DV). A CUDA tensor launches K6 (no gradient: the JAX kernel has none
+    either); a CPU tensor takes the plain version. Unlike the JAX wrapper
+    nothing is padded: the kernel masks ragged Tq and Tk itself.
     """
     shapes.note("flash_attention", q, k, v)
     if not _on_cuda(q):

@@ -211,9 +211,11 @@ def lstm_cell_bwd_cotangents(c, c_new, act, dh, dc):
 def attention_ref(q, k, v, *, causal: bool = True, scale=None):
     """The plain K6: multi-head attention with GQA head grouping.
 
-    q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D); Hq % Hkv == 0. The causal
-    offset aligns the *ends* of q and k (decode-append: key j is visible to
-    query i iff ``j <= i + Tk - Tq``). ``scale`` defaults to 1/sqrt(D).
+    q: (B, Hq, Tq, D); k: (B, Hkv, Tk, D); v: (B, Hkv, Tk, DV), its head dim
+    its own (MLA: D = 192, DV = 128) -> (B, Hq, Tq, DV); Hq % Hkv == 0. The
+    causal offset aligns the *ends* of q and k (decode-append: key j is
+    visible to query i iff ``j <= i + Tk - Tq``). ``scale`` defaults to
+    1/sqrt(D).
 
     The port of ``src/repro/kernels/ref.py:attention_ref`` with the kernel's
     arithmetic: K/V heads repeated, logits in fp32 from the inputs' values,

@@ -6,14 +6,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
         --batch 8 --prompt-len 2048 --gen 32
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
+        --batch 8 --prompt-len 2048 --gen 32
+
 The port of the JAX package's ``launch/serve.py``, for the dense and MoE
-families. Weights are random, from a ``torch.Generator`` seeded with
-``seed`` on the serving device; prompts come from
+families, GQA or MLA. Weights are random, from a ``torch.Generator`` seeded
+with ``seed`` on the serving device; prompts come from
 ``np.random.default_rng(seed)`` as in the reference. The first token comes
 from the prefill, then ``gen - 1`` greedy decode steps. On the card the
 prefill runs K6 once per layer (a MoE model's expert products, dispatch and
-router are PyTorch calls, as in the reference) and decode runs no kernel of
-the port. Runs on the card unless ``--device cpu``; one device only.
+router are PyTorch calls, as in the reference; under MLA at q . k 192 and v
+128 for deepseek-v2-lite) and decode runs no kernel of the port (MLA's
+absorbed decode is plain einsums in the latent space). Runs on the card
+unless ``--device cpu``; one device only.
 """
 
 from __future__ import annotations

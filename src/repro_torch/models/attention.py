@@ -1,25 +1,37 @@
-"""GQA attention of the dense LM stack (+bias / partial RoPE / QK-norm).
+"""GQA attention (+bias / partial RoPE / QK-norm) and DeepSeek's MLA.
 
-The port of the JAX package's ``models/attention.py`` for the dense family:
+The port of the JAX package's ``models/attention.py`` for the dense and MoE
+families:
 
 * prefill attention (:func:`chunked_attention`) goes by device. A CUDA
   tensor launches K6 (:func:`repro_torch.kernels.ops.flash_attention`)
-  with the model's own scale; a CPU tensor runs the plain chunked path
-  (query chunks of 512, scores grouped ``(B, Hkv, G, BQ, Tk)``, K/V heads
-  never repeated), the reference's ``use_pallas=False``. There is no
-  ``use_pallas`` flag: the device decides;
+  with the model's own scale, V at its own head dim; a CPU tensor runs
+  the plain chunked path (query chunks of 512, scores grouped ``(B, Hkv,
+  G, BQ, Tk)``, K/V heads never repeated), the reference's
+  ``use_pallas=False``. There is no ``use_pallas`` flag: the device
+  decides;
 * decode (:func:`cached_attention`) attends over the whole preallocated
   cache buffer with an explicit position mask, a plain masked einsum, as in
-  the reference; it runs no kernel.
+  the reference; it runs no kernel;
+* MLA (DeepSeek-V2's multi-head latent attention, :func:`mla_apply`)
+  caches the RMS-normed rank-``r`` latent ``c_kv`` and one RoPE'd key
+  ``k_rope`` a position, shared by every head. Its train and prefill modes
+  up-project the latent to per-head K (``k_nope`` then ``k_rope``
+  broadcast, ``qk_nope + qk_rope`` wide) and V (``v_head_dim`` wide) and
+  run :func:`chunked_attention` at scale ``(qk_nope + qk_rope)^-0.5``: on
+  the card one K6 launch at D = 192, DV = 128 for deepseek-v2-lite. Its
+  decode either attends in the latent space with W_uk and W_uv absorbed
+  (:func:`_mla_absorbed`, the default; plain einsums, as in the reference)
+  or up-projects the whole cache and runs :func:`cached_attention`.
 
-KV caches: (B, S_max, Hkv, hd). Prefill writes the fresh K/V into a zeroed
+KV caches: (B, S_max, Hkv, hd); MLA's :class:`MLACache`: (B, S_max, r) and
+(B, S_max, qk_rope). Prefill writes the fresh K/V (latents) into a zeroed
 buffer of ``cache_max_len``; decode appends in place. Unlike the JAX
 package, which returns new buffers, the port writes the cache tensors in
-place at ``length`` and returns a :class:`KVCache` over the same storage:
-a caller that needs the old cache keeps a copy.
+place at ``length`` and returns a cache over the same storage: a caller
+that needs the old cache keeps a copy.
 
-MLA, its absorbed decode and cross-attention wait for their slices
-(``ROADMAP.md``).
+Cross-attention waits for the encdec slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -62,7 +74,8 @@ def chunked_attention(q, k, v, *, causal: bool, scale: float,
                       q_chunk: int = DEFAULT_Q_CHUNK):
     """softmax(q k^T * scale) v without materializing (Tq, Tk) or repeated KV.
 
-    q: (B, Hq, Tq, hd); k, v: (B, Hkv, Tk, hd). End-aligned causal offset.
+    q: (B, Hq, Tq, hd); k: (B, Hkv, Tk, hd); v: (B, Hkv, Tk, dv) -> (B, Hq,
+    Tq, dv). End-aligned causal offset.
     On a CUDA tensor this is one K6 launch; on the CPU the chunked plain path.
     """
     if q.device.type == "cuda":
@@ -191,3 +204,143 @@ def gqa_apply(
             new_cache = KVCache(kc, vc, s)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
     return out @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor     # (B, S_max, kv_lora_rank)
+    k_rope: torch.Tensor   # (B, S_max, qk_rope_dim)
+    length: int            # current fill
+
+
+def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype):
+    d, h = cfg.d_model, cfg.n_heads
+    r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq": dense_init(gen, d, h * (dn + dr), dtype),
+        "w_dkv": dense_init(gen, d, r + dr, dtype),        # latent + shared k_rope
+        "kv_norm": torch.ones((r,), dtype=dtype, device=gen.device),
+        "w_uk": dense_init(gen, r, h * dn, dtype),
+        "w_uv": dense_init(gen, r, h * dv, dtype),
+        "wo": dense_init(gen, h * dv, d, dtype),
+    }
+
+
+def make_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device=None) -> MLACache:
+    return MLACache(
+        torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype, device=device),
+        0)
+
+
+def _mla_latent(p, cfg: ArchConfig, x, positions):
+    """x: (B, S, d) -> q_nope (B, S, H, dn), q_rope (B, S, H, dr) after
+    RoPE, the RMS-normed latent c_kv (B, S, r) and k_rope (B, S, dr) after
+    RoPE (through a head axis of 1)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = (x @ p["wq"]).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, theta=cfg.rope_theta)
+    ckv = x @ p["w_dkv"]
+    c_kv, k_rope = ckv[..., :r], ckv[..., r:]
+    c_kv = rms_norm(c_kv, p["kv_norm"])
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, theta=cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_heads(p, cfg: ArchConfig, q_nope, q_rope, c, kr):
+    """Per-head q, k, v over the latents ``c`` (B, T, r) and ``kr`` (B, T,
+    dr): k is ``c @ W_uk`` then ``kr`` broadcast to every head, v is ``c @
+    W_uv``. Returns qh (B, H, S, dn + dr), kh (B, H, T, dn + dr) and vh (B,
+    H, T, dv), transposed views."""
+    b, t, _ = c.shape
+    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    k_nope = (c @ p["w_uk"]).reshape(b, t, h, dn)
+    v = (c @ p["w_uv"]).reshape(b, t, h, dv)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(b, t, h, dr)], dim=-1)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    return tuple(t_.transpose(1, 2) for t_ in (qfull, k, v))
+
+
+def mla_qkv(p, cfg: ArchConfig, x, positions):
+    """The projections of :func:`mla_apply`'s train and prefill modes, with
+    ``kv_norm``, RoPE, the up-projections and the k concat.
+
+    x: (B, S, d) -> qh, kh (B, H, S, dn + dr) and vh (B, H, S, dv), the
+    transposed views K6 reads (after ``.contiguous()``), and the latents
+    c_kv (B, S, r) and k_rope (B, S, dr) that the cache keeps.
+    """
+    q_nope, q_rope, c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    qh, kh, vh = _mla_heads(p, cfg, q_nope, q_rope, c_kv, k_rope)
+    return qh, kh, vh, c_kv, k_rope
+
+
+def mla_apply(p, cfg: ArchConfig, x, positions, *,
+              cache: Optional[MLACache] = None,
+              cache_max_len: Optional[int] = None,
+              absorbed_decode: bool = True):
+    """x: (B, S, d); the modes of :func:`gqa_apply`.
+
+    Decode writes the latents in place at ``cache.length`` and attends over
+    the whole buffer: in the latent space (``absorbed_decode``, the
+    default) or over per-head K/V up-projected from it.
+    """
+    b, s, _ = x.shape
+    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    scale = (dn + dr) ** -0.5
+
+    new_cache = None
+    if cache is not None:  # decode
+        q_nope, q_rope, c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+        end = cache.length + s
+        cache.c_kv[:, cache.length:end] = c_kv.to(cache.c_kv.dtype)
+        cache.k_rope[:, cache.length:end] = k_rope.to(cache.k_rope.dtype)
+        new_cache = MLACache(cache.c_kv, cache.k_rope, end)
+        if absorbed_decode:
+            out = _mla_absorbed(p, cfg, q_nope, q_rope, cache.c_kv, cache.k_rope,
+                                positions, scale)
+            return out @ p["wo"], new_cache
+        qh, kh, vh = _mla_heads(p, cfg, q_nope, q_rope, cache.c_kv, cache.k_rope)
+        out = cached_attention(qh, kh, vh, positions, scale)
+    else:  # train / prefill
+        qh, kh, vh, c_kv, k_rope = mla_qkv(p, cfg, x, positions)
+        out = chunked_attention(qh, kh, vh, causal=True, scale=scale)
+        if cache_max_len is not None:  # prefill: publish the cache buffers
+            cc = c_kv.new_zeros((b, cache_max_len, c_kv.shape[-1]))
+            kc = k_rope.new_zeros((b, cache_max_len, dr))
+            cc[:, :s] = c_kv
+            kc[:, :s] = k_rope
+            new_cache = MLACache(cc, kc, s)
+    out = out.transpose(1, 2).reshape(b, s, h * dv)
+    return out @ p["wo"], new_cache
+
+
+def _mla_absorbed(p, cfg: ArchConfig, q_nope, q_rope, c_all, kr_all, positions, scale):
+    """Matrix-absorbed MLA decode: attention in the rank-r latent space.
+
+    q_lat = q_nope @ W_uk^T per head; logits = q_lat . c_kv + q_rope .
+    k_rope, summed before the fp32 cast; the probabilities cast to the
+    cache's dtype before the product with the latents, then W_uv. No
+    per-head K/V of length S_max is made.
+    """
+    b, s, h, dn = q_nope.shape
+    r, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    smax = c_all.shape[1]
+    w_uk = p["w_uk"].reshape(r, h, dn)
+    w_uv = p["w_uv"].reshape(r, h, dv)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
+    logits = (torch.einsum("bshr,btr->bhst", q_lat, c_all)
+              + torch.einsum("bshd,btd->bhst", q_rope, kr_all)).float() * scale
+    pos = torch.as_tensor(positions, device=q_nope.device).expand(b, s)
+    mask = torch.arange(smax, device=q_nope.device)[None, None, :] <= pos[:, :, None]
+    logits = logits.masked_fill(~mask[:, None], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", probs.to(c_all.dtype), c_all)
+    out = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
+    return out.reshape(b, s, h * dv)

@@ -1,9 +1,9 @@
 """Unified model API: ``build_model(config) -> Model`` with init/prefill/decode.
 
 The port of the JAX package's ``models/model.py``. The dense and MoE
-families run (serving: prefill + decode); MLA attention (deepseek-v2-lite)
-and every other family raise, naming the part of ``ROADMAP.md`` that brings
-them, before any weight is made. ``lm_loss`` (and with it the
+families run (serving: prefill + decode), with GQA or MLA attention
+(deepseek-v2-lite); every other family raises, naming the part of
+``ROADMAP.md`` that brings it, before any weight is made. ``lm_loss`` (and with it the
 ``loss`` entry) comes with LM training. There is no ``use_pallas`` switch:
 as everywhere in the port, a CUDA tensor runs the kernels and a CPU tensor
 the plain versions.
@@ -37,11 +37,6 @@ class Model:
 
 def build_model(cfg: ArchConfig) -> Model:
     fam = cfg.family
-    if cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet; it comes with the LM "
-            f"stack's MLA slice (models/attention.py mla_*, its absorbed decode; "
-            f"ROADMAP.md, section 1, item 7)")
     if fam in ("dense", "moe"):
         return Model(
             cfg=cfg,

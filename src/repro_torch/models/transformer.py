@@ -10,10 +10,12 @@ layer (``params["layers"][i]``), and the reference's stacked ``(L, ...)``
 leaves are kept at the converter (:mod:`repro_torch.convert`), not here.
 DeepSeek's ``first_dense_layers`` (MoE family only) are dense blocks of
 ``first_dense_d_ff`` held apart as ``params["prefix_layers"]``, run before
-the others, with their own caches under ``"prefix"``. Caches are
-``{"layers": [KVCache, ...]}`` (plus ``"prefix"``), one per layer. The
-activation-sharding ``constrain`` is the identity on one device and is not
-ported.
+the others, with their own caches under ``"prefix"``. A ``use_mla`` config
+(deepseek-v2-lite) takes MLA attention in every layer, the prefix layers
+too (:func:`repro_torch.models.attention.mla_apply`, its absorbed decode).
+Caches are ``{"layers": [KVCache, ...]}`` (``MLACache`` under MLA; plus
+``"prefix"``), one per layer. The activation-sharding ``constrain`` is the
+identity on one device and is not ported.
 
 The vlm image prefix and ``lm_loss`` (which adds 0.01 x the summed MoE aux
 loss) wait for their slices (``ROADMAP.md``).
@@ -45,7 +47,7 @@ def _layer_init(gen, cfg: ArchConfig, *, moe_layer: bool, d_ff: int, dtype):
     dev = gen.device
     p = {
         "attn_norm": norm_init(cfg.d_model, cfg.norm, dtype, dev),
-        "attn": A.gqa_init(gen, cfg, dtype),
+        "attn": (A.mla_init if cfg.use_mla else A.gqa_init)(gen, cfg, dtype),
         "mlp_norm": norm_init(cfg.d_model, cfg.norm, dtype, dev),
     }
     if moe_layer:
@@ -89,7 +91,8 @@ def lm_init(cfg: ArchConfig, gen, dtype=None):
 def _block(cfg: ArchConfig, p, h, positions, *, cache=None, cache_max_len=None):
     """Pre-norm residual block. Returns (h, new_cache, aux_loss); the aux
     loss of a dense block is the float 0.0 (no launch on the card)."""
-    a_out, new_cache = A.gqa_apply(
+    attn_fn = A.mla_apply if cfg.use_mla else A.gqa_apply
+    a_out, new_cache = attn_fn(
         p["attn"], cfg, apply_norm(h, p["attn_norm"], cfg.norm), positions,
         cache=cache, cache_max_len=cache_max_len)
     h = h + cfg.residual_multiplier * a_out
@@ -147,8 +150,10 @@ def _logits(cfg, params, h):
 
 
 def lm_make_caches(cfg: ArchConfig, batch_size: int, max_len: int, dtype, device=None):
+    make_one = A.make_mla_cache if cfg.use_mla else A.make_kv_cache
+
     def make(n):
-        return [A.make_kv_cache(cfg, batch_size, max_len, dtype, device) for _ in range(n)]
+        return [make_one(cfg, batch_size, max_len, dtype, device) for _ in range(n)]
 
     n_prefix = _n_prefix(cfg)
     caches = {"layers": make(cfg.n_layers - n_prefix)}

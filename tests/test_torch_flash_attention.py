@@ -7,6 +7,10 @@ the CPU) and the JAX oracle ``repro.kernels.ref.attention_ref``, on the same
 numpy inputs. The CUDA kernel itself is held against the plain version on
 the card (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
 
+MLA's shape, a v narrower than q and k ((D, DV) = (24, 16) and (192, 128)),
+is held against the JAX ``chunked_attention`` with ``use_pallas=False``:
+the JAX kernel takes only DV = D (ROADMAP F4).
+
 Tolerances: fp32 rtol = atol = 2e-5, the JAX kernel test's (sums in another
 order). bf16: the port's plain version and the JAX kernel both take fp32
 logits from the bf16 inputs and cast the probabilities to bf16 before the
@@ -29,11 +33,11 @@ from repro_torch.kernels import ops, ref
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
-def _qkv(b, hq, hkv, tq, tk, d, seed):
+def _qkv(b, hq, hkv, tq, tk, d, seed, dv=None):
     rng = np.random.default_rng(seed)
     return (rng.normal(0, 1, (b, hq, tq, d)).astype(np.float32),
             rng.normal(0, 1, (b, hkv, tk, d)).astype(np.float32),
-            rng.normal(0, 1, (b, hkv, tk, d)).astype(np.float32))
+            rng.normal(0, 1, (b, hkv, tk, dv or d)).astype(np.float32))
 
 
 def _port(qkv, causal, dtype=torch.float32, **kw):
@@ -93,3 +97,24 @@ def test_chunked_attention_matches_jax_chunked():
     np.testing.assert_allclose(
         got.numpy(), ref.attention_ref(*(torch.from_numpy(a) for a in (q, k, v)),
                                        causal=True).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dv", [(24, 16), (192, 128)])
+def test_v_head_dim_of_its_own_matches_jax_chunked(d, dv, causal):
+    """MLA's shapes: the model's CPU path with Tq past the query chunk (the
+    chunk loop and its tail) and the plain K6 through ``ops``, against the
+    JAX ``chunked_attention(use_pallas=False)``, at MLA's scale."""
+    from repro.models.attention import chunked_attention as jchunked
+    from repro_torch.models.attention import chunked_attention
+
+    tq, tk = 70, 70 if causal else 90
+    q, k, v = _qkv(2, 4, 4, tq, tk, d, seed=d + causal, dv=dv)
+    scale = d ** -0.5
+    want = np.asarray(jchunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                               scale=scale, q_chunk=32))
+    assert want.shape == (2, 4, tq, dv)
+    got = chunked_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+                            scale=scale, q_chunk=32)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(_port((q, k, v), causal, scale=scale), want, **TOL)

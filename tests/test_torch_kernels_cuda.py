@@ -295,10 +295,10 @@ def test_autograd_functions_launch_the_kernels_on_card(card):
     assert (counts["lstm_cell_fwd"], counts["lstm_cell_bwd"], counts["lstm_cell"]) == (1, 1, 1)
 
 
-def _attn_inputs(b, hq, hkv, tq, tk, d, dtype, seed, dev):
+def _attn_inputs(b, hq, hkv, tq, tk, d, dtype, seed, dev, dv=None):
     g = torch.Generator().manual_seed(seed)
     return [torch.randn(shape, generator=g).to(dev, dtype)
-            for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))]
+            for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, dv or d))]
 
 
 @pytest.mark.cuda
@@ -340,6 +340,22 @@ def test_flash_attention_bf16_tile_edges_on_card(card, tq, tk, causal, d, group)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tq,tk,causal", _TILE_EDGES)
+def test_flash_attention_mla_head_dims_across_tile_edges_on_card(card, tq, tk, causal, dtype):
+    """MLA's prefill shape: q and k 192 wide, v 128 (its own V tile, tensor
+    map and transaction count in bf16; dynamic shared memory past 48 KB in
+    fp32), at MLA's own scale (dn + dr)^-0.5."""
+    q, k, v = _attn_inputs(2, 4, 4, tq, tk, 192, dtype, seed=tq * 3 + tk, dev=card, dv=128)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal, scale=192 ** -0.5)
+    got = flash_attention.flash_attention(q, k, v, causal=causal, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (2, 4, tq, 128)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -415,13 +431,31 @@ def test_chunked_attention_launches_k6_on_card(card):
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_does_not_take_on_card(card):
     q, k, v = _attn_inputs(1, 4, 2, 8, 8, 32, torch.bfloat16, seed=3, dev=card)
-    with pytest.raises(ValueError, match="bf16 head dim 32"):
+    with pytest.raises(ValueError, match=r"bf16 head dims \(D, DV\) = \(32, 32\)"):
         flash_attention.flash_attention(q, k, v, causal=True)
+    # (D, DV) pairs no instantiation takes: bf16 (128, 64) and (192, 192);
+    # fp32 DV past D or past 128, and D past 192
+    for d, dv, dtype in ((128, 64, torch.bfloat16), (192, 192, torch.bfloat16),
+                         (64, 128, torch.float32), (192, 160, torch.float32),
+                         (256, 128, torch.float32)):
+        q, k, v = _attn_inputs(1, 4, 2, 8, 8, d, dtype, seed=3, dev=card, dv=dv)
+        with pytest.raises(ValueError, match=rf"head dims \(D, DV\) = \({d}, {dv}\)"):
+            flash_attention.flash_attention(q, k, v, causal=True)
     q, k, v = _attn_inputs(1, 4, 2, 9, 8, 64, torch.float32, seed=3, dev=card)
     with pytest.raises(ValueError, match="no visible key"):
         flash_attention.flash_attention(q, k, v, causal=True)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         flash_attention.flash_attention(q.double(), k.double(), v.double(), causal=False)
+    # the C entry points refuse such a pair too, past the wrapper's check
+    lib = build.library()
+    for entry, dtype, (d, dv) in (("flash_attention_bf16", torch.bfloat16, (128, 64)),
+                                  ("flash_attention_f32", torch.float32, (64, 128))):
+        q, k, v = _attn_inputs(1, 4, 2, 8, 8, d, dtype, seed=3, dev=card, dv=dv)
+        o = q.new_empty((1, 4, 8, dv))
+        err = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                  1, 4, 2, 8, 8, d, dv, 1, 0.125,
+                                  torch.cuda.current_stream().cuda_stream)
+        assert err != 0, f"{entry} took (D, DV) = ({d}, {dv})"
 
 
 # ---------------------------------------------------------------------------

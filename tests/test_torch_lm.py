@@ -1,4 +1,4 @@
-"""The port's LM serving path (dense and MoE families) against the JAX package's.
+"""The port's LM serving path (dense and MoE families, GQA and MLA) against the JAX package's.
 
 Same numpy weights (``repro.models.transformer.lm_init`` converted with
 ``repro_torch.convert.lm_params_from_numpy``) and the same token ids through
@@ -12,6 +12,17 @@ hundred terms in another order (a second layer's K/V carry the first
 layer's rounding: 1.4e-6 apart at most here). The MoE family runs at the
 qwen3-moe SMOKE config and at DeepSeek's layout on GQA (one dense prefix
 layer of ``first_dense_d_ff`` and a shared expert: ``DEEPSEEK_LAYOUT``).
+deepseek-v2-lite's own SMOKE config (``MLA``: MLA attention in every layer,
+the prefix layer too) is held against ``use_pallas=False`` only: the
+reference's Pallas kernel takes only a v as wide as q (ROADMAP F4). Its bf16
+stream (the SMOKE config in bf16 in both packages) is held block by block,
+each block of the port on the reference's own input, within rtol 2e-2 and
+an atol of one bf16 ulp at the output's largest magnitude: a block's output
+is the residual sum of terms each rounded to bf16 at its own scale, and
+XLA's and PyTorch's bf16 SiLU round apart on about a fifth of inputs, so a
+small output can sit an ulp of the largest term away (the MoE test's bound,
+2**-7, is that ulp for terms below 2). End to end, such an ulp can flip a
+token's top-2 experts, a near-tie of the router and not a fault of either.
 """
 
 import dataclasses
@@ -33,15 +44,18 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TF
 from repro_torch.models.model import build_model
 
 DENSE = ["yi-6b", "granite-3-2b", "qwen2.5-14b", "chatglm3-6b"]
 MOE = "qwen3-moe-30b-a3b"
 # qwen3-moe's SMOKE config with deepseek-v2's prefix layer and shared expert
 DEEPSEEK_LAYOUT = "qwen3-moe-30b-a3b+prefix"
+MLA = "deepseek-v2-lite-16b"
 _LAYOUT = dict(first_dense_layers=1, first_dense_d_ff=128, n_shared_experts=1)
 LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)
 CACHE_TOL = LOGIT_TOL
+BF16_RTOL = 2e-2
 BATCH, PROMPT = 2, 12
 
 
@@ -124,16 +138,17 @@ def test_gqa_apply_prefill_and_decode_match_jax(arch):
     assert tcache.length == int(jcache.length) == 10
 
 
-def _smoke(arch):
+def _smoke(arch, **changes):
     """(the JAX config, the port's) at ``arch``'s SMOKE size."""
     if arch == DEEPSEEK_LAYOUT:
-        return tuple(dataclasses.replace(pkg.get_smoke_config(MOE), **_LAYOUT)
-                     for pkg in (jconfigs, tconfigs))
-    return jconfigs.get_smoke_config(arch), tconfigs.get_smoke_config(arch)
+        changes = {**_LAYOUT, **changes}
+        arch = MOE
+    return tuple(dataclasses.replace(pkg.get_smoke_config(arch), **changes)
+                 for pkg in (jconfigs, tconfigs))
 
 
-def _models(arch, seed=0):
-    jcfg, tcfg = _smoke(arch)
+def _models(arch, seed=0, **changes):
+    jcfg, tcfg = _smoke(arch, **changes)
     jp = _np(JTF.lm_init(jcfg, jax.random.PRNGKey(seed)))
     return jcfg, jp, build_model(tcfg), lm_params_from_numpy(jp, "cpu")
 
@@ -142,23 +157,26 @@ def _prompts(vocab, seed=3):
     return np.random.default_rng(seed).integers(0, vocab, (BATCH, PROMPT)).astype(np.int32)
 
 
-def _assert_caches(tcaches, jcaches):
+def _assert_caches(tcaches, jcaches, tol=CACHE_TOL):
+    """Every part's caches, field by field (k and v, or MLA's c_kv and
+    k_rope), and their lengths."""
     assert set(tcaches) == set(jcaches)
     for part, jc in jcaches.items():
-        assert len(tcaches[part]) == jc.k.shape[0]
+        fields = [f for f in jc._fields if f != "length"]
+        assert len(tcaches[part]) == getattr(jc, fields[0]).shape[0]
         for i, tc in enumerate(tcaches[part]):
-            np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k[i]), **CACHE_TOL)
-            np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v[i]), **CACHE_TOL)
+            assert type(tc).__name__ == type(jc).__name__ and tc._fields == jc._fields
+            for f in fields:
+                np.testing.assert_allclose(getattr(tc, f).float().numpy(),
+                                           np.asarray(getattr(jc, f)[i], np.float32), **tol)
             assert tc.length == int(jc.length[i])
 
 
-@pytest.mark.parametrize("arch,use_pallas", [(a, False) for a in DENSE] + [("yi-6b", True)]
-                         + [(a, p) for a in (MOE, DEEPSEEK_LAYOUT) for p in (False, True)])
-def test_prefill_and_decode_match_jax(arch, use_pallas):
+def _prefill_and_decode(arch, use_pallas, steps):
     jcfg, jp, model, tp = _models(arch)
     jmodel = jbuild_model(jcfg, use_pallas=use_pallas)
     toks = _prompts(jcfg.vocab_size)
-    max_len = PROMPT + 3
+    max_len = PROMPT + steps + 1
     jlog, jcaches = jmodel.prefill(jp, {"tokens": jnp.asarray(toks)}, max_len)
     ops.reset_launch_counts()
     with torch.no_grad():
@@ -169,7 +187,7 @@ def test_prefill_and_decode_match_jax(arch, use_pallas):
     _assert_caches(tcaches, jcaches)
 
     step = np.array([[5], [7]], np.int32)
-    for i in range(2):
+    for i in range(steps):
         pos = np.full((BATCH, 1), PROMPT + i, np.int32)
         jlog, jcaches = jmodel.decode(
             jp, {"tokens": jnp.asarray(step), "positions": jnp.asarray(pos)}, jcaches)
@@ -179,6 +197,63 @@ def test_prefill_and_decode_match_jax(arch, use_pallas):
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **LOGIT_TOL)
         _assert_caches(tcaches, jcaches)
         step = step + 1
+    return tcaches
+
+
+@pytest.mark.parametrize("arch,use_pallas", [(a, False) for a in DENSE] + [("yi-6b", True)]
+                         + [(a, p) for a in (MOE, DEEPSEEK_LAYOUT) for p in (False, True)])
+def test_prefill_and_decode_match_jax(arch, use_pallas):
+    _prefill_and_decode(arch, use_pallas, steps=2)
+
+
+def test_mla_prefill_and_decode_match_jax():
+    """deepseek-v2-lite at its SMOKE size: MLA in the prefix layer and the
+    MoE layers, the absorbed decode, 3 steps; the ``"prefix"`` caches are
+    ``MLACache``s too."""
+    caches = _prefill_and_decode(MLA, False, steps=3)
+    assert set(caches) == {"layers", "prefix"}
+    assert all(isinstance(c, TA.MLACache) for part in caches.values() for c in part)
+
+
+def _assert_bf16_close(got, want):
+    """Within rtol 2e-2 and one bf16 ulp at ``want``'s largest magnitude."""
+    want = np.asarray(want, np.float32)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_RTOL, atol=ulp)
+
+
+def test_mla_bf16_prefill_and_decode_match_jax():
+    """The same in bf16 (weights, activations and caches) in both packages,
+    block by block: the prefill, then 2 decode steps, each block of the
+    port fed the reference's input to that block and its own caches."""
+    jcfg, jp, _, tp = _models(MLA, dtype="bfloat16")
+    tcfg = _smoke(MLA, dtype="bfloat16")[1]
+    n_prefix = jcfg.first_dense_layers
+    jlayers = list(jp["prefix_layers"]) + [
+        jax.tree_util.tree_map(lambda a, i=i: a[i], jp["layers"])
+        for i in range(jcfg.n_layers - n_prefix)]
+    tlayers = tp["prefix_layers"] + tp["layers"]
+    toks = _prompts(jcfg.vocab_size)
+    steps = [(toks, np.arange(PROMPT)[None, :])] + [
+        (np.array([[5 + i], [7 + i]], np.int32), np.full((BATCH, 1), PROMPT + i, np.int32))
+        for i in range(2)]
+    jcaches, tcaches = [None] * jcfg.n_layers, [None] * jcfg.n_layers
+    with torch.no_grad():
+        for call, (tok, pos) in enumerate(steps):
+            jh = JTF._embed_h(jcfg, jp, jnp.asarray(tok))
+            max_len = PROMPT + 3 if call == 0 else None
+            for i, (jl, tl) in enumerate(zip(jlayers, tlayers)):
+                th = _t(np.asarray(jh, np.float32)).to(torch.bfloat16)
+                jh, jcaches[i], _ = JTF._block(jcfg, jl, jh, jnp.asarray(pos),
+                                              moe_layer=i >= n_prefix, cache=jcaches[i],
+                                              cache_max_len=max_len)
+                th, tcaches[i], _ = TF._block(tcfg, tl, th, _t(pos).long(), cache=tcaches[i],
+                                             cache_max_len=max_len)
+                assert th.dtype == tcaches[i].c_kv.dtype == torch.bfloat16
+                _assert_bf16_close(th, jh)
+                for f in ("c_kv", "k_rope"):
+                    _assert_bf16_close(getattr(tcaches[i], f), getattr(jcaches[i], f))
+                assert tcaches[i].length == int(jcaches[i].length)
 
 
 def _greedy_tokens_match_jax(arch, use_pallas):
@@ -212,6 +287,10 @@ def test_moe_greedy_tokens_match_jax(arch):
     _greedy_tokens_match_jax(arch, use_pallas=True)
 
 
+def test_mla_greedy_tokens_match_jax():
+    _greedy_tokens_match_jax(MLA, use_pallas=False)
+
+
 def test_make_caches_match_reference_layout():
     jcfg, _, model, _ = _models("yi-6b")
     want = JTF.lm_make_caches(jcfg, BATCH, 20, jnp.float32)["layers"]
@@ -222,16 +301,21 @@ def test_make_caches_match_reference_layout():
         assert c.k.dtype == torch.float32 and not c.k.any()
 
 
-def test_moe_make_caches_match_reference_layout():
-    """The prefix layers' caches apart, under ``"prefix"``, as the reference's."""
-    jcfg, _, model, _ = _models(DEEPSEEK_LAYOUT)
+@pytest.mark.parametrize("arch", [DEEPSEEK_LAYOUT, MLA])
+def test_moe_make_caches_match_reference_layout(arch):
+    """The prefix layers' caches apart, under ``"prefix"``, as the
+    reference's; MLA's hold the latent and k_rope."""
+    jcfg, _, model, _ = _models(arch)
     want = JTF.lm_make_caches(jcfg, BATCH, 20, jnp.float32)
     got = model.make_caches(BATCH, 20, torch.float32)
     assert set(got) == set(want) == {"layers", "prefix"}
     for part in want:
-        assert len(got[part]) == want[part].k.shape[0]
+        fields = [f for f in want[part]._fields if f != "length"]
+        assert len(got[part]) == getattr(want[part], fields[0]).shape[0]
         for c in got[part]:
-            assert c.k.shape == want[part].k.shape[1:] and c.length == 0
+            assert c._fields == want[part]._fields and c.length == 0
+            for f in fields:
+                assert getattr(c, f).shape == getattr(want[part], f).shape[1:]
 
 
 def test_serve_runs_end_to_end_on_cpu():
@@ -250,8 +334,9 @@ def test_serve_runs_end_to_end_on_cpu():
     assert got["kernel_launches"]["decode"]["flash_attention"] == 0
 
 
-def test_serve_moe_runs_end_to_end_on_cpu():
-    got = tserve.serve(MOE, smoke=True, batch=2, prompt_len=8, gen=4, device="cpu")
+@pytest.mark.parametrize("arch", [MOE, MLA])
+def test_serve_moe_runs_end_to_end_on_cpu(arch):
+    got = tserve.serve(arch, smoke=True, batch=2, prompt_len=8, gen=4, device="cpu")
     assert got["generated"].shape == (2, 4) and got["generated"].dtype == np.int32
     assert (0 <= got["generated"]).all() and (got["generated"] < 128).all()
     assert got["logits_finite"]
@@ -268,27 +353,29 @@ def test_serve_refuses_what_is_not_ported():
             tserve.serve("yi-6b", smoke=True, batch=1, prompt_len=4, gen=2)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "internvl2-2b", "whisper-base",
-                                  "zamba2-2.7b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["internvl2-2b", "whisper-base", "zamba2-2.7b", "mamba2-1.3b"])
 def test_build_model_raises_for_families_not_ported(arch):
-    """deepseek-v2-lite (a MoE) raises for its MLA attention, the others for
-    their family; each names the slice that brings it."""
+    """Each raises for its family, naming the slice that brings it."""
     cfg = tconfigs.get_smoke_config(arch)
-    match = "MLA attention is not ported yet.*MLA slice" if cfg.use_mla else \
-        f"the {cfg.family} family"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=f"the {cfg.family} family"):
         build_model(cfg)
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-@pytest.mark.parametrize("arch", ["yi-6b", "granite-3-2b", MOE])
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-3-2b", MOE, MLA])
 def test_lm_converter_round_trips_bitwise(arch, dtype):
+    """deepseek-v2-lite: the MLA leaves (wq, w_dkv, kv_norm, w_uk, w_uv, wo)
+    of the stacked layers and of the prefix layer."""
     cfg = jconfigs.get_smoke_config(arch)
     jp = _np(JTF.lm_init(cfg, jax.random.PRNGKey(6), dtype=dtype))
     tp = lm_params_from_numpy(jp, "cpu")
     want_dtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
     assert tp["embed"].dtype == want_dtype
-    assert len(tp["layers"]) == cfg.n_layers
+    n_prefix = cfg.first_dense_layers if cfg.family == "moe" else 0
+    assert len(tp["layers"]) == cfg.n_layers - n_prefix
+    if cfg.use_mla:
+        assert set(tp["layers"][1]["attn"]) == set(tp["prefix_layers"][0]["attn"]) == {
+            "wq", "w_dkv", "kv_norm", "w_uk", "w_uv", "wo"}
     np.testing.assert_array_equal(
         tp["layers"][1]["attn"]["wq"].float().numpy(),
         np.asarray(jp["layers"]["attn"]["wq"][1]).astype(np.float32))
