@@ -34,7 +34,18 @@ routing equal and its absorbed decode held to the up-projected one
 launcher, K6 once per layer at q . k 192 and v 128 (``lm_mla_serve``), and
 one profiled prefill and decode step split the same way, with the MLA
 projections and the absorbed attention apart (``profile_lm_mla``,
-``profile_lm_mla_decode``). Between the fp32 serving phases and training, the
+``profile_lm_mla_decode``); then the vlm, ssm and hybrid families:
+internvl2-2b (256 image patches before the prompt), mamba2-1.3b (at a
+prompt of 128 and one the SSD pads) and zamba2-2.7b (12 layers: two
+applications of its shared block) at full width in fp32 on the card
+against the CPU, logits and every cache (``lm_vlm_parity``,
+``lm_ssm_parity``, ``lm_hybrid_parity``), each at full width and depth in
+bf16 through the serve launcher (``lm_vlm_serve``: K6 once per layer;
+``lm_ssm_serve``: no K6, and what the Mamba2 block's SiLU costs against
+``F.silu``; ``lm_hybrid_serve``: K6 at head dim 80 once per application of
+the shared block), and one profiled hybrid prefill and
+decode step split into the SSD einsums, the conv, the projections, K6 and
+the rest (``profile_lm_hybrid``). Between the fp32 serving phases and training, the
 same forecast and server run under the bf16 policy (``precision="bf16"``:
 K1 with a bf16 y, K3 in bf16 on the tensor cores; phases ``forecast_bf16``, ``profile_bf16``
 and ``serve_bf16``), against the CPU and the card's fp32 forecast. After
@@ -299,6 +310,16 @@ LM_PARITY_LAYERS, LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_GEN = 2, 2, 128, 
 # (64 routed top-6 + 2 shared) alone, as its MLA attention is not ported
 MOE_ARCH, MOE_DEEPSEEK = "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"
 MOE_PARITY_LAYERS = 2
+# the vlm, ssm and hybrid cells: internvl2-2b (256 image patches before the
+# prompt), mamba2-1.3b and zamba2-2.7b served at full width and depth in
+# bf16 with the LM serve cell's batch, prompt and tokens; their parity cells
+# at full width, fp32, 2 layers (zamba2: 12, two groups of 6, so that two
+# applications of the shared block fill two KV caches), with LM parity's
+# batch and steps; mamba2's also at a prompt that is not a multiple of its
+# SSD chunk (128), so the scan pads
+VLM_ARCH, SSM_ARCH, HYBRID_ARCH = "internvl2-2b", "mamba2-1.3b", "zamba2-2.7b"
+HYBRID_PARITY_LAYERS = 12
+SSM_RAGGED_PROMPT = 200
 
 # phase analyze: the CLI's audits at full width, by part: (name, spec, --set)
 ANALYZE_RUNS = (("lstm", "esrnn-quarterly", ()), ("bf16", "esrnn-quarterly", ("precision=bf16",)),
@@ -893,9 +914,12 @@ def k6_shapes():
     """K6's checks: (B, Hq, Hkv, Tq, Tk, D, DV, dtype, causal). The first is
     the LM serve path's own (one launch per layer of the yi-6b prefill); the
     others cover fp32, ragged tiles, decode-append, non-causal, D = 64 and
-    MHA; the last two MLA's (q . k 192, v 128): one layer of the
-    deepseek-v2-lite serve prefill in bf16 and of its parity prefill in
-    fp32."""
+    MHA; then MLA's (q . k 192, v 128): one layer of the deepseek-v2-lite
+    serve prefill in bf16 and of its parity prefill in fp32; then zamba2's
+    head dim 80 (one shared-block application of its serve prefill, ragged,
+    non-causal; in fp32 one application of its parity prefill, and a ragged
+    non-causal 300 x 500), and one layer of the internvl2-2b serve prefill
+    (2,048 prompt positions after 256 image patches)."""
     return [
         (LM_BATCH, 32, 4, LM_PROMPT, LM_PROMPT, 128, 128, "bfloat16", True),
         (2, 32, 4, LM_PROMPT, LM_PROMPT, 128, 128, "float32", True),
@@ -907,6 +931,12 @@ def k6_shapes():
         (2, 16, 16, 300, 300, 64, 64, "float32", False),
         (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 192, 128, "bfloat16", True),
         (LM_PARITY_BATCH, 16, 16, LM_PARITY_PROMPT, LM_PARITY_PROMPT, 192, 128, "float32", True),
+        (LM_BATCH, 32, 32, LM_PROMPT, LM_PROMPT, 80, 80, "bfloat16", True),
+        (2, 32, 32, 1000, 1000, 80, 80, "bfloat16", True),
+        (2, 32, 32, 512, 1024, 80, 80, "bfloat16", False),
+        (LM_PARITY_BATCH, 32, 32, LM_PARITY_PROMPT, LM_PARITY_PROMPT, 80, 80, "float32", True),
+        (2, 32, 32, 300, 500, 80, 80, "float32", False),
+        (LM_BATCH, 16, 8, LM_PROMPT + 256, LM_PROMPT + 256, 128, 128, "bfloat16", True),
     ]
 
 
@@ -984,6 +1014,17 @@ def check_flash_attention(b, hq, hkv, tq, tk, d, dv, dtype_name, causal, gen, qk
                 dtype=dtype_name, max_abs_err=err, tol=tol, ms=ms, wrapper_ms=host_ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, tflops=n_flops / ms / 1e9, **sdpa)
+
+
+def check_k6_on(qkv, gen):
+    """``check_flash_attention`` on a causal prefill's own q, k, v."""
+    import torch
+
+    q, k, v = qkv
+    (b, hq, tq, d), (hkv, tk), dv = q.shape, k.shape[1:3], v.shape[3]
+    with torch.no_grad():
+        return check_flash_attention(b, hq, hkv, tq, tk, d, dv, str(q.dtype).split(".")[-1],
+                                     True, gen, qkv=qkv)
 
 
 # ---------------------------------------------------------------------------
@@ -3188,23 +3229,14 @@ def run_analyze(dev, tmp):
 # ---------------------------------------------------------------------------
 
 
-def lm_config(n_layers=None, dtype=None):
-    """yi-6b's config, its depth and dtype optionally cut."""
+def arch_config(arch, n_layers=None, dtype=None):
+    """``arch``'s config, its depth and dtype optionally cut."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    cfg = get_config(LM_ARCH)
     changes = {k: v for k, v in (("n_layers", n_layers), ("dtype", dtype)) if v is not None}
-    return dataclasses.replace(cfg, **changes) if changes else cfg
-
-
-def lm_prompts(cfg, batch: int, prompt_len: int, seed: int):
-    """Token ids as the serve launcher draws them: numpy's generator."""
-    import torch
-
-    rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt_len)))
+    return dataclasses.replace(get_config(arch), **changes)
 
 
 def _params_to(params, dev):
@@ -3215,91 +3247,175 @@ def _params_to(params, dev):
     return params.to(dev)
 
 
-def run_lm_parity(dev, n_layers=LM_PARITY_LAYERS, batch=LM_PARITY_BATCH,
-                  prompt_len=LM_PARITY_PROMPT, gen=LM_PARITY_GEN, seed=7):
-    """yi-6b at full width, ``n_layers`` deep, fp32: the prefill (K6 on the
-    card, the plain chunked path on the CPU) and every decode step's logits,
-    card against CPU. Both decode the CPU's greedy tokens, so a near-tie
-    that flips one token on one device cannot derail the comparison; whether
-    the card's own greedy tokens agree is reported."""
+def cache_err(what, dev_caches, cpu_caches) -> float:
+    """The largest difference between two devices' caches, walked leaf by
+    leaf (dicts, lists of per-layer caches, each a ``KVCache``, an
+    ``MLACache`` or an ``SSMCache``), within the LM bounds; cache lengths
+    equal."""
+    if isinstance(cpu_caches, dict):
+        return max(cache_err(f"{what} {k}", dev_caches[k], c) for k, c in cpu_caches.items())
+    if isinstance(cpu_caches, list):
+        if len(dev_caches) != len(cpu_caches):
+            raise AssertionError(f"{what}: {len(dev_caches)} caches != {len(cpu_caches)}")
+        return max(cache_err(f"{what} {i}", d, c)
+                   for i, (d, c) in enumerate(zip(dev_caches, cpu_caches)))
+    errs = []
+    for f in cpu_caches._fields:
+        d, c = getattr(dev_caches, f), getattr(cpu_caches, f)
+        if f == "length":
+            if d != c:
+                raise AssertionError(f"{what}: length {d} != {c}")
+            continue
+        errs.append(check_close(f"{what} {f}", d, c, rtol=LM_RTOL, atol=LM_ATOL))
+    return max(errs)
+
+
+def k6_per_prefill(cfg) -> int:
+    """K6 launches a prefill makes: one per attention layer, one per
+    application of a hybrid's shared block, none in an ssm model."""
+    return {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(
+        cfg.family, cfg.n_layers)
+
+
+def run_parity(dev, arch, n_layers, prompt_len, batch=LM_PARITY_BATCH, gen=LM_PARITY_GEN,
+               seed=7):
+    """``arch`` at full width, ``n_layers`` deep, fp32, card against CPU on
+    the serve launcher's inputs (``draw_inputs``): the prefill (K6 on the
+    card in each attention, the plain chunked path on the CPU; the SSD and
+    a MoE layer's dispatch are PyTorch calls on both) and every decode
+    step's logits and caches. Both decode the CPU's greedy tokens, so a
+    near-tie that flips one token on one device cannot derail the
+    comparison; whether the card's own greedy tokens agree is reported. K6
+    launches asserted: one per attention layer or shared-block application
+    in the prefill, none in decode. By family: a dense model's prefill is
+    also held, on both devices, against one with float64 weights and
+    products (norms, RoPE and softmax stay fp32, as the model casts); each
+    MoE layer's routing is held equal on the same input (``parity_routing``);
+    under MLA the card's absorbed decode is held against its up-projected
+    one (``absorbed_decode=False``) on the same cache at every step."""
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.launch.serve import draw_inputs
     from repro_torch.models.model import build_model
+    from repro_torch.models.moe import moe_route
 
-    cfg = lm_config(n_layers=n_layers, dtype="float32")
+    cfg = arch_config(arch, n_layers=n_layers, dtype="float32")
     model = build_model(cfg)
     t0 = time.perf_counter()
     params_cpu = model.init(torch.Generator().manual_seed(seed))
     params_dev = _params_to(params_cpu, dev)
     init_s = time.perf_counter() - t0
-    prompts = lm_prompts(cfg, batch, prompt_len, seed)
-    max_len = prompt_len + gen
-    errs, agree = [], []
+    prompts, image_embeds = draw_inputs(cfg, batch, prompt_len, seed)
+    batch_cpu = {"tokens": prompts}
+    if image_embeds is not None:
+        batch_cpu["image_embeds"] = image_embeds
+    batch_dev = {k: v.to(dev) for k, v in batch_cpu.items()}
+    offset = 0 if image_embeds is None else image_embeds.shape[1]
+    max_len = prompt_len + offset + gen
+    want_k6 = k6_per_prefill(cfg)
+    rec = dict(arch=cfg.name, family=cfg.family, n_layers=n_layers, dtype="float32",
+               batch=batch, prompt_len=prompt_len, image_patches=offset, steps=gen,
+               init_s=init_s)
+    seen = {"cpu": [], "card": []}
+
+    def route_on(where):
+        return lambda p, c, x: seen[where].append((p, x, moe_route(p, c, x)))
+
+    errs, cache_errs, absorbed_errs, agree = [], [], [], []
     with torch.no_grad():
         before = ops.launch_counts()["flash_attention"]
-        log_c, cache_c = model.prefill(params_cpu, {"tokens": prompts}, max_len)
-        log_d, cache_d = model.prefill(params_dev, {"tokens": prompts.to(dev)}, max_len)
+        with moe_layers_seen(route_on("cpu")):
+            log_c, cache_c = model.prefill(params_cpu, batch_cpu, max_len)
+        with moe_layers_seen(route_on("card")):
+            log_d, cache_d = model.prefill(params_dev, batch_dev, max_len)
         torch.cuda.synchronize()
         prefill_launches = ops.launch_counts()["flash_attention"] - before
-        if prefill_launches != n_layers:
-            raise AssertionError(f"lm_parity: {prefill_launches} K6 launches in a "
-                                 f"{n_layers}-layer prefill")
-        # how far each fp32 prefill is from one with float64 weights and
-        # products (norms, RoPE and softmax stay fp32, as the model casts)
-        params64 = _params_to(params_cpu, torch.float64)
-        log64, _ = build_model(lm_config(n_layers=n_layers, dtype="float64")).prefill(
-            params64, {"tokens": prompts}, max_len)
-        del params64
-        fp64_err = {"card": check_close("lm_parity card vs float64", log_d, log64,
-                                        rtol=LM_RTOL, atol=LM_ATOL),
-                    "cpu": check_close("lm_parity cpu vs float64", log_c, log64,
-                                       rtol=LM_RTOL, atol=LM_ATOL)}
+        if seen["cpu"]:
+            rec.update(parity_routing(cfg, seen, dev))
+        seen = None
+        if cfg.family == "dense":
+            params64 = _params_to(params_cpu, torch.float64)
+            log64, _ = build_model(arch_config(arch, n_layers, "float64")).prefill(
+                params64, batch_cpu, max_len)
+            del params64
+            rec["prefill_max_abs_err_vs_fp64"] = {
+                where: check_close(f"{arch} parity {where} vs float64", log, log64,
+                                   rtol=LM_RTOL, atol=LM_ATOL)
+                for where, log in (("card", log_d), ("cpu", log_c))}
+        decode_launches = 0
         for step in range(gen):
-            errs.append(check_close(f"lm_parity logits, step {step}", log_d, log_c,
+            errs.append(check_close(f"{arch} parity logits, step {step}", log_d, log_c,
                                     rtol=LM_RTOL, atol=LM_ATOL))
+            cache_errs.append(cache_err(f"{arch} parity caches, step {step}", cache_d, cache_c))
             tok = log_c[:, -1].argmax(dim=-1)
             agree.append(bool((log_d[:, -1].argmax(dim=-1).cpu() == tok).all()))
             if step == gen - 1:
                 break
-            pos = torch.full((batch, 1), prompt_len + step, dtype=torch.int64)
+            pos = torch.full((batch, 1), prompt_len + offset + step, dtype=torch.int64)
             log_c, cache_c = model.decode(
                 params_cpu, {"tokens": tok[:, None], "positions": pos}, cache_c)
-            log_d, cache_d = model.decode(
-                params_dev, {"tokens": tok[:, None].to(dev), "positions": pos.to(dev)},
-                cache_d)
-    del params_dev, cache_d
+            step_dev = {"tokens": tok[:, None].to(dev), "positions": pos.to(dev)}
+            before = ops.launch_counts()["flash_attention"]
+            if cfg.use_mla:
+                # the up-projected decode first: both write this step's
+                # latents at the same slots, and the absorbed one's stay
+                with mla_decode_up_projected():
+                    log_u, _ = model.decode(params_dev, step_dev, cache_d)
+            log_d, cache_d = model.decode(params_dev, step_dev, cache_d)
+            decode_launches += ops.launch_counts()["flash_attention"] - before
+            if cfg.use_mla:
+                absorbed_errs.append(check_close(
+                    f"{arch} parity absorbed vs up-projected decode, step {step}", log_d, log_u,
+                    rtol=LM_RTOL, atol=LM_ATOL))
+    if (prefill_launches, decode_launches) != (want_k6, 0):
+        raise AssertionError(f"{arch} parity: K6 launches (prefill, decode) "
+                             f"{(prefill_launches, decode_launches)}, want ({want_k6}, 0)")
+    if cfg.use_mla:
+        rec["absorbed_vs_up_projected_max_abs_err_per_step"] = absorbed_errs
+    del params_dev, cache_d, params_cpu, cache_c
     torch.cuda.empty_cache()
-    return dict(arch=LM_ARCH, n_layers=n_layers, dtype="float32", batch=batch,
-                prompt_len=prompt_len, steps=gen, init_s=init_s,
-                k6_launches_prefill=prefill_launches, max_abs_err_per_step=errs,
-                prefill_max_abs_err_vs_fp64=fp64_err,
-                max_abs_err=max(errs), logits_scale=float(log_c.abs().max()),
+    return dict(rec, k6_launches_prefill=prefill_launches, k6_launches_decode=decode_launches,
+                max_abs_err_per_step=errs, max_abs_err=max(errs),
+                cache_max_abs_err_per_step=cache_errs, logits_scale=float(log_c.abs().max()),
                 greedy_tokens_agree=all(agree), tokens_agree_per_step=agree,
                 rtol=LM_RTOL, atol=LM_ATOL)
 
 
 class LMServe:
     """The LM serve cell on the card: the model the serve launcher builds
-    (random weights from a seeded CUDA generator) and its prompts."""
+    (random weights from a seeded CUDA generator) and its inputs
+    (``draw_inputs``: the prompts and, for a vlm, its image embeddings)."""
 
-    def __init__(self, dev, cfg=None, batch=LM_BATCH, prompt_len=LM_PROMPT, seed=0):
+    def __init__(self, dev, cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, seed=0):
         import torch
 
+        from repro_torch.launch.serve import draw_inputs
         from repro_torch.models.model import build_model
 
-        self.cfg = cfg or lm_config()
-        self.model = build_model(self.cfg)
+        self.cfg = cfg
+        self.model = build_model(cfg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         self.params = self.model.init(torch.Generator(device=dev).manual_seed(seed))
         torch.cuda.synchronize()
         self.init_s = time.perf_counter() - t0
-        self.prompts = lm_prompts(self.cfg, batch, prompt_len, seed).to(dev)
+        self.prompts, self.image_embeds = draw_inputs(cfg, batch, prompt_len, seed, dev)
+
+    @property
+    def offset(self) -> int:
+        """Positions before the prompt: a vlm's image patches."""
+        return 0 if self.image_embeds is None else self.image_embeds.shape[1]
+
+    def batch(self):
+        out = {"tokens": self.prompts}
+        if self.image_embeds is not None:
+            out["image_embeds"] = self.image_embeds
+        return out
 
     def prefill(self, gen=LM_GEN):
-        return self.model.prefill(self.params, {"tokens": self.prompts},
-                                  self.prompts.shape[1] + gen)
+        return self.model.prefill(self.params, self.batch(),
+                                  self.prompts.shape[1] + self.offset + gen)
 
     def decode_step(self, gen=LM_GEN):
         """A call that runs one decode step after a prefill: each call
@@ -3309,30 +3425,34 @@ class LMServe:
         logits, caches = self.prefill(gen)
         batch, prompt_len = self.prompts.shape
         step = {"tokens": logits[:, -1].argmax(dim=-1)[:, None],
-                "positions": torch.full((batch, 1), prompt_len, dtype=torch.int64,
-                                        device=logits.device)}
+                "positions": torch.full((batch, 1), prompt_len + self.offset,
+                                        dtype=torch.int64, device=logits.device)}
         return lambda: self.model.decode(self.params, step, caches)
 
-    def layer0_qkv(self):
-        """The first layer's own q, k, v of this prefill, (B, H, T, D)
-        contiguous: DeepSeek's first prefix layer, through ``mla_qkv`` under
-        MLA (q and k 192 wide, v 128), else ``gqa_qkv``."""
+    def first_k6_inputs(self):
+        """The q, k, v that one prefill passes to its first K6 launch (the
+        first attention layer's; a hybrid's shared block at its first
+        application), taken at the wrapper: the model calls K6 through
+        ``ops``, so swapping the module's attribute sees the call; the port
+        itself is unchanged."""
         import torch
 
-        from repro_torch.models.attention import gqa_qkv, mla_qkv
-        from repro_torch.models.layers import apply_norm
-        from repro_torch.models.transformer import _embed_h
+        from repro_torch.kernels import ops
 
-        layer = (self.params.get("prefix_layers") or self.params["layers"])[0]
-        with torch.no_grad():
-            h = _embed_h(self.cfg, self.params, self.prompts)
-            x = apply_norm(h, layer["attn_norm"], self.cfg.norm)
-            pos = torch.arange(h.shape[1], device=h.device)[None, :]
-            if self.cfg.use_mla:
-                qkv = mla_qkv(layer["attn"], self.cfg, x, pos)[:3]
-            else:
-                qkv = [t.transpose(1, 2) for t in gqa_qkv(layer["attn"], self.cfg, x, pos)]
-            return [t.contiguous() for t in qkv]
+        real, seen = ops.flash_attention, []
+
+        def spy(q, k, v, **kw):
+            if not seen:
+                seen.append((q, k, v))
+            return real(q, k, v, **kw)
+
+        ops.flash_attention = spy
+        try:
+            with torch.no_grad():
+                self.prefill()
+        finally:
+            ops.flash_attention = real
+        return seen[0]
 
 
 def run_lm_serve(lm, gen=LM_GEN):
@@ -3343,16 +3463,16 @@ def run_lm_serve(lm, gen=LM_GEN):
     from repro_torch.launch.serve import generate
 
     cfg = lm.cfg
-    generate(lm.model, lm.params, lm.prompts, 2)                # warm-up
+    generate(lm.model, lm.params, lm.prompts, 2, image_embeds=lm.image_embeds)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out = generate(lm.model, lm.params, lm.prompts, gen)
+    out = generate(lm.model, lm.params, lm.prompts, gen, image_embeds=lm.image_embeds)
     peak = torch.cuda.max_memory_allocated()
     k6 = (out["kernel_launches"]["prefill"]["flash_attention"],
           out["kernel_launches"]["decode"]["flash_attention"])
-    if k6 != (cfg.n_layers, 0):
+    if k6 != (k6_per_prefill(cfg), 0):
         raise AssertionError(f"{cfg.name} serving: K6 launches (prefill, decode) {k6}, want "
-                             f"({cfg.n_layers}, 0)")
+                             f"({k6_per_prefill(cfg)}, 0)")
     if not out["logits_finite"]:
         raise AssertionError(f"{cfg.name} serving: non-finite logits")
     generated = out["generated"]
@@ -3361,9 +3481,9 @@ def run_lm_serve(lm, gen=LM_GEN):
         raise AssertionError(f"{cfg.name} serving: generated {generated.shape}, "
                              f"ids out of range")
     return dict(arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype, batch=batch,
-                prompt_len=prompt_len, gen=gen, init_s=lm.init_s,
+                prompt_len=prompt_len, image_patches=lm.offset, gen=gen, init_s=lm.init_s,
                 prefill_ms=out["prefill_s"] * 1e3,
-                prefill_tokens_per_s=batch * prompt_len / out["prefill_s"],
+                prefill_tokens_per_s=batch * (prompt_len + lm.offset) / out["prefill_s"],
                 decode_ms_per_token=out["decode_s_per_tok"] * 1e3,
                 decode_tokens_per_s=batch / out["decode_s_per_tok"],
                 k6_launches_per_prefill=k6[0], k6_launches_per_decode_step=k6[1],
@@ -3385,14 +3505,6 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 # phase 7b: the MoE family (qwen3-moe-30b-a3b; deepseek-v2-lite's MoE layer)
 # ---------------------------------------------------------------------------
-
-
-def moe_config(arch=MOE_ARCH, n_layers=None, dtype=None):
-    """``arch``'s config, its depth and dtype optionally cut."""
-    from repro_torch.configs import get_config
-
-    changes = {k: v for k, v in (("n_layers", n_layers), ("dtype", dtype)) if v is not None}
-    return dataclasses.replace(get_config(arch), **changes)
 
 
 @contextlib.contextmanager
@@ -3442,91 +3554,30 @@ def dropped_share(routings) -> float:
     return 1.0 - kept / total
 
 
-def run_lm_moe_parity(dev, n_layers=MOE_PARITY_LAYERS, batch=LM_PARITY_BATCH,
-                      prompt_len=LM_PARITY_PROMPT, gen=LM_PARITY_GEN, seed=7):
-    """qwen3-moe-30b-a3b at full width, ``n_layers`` deep, fp32: the prefill
-    (K6 on the card, the plain chunked path on the CPU) and every decode
-    step's logits, card against CPU, decoding the CPU's greedy tokens as
-    ``lm_parity`` does. The prompt's capacity (10 for a mean of 8
-    assignments per expert) drops tokens: the routing of each MoE layer is
-    also held equal on the same input (the CPU's), with the CPU's least
-    K-th/(K+1)-th probability gap beside it, and each device's dropped
-    share of its own prefill. Part ``deepseek_moe``: one MoE layer at
-    deepseek-v2-lite's width (64 routed top-6 + 2 shared experts)."""
+def parity_routing(cfg, seen, dev):
+    """The MoE layers of a parity prefill (``seen``: each device's
+    (params, layer input, routing), in layer order): each layer's routing on
+    the CPU's input, recomputed on the card, has equal top-k ids, slots and
+    ``keep``; beside it the CPU's least K-th/(K+1)-th probability gap,
+    whether each device's routing of its own input agreed, and each device's
+    dropped share of its own prefill (equal on both)."""
     import torch
 
-    from repro_torch.kernels import ops
-    from repro_torch.models.model import build_model
     from repro_torch.models.moe import moe_route
 
-    cfg = moe_config(n_layers=n_layers, dtype="float32")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params_cpu = model.init(torch.Generator().manual_seed(seed))
-    params_dev = _params_to(params_cpu, dev)
-    init_s = time.perf_counter() - t0
-    prompts = lm_prompts(cfg, batch, prompt_len, seed)
-    max_len = prompt_len + gen
-    seen = {"cpu": [], "card": []}
-
-    def route_on(where):
-        return lambda p, cfg, x: seen[where].append((p, x, moe_route(p, cfg, x)))
-
-    errs, agree = [], []
-    with torch.no_grad():
-        before = ops.launch_counts()["flash_attention"]
-        with moe_layers_seen(route_on("cpu")):
-            log_c, cache_c = model.prefill(params_cpu, {"tokens": prompts}, max_len)
-        with moe_layers_seen(route_on("card")):
-            log_d, cache_d = model.prefill(params_dev, {"tokens": prompts.to(dev)}, max_len)
-        torch.cuda.synchronize()
-        prefill_launches = ops.launch_counts()["flash_attention"] - before
-        # each MoE layer's routing on the CPU's own layer input, on both devices
-        margins, own_same = [], []
-        for i, ((p_c, x_c, r_c), (p_d, _, r_d)) in enumerate(zip(seen["cpu"], seen["card"])):
-            moe_routing_same(f"lm_moe_parity layer {i}", r_c, moe_route(p_d, cfg, x_c.to(dev)))
-            margins.append(moe_margin(r_c, cfg.top_k))
-            own_same.append(all(torch.equal(getattr(r_c, f), getattr(r_d, f).cpu())
-                                for f in ("top_ids", "pos", "keep")))
-        dropped = {where: dropped_share([r for _, _, r in seen[where]]) for where in seen}
-        dropped_per_layer = [dropped_share([r]) for _, _, r in seen["cpu"]]
-        capacity = r_c.capacity
-        if dropped["cpu"] != dropped["card"]:
-            raise AssertionError(f"lm_moe_parity: dropped shares differ {dropped}")
-        seen = None
-        decode_launches = 0
-        for step in range(gen):
-            errs.append(check_close(f"lm_moe_parity logits, step {step}", log_d, log_c,
-                                    rtol=LM_RTOL, atol=LM_ATOL))
-            tok = log_c[:, -1].argmax(dim=-1)
-            agree.append(bool((log_d[:, -1].argmax(dim=-1).cpu() == tok).all()))
-            if step == gen - 1:
-                break
-            pos = torch.full((batch, 1), prompt_len + step, dtype=torch.int64)
-            log_c, cache_c = model.decode(
-                params_cpu, {"tokens": tok[:, None], "positions": pos}, cache_c)
-            before = ops.launch_counts()["flash_attention"]
-            log_d, cache_d = model.decode(
-                params_dev, {"tokens": tok[:, None].to(dev), "positions": pos.to(dev)},
-                cache_d)
-            decode_launches += ops.launch_counts()["flash_attention"] - before
-    if (prefill_launches, decode_launches) != (n_layers, 0):
-        raise AssertionError(f"lm_moe_parity: K6 launches (prefill, decode) "
-                             f"{(prefill_launches, decode_launches)}, want ({n_layers}, 0)")
-    del params_dev, cache_d, params_cpu, cache_c
-    torch.cuda.empty_cache()
-    deepseek = run_deepseek_moe(dev, batch, prompt_len, seed)
-    return dict(arch=cfg.name, n_layers=n_layers, dtype="float32", batch=batch,
-                prompt_len=prompt_len, steps=gen, init_s=init_s,
-                capacity_prefill=capacity,
-                k6_launches_prefill=prefill_launches, k6_launches_decode=decode_launches,
-                max_abs_err_per_step=errs, max_abs_err=max(errs),
-                logits_scale=float(log_c.abs().max()),
-                routing_same_input_equal=True, routing_own_input_equal=own_same,
-                min_topk_margin_per_layer=margins, dropped_share=dropped,
-                dropped_share_per_layer_cpu=dropped_per_layer,
-                greedy_tokens_agree=all(agree), tokens_agree_per_step=agree,
-                rtol=LM_RTOL, atol=LM_ATOL, deepseek_moe=deepseek)
+    margins, own_same = [], []
+    for i, ((p_c, x_c, r_c), (p_d, _, r_d)) in enumerate(zip(seen["cpu"], seen["card"])):
+        moe_routing_same(f"{cfg.name} parity layer {i}", r_c, moe_route(p_d, cfg, x_c.to(dev)))
+        margins.append(moe_margin(r_c, cfg.top_k))
+        own_same.append(all(torch.equal(getattr(r_c, f), getattr(r_d, f).cpu())
+                            for f in ("top_ids", "pos", "keep")))
+    dropped = {where: dropped_share([r for _, _, r in seen[where]]) for where in seen}
+    if dropped["cpu"] != dropped["card"]:
+        raise AssertionError(f"{cfg.name} parity: dropped shares differ {dropped}")
+    return dict(capacity_prefill=seen["cpu"][0][2].capacity, routing_same_input_equal=True,
+                routing_own_input_equal=own_same, min_topk_margin_per_layer=margins,
+                dropped_share=dropped,
+                dropped_share_per_layer_cpu=[dropped_share([r]) for _, _, r in seen["cpu"]])
 
 
 def run_deepseek_moe(dev, batch, seq_len, seed):
@@ -3539,7 +3590,7 @@ def run_deepseek_moe(dev, batch, seq_len, seed):
 
     from repro_torch.models.moe import moe_apply, moe_init, moe_route
 
-    cfg = moe_config(MOE_DEEPSEEK, dtype="float32")
+    cfg = arch_config(MOE_DEEPSEEK, dtype="float32")
     p_cpu = moe_init(torch.Generator().manual_seed(seed), cfg, torch.float32)
     p_dev = _params_to(p_cpu, dev)
     gen = torch.Generator().manual_seed(seed + 1)
@@ -3627,12 +3678,16 @@ def profiler_ranges(labels=MOE_PROFILE_LABELS):
             setattr(mod, name, fn)
 
 
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS's and CUTLASS's product kernels
+
+
 def device_ms_by_range(prof, labels):
     """Device ms of a profile by the innermost range (of ``labels``) whose
     device-side span holds each kernel; K6 by its kernel name; what no
     range holds under ``rest``. A range's device span runs from the first
     to the last kernel launched inside it, and the kernels of one stream
-    do not overlap, so the spans split the kernels without double counts."""
+    do not overlap, so the spans split the kernels without double counts.
+    ``gemm_ms_by_range``: the part of each range's ms in product kernels."""
     from torch.autograd import DeviceType
 
     names = set(labels)
@@ -3640,33 +3695,46 @@ def device_ms_by_range(prof, labels):
                     evt.time_range.end, evt.name) for evt in prof.events()
                    if evt.device_type == DeviceType.CUDA and evt.name in names)
     parts = dict.fromkeys(list(labels) + ["K6 flash_attention", "rest"], 0.0)
+    gemm = dict.fromkeys(parts, 0.0)
     work = device_work(prof, names)
     for evt in work:
         start, end = evt.time_range.start, evt.time_range.end
         part = "K6 flash_attention" if "flash_" in evt.name else next(
             (name for _, s0, s1, name in spans if s0 <= start and end <= s1), "rest")
         parts[part] += end - start
-    ms = {k: v / 1e3 for k, v in parts.items()}
-    return dict(
-        total_ms=sum(ms.values()), range_spans=len(spans), by_range_ms=ms,
-        split_ms=dict(experts=ms["moe.experts"],
-                      dispatch=ms["moe.route"] + ms["moe.scatter"] + ms["moe.gather"],
-                      k6=ms["K6 flash_attention"],
-                      attention_proj=ms["attention"] + ms["attention.qkv"],
-                      cached_attention=ms["attention.cached"],
-                      mla_projections=ms["mla"] + ms["mla.qkv"],
-                      mla_absorbed=ms["mla.absorbed"],
-                      rest=ms["lm_head"] + ms["moe.aux"] + ms["rest"]))
+        if part != "K6 flash_attention" and any(g in evt.name.lower() for g in GEMM_NAMES):
+            gemm[part] += end - start
+    return dict(total_ms=sum(parts.values()) / 1e3, range_spans=len(spans),
+                by_range_ms={k: v / 1e3 for k, v in parts.items()},
+                gemm_ms_by_range={k: v / 1e3 for k, v in gemm.items() if v})
+
+
+def moe_split(ms, gemm):
+    return dict(experts=ms["moe.experts"],
+                dispatch=ms["moe.route"] + ms["moe.scatter"] + ms["moe.gather"],
+                k6=ms["K6 flash_attention"],
+                attention_proj=ms["attention"] + ms["attention.qkv"],
+                cached_attention=ms["attention.cached"],
+                mla_projections=ms["mla"] + ms["mla.qkv"],
+                mla_absorbed=ms["mla.absorbed"],
+                rest=ms["lm_head"] + ms["moe.aux"] + ms["rest"])
+
+
+def profile_split(call, labels, split, top: int = 12):
+    """``profile_call`` of one step, each listed function in a profiler
+    range (``profiler_ranges``), its device time split by ``split``."""
+    names = [label for _, _, label in labels]
+    with profiler_ranges(labels):
+        out = profile_call(call, top=top, keep_profile=True, ranges=set(names))
+    prof = out.pop("profile")
+    out["split"] = by_range = device_ms_by_range(prof, names)
+    by_range["split_ms"] = split(by_range["by_range_ms"], by_range["gemm_ms_by_range"])
+    return out
 
 
 def profile_moe(call, top: int = 12):
     """``profile_call`` of one MoE step, its device time split by part."""
-    labels = [label for _, _, label in MOE_PROFILE_LABELS]
-    with profiler_ranges():
-        out = profile_call(call, top=top, keep_profile=True, ranges=set(labels))
-    prof = out.pop("profile")
-    out["split"] = device_ms_by_range(prof, labels)
-    return out
+    return profile_split(call, MOE_PROFILE_LABELS, moe_split, top)
 
 
 def run_moe_phases(dev, smi, counted, lm_kernels, gen):
@@ -3678,14 +3746,15 @@ def run_moe_phases(dev, smi, counted, lm_kernels, gen):
     launches of the parity run and of ``generate`` join the main path's."""
     import torch
 
-    moe_parity, moe_parity_launches = counted(lm_kernels, "the MoE parity run",
-                                              lambda: run_lm_moe_parity(dev))
-    deepseek = moe_parity.pop("deepseek_moe")
+    moe_parity, moe_parity_launches = counted(
+        lm_kernels, "the MoE parity run",
+        lambda: run_parity(dev, MOE_ARCH, MOE_PARITY_LAYERS, LM_PARITY_PROMPT))
     emit(dict(phase="lm_moe_parity", card=smi, launches=moe_parity_launches, **moe_parity))
+    deepseek = run_deepseek_moe(dev, LM_PARITY_BATCH, LM_PARITY_PROMPT, seed=7)
     emit(dict(phase="lm_moe_parity", card=smi, **deepseek))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    moe_lm = LMServe(dev, cfg=moe_config())
+    moe_lm = LMServe(dev, arch_config(MOE_ARCH))
     init_peak = torch.cuda.max_memory_allocated()
     moe_serve, moe_launches = counted(lm_kernels, "MoE serving",
                                       lambda: run_lm_serve(moe_lm))
@@ -3693,16 +3762,12 @@ def run_moe_phases(dev, smi, counted, lm_kernels, gen):
     with torch.no_grad():
         moe_prefill = profile_moe(lambda: moe_lm.prefill())
         moe_decode = profile_moe(moe_lm.decode_step())
-        qkv = moe_lm.layer0_qkv()
-    moe_cfg = moe_lm.cfg
+    qkv = moe_lm.first_k6_inputs()
     del moe_lm
     torch.cuda.empty_cache()
     # K6 on layer 0's own q, k, v, once the weights are freed (its plain
     # version's fp32 scores take 4.3 GB a copy)
-    with torch.no_grad():
-        layer0 = check_flash_attention(LM_BATCH, moe_cfg.n_heads, moe_cfg.n_kv_heads,
-                                       LM_PROMPT, LM_PROMPT, moe_cfg.hd, moe_cfg.hd,
-                                       "bfloat16", True, gen, qkv=qkv)
+    layer0 = check_k6_on(qkv, gen)
     del qkv
     emit(dict(phase="lm_moe_serve", card=smi, launches=moe_launches, k6_layer0=layer0,
               **moe_serve))
@@ -3738,110 +3803,6 @@ def mla_decode_up_projected():
         attention.mla_apply = real
 
 
-def mla_cache_err(what, caches_dev, caches_cpu) -> float:
-    """The largest difference of the MLA caches (c_kv and k_rope of every
-    layer, prefix layers too) between the devices, within the LM bounds;
-    their lengths equal."""
-    errs = []
-    for part, cpu in caches_cpu.items():
-        for i, (d, c) in enumerate(zip(caches_dev[part], cpu)):
-            if d.length != c.length:
-                raise AssertionError(f"{what}: {part} {i} length {d.length} != {c.length}")
-            errs += [check_close(f"{what}: {part} {i} {f}", getattr(d, f), getattr(c, f),
-                                 rtol=LM_RTOL, atol=LM_ATOL) for f in ("c_kv", "k_rope")]
-    return max(errs)
-
-
-def run_lm_mla_parity(dev, n_layers=MOE_PARITY_LAYERS, batch=LM_PARITY_BATCH,
-                      prompt_len=LM_PARITY_PROMPT, gen=LM_PARITY_GEN, seed=7):
-    """deepseek-v2-lite-16b at full width, ``n_layers`` deep (its dense
-    prefix layer and one MoE layer, MLA in both), fp32: the prefill (K6 at
-    q . k 192 and v 128 on the card, the plain chunked path on the CPU) and
-    every decode step's logits and MLA caches, card against CPU, decoding the
-    CPU's greedy tokens as ``lm_parity`` does; the MoE layer's routing held
-    equal on the CPU's layer input (capacity 15 at this prompt). At every
-    step the card's absorbed decode is also held against its up-projected
-    one (``absorbed_decode=False``) on the same cache."""
-    import torch
-
-    from repro_torch.kernels import ops
-    from repro_torch.models.model import build_model
-    from repro_torch.models.moe import moe_route
-
-    cfg = moe_config(MOE_DEEPSEEK, n_layers=n_layers, dtype="float32")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params_cpu = model.init(torch.Generator().manual_seed(seed))
-    params_dev = _params_to(params_cpu, dev)
-    init_s = time.perf_counter() - t0
-    prompts = lm_prompts(cfg, batch, prompt_len, seed)
-    max_len = prompt_len + gen
-    seen = {"cpu": [], "card": []}
-
-    def route_on(where):
-        return lambda p, cfg, x: seen[where].append((p, x, moe_route(p, cfg, x)))
-
-    errs, cache_errs, absorbed_errs, agree = [], [], [], []
-    with torch.no_grad():
-        before = ops.launch_counts()["flash_attention"]
-        with moe_layers_seen(route_on("cpu")):
-            log_c, cache_c = model.prefill(params_cpu, {"tokens": prompts}, max_len)
-        with moe_layers_seen(route_on("card")):
-            log_d, cache_d = model.prefill(params_dev, {"tokens": prompts.to(dev)}, max_len)
-        torch.cuda.synchronize()
-        prefill_launches = ops.launch_counts()["flash_attention"] - before
-        margins = []
-        for i, ((p_c, x_c, r_c), (p_d, _, _)) in enumerate(zip(seen["cpu"], seen["card"])):
-            moe_routing_same(f"lm_mla_parity layer {i}", r_c, moe_route(p_d, cfg, x_c.to(dev)))
-            margins.append(moe_margin(r_c, cfg.top_k))
-        dropped = {where: dropped_share([r for _, _, r in seen[where]]) for where in seen}
-        capacity = r_c.capacity
-        if dropped["cpu"] != dropped["card"]:
-            raise AssertionError(f"lm_mla_parity: dropped shares differ {dropped}")
-        seen = None
-        decode_launches = 0
-        for step in range(gen):
-            errs.append(check_close(f"lm_mla_parity logits, step {step}", log_d, log_c,
-                                    rtol=LM_RTOL, atol=LM_ATOL))
-            cache_errs.append(mla_cache_err(f"lm_mla_parity caches, step {step}",
-                                            cache_d, cache_c))
-            tok = log_c[:, -1].argmax(dim=-1)
-            agree.append(bool((log_d[:, -1].argmax(dim=-1).cpu() == tok).all()))
-            if step == gen - 1:
-                break
-            pos = torch.full((batch, 1), prompt_len + step, dtype=torch.int64)
-            log_c, cache_c = model.decode(
-                params_cpu, {"tokens": tok[:, None], "positions": pos}, cache_c)
-            batch_d = {"tokens": tok[:, None].to(dev), "positions": pos.to(dev)}
-            before = ops.launch_counts()["flash_attention"]
-            # the up-projected decode first: both write this step's latents
-            # at the same slots, and the absorbed one's stay for the next
-            with mla_decode_up_projected():
-                log_u, _ = model.decode(params_dev, batch_d, cache_d)
-            log_d, cache_d = model.decode(params_dev, batch_d, cache_d)
-            decode_launches += ops.launch_counts()["flash_attention"] - before
-            absorbed_errs.append(check_close(
-                f"lm_mla_parity absorbed vs up-projected decode, step {step}", log_d, log_u,
-                rtol=LM_RTOL, atol=LM_ATOL))
-    if (prefill_launches, decode_launches) != (n_layers, 0):
-        raise AssertionError(f"lm_mla_parity: K6 launches (prefill, decode) "
-                             f"{(prefill_launches, decode_launches)}, want ({n_layers}, 0)")
-    del params_dev, cache_d, params_cpu, cache_c
-    torch.cuda.empty_cache()
-    return dict(arch=cfg.name, n_layers=n_layers, prefix_layers=cfg.first_dense_layers,
-                dtype="float32", batch=batch, prompt_len=prompt_len, steps=gen, init_s=init_s,
-                k6_shape=dict(D=cfg.qk_nope_dim + cfg.qk_rope_dim, DV=cfg.v_head_dim),
-                capacity_prefill=capacity,
-                k6_launches_prefill=prefill_launches, k6_launches_decode=decode_launches,
-                max_abs_err_per_step=errs, max_abs_err=max(errs),
-                cache_max_abs_err_per_step=cache_errs,
-                absorbed_vs_up_projected_max_abs_err_per_step=absorbed_errs,
-                logits_scale=float(log_c.abs().max()),
-                routing_same_input_equal=True, min_topk_margin_per_layer=margins,
-                dropped_share=dropped, greedy_tokens_agree=all(agree),
-                tokens_agree_per_step=agree, rtol=LM_RTOL, atol=LM_ATOL)
-
-
 def run_mla_phases(dev, smi, counted, lm_kernels, gen):
     """Phase 7c: deepseek-v2-lite-16b at full width, 2 layers, fp32, card
     against CPU (``lm_mla_parity``); then the full 27-layer model in bf16
@@ -3851,33 +3812,161 @@ def run_mla_phases(dev, smi, counted, lm_kernels, gen):
     q, k, v. ``counted`` is ``main``'s: these launches join the main path's."""
     import torch
 
-    parity, parity_launches = counted(lm_kernels, "the MLA parity run",
-                                      lambda: run_lm_mla_parity(dev))
+    parity, parity_launches = counted(
+        lm_kernels, "the MLA parity run",
+        lambda: run_parity(dev, MOE_DEEPSEEK, MOE_PARITY_LAYERS, LM_PARITY_PROMPT))
     emit(dict(phase="lm_mla_parity", card=smi, launches=parity_launches, **parity))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    lm = LMServe(dev, cfg=moe_config(MOE_DEEPSEEK))
+    lm = LMServe(dev, arch_config(MOE_DEEPSEEK))
     init_peak = torch.cuda.max_memory_allocated()
     serve, launches = counted(lm_kernels, "MLA serving", lambda: run_lm_serve(lm))
     serve.update(init_peak_gb=init_peak / 1e9, **moe_prefill_routing(lm))
     with torch.no_grad():
         prefill = profile_moe(lambda: lm.prefill())
         decode = profile_moe(lm.decode_step())
-        qkv = lm.layer0_qkv()
-    cfg = lm.cfg
+    qkv = lm.first_k6_inputs()
     del lm
     torch.cuda.empty_cache()
-    # K6 on the prefix layer's own q, k, v, once the weights are freed
-    with torch.no_grad():
-        layer0 = check_flash_attention(LM_BATCH, cfg.n_heads, cfg.n_heads, LM_PROMPT, LM_PROMPT,
-                                       cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim,
-                                       "bfloat16", True, gen, qkv=qkv)
+    # K6 on the prefix layer's own q, k, v (192/128), once the weights are freed
+    layer0 = check_k6_on(qkv, gen)
     del qkv
     emit(dict(phase="lm_mla_serve", card=smi, launches=launches, k6_layer0=layer0, **serve))
     emit(dict(phase="profile_lm_mla", call=f"one {MOE_DEEPSEEK} prefill", batch=LM_BATCH,
               prompt_len=LM_PROMPT, card=smi, **prefill))
     emit(dict(phase="profile_lm_mla_decode", call=f"one {MOE_DEEPSEEK} decode step",
               batch=LM_BATCH, cache_len=LM_PROMPT + LM_GEN, card=smi, **decode))
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7d: the vlm image prefix, the Mamba2 LM and the hybrid
+# ---------------------------------------------------------------------------
+
+
+# the profiled hybrid step's parts (``device_ms_by_range``): the SSD scan,
+# the causal conv and the rest of each Mamba2 block (its in- and
+# out-projections apart by kernel name), the shared block, its attention
+HYBRID_PROFILE_LABELS = (
+    ("repro_torch.models.ssm", "ssd_chunked", "ssm.ssd"),
+    ("repro_torch.models.ssm", "_causal_conv", "ssm.conv"),
+    ("repro_torch.models.ssm", "ssm_apply", "ssm"),
+    ("repro_torch.models.hybrid", "_shared_block", "shared"),
+    ("repro_torch.models.attention", "gqa_apply", "attention"),
+    ("repro_torch.models.attention", "gqa_qkv", "attention.qkv"),
+    ("repro_torch.models.attention", "cached_attention", "attention.cached"),
+    ("repro_torch.models.ssm_lm", "logits", "lm_head"),
+)
+
+
+def hybrid_split(ms, gemm):
+    """SSD einsums, conv, the Mamba2 blocks' projections (in and out), the
+    shared block's products (w_concat, q/k/v, wo, MLP), K6, the LM head and
+    the rest (gating, norms, softplus, the decode's recurrent step, the
+    cached attention, residuals)."""
+    shared = ("shared", "attention", "attention.qkv")
+    ssm_proj = gemm.get("ssm", 0.0)
+    shared_gemm = sum(gemm.get(k, 0.0) for k in shared)
+    return dict(ssd_einsums=ms["ssm.ssd"], conv=ms["ssm.conv"], ssm_projections=ssm_proj,
+                shared_block_products=shared_gemm, k6=ms["K6 flash_attention"],
+                lm_head=ms["lm_head"],
+                rest=(ms["ssm"] - ssm_proj) + sum(ms[k] for k in shared) - shared_gemm
+                + ms["attention.cached"] + ms["rest"])
+
+
+def silu_cost(lm):
+    """What the Mamba2 block's SiLU costs against ``F.silu`` in the served
+    model ``lm``. The block's ``_silu`` computes x * 1/(1 + exp(-x)) with
+    each step rounded to the input dtype, as XLA expands ``jax.nn.silu``
+    (``F.silu`` rounds once, and the bf16 block then leaves the reference's
+    bound). Device ms of each on one prefill's two SiLU operands (the conv's
+    output and the gate z), and host-issued ms of one prefill and one
+    decode step with each swapped in, in the order ours, ``F.silu``,
+    ``F.silu``, ours."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import ssm
+
+    ours, cfg = ssm._silu, lm.cfg
+    gen = torch.Generator(device=lm.prompts.device).manual_seed(11)
+    operands = {}
+    for name, width in (("conv", cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state),
+                        ("gate", cfg.d_inner)):
+        x = torch.randn((LM_BATCH, LM_PROMPT, width), generator=gen,
+                        device=lm.prompts.device).to(cfg.tdtype)
+        operands[name] = dict(width=width, ms=time_ms(lambda: ours(x)),
+                              f_silu_ms=time_ms(lambda: F.silu(x)))
+        del x
+    model = {"ours": [], "f_silu": []}
+    for name in ("ours", "f_silu", "f_silu", "ours"):
+        ssm._silu = ours if name == "ours" else F.silu
+        try:
+            with torch.no_grad():
+                model[name].append(dict(prefill_ms=wrapper_ms(lm.prefill, iters=3, warmup=1),
+                                        decode_ms=wrapper_ms(lm.decode_step(), iters=10)))
+        finally:
+            ssm._silu = ours
+    return dict(operands=operands, model=model, blocks=cfg.n_layers)
+
+
+def run_family_phases(dev, smi, counted, lm_kernels, gen):
+    """Phase 7d: internvl2-2b (vlm: 256 image patches before the prompt),
+    mamba2-1.3b (ssm) and zamba2-2.7b (hybrid), each at full width, 2
+    layers (zamba2: 12, two applications of its shared block), fp32, card
+    against CPU (``lm_vlm_parity``, ``lm_ssm_parity`` at a prompt of 128 and
+    a ragged one, ``lm_hybrid_parity``); then each at full width and depth
+    in bf16 through ``generate`` (``lm_vlm_serve``: K6 once per layer;
+    ``lm_ssm_serve``: no K6; ``lm_hybrid_serve``: K6 at D = DV = 80 once
+    per application of the shared block, 9), K6 held against its plain
+    version on the q, k, v a prefill passes its first K6 launch (the
+    hybrid's: the shared block's at its first application), mamba2's SiLU
+    against ``F.silu`` (``silu_cost``), and the hybrid's prefill and decode
+    step profiled (``profile_lm_hybrid``). ``counted`` is ``main``'s: these
+    launches join the main path's."""
+    import torch
+
+    for phase, arch, runs, kernels in (
+            ("lm_vlm_parity", VLM_ARCH, [(2, LM_PARITY_PROMPT)], lm_kernels),
+            ("lm_ssm_parity", SSM_ARCH, [(2, LM_PARITY_PROMPT), (2, SSM_RAGGED_PROMPT)], ()),
+            ("lm_hybrid_parity", HYBRID_ARCH, [(HYBRID_PARITY_LAYERS, LM_PARITY_PROMPT)],
+             lm_kernels)):
+        for n_layers, prompt_len in runs:
+            rec, launches = counted(kernels, f"the {arch} parity run",
+                                    lambda: run_parity(dev, arch, n_layers, prompt_len))
+            emit(dict(phase=phase, card=smi, launches=launches, **rec))
+        torch.cuda.empty_cache()
+
+    for phase, arch, kernels in (("lm_vlm_serve", VLM_ARCH, lm_kernels),
+                                 ("lm_ssm_serve", SSM_ARCH, ()),
+                                 ("lm_hybrid_serve", HYBRID_ARCH, lm_kernels)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm = LMServe(dev, arch_config(arch))
+        init_peak = torch.cuda.max_memory_allocated()
+        serve, launches = counted(kernels, f"{arch} serving", lambda: run_lm_serve(lm))
+        serve.update(init_peak_gb=init_peak / 1e9)
+        profiles = {}
+        if arch == HYBRID_ARCH:
+            with torch.no_grad():
+                profiles = dict(prefill=profile_split(lambda: lm.prefill(),
+                                                      HYBRID_PROFILE_LABELS, hybrid_split),
+                                decode=profile_split(lm.decode_step(),
+                                                     HYBRID_PROFILE_LABELS, hybrid_split))
+        if arch == SSM_ARCH:
+            serve["silu_cost"] = silu_cost(lm)
+        qkv = lm.first_k6_inputs() if k6_per_prefill(lm.cfg) else None
+        del lm
+        torch.cuda.empty_cache()
+        if qkv is not None:
+            # K6 on the first attention's own q, k, v, once the weights are freed
+            serve["k6_layer0"] = check_k6_on(qkv, gen)
+            del qkv
+        emit(dict(phase=phase, card=smi, launches=launches, **serve))
+        for part, prof in profiles.items():
+            emit(dict(phase="profile_lm_hybrid", part=part,
+                      call=f"one {HYBRID_ARCH} {'prefill' if part == 'prefill' else 'decode step'}",
+                      batch=LM_BATCH, prompt_len=LM_PROMPT, card=smi, **prof))
     torch.cuda.empty_cache()
 
 
@@ -4288,13 +4377,13 @@ def main() -> int:
     # generate, K6 held against its plain version on layer 0's own q, k, v,
     # and one profiled prefill
     lm_kernels = ("flash_attention",)
-    parity, parity_launches = counted(lm_kernels, "the LM parity run",
-                                      lambda: run_lm_parity(dev))
+    parity, parity_launches = counted(
+        lm_kernels, "the LM parity run",
+        lambda: run_parity(dev, LM_ARCH, LM_PARITY_LAYERS, LM_PARITY_PROMPT))
     emit(dict(phase="lm_parity", card=smi, launches=parity_launches, **parity))
-    lm = LMServe(dev)
+    lm = LMServe(dev, arch_config(LM_ARCH))
     serve_lm, lm_launches = counted(lm_kernels, "LM serving", lambda: run_lm_serve(lm))
-    with torch.no_grad():
-        layer0 = check_flash_attention(*k6_shapes()[0], gen, qkv=lm.layer0_qkv())
+    layer0 = check_k6_on(lm.first_k6_inputs(), gen)
     emit(dict(phase="lm_serve", card=smi, launches=lm_launches, k6_layer0=layer0,
               **serve_lm))
     with torch.no_grad():
@@ -4311,6 +4400,9 @@ def main() -> int:
     run_moe_phases(dev, smi, counted, lm_kernels, gen)
     torch.cuda.empty_cache()
     run_mla_phases(dev, smi, counted, lm_kernels, gen)
+    # phase 7d: the vlm image prefix, the Mamba2 LM and the hybrid
+    torch.cuda.empty_cache()
+    run_family_phases(dev, smi, counted, lm_kernels, gen)
 
     # phase 8: summary, one entry per ported kernel and stream dtype.
     # Launches: the main-path phases 3 to 7. Times at the first listed shape

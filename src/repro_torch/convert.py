@@ -128,27 +128,43 @@ def _map(tree, fn):
     return fn(tree)
 
 
+# the reference's stacked subtrees, by key: how many leading axes each
+# stacks (the transformer's and ssm_lm's ``layers``: (L, ...); the hybrid's
+# ``mamba``: (G, K, ...)); the port keeps one dict per block, in nested lists
+_STACKED = {"layers": 1, "mamba": 2}
+
+
+def _unstack(tree, axes, dev):
+    if axes == 0:
+        return _map(tree, lambda a: _tensor_from_numpy(a, dev))
+    n = len(next(iter(_leaves(tree))))
+    return [_unstack(_map(tree, lambda a, i=i: a[i]), axes - 1, dev) for i in range(n)]
+
+
+def _restack(parts, axes):
+    if axes == 0:
+        return _map(parts, _tensor_to_numpy)
+    return _stack([_restack(p, axes - 1) for p in parts])
+
+
 def lm_params_from_numpy(tree, device=None):
-    """The port's LM params from a numpy-leaved JAX ``lm_init`` tree, on
-    ``device``: ``tree["layers"]``'s stacked leaves (MoE experts too:
-    (L, E, ...)) become one dict per layer; ``prefix_layers``, a list of
-    per-layer dicts in both packages, keeps its layout."""
+    """The port's LM params from a numpy-leaved JAX LM tree (``lm_init``,
+    ``ssm_lm_init`` or ``hybrid_init``), on ``device``: ``tree["layers"]``'s
+    stacked leaves (MoE experts too: (L, E, ...)) become a list of one dict
+    per layer, the hybrid's ``mamba`` (G, K, ...) a list of G lists of K;
+    ``prefix_layers``, a list of per-layer dicts in both packages, and the
+    hybrid's ``shared`` block keep their layout."""
     dev = resolve_device(device)
-    stacked = tree["layers"]
-    n_layers = len(next(iter(_leaves(stacked))))
-    out = {k: _map(v, lambda a: _tensor_from_numpy(a, dev))
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_map(stacked, lambda a, i=i: _tensor_from_numpy(a[i], dev))
-                     for i in range(n_layers)]
-    return out
+    return {k: (_unstack(v, _STACKED[k], dev) if k in _STACKED
+                else _map(v, lambda a: _tensor_from_numpy(a, dev)))
+            for k, v in tree.items()}
 
 
 def lm_params_to_numpy(params):
-    """The JAX-shaped tree of numpy arrays: per-layer leaves stacked on (L, ...)."""
-    out = {k: _map(v, _tensor_to_numpy) for k, v in params.items() if k != "layers"}
-    layers = [_map(layer, _tensor_to_numpy) for layer in params["layers"]]
-    out["layers"] = _stack(layers)
-    return out
+    """The JAX-shaped tree of numpy arrays: per-block leaves stacked again on
+    (L, ...) or (G, K, ...)."""
+    return {k: (_restack(v, _STACKED[k]) if k in _STACKED else _map(v, _tensor_to_numpy))
+            for k, v in params.items()}
 
 
 def _leaves(tree):

@@ -31,8 +31,9 @@
 // masked in the kernel, so nothing is padded. Under the causal mask the
 // block stops after the last key tile its last row can see (the skipped
 // tiles would add exactly nothing), and tiles are issued longest first.
-// * bf16, flash_tc_bf16<D, DV> at (D, DV) = (64, 64), (128, 128) and (192,
-//   128): 128 query rows per block, 128-key tiles, three warpgroups. The
+// * bf16, flash_tc_bf16<D, DV, HD> at (D, DV) = (64, 64), (128, 128) and
+//   (192, 128), and at head dim 80 on the (128, 128) tile (below): 128 query
+//   rows per block, 128-key tiles, three warpgroups. The
 //   producer warpgroup gives up registers (setmaxnreg) and one of its
 //   threads issues TMA loads: Q once, then K
 //   and V tiles into a 2-stage ring guarded by full/empty mbarriers. The
@@ -55,6 +56,19 @@
 //   and spills (the __launch_bounds__ ceiling; setmaxnreg then moves them
 //   to 40 for the producer and 232 for the consumers). D = 192 adds k-steps
 //   to S = Q . K^T, not registers: acc stays DV / 2 = 64 floats.
+// * bf16 at D = DV = 80 (zamba2-2.7b: d_model 2560 over 32 heads),
+//   flash_tc_bf16<128, 128, 80>: 80 is not a multiple of the 64-element box,
+//   and the 128-byte swizzle caps a box row at 64 bf16, so the 128-wide tile
+//   runs over tensors whose rows are 80 wide. The tensor maps take dims[0] =
+//   80 and a row stride of 160 bytes (a multiple of 16, as TMA requires);
+//   TMA zero-fills columns 80-127 of each tile's second box, and a
+//   transaction still counts the whole box. Q . K^T over the zero columns is
+//   exact; V's zero columns give zero output columns, which the epilogue
+//   skips, storing rows 80 wide. The scale is the caller's (1/sqrt(80)), not
+//   the tile width's. It wastes 48/128 of the MMA work and of the tile
+//   bytes; an exact 80-wide tile (a 64-element box under the 128-byte swizzle
+//   beside a 16-element box under the 32-byte one, two descriptor layouts)
+//   would not, for more code than this slice needs.
 // * fp32 (D <= 192, DV <= min(D, 128)), flash_simt_f32<DMAX>: 4 warps x 4
 //   query rows, 32-key tiles; lane j scores key j against the warp's rows
 //   (the K tile padded to DMAX + 1 floats a row), the row max and sum go
@@ -265,12 +279,16 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// HD: the head dim of q, k and v in memory where it is narrower than the
+// tile (D = DV = 128 over rows of HD = 80, zero-filled by TMA past HD); 0
+// where the tensors are D and DV wide. o's rows are HD (else DV) wide.
+//
 // Accumulator layout of wgmma m64nN (fp32), for thread t of a warpgroup
 // with w = t / 32, g = (t % 32) / 4, t4 = t % 4: d[4 i + 2 hr + e] holds row
 // 16 w + g + 8 hr, column 8 i + 2 t4 + e. The register-A fragment of
 // m64k16 for k-step kk is {P(g, 16kk + 2t4..), P(g + 8, ..), P(g, 16kk + 8
 // + 2t4..), P(g + 8, ..)}: chunks 2kk and 2kk + 1 of the score accumulators.
-template <int D, int DV>
+template <int D, int DV, int HD = 0>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_tc_bf16(const __grid_constant__ CUtensorMap q_map,
               const __grid_constant__ CUtensorMap k_map,
@@ -278,6 +296,10 @@ flash_tc_bf16(const __grid_constant__ CUtensorMap q_map,
               __nv_bfloat16* __restrict__ o, int hq, int hkv, int tq, int tk,
               float scale_log2, int causal) {
     using L = TcSmem<D, DV>;
+    static_assert(HD == 0 || (D == DV && DV - BOX < HD && HD < DV && HD % 8 == 0),
+                  "K6 bf16 pads a head dim HD only within the last box of a D = DV tile, "
+                  "over rows of a multiple of 16 bytes");
+    constexpr int O_DV = HD ? HD : DV;        // o's row width
     constexpr int BOXES = D / BOX;             // 64-element boxes per Q or K tile row
     constexpr int V_BOXES = DV / BOX;          // and per V tile row
     extern __shared__ uint8_t smem_raw[];
@@ -444,9 +466,10 @@ flash_tc_bf16(const __grid_constant__ CUtensorMap q_map,
             const int row = row0 + hr * 8;
             if (row >= tq) continue;
             const float denom = fmaxf(l[hr], 1e-30f);
-            __nv_bfloat16* orow = o + (static_cast<long>(bh) * tq + row) * DV + t4 * 2;
+            __nv_bfloat16* orow = o + (static_cast<long>(bh) * tq + row) * O_DV + t4 * 2;
 #pragma unroll
             for (int i = 0; i < DV / 8; ++i) {
+                if (O_DV < DV && i * 8 + t4 * 2 >= O_DV) continue;   // a zero column
                 *reinterpret_cast<uint32_t*>(orow + i * 8) =
                     pack_f32(acc[4 * i + 2 * hr] / denom, acc[4 * i + 2 * hr + 1] / denom);
             }
@@ -651,7 +674,7 @@ EncodeTiled tensor_map_encoder() {
 }
 
 // a (D, T, heads) bf16 tensor, boxes of 64 x 128 x 1, 128-byte swizzle; reads
-// past T (per head) fill with zeros
+// past T (per head), or past D in a box that starts below it, fill with zeros
 bool tile_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d, int t, int heads) {
     const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
                                 static_cast<cuuint64_t>(heads)};
@@ -665,22 +688,24 @@ bool tile_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d, int 
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int DV>
+template <int D, int DV, int HD = 0>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int batch, int hq,
               int hkv, int tq, int tk, int causal, float scale, cudaStream_t stream) {
     static repro::SmemOptIn opt_in;          // per device (common.cuh)
     constexpr int smem = TcSmem<D, DV>::BYTES;
-    cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(flash_tc_bf16<D, DV>), smem);
+    constexpr int QK_W = HD ? HD : D, V_W = HD ? HD : DV;     // the rows in memory
+    cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(flash_tc_bf16<D, DV, HD>), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     EncodeTiled encode = tensor_map_encoder();
     if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
     CUtensorMap qm, km, vm;
-    if (!tile_map(encode, &qm, q, D, tq, batch * hq) || !tile_map(encode, &km, k, D, tk, batch * hkv)
-        || !tile_map(encode, &vm, v, DV, tk, batch * hkv))
+    if (!tile_map(encode, &qm, q, QK_W, tq, batch * hq)
+        || !tile_map(encode, &km, k, QK_W, tk, batch * hkv)
+        || !tile_map(encode, &vm, v, V_W, tk, batch * hkv))
         return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(batch * hq, (tq + TC_BQ - 1) / TC_BQ);
     const float scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
-    flash_tc_bf16<D, DV><<<grid, TC_THREADS, smem, stream>>>(
+    flash_tc_bf16<D, DV, HD><<<grid, TC_THREADS, smem, stream>>>(
         qm, km, vm, static_cast<__nv_bfloat16*>(o), hq, hkv, tq, tk, scale_log2, causal);
     return static_cast<int>(cudaGetLastError());
 }
@@ -698,6 +723,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
         return launch_tc<64, 64>(q, k, v, o, batch, hq, hkv, tq, tk, causal, scale, s);
     if (d == 192 && dv == 128)
         return launch_tc<192, 128>(q, k, v, o, batch, hq, hkv, tq, tk, causal, scale, s);
+    if (d == 80 && dv == 80)
+        return launch_tc<128, 128, 80>(q, k, v, o, batch, hq, hkv, tq, tk, causal, scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

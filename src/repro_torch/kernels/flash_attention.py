@@ -10,7 +10,8 @@ itself (the TPU's sequential grid axis becomes a loop in the block). bf16
 is warp-specialised: a producer warpgroup feeds Q and a ring of K/V tiles
 by TMA, two consumer warpgroups run both products as ``wgmma``; fp32 runs
 on the CUDA cores. The kernel masks ragged Tq and Tk itself, so nothing is
-padded. See the source for the design and the bound. The plain version is
+padded; a bf16 head dim of 80 (zamba2) runs the 128-wide tile over rows of
+80, the tile's columns past 80 zero-filled by TMA. See the source for the design and the bound. The plain version is
 :func:`~repro_torch.kernels.ref.attention_ref`, which
 :func:`repro_torch.kernels.ops.flash_attention` takes for CPU tensors.
 """
@@ -24,7 +25,9 @@ from repro_torch.kernels import build
 MMA_BQ = 128                     # query rows per block, bf16 (tensor cores)
 SIMT_BQ = 16                     # query rows per block, fp32
 SIMT_MAX_D, SIMT_MAX_DV = 192, 128
-MMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # the (D, DV) of flash_tc_bf16
+# the (D, DV) of flash_tc_bf16; (80, 80) runs the (128, 128) tile, TMA
+# zero-filling the columns past 80
+MMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (80, 80))
 _MAX_GRID_Y = 65535
 
 # launches since the last reset (kernels.ops.reset_launch_counts)

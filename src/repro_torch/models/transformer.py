@@ -1,7 +1,7 @@
-"""Decoder-only transformer assembly, dense and MoE families.
+"""Decoder-only transformer assembly: the dense, MoE and vlm families.
 
 The port of the JAX package's ``models/transformer.py`` for ``family`` in
-``("dense", "moe")``: ``lm_init``, the pre-norm residual block (a SwiGLU
+``("dense", "moe", "vlm")``: ``lm_init``, the pre-norm residual block (a SwiGLU
 MLP, or :func:`repro_torch.models.moe.moe_apply` in a MoE layer), and the
 serving entry points ``lm_make_caches``, ``lm_prefill`` (build KV caches +
 last-position logits) and ``lm_decode`` (single-token step). A Python loop
@@ -17,8 +17,12 @@ Caches are ``{"layers": [KVCache, ...]}`` (``MLACache`` under MLA; plus
 ``"prefix"``), one per layer. The activation-sharding ``constrain`` is the
 identity on one device and is not ported.
 
-The vlm image prefix and ``lm_loss`` (which adds 0.01 x the summed MoE aux
-loss) wait for their slices (``ROADMAP.md``).
+A vlm prefill takes ``batch["image_embeds"]`` (B, n_patches, d_model), cast
+to the model dtype and put in front of the token embeddings before the
+layers (the stubbed vision frontend's patch embeddings), so its positions
+and caches start with the patches; its decode is the dense one. ``lm_loss``
+(which adds 0.01 x the summed MoE aux loss, and masks the image positions
+of a vlm batch) waits for LM training (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -163,9 +167,11 @@ def lm_make_caches(cfg: ArchConfig, batch_size: int, max_len: int, dtype, device
 
 
 def lm_prefill(cfg: ArchConfig, params, batch, *, max_len: int):
-    """Returns (last-token logits (B, 1, V), caches)."""
-    tokens = batch["tokens"]
-    h = _embed_h(cfg, params, tokens)
+    """Returns (last-token logits (B, 1, V), caches). A vlm batch also holds
+    ``image_embeds``; ``max_len`` then counts the patches too."""
+    h = _embed_h(cfg, params, batch["tokens"])
+    if cfg.family == "vlm":
+        h = torch.cat([batch["image_embeds"].to(cfg.tdtype), h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, caches = _run_all(cfg, params, h, positions, cache_max_len=max_len)
     return _logits(cfg, params, h[:, -1:, :]), caches

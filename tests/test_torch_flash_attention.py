@@ -7,7 +7,9 @@ the CPU) and the JAX oracle ``repro.kernels.ref.attention_ref``, on the same
 numpy inputs. The CUDA kernel itself is held against the plain version on
 the card (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
 
-MLA's shape, a v narrower than q and k ((D, DV) = (24, 16) and (192, 128)),
+zamba2's head dim 80 (D = DV = 80, not a multiple of the bf16 kernel's
+64-element TMA box) is held against both in fp32 and bf16. MLA's shape, a
+v narrower than q and k ((D, DV) = (24, 16) and (192, 128)),
 is held against the JAX ``chunked_attention`` with ``use_pallas=False``:
 the JAX kernel takes only DV = D (ROADMAP F4).
 
@@ -70,6 +72,31 @@ def test_bf16_matches_jax_kernel_and_oracle():
     oracle = np.asarray(jref.attention_ref(jq, jk, jv, causal=True).astype(jnp.float32))
     np.testing.assert_allclose(got, kern, rtol=0, atol=2e-2)
     np.testing.assert_allclose(got, oracle, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_80_matches_jax_kernel_and_oracle(causal):
+    """zamba2's shared attention block: D = DV = 80 (d_model 2560 over 32
+    heads), MHA, at its scale 1/sqrt(80), across a 32-row query chunk of the
+    model's CPU path: the plain K6 through ``ops`` and ``chunked_attention``
+    against the JAX kernel in interpret mode and its oracle; then in bf16."""
+    from repro_torch.models.attention import chunked_attention
+
+    tq, tk = (70, 70) if causal else (70, 90)
+    qkv = _qkv(2, 4, 4, tq, tk, 80, seed=80 + causal)
+    jq, jk, jv = (jnp.asarray(a) for a in qkv)
+    kern = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal))
+    oracle = np.asarray(jref.attention_ref(jq, jk, jv, causal=causal))
+    got = _port(qkv, causal, scale=80 ** -0.5)
+    np.testing.assert_allclose(got, kern, **TOL)
+    np.testing.assert_allclose(got, oracle, **TOL)
+    chunked = chunked_attention(*(torch.from_numpy(a) for a in qkv), causal=causal,
+                                scale=80 ** -0.5, q_chunk=32)
+    np.testing.assert_allclose(chunked.numpy(), kern, **TOL)
+    got16 = _port(qkv, causal, torch.bfloat16, scale=80 ** -0.5)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in qkv)
+    kern16 = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal).astype(jnp.float32))
+    np.testing.assert_allclose(got16, kern16, rtol=0, atol=2e-2)
 
 
 @pytest.mark.parametrize("tq,tk,causal", [(48, 80, True), (20, 20, False)])

@@ -359,6 +359,30 @@ def test_flash_attention_mla_head_dims_across_tile_edges_on_card(card, tq, tk, c
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("tq,tk,causal", _TILE_EDGES)
+def test_flash_attention_head_dim_80_across_tile_edges_on_card(card, tq, tk, causal, group,
+                                                               dtype):
+    """zamba2's head dim, D = DV = 80, at the model's scale 1/sqrt(80). bf16:
+    the 128-wide tile, TMA zero-filling the columns past 80, o stored in
+    rows of 80 (a store past a row would land in the next one). fp32: the
+    SIMT kernel's static 128-wide tiles with D = DV = 80 at run time, as the
+    hybrid's fp32 parity prefill runs it."""
+    hkv = 2
+    q, k, v = _attn_inputs(1, hkv * group, hkv, tq, tk, 80, dtype,
+                           seed=tq * 5 + tk + group, dev=card)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal, scale=80 ** -0.5)
+    ops.reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, causal=causal, scale=80 ** -0.5)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_attention_bf16_takes_the_models_scale_on_card(card, d):
     # granite's 2**-7, which the bf16 kernel folds into its exp2 with log2(e)
@@ -433,9 +457,10 @@ def test_flash_attention_refuses_what_it_does_not_take_on_card(card):
     q, k, v = _attn_inputs(1, 4, 2, 8, 8, 32, torch.bfloat16, seed=3, dev=card)
     with pytest.raises(ValueError, match=r"bf16 head dims \(D, DV\) = \(32, 32\)"):
         flash_attention.flash_attention(q, k, v, causal=True)
-    # (D, DV) pairs no instantiation takes: bf16 (128, 64) and (192, 192);
-    # fp32 DV past D or past 128, and D past 192
+    # (D, DV) pairs no instantiation takes: bf16 (128, 64), (192, 192), (80,
+    # 64) and (96, 96); fp32 DV past D or past 128, and D past 192
     for d, dv, dtype in ((128, 64, torch.bfloat16), (192, 192, torch.bfloat16),
+                         (80, 64, torch.bfloat16), (96, 96, torch.bfloat16),
                          (64, 128, torch.float32), (192, 160, torch.float32),
                          (256, 128, torch.float32)):
         q, k, v = _attn_inputs(1, 4, 2, 8, 8, d, dtype, seed=3, dev=card, dv=dv)
@@ -449,6 +474,8 @@ def test_flash_attention_refuses_what_it_does_not_take_on_card(card):
     # the C entry points refuse such a pair too, past the wrapper's check
     lib = build.library()
     for entry, dtype, (d, dv) in (("flash_attention_bf16", torch.bfloat16, (128, 64)),
+                                  ("flash_attention_bf16", torch.bfloat16, (96, 96)),
+                                  ("flash_attention_bf16", torch.bfloat16, (80, 64)),
                                   ("flash_attention_f32", torch.float32, (64, 128))):
         q, k, v = _attn_inputs(1, 4, 2, 8, 8, d, dtype, seed=3, dev=card, dv=dv)
         o = q.new_empty((1, 4, 8, dv))
