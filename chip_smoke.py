@@ -45,7 +45,21 @@ bf16 through the serve launcher (``lm_vlm_serve``: K6 once per layer;
 ``F.silu``; ``lm_hybrid_serve``: K6 at head dim 80 once per application of
 the shared block), and one profiled hybrid prefill and
 decode step split into the SSD einsums, the conv, the projections, K6 and
-the rest (``profile_lm_hybrid``). Between the fp32 serving phases and training, the
+the rest (``profile_lm_hybrid``); then the encoder-decoder: whisper-base at
+full width and depth (6 + 6 layers) in fp32 on the card against the CPU
+and float64, logits and every cache with the encoder's memory, K6 18 times
+a prefill and 6 a decode step (``lm_encdec_parity``), in bf16 through the
+serve launcher with 1,500 synthetic frames (``lm_encdec_serve``: K6 held
+against its plain version on the first launch of each of its four uses,
+the tanh GELU's cost against ``F.gelu``) and one profiled prefill and
+decode step split into the encoder, the decoder's self-attention, the
+cross-attention, the MLPs and K6 (``profile_lm_encdec``); last,
+granite-3-2b, chatglm3-6b and qwen2.5-14b at full width and 2 layers in
+fp32 against the CPU and float64 (``lm_dense_parity``) and at full width
+and depth in bf16 (``lm_dense_serve``: K6 on the first layer's own q, k, v
+at the model's scale). Every phase line carries the script's wall seconds
+so far (``wall_s``); ``done`` closes the phases. Between the fp32 serving
+phases and training, the
 same forecast and server run under the bf16 policy (``precision="bf16"``:
 K1 with a bf16 y, K3 in bf16 on the tensor cores; phases ``forecast_bf16``, ``profile_bf16``
 and ``serve_bf16``), against the CPU and the card's fp32 forecast. After
@@ -320,6 +334,18 @@ MOE_PARITY_LAYERS = 2
 VLM_ARCH, SSM_ARCH, HYBRID_ARCH = "internvl2-2b", "mamba2-1.3b", "zamba2-2.7b"
 HYBRID_PARITY_LAYERS = 12
 SSM_RAGGED_PROMPT = 200
+# the encdec cells: whisper-base (6 + 6 layers, d 512, MHA 8 x 64, 1,500
+# synthetic frames: the conv stub's output) served at full width and depth
+# in bf16 with the LM serve cell's batch, prompt and tokens; its parity cell
+# at full width and full depth (the model is small), fp32, with LM parity's
+# batch, prompt and steps
+ENCDEC_ARCH = "whisper-base"
+# the dense presets not served before: granite-3-2b (D 64 at scale 2**-7,
+# its multipliers), chatglm3-6b (2 KV heads for 32, half-dim RoPE) and
+# qwen2.5-14b (48 x 5,120, qkv biases, 29.5 GB in bf16); parity at full
+# width, 2 layers, fp32, serving at full width and depth in bf16, both with
+# the LM cells' batch, prompt and tokens
+DENSE_PRESETS = ("granite-3-2b", "chatglm3-6b", "qwen2.5-14b")
 
 # phase analyze: the CLI's audits at full width, by part: (name, spec, --set)
 ANALYZE_RUNS = (("lstm", "esrnn-quarterly", ()), ("bf16", "esrnn-quarterly", ("precision=bf16",)),
@@ -335,7 +361,14 @@ FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's wall seconds
+    so far (``wall_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, wall_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -919,7 +952,14 @@ def k6_shapes():
     head dim 80 (one shared-block application of its serve prefill, ragged,
     non-causal; in fp32 one application of its parity prefill, and a ragged
     non-causal 300 x 500), and one layer of the internvl2-2b serve prefill
-    (2,048 prompt positions after 256 image patches)."""
+    (2,048 prompt positions after 256 image patches); then whisper-base's
+    four uses at D = DV = 64 in its serve cell (bf16: the encoder's
+    non-causal 1,500 x 1,500, the decoder's causal prompt, the
+    cross-attention from the prompt and from one decode position over the
+    1,500 frames) and its parity cell (fp32, batch 2, prompt 128); then one
+    layer of each dense preset's serve prefill (granite-3-2b at D 64 and its
+    scale 2**-7, the tuple's tenth entry; chatglm3-6b's 2 KV heads;
+    qwen2.5-14b's 40 / 8)."""
     return [
         (LM_BATCH, 32, 4, LM_PROMPT, LM_PROMPT, 128, 128, "bfloat16", True),
         (2, 32, 4, LM_PROMPT, LM_PROMPT, 128, 128, "float32", True),
@@ -937,6 +977,17 @@ def k6_shapes():
         (LM_PARITY_BATCH, 32, 32, LM_PARITY_PROMPT, LM_PARITY_PROMPT, 80, 80, "float32", True),
         (2, 32, 32, 300, 500, 80, 80, "float32", False),
         (LM_BATCH, 16, 8, LM_PROMPT + 256, LM_PROMPT + 256, 128, 128, "bfloat16", True),
+        (LM_BATCH, 8, 8, 1500, 1500, 64, 64, "bfloat16", False),
+        (LM_BATCH, 8, 8, LM_PROMPT, LM_PROMPT, 64, 64, "bfloat16", True),
+        (LM_BATCH, 8, 8, LM_PROMPT, 1500, 64, 64, "bfloat16", False),
+        (LM_BATCH, 8, 8, 1, 1500, 64, 64, "bfloat16", False),
+        (LM_PARITY_BATCH, 8, 8, 1500, 1500, 64, 64, "float32", False),
+        (LM_PARITY_BATCH, 8, 8, LM_PARITY_PROMPT, LM_PARITY_PROMPT, 64, 64, "float32", True),
+        (LM_PARITY_BATCH, 8, 8, LM_PARITY_PROMPT, 1500, 64, 64, "float32", False),
+        (LM_PARITY_BATCH, 8, 8, 1, 1500, 64, 64, "float32", False),
+        (LM_BATCH, 32, 8, LM_PROMPT, LM_PROMPT, 64, 64, "bfloat16", True, 2.0 ** -7),
+        (LM_BATCH, 32, 2, LM_PROMPT, LM_PROMPT, 128, 128, "bfloat16", True),
+        (LM_BATCH, 40, 8, LM_PROMPT, LM_PROMPT, 128, 128, "bfloat16", True),
     ]
 
 
@@ -970,11 +1021,13 @@ def device_kernel_names(call):
     return [name[:90] for name, _ in sorted(by_name.items(), key=lambda kv: -kv[1])]
 
 
-def check_flash_attention(b, hq, hkv, tq, tk, d, dv, dtype_name, causal, gen, qkv=None):
-    """K6 against its plain version on the card; SDPA (timed only) as the
-    library yardstick, with an explicit end-aligned mask where Tq != Tk
-    (its ``is_causal`` aligns the starts). Where DV != D, the record names
-    the kernels SDPA ran (``library_kernels``: which backend it picked)."""
+def check_flash_attention(gen, b, hq, hkv, tq, tk, d, dv, dtype_name, causal, scale=None,
+                          qkv=None):
+    """K6 against its plain version on the card at ``scale`` (None: 1/sqrt(D));
+    SDPA (timed only) as the library yardstick, with an explicit end-aligned
+    mask where Tq != Tk under the causal mask (its ``is_causal`` aligns the
+    starts). Where DV != D, the record names the kernels SDPA ran
+    (``library_kernels``: which backend it picked)."""
     import torch
     import torch.nn.functional as F
 
@@ -986,17 +1039,18 @@ def check_flash_attention(b, hq, hkv, tq, tk, d, dv, dtype_name, causal, gen, qk
         qkv = [torch.randn(shape, generator=gen).to(dev, dtype)
                for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, dv))]
     q, k, v = qkv
-    kernel = lambda: flash_attention.flash_attention(q, k, v, causal=causal)
-    plain = lambda: ref.attention_ref(q, k, v, causal=causal)
+    kernel = lambda: flash_attention.flash_attention(q, k, v, causal=causal, scale=scale)
+    plain = lambda: ref.attention_ref(q, k, v, causal=causal, scale=scale)
     mask = None
     if causal and tq != tk:
         mask = (torch.arange(tk, device=dev)[None, :]
                 <= torch.arange(tq, device=dev)[:, None] + (tk - tq))
     library = lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
+        enable_gqa=True)
     got = kernel()
     torch.cuda.synchronize()
-    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal, scale=scale)
     tol = K6_F32_TOL if dtype == torch.float32 else K6_BF16_TOL
     err = check_close(f"flash_attention {tuple(q.shape)} x {tuple(k.shape)}", got, want,
                       rtol=tol, atol=tol)
@@ -1011,20 +1065,22 @@ def check_flash_attention(b, hq, hkv, tq, tk, d, dv, dtype_name, causal, gen, qk
     return dict(name="flash_attention",
                 kernel="flash_tc_bf16" if dtype == torch.bfloat16 else "flash_simt_f32",
                 shape=dict(B=b, Hq=hq, Hkv=hkv, Tq=tq, Tk=tk, D=d, DV=dv, causal=causal),
-                dtype=dtype_name, max_abs_err=err, tol=tol, ms=ms, wrapper_ms=host_ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                scale=d ** -0.5 if scale is None else scale, dtype=dtype_name,
+                max_abs_err=err, tol=tol, ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, tflops=n_flops / ms / 1e9, **sdpa)
 
 
-def check_k6_on(qkv, gen):
-    """``check_flash_attention`` on a causal prefill's own q, k, v."""
+def check_k6_on(launch, gen):
+    """``check_flash_attention`` on one launch a model made: its own q, k, v,
+    causal flag and scale (``LMServe.k6_launches``)."""
     import torch
 
-    q, k, v = qkv
+    q, k, v, causal, scale = launch
     (b, hq, tq, d), (hkv, tk), dv = q.shape, k.shape[1:3], v.shape[3]
     with torch.no_grad():
-        return check_flash_attention(b, hq, hkv, tq, tk, d, dv, str(q.dtype).split(".")[-1],
-                                     True, gen, qkv=qkv)
+        return check_flash_attention(gen, b, hq, hkv, tq, tk, d, dv,
+                                     str(q.dtype).split(".")[-1], causal, scale, qkv=(q, k, v))
 
 
 # ---------------------------------------------------------------------------
@@ -3250,8 +3306,10 @@ def _params_to(params, dev):
 def cache_err(what, dev_caches, cpu_caches) -> float:
     """The largest difference between two devices' caches, walked leaf by
     leaf (dicts, lists of per-layer caches, each a ``KVCache``, an
-    ``MLACache`` or an ``SSMCache``), within the LM bounds; cache lengths
-    equal."""
+    ``MLACache`` or an ``SSMCache``, and bare tensors such as an encdec
+    model's ``memory``), within the LM bounds; cache lengths equal."""
+    if not hasattr(cpu_caches, "_fields") and not isinstance(cpu_caches, (dict, list)):
+        return check_close(what, dev_caches, cpu_caches, rtol=LM_RTOL, atol=LM_ATOL)
     if isinstance(cpu_caches, dict):
         return max(cache_err(f"{what} {k}", dev_caches[k], c) for k, c in cpu_caches.items())
     if isinstance(cpu_caches, list):
@@ -3272,9 +3330,18 @@ def cache_err(what, dev_caches, cpu_caches) -> float:
 
 def k6_per_prefill(cfg) -> int:
     """K6 launches a prefill makes: one per attention layer, one per
-    application of a hybrid's shared block, none in an ssm model."""
-    return {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(
+    application of a hybrid's shared block, none in an ssm model; an encdec
+    model one per encoder layer and two per decoder layer (self and cross)."""
+    return {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+            "encdec": (cfg.n_enc_layers or cfg.n_layers) + 2 * cfg.n_layers}.get(
         cfg.family, cfg.n_layers)
+
+
+def k6_per_decode_step(cfg) -> int:
+    """K6 launches a decode step makes: an encdec model's cross-attention,
+    one per decoder layer; none in any other family (its decode attends
+    through ``cached_attention``, a plain einsum)."""
+    return cfg.n_layers if cfg.family == "encdec" else 0
 
 
 def run_parity(dev, arch, n_layers, prompt_len, batch=LM_PARITY_BATCH, gen=LM_PARITY_GEN,
@@ -3286,10 +3353,14 @@ def run_parity(dev, arch, n_layers, prompt_len, batch=LM_PARITY_BATCH, gen=LM_PA
     step's logits and caches. Both decode the CPU's greedy tokens, so a
     near-tie that flips one token on one device cannot derail the
     comparison; whether the card's own greedy tokens agree is reported. K6
-    launches asserted: one per attention layer or shared-block application
-    in the prefill, none in decode. By family: a dense model's prefill is
-    also held, on both devices, against one with float64 weights and
-    products (norms, RoPE and softmax stay fp32, as the model casts); each
+    launches asserted: ``k6_per_prefill`` in the prefill (one per attention
+    layer or shared-block application; an encdec model's encoder layers,
+    decoder self- and cross-attentions) and ``k6_per_decode_step`` in each
+    decode step (an encdec model's cross-attentions, else none). By family:
+    a dense or encdec model's prefill is also held, on both devices, against
+    one with float64 weights and products (norms, RoPE, softmax and the
+    sinusoids stay fp32, as the model casts); an encdec model's caches
+    include its encoder ``memory``; each
     MoE layer's routing is held equal on the same input (``parity_routing``);
     under MLA the card's absorbed decode is held against its up-projected
     one (``absorbed_decode=False``) on the same cache at every step."""
@@ -3306,17 +3377,17 @@ def run_parity(dev, arch, n_layers, prompt_len, batch=LM_PARITY_BATCH, gen=LM_PA
     params_cpu = model.init(torch.Generator().manual_seed(seed))
     params_dev = _params_to(params_cpu, dev)
     init_s = time.perf_counter() - t0
-    prompts, image_embeds = draw_inputs(cfg, batch, prompt_len, seed)
-    batch_cpu = {"tokens": prompts}
-    if image_embeds is not None:
-        batch_cpu["image_embeds"] = image_embeds
+    prompts, extra = draw_inputs(cfg, batch, prompt_len, seed)
+    batch_cpu = {"tokens": prompts, **extra}
     batch_dev = {k: v.to(dev) for k, v in batch_cpu.items()}
-    offset = 0 if image_embeds is None else image_embeds.shape[1]
+    offset = extra["image_embeds"].shape[1] if "image_embeds" in extra else 0
     max_len = prompt_len + offset + gen
-    want_k6 = k6_per_prefill(cfg)
-    rec = dict(arch=cfg.name, family=cfg.family, n_layers=n_layers, dtype="float32",
+    want_k6 = (k6_per_prefill(cfg), k6_per_decode_step(cfg) * (gen - 1))
+    rec = dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers, dtype="float32",
                batch=batch, prompt_len=prompt_len, image_patches=offset, steps=gen,
                init_s=init_s)
+    if cfg.family == "encdec":
+        rec.update(n_enc_layers=cfg.n_enc_layers, frames=cfg.n_frames)
     seen = {"cpu": [], "card": []}
 
     def route_on(where):
@@ -3334,7 +3405,7 @@ def run_parity(dev, arch, n_layers, prompt_len, batch=LM_PARITY_BATCH, gen=LM_PA
         if seen["cpu"]:
             rec.update(parity_routing(cfg, seen, dev))
         seen = None
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "encdec"):
             params64 = _params_to(params_cpu, torch.float64)
             log64, _ = build_model(arch_config(arch, n_layers, "float64")).prefill(
                 params64, batch_cpu, max_len)
@@ -3368,14 +3439,15 @@ def run_parity(dev, arch, n_layers, prompt_len, batch=LM_PARITY_BATCH, gen=LM_PA
                 absorbed_errs.append(check_close(
                     f"{arch} parity absorbed vs up-projected decode, step {step}", log_d, log_u,
                     rtol=LM_RTOL, atol=LM_ATOL))
-    if (prefill_launches, decode_launches) != (want_k6, 0):
-        raise AssertionError(f"{arch} parity: K6 launches (prefill, decode) "
-                             f"{(prefill_launches, decode_launches)}, want ({want_k6}, 0)")
+    if (prefill_launches, decode_launches) != want_k6:
+        raise AssertionError(f"{arch} parity: K6 launches (prefill, {gen - 1} decode steps) "
+                             f"{(prefill_launches, decode_launches)}, want {want_k6}")
     if cfg.use_mla:
         rec["absorbed_vs_up_projected_max_abs_err_per_step"] = absorbed_errs
     del params_dev, cache_d, params_cpu, cache_c
     torch.cuda.empty_cache()
     return dict(rec, k6_launches_prefill=prefill_launches, k6_launches_decode=decode_launches,
+                k6_launches_per_decode_step=decode_launches // max(gen - 1, 1),
                 max_abs_err_per_step=errs, max_abs_err=max(errs),
                 cache_max_abs_err_per_step=cache_errs, logits_scale=float(log_c.abs().max()),
                 greedy_tokens_agree=all(agree), tokens_agree_per_step=agree,
@@ -3385,7 +3457,8 @@ def run_parity(dev, arch, n_layers, prompt_len, batch=LM_PARITY_BATCH, gen=LM_PA
 class LMServe:
     """The LM serve cell on the card: the model the serve launcher builds
     (random weights from a seeded CUDA generator) and its inputs
-    (``draw_inputs``: the prompts and, for a vlm, its image embeddings)."""
+    (``draw_inputs``: the prompts and, for a vlm, its image embeddings, for
+    an encdec model its frames, ``extra``)."""
 
     def __init__(self, dev, cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, seed=0):
         import torch
@@ -3400,18 +3473,15 @@ class LMServe:
         self.params = self.model.init(torch.Generator(device=dev).manual_seed(seed))
         torch.cuda.synchronize()
         self.init_s = time.perf_counter() - t0
-        self.prompts, self.image_embeds = draw_inputs(cfg, batch, prompt_len, seed, dev)
+        self.prompts, self.extra = draw_inputs(cfg, batch, prompt_len, seed, dev)
 
     @property
     def offset(self) -> int:
         """Positions before the prompt: a vlm's image patches."""
-        return 0 if self.image_embeds is None else self.image_embeds.shape[1]
+        return self.extra["image_embeds"].shape[1] if "image_embeds" in self.extra else 0
 
     def batch(self):
-        out = {"tokens": self.prompts}
-        if self.image_embeds is not None:
-            out["image_embeds"] = self.image_embeds
-        return out
+        return {"tokens": self.prompts, **self.extra}
 
     def prefill(self, gen=LM_GEN):
         return self.model.prefill(self.params, self.batch(),
@@ -3429,30 +3499,32 @@ class LMServe:
                                         dtype=torch.int64, device=logits.device)}
         return lambda: self.model.decode(self.params, step, caches)
 
-    def first_k6_inputs(self):
-        """The q, k, v that one prefill passes to its first K6 launch (the
-        first attention layer's; a hybrid's shared block at its first
-        application), taken at the wrapper: the model calls K6 through
-        ``ops``, so swapping the module's attribute sees the call; the port
-        itself is unchanged."""
+    def k6_launches(self, which=(0,), call=None):
+        """The K6 launches numbered ``which`` (in launch order) of one
+        ``call()`` (default: one prefill), each as (q, k, v, causal, scale):
+        the first is the first attention layer's (a hybrid's shared block at
+        its first application; an encdec model's first encoder layer). Taken
+        at the wrapper: the model calls K6 through ``ops``, so swapping the
+        module's attribute sees every call; the port itself is unchanged."""
         import torch
 
         from repro_torch.kernels import ops
 
-        real, seen = ops.flash_attention, []
+        real, seen, n = ops.flash_attention, {}, [0]
 
-        def spy(q, k, v, **kw):
-            if not seen:
-                seen.append((q, k, v))
-            return real(q, k, v, **kw)
+        def spy(q, k, v, *, causal, scale=None):
+            if n[0] in which:
+                seen[n[0]] = (q, k, v, causal, scale)
+            n[0] += 1
+            return real(q, k, v, causal=causal, scale=scale)
 
         ops.flash_attention = spy
         try:
             with torch.no_grad():
-                self.prefill()
+                (call or self.prefill)()
         finally:
             ops.flash_attention = real
-        return seen[0]
+        return [seen[i] for i in which]
 
 
 def run_lm_serve(lm, gen=LM_GEN):
@@ -3463,16 +3535,17 @@ def run_lm_serve(lm, gen=LM_GEN):
     from repro_torch.launch.serve import generate
 
     cfg = lm.cfg
-    generate(lm.model, lm.params, lm.prompts, 2, image_embeds=lm.image_embeds)   # warm-up
+    generate(lm.model, lm.params, lm.prompts, 2, **lm.extra)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out = generate(lm.model, lm.params, lm.prompts, gen, image_embeds=lm.image_embeds)
+    out = generate(lm.model, lm.params, lm.prompts, gen, **lm.extra)
     peak = torch.cuda.max_memory_allocated()
     k6 = (out["kernel_launches"]["prefill"]["flash_attention"],
           out["kernel_launches"]["decode"]["flash_attention"])
-    if k6 != (k6_per_prefill(cfg), 0):
-        raise AssertionError(f"{cfg.name} serving: K6 launches (prefill, decode) {k6}, want "
-                             f"({k6_per_prefill(cfg)}, 0)")
+    want = (k6_per_prefill(cfg), k6_per_decode_step(cfg) * (gen - 1))
+    if k6 != want:
+        raise AssertionError(f"{cfg.name} serving: K6 launches (prefill, {gen - 1} decode "
+                             f"steps) {k6}, want {want}")
     if not out["logits_finite"]:
         raise AssertionError(f"{cfg.name} serving: non-finite logits")
     generated = out["generated"]
@@ -3486,7 +3559,7 @@ def run_lm_serve(lm, gen=LM_GEN):
                 prefill_tokens_per_s=batch * (prompt_len + lm.offset) / out["prefill_s"],
                 decode_ms_per_token=out["decode_s_per_tok"] * 1e3,
                 decode_tokens_per_s=batch / out["decode_s_per_tok"],
-                k6_launches_per_prefill=k6[0], k6_launches_per_decode_step=k6[1],
+                k6_launches_per_prefill=k6[0], k6_launches_per_decode_step=k6[1] // (gen - 1),
                 peak_mem_gb=peak / 1e9,
                 param_gb=sum(t.numel() * t.element_size() for t in _leaves(lm.params)) / 1e9,
                 logits_finite=True, sample=generated[0, :8].tolist())
@@ -3762,7 +3835,7 @@ def run_moe_phases(dev, smi, counted, lm_kernels, gen):
     with torch.no_grad():
         moe_prefill = profile_moe(lambda: moe_lm.prefill())
         moe_decode = profile_moe(moe_lm.decode_step())
-    qkv = moe_lm.first_k6_inputs()
+    qkv = moe_lm.k6_launches()[0]
     del moe_lm
     torch.cuda.empty_cache()
     # K6 on layer 0's own q, k, v, once the weights are freed (its plain
@@ -3825,7 +3898,7 @@ def run_mla_phases(dev, smi, counted, lm_kernels, gen):
     with torch.no_grad():
         prefill = profile_moe(lambda: lm.prefill())
         decode = profile_moe(lm.decode_step())
-    qkv = lm.first_k6_inputs()
+    qkv = lm.k6_launches()[0]
     del lm
     torch.cuda.empty_cache()
     # K6 on the prefix layer's own q, k, v (192/128), once the weights are freed
@@ -3955,7 +4028,7 @@ def run_family_phases(dev, smi, counted, lm_kernels, gen):
                                                      HYBRID_PROFILE_LABELS, hybrid_split))
         if arch == SSM_ARCH:
             serve["silu_cost"] = silu_cost(lm)
-        qkv = lm.first_k6_inputs() if k6_per_prefill(lm.cfg) else None
+        qkv = lm.k6_launches()[0] if k6_per_prefill(lm.cfg) else None
         del lm
         torch.cuda.empty_cache()
         if qkv is not None:
@@ -3968,6 +4041,148 @@ def run_family_phases(dev, smi, counted, lm_kernels, gen):
                       call=f"one {HYBRID_ARCH} {'prefill' if part == 'prefill' else 'decode step'}",
                       batch=LM_BATCH, prompt_len=LM_PROMPT, card=smi, **prof))
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7e: the encoder-decoder (whisper-base) and the dense presets
+# ---------------------------------------------------------------------------
+
+
+# the profiled whisper step's parts (``device_ms_by_range``): the encoder
+# (its norms, projections and residuals; its MLPs and K6 apart), the
+# decoder's self-attention, the cross-attention with its k/v recompute from
+# the memory apart, every GELU MLP
+ENCDEC_PROFILE_LABELS = (
+    ("repro_torch.models.encdec", "encode", "encoder"),
+    ("repro_torch.models.encdec", "gelu_mlp_apply", "mlp"),
+    ("repro_torch.models.attention", "gqa_apply", "attention"),
+    ("repro_torch.models.attention", "cached_attention", "attention.cached"),
+    ("repro_torch.models.attention", "cross_attn_apply", "cross"),
+    ("repro_torch.models.attention", "cross_attn_kv", "cross.kv"),
+)
+
+
+def encdec_split(ms, gemm):
+    """Encoder, decoder self-attention, cross-attention (its k/v recompute
+    also alone), the MLPs with their GELU, K6 and the rest (embedding,
+    sinusoids, decoder norms, the tied head)."""
+    return dict(encoder=ms["encoder"],
+                decoder_self_attention=ms["attention"] + ms["attention.cached"],
+                cross_attention=ms["cross"] + ms["cross.kv"], cross_kv_recompute=ms["cross.kv"],
+                mlp_gelu=ms["mlp"], k6=ms["K6 flash_attention"], rest=ms["rest"])
+
+
+def gelu_cost(lm):
+    """What the GELU MLP's reference-exact tanh GELU (``layers.gelu_tanh``:
+    each step rounded to the input dtype, as XLA rounds
+    ``jax.nn.gelu(approximate=True)``) costs against ``F.gelu(approximate=
+    "tanh")`` in the served whisper ``lm``: device ms of each on the encoder's
+    and the prefill decoder's MLP operand, and host-issued ms of one prefill
+    and one decode step with each swapped in, in the order ours,
+    ``F.gelu``, ``F.gelu``, ours."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers
+
+    ours, cfg = layers.gelu_tanh, lm.cfg
+    f_gelu = lambda x: F.gelu(x, approximate="tanh")
+    gen = torch.Generator(device=lm.prompts.device).manual_seed(12)
+    operands = {}
+    for name, rows in (("encoder", cfg.n_frames), ("decoder", lm.prompts.shape[1])):
+        x = torch.randn((lm.prompts.shape[0], rows, cfg.d_ff), generator=gen,
+                        device=lm.prompts.device).to(cfg.tdtype)
+        operands[name] = dict(shape=list(x.shape), ms=time_ms(lambda: ours(x)),
+                              f_gelu_ms=time_ms(lambda: f_gelu(x)))
+        del x
+    model = {"ours": [], "f_gelu": []}
+    for name in ("ours", "f_gelu", "f_gelu", "ours"):
+        layers.gelu_tanh = ours if name == "ours" else f_gelu
+        try:
+            with torch.no_grad():
+                model[name].append(dict(prefill_ms=wrapper_ms(lm.prefill, iters=5, warmup=1),
+                                        decode_ms=wrapper_ms(lm.decode_step(), iters=10)))
+        finally:
+            layers.gelu_tanh = ours
+    return dict(operands=operands, model=model,
+                mlps_per_prefill=(cfg.n_enc_layers or cfg.n_layers) + cfg.n_layers)
+
+
+def run_encdec_phases(dev, smi, counted, lm_kernels, gen):
+    """Phase 7e, encdec: whisper-base at full width and depth (6 + 6
+    layers), fp32, card against CPU, logits and every cache with the
+    encoder's memory, both devices also against float64, K6 (18, 6) a step
+    (``lm_encdec_parity``); then in bf16 through ``generate``, batch 8 x
+    (1,500 frames, prompt 2,048) + 32 tokens, K6 18 per prefill and 6 per
+    decode step (``lm_encdec_serve``), K6 held against its plain version on
+    the q, k, v (causal flag, scale) of the first launch of each use (the
+    encoder's, the decoder's self-attention, the cross-attention in the
+    prefill and in a decode step), the tanh GELU against ``F.gelu``
+    (``gelu_cost``), and one profiled prefill and decode step split by part
+    (``profile_lm_encdec``). ``counted`` is ``main``'s: these launches join
+    the main path's."""
+    import torch
+
+    rec, launches = counted(lm_kernels, "the whisper parity run",
+                            lambda: run_parity(dev, ENCDEC_ARCH, None, LM_PARITY_PROMPT))
+    emit(dict(phase="lm_encdec_parity", card=smi, launches=launches, **rec))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LMServe(dev, arch_config(ENCDEC_ARCH))
+    init_peak = torch.cuda.max_memory_allocated()
+    serve, launches = counted(lm_kernels, "whisper serving", lambda: run_lm_serve(lm))
+    serve.update(init_peak_gb=init_peak / 1e9, frames=lm.cfg.n_frames,
+                 gelu_cost=gelu_cost(lm))
+    with torch.no_grad():
+        profiles = dict(prefill=profile_split(lambda: lm.prefill(), ENCDEC_PROFILE_LABELS,
+                                              encdec_split),
+                        decode=profile_split(lm.decode_step(), ENCDEC_PROFILE_LABELS,
+                                             encdec_split))
+    n_enc = lm.cfg.n_enc_layers
+    uses = dict(zip(("encoder", "decoder_self", "cross_prefill"),
+                    lm.k6_launches(which=(0, n_enc, n_enc + 1))))
+    uses["cross_decode"] = lm.k6_launches(call=lm.decode_step())[0]
+    del lm
+    torch.cuda.empty_cache()
+    serve["k6_by_use"] = {use: check_k6_on(launch, gen) for use, launch in uses.items()}
+    del uses
+    emit(dict(phase="lm_encdec_serve", card=smi, launches=launches, **serve))
+    for part, prof in profiles.items():
+        emit(dict(phase="profile_lm_encdec", part=part,
+                  call=f"one {ENCDEC_ARCH} {'prefill' if part == 'prefill' else 'decode step'}",
+                  batch=LM_BATCH, prompt_len=LM_PROMPT, card=smi, **prof))
+    torch.cuda.empty_cache()
+
+
+def run_dense_presets(dev, smi, counted, lm_kernels, gen):
+    """Phase 7e, the dense presets not served before (granite-3-2b,
+    chatglm3-6b, qwen2.5-14b): each at full width, 2 layers, fp32, card
+    against CPU and float64 (``lm_dense_parity``), then at full width and
+    depth in bf16 through ``generate`` (``lm_dense_serve``), K6 once per
+    layer, held against its plain version on the first layer's own q, k, v
+    at the model's scale. ``counted`` is ``main``'s: these launches join the
+    main path's."""
+    import torch
+
+    for arch in DENSE_PRESETS:
+        rec, launches = counted(lm_kernels, f"the {arch} parity run",
+                                lambda: run_parity(dev, arch, LM_PARITY_LAYERS,
+                                                   LM_PARITY_PROMPT))
+        emit(dict(phase="lm_dense_parity", card=smi, launches=launches, **rec))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm = LMServe(dev, arch_config(arch))
+        init_peak = torch.cuda.max_memory_allocated()
+        serve, launches = counted(lm_kernels, f"{arch} serving", lambda: run_lm_serve(lm))
+        serve.update(init_peak_gb=init_peak / 1e9)
+        launch = lm.k6_launches()[0]
+        del lm
+        torch.cuda.empty_cache()
+        # K6 on the first layer's own q, k, v, once the weights are freed
+        serve["k6_layer0"] = check_k6_on(launch, gen)
+        del launch
+        emit(dict(phase="lm_dense_serve", card=smi, launches=launches, **serve))
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4073,7 +4288,7 @@ def main() -> int:
         k5 = [check_lstm_cell_bwd(rows, width, cfg.hidden_size, gen)
               for rows, width in k45_shapes]
         k5 += [check_lstm_cell_bwd(*shape, gen) for shape in WIDE_BWD]
-        k6 = [check_flash_attention(*shape, gen) for shape in k6_shapes()]
+        k6 = [check_flash_attention(gen, *shape) for shape in k6_shapes()]
         # the bf16 streams of K1 and K3 at the bf16 forecast's and serve
         # buckets' shapes, and the widths past the presets
         k1b = [check_hw_scan(n, t, m, gen, bf16=True) for n, t, m in k1_shapes]
@@ -4383,7 +4598,7 @@ def main() -> int:
     emit(dict(phase="lm_parity", card=smi, launches=parity_launches, **parity))
     lm = LMServe(dev, arch_config(LM_ARCH))
     serve_lm, lm_launches = counted(lm_kernels, "LM serving", lambda: run_lm_serve(lm))
-    layer0 = check_k6_on(lm.first_k6_inputs(), gen)
+    layer0 = check_k6_on(lm.k6_launches()[0], gen)
     emit(dict(phase="lm_serve", card=smi, launches=lm_launches, k6_layer0=layer0,
               **serve_lm))
     with torch.no_grad():
@@ -4403,6 +4618,12 @@ def main() -> int:
     # phase 7d: the vlm image prefix, the Mamba2 LM and the hybrid
     torch.cuda.empty_cache()
     run_family_phases(dev, smi, counted, lm_kernels, gen)
+    # phase 7e: the encoder-decoder (whisper-base), then the dense presets
+    # not served before
+    torch.cuda.empty_cache()
+    run_encdec_phases(dev, smi, counted, lm_kernels, gen)
+    run_dense_presets(dev, smi, counted, lm_kernels, gen)
+    emit(dict(phase="done"))
 
     # phase 8: summary, one entry per ported kernel and stream dtype.
     # Launches: the main-path phases 3 to 7. Times at the first listed shape

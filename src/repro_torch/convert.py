@@ -129,9 +129,10 @@ def _map(tree, fn):
 
 
 # the reference's stacked subtrees, by key: how many leading axes each
-# stacks (the transformer's and ssm_lm's ``layers``: (L, ...); the hybrid's
-# ``mamba``: (G, K, ...)); the port keeps one dict per block, in nested lists
-_STACKED = {"layers": 1, "mamba": 2}
+# stacks (the transformer's and ssm_lm's ``layers`` and the encoder-decoder's
+# ``enc_layers`` and ``dec_layers``: (L, ...); the hybrid's ``mamba``: (G,
+# K, ...)); the port keeps one dict per block, in nested lists
+_STACKED = {"layers": 1, "enc_layers": 1, "dec_layers": 1, "mamba": 2}
 
 
 def _unstack(tree, axes, dev):
@@ -149,9 +150,10 @@ def _restack(parts, axes):
 
 def lm_params_from_numpy(tree, device=None):
     """The port's LM params from a numpy-leaved JAX LM tree (``lm_init``,
-    ``ssm_lm_init`` or ``hybrid_init``), on ``device``: ``tree["layers"]``'s
-    stacked leaves (MoE experts too: (L, E, ...)) become a list of one dict
-    per layer, the hybrid's ``mamba`` (G, K, ...) a list of G lists of K;
+    ``ssm_lm_init``, ``hybrid_init`` or ``encdec_init``), on ``device``:
+    ``tree["layers"]``'s stacked leaves (MoE experts too: (L, E, ...)) and
+    the encoder-decoder's ``enc_layers`` and ``dec_layers`` become a list of
+    one dict per layer, the hybrid's ``mamba`` (G, K, ...) a list of G lists of K;
     ``prefix_layers``, a list of per-layer dicts in both packages, and the
     hybrid's ``shared`` block keep their layout."""
     dev = resolve_device(device)

@@ -246,6 +246,18 @@ def esrnn_loss_fn(cfg: ESRNNConfig, params, y, cats, mask=None):
 esrnn_loss = esrnn_loss_fn
 
 
+def esrnn_loss_loop_reference(cfg: ESRNNConfig, params, y, cats) -> torch.Tensor:
+    """The same loss one series at a time (a batch of 1 each), then the mean.
+
+    The per-series loop of Smyl's original C++ that the paper vectorized
+    away: the slow baseline of the Table-5 speedup benchmark.
+    """
+    losses = [esrnn_loss_fn(cfg, gather_series(params, slice(i, i + 1)), y[i:i + 1],
+                            cats[i:i + 1])
+              for i in range(y.shape[0])]
+    return torch.stack(losses).mean()
+
+
 def value_and_grad(loss_fn, leaves: List[torch.Tensor]):
     """``(loss, grads)`` of ``loss_fn()`` with respect to ``leaves``, tensors
     that require a gradient. A leaf the loss does not reach (the seasonality

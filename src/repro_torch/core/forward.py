@@ -28,7 +28,8 @@ from repro_torch.core.holt_winters import hw_smooth, hw_step
 __all__ = [
     "ESRNNStates", "esrnn_states", "smooth", "hw_step", "window_positions",
     "future_seasonal_idx", "input_windows", "target_windows", "features",
-    "loss_terms", "forecast_from_states", "quantile_sigma", "forecast_at_origins",
+    "rnn_head", "loss_terms", "forecast_from_states", "quantile_sigma",
+    "forecast_at_origins",
 ]
 
 
@@ -157,6 +158,15 @@ def esrnn_states(cfg, params, y, cats) -> ESRNNStates:
 # ---------------------------------------------------------------------------
 # Consumers: forecasts, rolling origins, quantile spread
 # ---------------------------------------------------------------------------
+
+
+def rnn_head(cfg, params, feats):
+    """Dilated residual LSTM -> (attention) -> tanh dense -> linear head.
+
+    The public name of the paper's head; the implementation is the ``lstm``
+    entry of the head registry, :func:`repro_torch.core.heads.lstm_head_apply`.
+    """
+    return H.lstm_head_apply(cfg, params, feats)
 
 
 def loss_terms(cfg, states: ESRNNStates, y, mask=None):

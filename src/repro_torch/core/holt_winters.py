@@ -24,6 +24,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -220,6 +221,46 @@ def _hw_smooth_scan(y, params, seasonality, seasonality2):
     else:
         future = s_ring
     return torch.stack(levels, dim=1), torch.stack(seas_used + future, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Per-series loop reference (Smyl's original CPU structure)
+# ---------------------------------------------------------------------------
+
+
+def hw_smooth_loop_reference(
+    y, params: HWParams, *, seasonality: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Single-ring smoothing in float64 numpy, an outer loop over series and
+    an inner one over time: the structure the paper vectorized, kept as the
+    oracle of the equivalence tests and the slow baseline of the Table-5
+    speedup benchmark. ``y`` (N, T) and ``params``' leaves may be tensors
+    (on any device) or arrays. Returns levels (N, T) and seasonality (N, T + m).
+    """
+    f64 = lambda a: np.asarray(a.detach().cpu() if torch.is_tensor(a) else a, np.float64)
+    y = f64(y)
+    n, t_len = y.shape
+    m = max(seasonality, 1)
+    seasonal = seasonality > 1
+    alpha = 1.0 / (1.0 + np.exp(-f64(params.alpha_logit)))
+    gamma = 1.0 / (1.0 + np.exp(-f64(params.gamma_logit)))
+    init_seas = np.exp(f64(params.init_seas_logit))
+
+    levels = np.empty((n, t_len))
+    seas = np.empty((n, t_len + m))
+    for i in range(n):  # <- the loop the paper removes
+        ring = list(init_seas[i] if seasonal else np.ones(m))
+        l_prev = y[i, 0] / ring[0]
+        for t in range(t_len):
+            s_t = ring[0]
+            l_t = alpha[i] * y[i, t] / s_t + (1 - alpha[i]) * l_prev
+            s_new = gamma[i] * y[i, t] / l_t + (1 - gamma[i]) * s_t if seasonal else s_t
+            ring = ring[1:] + [s_new]
+            levels[i, t] = l_t
+            seas[i, t] = s_t
+            l_prev = l_t
+        seas[i, t_len:] = ring
+    return levels, seas
 
 
 # ---------------------------------------------------------------------------

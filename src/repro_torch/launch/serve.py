@@ -12,21 +12,30 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --batch 8 --prompt-len 2048 --gen 32
 
-The port of the JAX package's ``launch/serve.py``, for every family but
-encdec: dense and MoE (GQA or MLA), vlm, ssm (mamba2) and hybrid (zamba2).
-Weights are random, from a ``torch.Generator`` seeded with ``seed`` on the
-serving device; prompts come from ``np.random.default_rng(seed)`` as in the
-reference, and a vlm's image embeddings (B, n_patches, d_model) from the
-same generator after them, so one seed gives the reference's inputs; its
-cache grows by the patches and its decode positions start after them. The
-first token comes from the prefill, then ``gen - 1`` greedy decode steps.
-On the card the prefill runs K6 once per attention layer (a MoE model's
-expert products, dispatch and router are PyTorch calls, as in the
-reference; under MLA at q . k 192 and v 128 for deepseek-v2-lite), once per
-application of a hybrid's shared block (zamba2-2.7b: D = DV = 80) and never
-in an ssm model, whose SSD is PyTorch calls as in the reference; decode runs
-no kernel of the port (MLA's absorbed decode is plain einsums in the latent
-space). Runs on the card unless ``--device cpu``; one device only.
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+        --batch 8 --prompt-len 2048 --gen 32
+
+The port of the JAX package's ``launch/serve.py``, for every family: dense
+and MoE (GQA or MLA), vlm, ssm (mamba2), hybrid (zamba2) and encdec
+(whisper). Weights are random, from a ``torch.Generator`` seeded with
+``seed`` on the serving device; prompts come from
+``np.random.default_rng(seed)`` as in the reference, and a vlm's image
+embeddings (B, n_patches, d_model) or an encdec model's frames (B,
+n_frames, d_model) from the same generator after them, so one seed gives
+the reference's inputs; a vlm's cache grows by the patches and its decode
+positions start after them. The first token comes from the prefill, then
+``gen - 1`` greedy decode steps. On the card the prefill runs K6 once per
+attention layer (a MoE model's expert products, dispatch and router are
+PyTorch calls, as in the reference; under MLA at q . k 192 and v 128 for
+deepseek-v2-lite), once per application of a hybrid's shared block
+(zamba2-2.7b: D = DV = 80), once per encoder layer and twice per decoder
+layer of an encdec model (self and cross; whisper-base: 18) and never in an
+ssm model, whose SSD is PyTorch calls as in the reference. Decode runs K6
+only in an encdec model's cross-attention, once per decoder layer and step
+(whisper-base: 6, at Tq = 1 over the 1,500 frames); every other family's
+decode runs no kernel of the port (MLA's absorbed decode is plain einsums
+in the latent space). Runs on the card unless ``--device cpu``; one device
+only.
 """
 
 from __future__ import annotations
@@ -47,12 +56,14 @@ def _launches_between(before, after):
     return {name: after[name] - before[name] for name in after}
 
 
-def generate(model: Model, params, prompts: torch.Tensor, gen: int, image_embeds=None):
+def generate(model: Model, params, prompts: torch.Tensor, gen: int, image_embeds=None,
+             frames=None):
     """Prefill ``prompts`` (B, P) and decode ``gen - 1`` more tokens greedily.
 
     ``image_embeds`` (B, n_patches, d_model), a vlm's, go in front of the
     prompt: the cache holds them too and the decode positions start at
-    ``P + n_patches``. Returns ``generated`` (B, gen) int32, ``prefill_s`` and
+    ``P + n_patches``. ``frames`` (B, n_frames, d_model), an encdec
+    model's, go to its encoder. Returns ``generated`` (B, gen) int32, ``prefill_s`` and
     ``decode_s_per_tok`` (host clock around work that ends in a device
     synchronize), ``kernel_launches`` of the prefill and of all decode steps,
     and ``logits_finite`` (every step's logits).
@@ -64,6 +75,8 @@ def generate(model: Model, params, prompts: torch.Tensor, gen: int, image_embeds
     if image_embeds is not None:
         batch_in["image_embeds"] = image_embeds
         offset = image_embeds.shape[1]
+    if frames is not None:
+        batch_in["frames"] = frames
 
     def sync():
         if dev.type == "cuda":
@@ -103,17 +116,21 @@ def generate(model: Model, params, prompts: torch.Tensor, gen: int, image_embeds
 
 
 def draw_inputs(cfg, batch: int, prompt_len: int, seed: int, device=None):
-    """The prompts (B, P) int64 from ``np.random.default_rng(seed)`` and, for a
-    vlm, its image embeddings (B, n_patches, d_model) in the config's dtype,
-    drawn after the prompts from the same generator (else None), on
-    ``device``: one seed gives the reference's inputs."""
+    """The prompts (B, P) int64 from ``np.random.default_rng(seed)`` and the
+    model's other inputs, as ``generate``'s keyword arguments: a vlm's image
+    embeddings (B, n_patches, d_model) or an encdec model's frames (B,
+    n_frames, d_model), in the config's dtype, drawn after the prompts from
+    the same generator (else none), on ``device``: one seed gives the
+    reference's inputs."""
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt_len)))
-    image_embeds = None
-    if cfg.family == "vlm":
-        image_embeds = torch.from_numpy(
-            rng.normal(0, 1, (batch, cfg.n_patches, cfg.d_model))).to(device, cfg.tdtype)
-    return prompts.to(device), image_embeds
+    extra = {}
+    for family, key, n in (("vlm", "image_embeds", cfg.n_patches),
+                           ("encdec", "frames", cfg.n_frames)):
+        if cfg.family == family:
+            extra[key] = torch.from_numpy(
+                rng.normal(0, 1, (batch, n, cfg.d_model))).to(device, cfg.tdtype)
+    return prompts.to(device), extra
 
 
 def serve(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
@@ -126,8 +143,8 @@ def serve(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
-    prompts, image_embeds = draw_inputs(cfg, batch, prompt_len, seed, dev)
-    return generate(model, params, prompts, gen, image_embeds=image_embeds)
+    prompts, extra = draw_inputs(cfg, batch, prompt_len, seed, dev)
+    return generate(model, params, prompts, gen, **extra)
 
 
 def main():

@@ -1,7 +1,7 @@
 """GQA attention (+bias / partial RoPE / QK-norm) and DeepSeek's MLA.
 
-The port of the JAX package's ``models/attention.py`` for the dense and MoE
-families:
+The port of the JAX package's ``models/attention.py`` for the dense, MoE
+and encoder-decoder families:
 
 * prefill attention (:func:`chunked_attention`) goes by device. A CUDA
   tensor launches K6 (:func:`repro_torch.kernels.ops.flash_attention`)
@@ -13,6 +13,12 @@ families:
 * decode (:func:`cached_attention`) attends over the whole preallocated
   cache buffer with an explicit position mask, a plain masked einsum, as in
   the reference; it runs no kernel;
+* cross-attention (:func:`cross_attn_apply`, whisper's decoder) attends
+  from the decoder's positions over the encoder's ``memory``, non-causal,
+  through :func:`chunked_attention`: on the card one K6 launch a call, in
+  the prefill (Tq the prompt) and in every decode step (Tq = 1), k and v
+  recomputed from ``memory`` each time (:func:`cross_attn_kv`), as the
+  reference does;
 * MLA (DeepSeek-V2's multi-head latent attention, :func:`mla_apply`)
   caches the RMS-normed rank-``r`` latent ``c_kv`` and one RoPE'd key
   ``k_rope`` a position, shared by every head. Its train and prefill modes
@@ -30,8 +36,6 @@ buffer of ``cache_max_len``; decode appends in place. Unlike the JAX
 package, which returns new buffers, the port writes the cache tensors in
 place at ``length`` and returns a cache over the same storage: a caller
 that needs the old cache keeps a copy.
-
-Cross-attention waits for the encdec slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -344,3 +348,44 @@ def _mla_absorbed(p, cfg: ArchConfig, q_nope, q_rope, c_all, kr_all, positions, 
     ctx = torch.einsum("bhst,btr->bshr", probs.to(c_all.dtype), c_all)
     out = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
     return out.reshape(b, s, h * dv)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_init(gen: torch.Generator, cfg: ArchConfig, dtype):
+    """q, k, v and o projections, MHA; biases on q, v and o, none on k."""
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    dev = gen.device
+    return {
+        "wq": dense_init(gen, d, h * hd, dtype),
+        "wk": dense_init(gen, d, h * hd, dtype),
+        "wv": dense_init(gen, d, h * hd, dtype),
+        "wo": dense_init(gen, h * hd, d, dtype),
+        "bq": torch.zeros((h * hd,), dtype=dtype, device=dev),
+        "bv": torch.zeros((h * hd,), dtype=dtype, device=dev),
+        "bo": torch.zeros((d,), dtype=dtype, device=dev),
+    }
+
+
+def cross_attn_kv(p, cfg: ArchConfig, memory):
+    """The encoder states' keys and values, memory (B, M, d) -> kh, vh (B,
+    H, M, hd), transposed views."""
+    b = memory.shape[0]
+    h, hd = cfg.n_heads, cfg.hd
+    k = (memory @ p["wk"]).reshape(b, -1, h, hd)
+    v = (memory @ p["wv"] + p["bv"]).reshape(b, -1, h, hd)
+    return k.transpose(1, 2), v.transpose(1, 2)
+
+
+def cross_attn_apply(p, cfg: ArchConfig, x, memory):
+    """x: (B, S, d) queries; memory: (B, M, d) encoder states -> (B, S, d).
+    Non-causal at scale ``hd ** -0.5``: one K6 launch on the card."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    qh = (x @ p["wq"] + p["bq"]).reshape(b, s, h, hd).transpose(1, 2)
+    kh, vh = cross_attn_kv(p, cfg, memory)
+    out = chunked_attention(qh, kh, vh, causal=False, scale=hd ** -0.5)
+    return out.transpose(1, 2).reshape(b, s, h * hd) @ p["wo"] + p["bo"]

@@ -7,11 +7,14 @@ and allocate on its device (a CUDA generator initializes on the card). The
 same numpy weights through :func:`repro_torch.convert.lm_params_from_numpy`
 give the JAX package's numbers; the two frameworks' generators do not.
 
-``gelu_mlp_*`` (encoder-decoder) and ``cross_entropy_loss`` (LM training)
-wait for the slices that run them (``ROADMAP.md``).
+``gelu_mlp_*`` is the encoder-decoder's MLP (whisper), with the tanh GELU
+rounded as XLA rounds ``jax.nn.gelu(approximate=True)`` (:func:`gelu_tanh`).
+``cross_entropy_loss`` waits for LM training (``ROADMAP.md``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -93,6 +96,37 @@ def swiglu_init(gen: torch.Generator, d_model, d_ff, dtype=torch.float32):
 
 def swiglu_apply(p, x):
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def _rounded(v: float, dtype) -> float:
+    """``v`` rounded to ``dtype``, as a Python float."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def gelu_tanh(x):
+    """0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))) with XLA's rounding of
+    ``jax.nn.gelu(approximate=True)``: its two constants rounded to x's
+    dtype (the reference casts sqrt(2/pi) to it, and 0.044715 is weakly
+    typed), each step rounded to x's dtype in the reference's order (x^3,
+    * 0.044715, + x, * sqrt(2/pi), tanh, + 1, * 0.5, x *). In bf16 this
+    gives the reference's bits; ``F.gelu(approximate="tanh")`` rounds once,
+    and its outputs differ from them on 45 % of bf16 inputs."""
+    k0, k1 = _rounded(math.sqrt(2 / math.pi), x.dtype), _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(k0 * (x + k1 * x ** 3))))
+
+
+def gelu_mlp_init(gen: torch.Generator, d_model, d_ff, dtype=torch.float32):
+    dev = gen.device
+    return {
+        "w_in": dense_init(gen, d_model, d_ff, dtype),
+        "b_in": torch.zeros((d_ff,), dtype=dtype, device=dev),
+        "w_out": dense_init(gen, d_ff, d_model, dtype),
+        "b_out": torch.zeros((d_model,), dtype=dtype, device=dev),
+    }
+
+
+def gelu_mlp_apply(p, x):
+    return gelu_tanh(x @ p["w_in"] + p["b_in"]) @ p["w_out"] + p["b_out"]
 
 
 # -- embeddings -----------------------------------------------------------------

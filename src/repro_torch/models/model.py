@@ -1,11 +1,12 @@
 """Unified model API: ``build_model(config) -> Model`` with init/prefill/decode.
 
-The port of the JAX package's ``models/model.py``. The dense, MoE and vlm
-families (the transformer, with GQA or MLA attention; vlm with its image
-prefix), ssm (Mamba2) and hybrid (Zamba2) run (serving: prefill + decode);
-encdec raises, naming the part of ``ROADMAP.md`` that brings it, before any
-weight is made. ``lm_loss`` (and with it the ``loss`` entry) comes with LM
-training. There is no ``use_pallas`` switch:
+The port of the JAX package's ``models/model.py``. Every family of the
+registry runs (serving: prefill + decode): dense, MoE and vlm (the
+transformer, with GQA or MLA attention; vlm with its image prefix), ssm
+(Mamba2), hybrid (Zamba2) and encdec (whisper: an encode of the batch's
+``frames`` in the prefill, cross-attention over it in every decoder layer).
+``lm_loss`` (and with it the ``loss`` entry) comes with LM training. There
+is no ``use_pallas`` switch:
 as everywhere in the port, a CUDA tensor runs the kernels and a CPU tensor
 the plain versions.
 """
@@ -15,16 +16,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import ssm_lm as SL
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ArchConfig
-
-# the ROADMAP.md queue item that brings each family not yet ported
-_LATER = {
-    "encdec": "the LM stack's encdec slice (models/encdec.py)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class Model:
@@ -63,8 +59,13 @@ def build_model(cfg: ArchConfig) -> Model:
             make_caches=lambda bs, ml, dt, dev=None: HY.hybrid_make_caches(cfg, bs, ml, dt,
                                                                            dev),
         )
-    if fam in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {fam} family is not ported yet; it comes with "
-            f"{_LATER[fam]} (ROADMAP.md, section 1)")
+    if fam == "encdec":
+        return Model(
+            cfg=cfg,
+            init=lambda gen: ED.encdec_init(cfg, gen),
+            prefill=lambda p, b, max_len: ED.encdec_prefill(cfg, p, b, max_len=max_len),
+            decode=lambda p, b, c: ED.encdec_decode(cfg, p, b, c),
+            make_caches=lambda bs, ml, dt, dev=None: ED.encdec_make_caches(cfg, bs, ml, dt,
+                                                                           dev),
+        )
     raise ValueError(f"unknown family {fam}")

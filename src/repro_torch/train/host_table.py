@@ -394,6 +394,11 @@ class ExtendedHWView:
         self._table = table
         self._primer = primer
 
+    @property
+    def n_rows(self) -> int:
+        """The fitted rows plus the primer row."""
+        return self._table.n_rows + 1
+
     def __getattr__(self, name: str):
         base = getattr(self._table.hw, name)
         if base is None:

@@ -149,3 +149,27 @@ def test_init_structure_matches_jax():
         for name, leaf in jp[k].items():
             assert tuple(getattr(tp[k], name).shape) == leaf.shape
     np.testing.assert_array_equal(tp["hw"].alpha_logit.numpy(), np.asarray(jp["hw"].alpha_logit))
+
+
+def test_rnn_head_is_the_lstm_head():
+    """``forward.rnn_head``, the paper head's public name, in ``__all__`` of
+    both packages: the reference's ``rnn_head`` on the same features and
+    weights, and the registry's lstm head bit for bit."""
+    from repro.core import forward as jfwd
+    from repro_torch.core import forward as tfwd
+    from repro_torch.core import heads as theads
+
+    assert "rnn_head" in tfwd.__all__ and "rnn_head" in jfwd.__all__
+    jcfg = jes.make_config("quarterly", hidden_size=8)
+    tcfg = tes.make_config("quarterly", hidden_size=8)
+    jp = _jax_params(jcfg, 5)
+    tp = params_from_numpy(jp, "cpu")
+    width = jcfg.input_size + jcfg.n_categories
+    feats = np.random.default_rng(4).normal(0, 1, (5, 9, width)).astype(np.float32)
+    with torch.no_grad():
+        got, got_c = tfwd.rnn_head(tcfg, tp, torch.from_numpy(feats))
+        same, same_c = theads.lstm_head_apply(tcfg, tp, torch.from_numpy(feats))
+    want, want_c = jfwd.rnn_head(jcfg, jp, jnp.asarray(feats))
+    assert torch.equal(got, same) and torch.equal(got_c, same_c)
+    _close(got, want)
+    _close(got_c, want_c)

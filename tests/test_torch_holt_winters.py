@@ -164,3 +164,20 @@ def test_forecast_and_seasonal_extension_match_jax(horizon):
            jhw.hw_forecast(lev_j, seas_j, horizon, seasonality=4))
     _close(thw.extend_seasonality(seas, 20, horizon, 4).numpy(),
            jhw.extend_seasonality(seas_j, 20, horizon, 4))
+
+
+@pytest.mark.parametrize("m,t_len", [(1, 12), (4, 21)])
+def test_loop_reference_matches_jax_loop_and_scan(m, t_len):
+    """``hw_smooth_loop_reference``, the per-series float64 loop: the
+    reference's loop on the same numpy inputs (both float64) and, within
+    float32's rounding, the vectorized scan."""
+    kw = _logits(5, m, seed=m)
+    y = _series(5, t_len, m, seed=t_len)
+    got = thw.hw_smooth_loop_reference(torch.from_numpy(y), _torch_params(kw), seasonality=m)
+    want = jhw.hw_smooth_loop_reference(y, _jax_params(kw), seasonality=m)
+    for g, w in zip(got, want):
+        assert g.dtype == np.float64 and g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=1e-12, atol=0)
+    scan = thw.hw_smooth(torch.from_numpy(y), _torch_params(kw), seasonality=m)
+    for g, s in zip(got, scan):
+        _close(s, g)

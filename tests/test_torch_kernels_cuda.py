@@ -392,6 +392,71 @@ def test_flash_attention_bf16_takes_the_models_scale_on_card(card, d):
     torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
 
 
+# whisper-base's four uses of K6 (B, Hq, Hkv, Tq, Tk, causal), MHA 8 x 64:
+# the served cell's (batch 8, prompt 2,048, 1,500 frames) in bf16 and the
+# parity cell's (batch 2, prompt 128) in fp32
+_WHISPER_USES = {
+    "encoder": lambda b, p: (b, 8, 8, 1500, 1500, False),
+    "decoder_self": lambda b, p: (b, 8, 8, p, p, True),
+    "cross_prefill": lambda b, p: (b, 8, 8, p, 1500, False),
+    "cross_decode": lambda b, p: (b, 8, 8, 1, 1500, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("use", list(_WHISPER_USES))
+def test_flash_attention_whisper_uses_on_card(card, use, dtype):
+    """The encoder's non-causal 1,500 x 1,500, the decoder's causal prompt,
+    and the cross-attention over 1,500 frames from the prompt and from one
+    decode position (Tq = 1: the bf16 block's 128-row query tile holds one
+    real row, TMA zero-filling the rest; Tk = 1,500 is 11 key tiles and 92
+    keys), at scale 1/sqrt(64)."""
+    b, hq, hkv, tq, tk, causal = _WHISPER_USES[use](
+        *((8, 2048) if dtype == torch.bfloat16 else (2, 128)))
+    q, k, v = _attn_inputs(b, hq, hkv, tq, tk, 64, dtype, seed=tq + tk, dev=card)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal, scale=0.125)
+    ops.reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, causal=causal, scale=0.125)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tk", [1, 127, 1500])
+def test_flash_attention_one_query_over_ragged_keys_on_card(card, tk, causal, dtype):
+    """One query row against 1, 127 (one partial tile) and 1,500 keys, as
+    whisper's cross-attention decode runs it; causal with Tq = 1 sees every
+    key (the end-aligned offset)."""
+    q, k, v = _attn_inputs(8, 8, 8, 1, tk, 64, dtype, seed=tk, dev=card)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == (8, 8, 1, 64)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_granite_scale_at_its_shapes_on_card(card, dtype):
+    """granite-3-2b's attention, GQA 32/8 at D 64 and its scale 2**-7: the
+    served prefill's (8, 2048) in bf16, the parity prefill's (2, 128) in
+    fp32."""
+    b, t = (8, 2048) if dtype == torch.bfloat16 else (2, 128)
+    q, k, v = _attn_inputs(b, 32, 8, t, t, 64, dtype, seed=t, dev=card)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=True, scale=0.0078125)
+    got = flash_attention.flash_attention(q, k, v, causal=True, scale=0.0078125)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,in_size,hidden", [(24_001, 14, 40), (333, 50, 50),
                                                  (333, 128, 128)])

@@ -452,14 +452,6 @@ def test_serve_refuses_what_is_not_ported():
             tserve.serve("yi-6b", smoke=True, batch=1, prompt_len=4, gen=2)
 
 
-@pytest.mark.parametrize("arch", ["whisper-base"])
-def test_build_model_raises_for_families_not_ported(arch):
-    """Each raises for its family, naming the slice that brings it."""
-    cfg = tconfigs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=f"the {cfg.family} family"):
-        build_model(cfg)
-
-
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 @pytest.mark.parametrize("arch", ["yi-6b", "granite-3-2b", MOE, MLA, VLM])
 def test_lm_converter_round_trips_bitwise(arch, dtype):

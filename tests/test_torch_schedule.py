@@ -131,3 +131,17 @@ def test_fresh_table_holds_the_primer_and_zero_state():
     np.testing.assert_array_equal(table.t_hw.numpy(), want.t_hw)
     assert table.mu_hw.alpha_logit.data_ptr() != table.nu_hw.alpha_logit.data_ptr()
     assert not ttable.HostStateTable.init(6, 4, with_moments=False, device="cpu").has_moments
+
+
+@pytest.mark.parametrize("n", [1, 6])
+def test_extended_view_counts_the_primer_row(n):
+    """``ExtendedHWView.n_rows``: the fitted rows plus the primer row, as the
+    reference's property; the view's leaves read the primer at row n."""
+    from repro.core import holt_winters as jhw
+
+    table = ttable.HostStateTable.init(n, 4, device="cpu")
+    view = table.extended(hw_init_params(1, 4, device="cpu"))
+    want = jtable.HostStateTable.init(n, 4).extended(jhw.hw_init_params(1, 4))
+    assert view.n_rows == want.n_rows == n + 1
+    np.testing.assert_array_equal(view.alpha_logit[np.arange(n + 1)],
+                                  want.alpha_logit[np.arange(n + 1)])

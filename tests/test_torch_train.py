@@ -104,6 +104,26 @@ def test_loss_and_grads_match_jax():
                                    err_msg=str(path))
 
 
+def test_loss_loop_reference_matches_jax_and_the_batched_loss():
+    """``esrnn_loss_loop_reference``: one series at a time, then the mean,
+    against the reference's loop on the same weights and data, and against
+    the batched loss's mean per-series pin-ball (the same when every series
+    scores the same number of windows)."""
+    jcfg = jes.make_config("quarterly", **MODEL)
+    tcfg = tes.make_config("quarterly", **MODEL)
+    d = tpipe.synthetic_prepared(4, series_length=T_LEN, seed=5)
+    jp = _jax_params(jcfg, 4, seed=3)
+    tp = params_from_numpy(jp, "cpu")
+    y, cats = torch.from_numpy(d.train), torch.from_numpy(d.cats)
+    with torch.no_grad():
+        got = tes.esrnn_loss_loop_reference(tcfg, tp, y, cats)
+        batched = tes.esrnn_loss(tcfg, tp, y, cats)
+    want = jes.esrnn_loss_loop_reference(jcfg, jp, d.train, d.cats)
+    assert got.shape == ()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    np.testing.assert_allclose(float(got), float(batched), rtol=1e-5)
+
+
 @pytest.mark.parametrize("sparse,scan_steps", [(False, 1), (False, 4), (True, 1), (True, 4)])
 def test_train_trajectory_matches_jax(data, jax_runs, sparse, scan_steps):
     init, run = jax_runs
