@@ -23,8 +23,8 @@ prefill and decode step; then the MoE family: qwen3-moe-30b-a3b at full
 width and two layers in fp32 on the card against the CPU, its routing held
 equal on the same layer input and its dropped share equal on both devices,
 with deepseek-v2-lite's MoE layer (routed and shared experts) alone
-(``lm_moe_parity``), the full 48-layer model in bf16 through the serve
-launcher (``lm_moe_serve``), and one profiled prefill and decode step with
+(``lm_moe_parity``), 24 of its 48 layers in bf16 through the serve
+launcher (``lm_moe_serve``; ``SERVE_DEPTH``), and one profiled prefill and decode step with
 their device time split into the expert products, the dispatch, K6, the
 attention projections and the rest (``profile_lm_moe``,
 ``profile_lm_moe_decode``); then MLA: deepseek-v2-lite-16b at full width
@@ -39,8 +39,9 @@ internvl2-2b (256 image patches before the prompt), mamba2-1.3b (at a
 prompt of 128 and one the SSD pads) and zamba2-2.7b (12 layers: two
 applications of its shared block) at full width in fp32 on the card
 against the CPU, logits and every cache (``lm_vlm_parity``,
-``lm_ssm_parity``, ``lm_hybrid_parity``), each at full width and depth in
-bf16 through the serve launcher (``lm_vlm_serve``: K6 once per layer;
+``lm_ssm_parity``, ``lm_hybrid_parity``), each at full width in bf16
+(internvl2 at full depth, mamba2 and zamba2 at 24 blocks: ``SERVE_DEPTH``)
+through the serve launcher (``lm_vlm_serve``: K6 once per layer;
 ``lm_ssm_serve``: no K6, and what the Mamba2 block's SiLU costs against
 ``F.silu``; ``lm_hybrid_serve``: K6 at head dim 80 once per application of
 the shared block), and one profiled hybrid prefill and
@@ -57,7 +58,20 @@ cross-attention, the MLPs and K6 (``profile_lm_encdec``); last,
 granite-3-2b, chatglm3-6b and qwen2.5-14b at full width and 2 layers in
 fp32 against the CPU and float64 (``lm_dense_parity``) and at full width
 and depth in bf16 (``lm_dense_serve``: K6 on the first layer's own q, k, v
-at the model's scale). Every phase line carries the script's wall seconds
+at the model's scale); then LM training, for granite-3-2b, qwen3-moe,
+deepseek-v2-lite, internvl2-2b, mamba2-1.3b, zamba2-2.7b and whisper-base:
+at full width and the parity depths in fp32, the loss and every gradient
+card against CPU, MoE routing equal, remat on against off, and one bf16
+train step in 2 microbatches, its update leaf by leaf against the step's
+plain version on the card and, for three of them, against the CPU
+(``lm_train_parity``); each in the train cell
+(seq 2,048, batch 8 in microbatches of 2, 1 warm-up and 3 timed steps)
+through the train launcher, five at full depth, qwen3-moe and
+deepseek-v2-lite cut to 4 layers, whisper-base also resumed from a
+checkpoint (``lm_train``: ms a step, tokens/s, peak GB, K6 0 launches and
+the plain attention route counted); one granite-3-2b step of one
+microbatch profiled by part
+(``profile_lm_train``). Every phase line carries the script's wall seconds
 so far (``wall_s``); ``done`` closes the phases. Between the fp32 serving
 phases and training, the
 same forecast and server run under the bf16 policy (``precision="bf16"``:
@@ -318,20 +332,26 @@ LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
 # the LM parity cell: full width, depth cut to 2 layers for the CPU's sake
 LM_PARITY_LAYERS, LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_GEN = 2, 2, 128, 8
 # the MoE cells: qwen3-moe-30b-a3b (128 experts top-8, GQA 32/4 with
-# QK-norm) served at full width and depth in bf16 with the LM serve cell's
-# batch, prompt and tokens; its parity cell at full width, 2 layers, fp32,
-# with LM parity's batch, prompt and steps; deepseek-v2-lite's MoE layer
-# (64 routed top-6 + 2 shared) alone, as its MLA attention is not ported
+# QK-norm) served at full width (depth: ``SERVE_DEPTH``) in bf16 with the
+# LM serve cell's batch, prompt and tokens; its parity cell at full width,
+# 2 layers, fp32, with LM parity's batch, prompt and steps;
+# deepseek-v2-lite's MoE layer (64 routed top-6 + 2 shared) alone
 MOE_ARCH, MOE_DEEPSEEK = "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"
 MOE_PARITY_LAYERS = 2
 # the vlm, ssm and hybrid cells: internvl2-2b (256 image patches before the
-# prompt), mamba2-1.3b and zamba2-2.7b served at full width and depth in
-# bf16 with the LM serve cell's batch, prompt and tokens; their parity cells
-# at full width, fp32, 2 layers (zamba2: 12, two groups of 6, so that two
-# applications of the shared block fill two KV caches), with LM parity's
-# batch and steps; mamba2's also at a prompt that is not a multiple of its
-# SSD chunk (128), so the scan pads
+# prompt), mamba2-1.3b and zamba2-2.7b served at full width (the latter
+# two cut in depth: ``SERVE_DEPTH``) in bf16 with the LM serve cell's
+# batch, prompt and tokens; their parity cells at full width, fp32, 2
+# layers (zamba2: 12, two groups of 6, so that two applications of the
+# shared block fill two KV caches), with LM parity's batch and steps;
+# mamba2's also at a prompt that is not a multiple of its SSD chunk (128),
+# so the scan pads
 VLM_ARCH, SSM_ARCH, HYBRID_ARCH = "internvl2-2b", "mamba2-1.3b", "zamba2-2.7b"
+# serve cells cut in depth to keep the script inside its time limit beside
+# the LM training phases: qwen3-moe at 24 of its 48 layers, mamba2 at 24 of
+# 48 blocks, zamba2 at 24 of 54 (4 shared-block applications); PERF.md
+# keeps their full-depth serving numbers
+SERVE_DEPTH = {"qwen3-moe-30b-a3b": 24, "mamba2-1.3b": 24, "zamba2-2.7b": 24}
 HYBRID_PARITY_LAYERS = 12
 SSM_RAGGED_PROMPT = 200
 # the encdec cells: whisper-base (6 + 6 layers, d 512, MHA 8 x 64, 1,500
@@ -346,6 +366,52 @@ ENCDEC_ARCH = "whisper-base"
 # width, 2 layers, fp32, serving at full width and depth in bf16, both with
 # the LM cells' batch, prompt and tokens
 DENSE_PRESETS = ("granite-3-2b", "chatglm3-6b", "qwen2.5-14b")
+# the LM train cells: the seven models of the six families. Parity
+# (``lm_train_parity``): full width in fp32 at ``run_parity``'s depths (2
+# layers; deepseek its dense prefix layer and one MoE layer; zamba2 12
+# blocks, two shared-block applications; whisper its 6 + 6), batch 2 x 128
+# text tokens (internvl2's 256 patches before them, whisper's 1,500
+# frames), card against CPU. The train cell (``lm_train``): seq 2,048
+# (internvl2 1,792 tokens after its 256 patches; whisper 2,048 tokens over
+# 1,500 frames), global batch 8 in microbatches of 2, fp32 masters, bf16
+# compute, AdamConfig(lr=3e-4, clip_norm=1.0), 1 warm-up and 3 timed steps
+# through ``launch.train.train``; five models at full depth, qwen3-moe at 4
+# layers and deepseek-v2-lite at its prefix layer + 3 (their fp32 masters,
+# gradients and Adam moments at full depth, 550 and 292 GB, are past one
+# card)
+TRAIN_ARCHS = ("granite-3-2b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "internvl2-2b",
+               "mamba2-1.3b", "zamba2-2.7b", "whisper-base")
+TRAIN_PARITY_LAYERS = {"zamba2-2.7b": HYBRID_PARITY_LAYERS, "whisper-base": None}
+TRAIN_PARITY_TEXT = 128
+# the parity's bf16 train step at 2 x 32 text tokens: the card's host has
+# no bf16 matrix unit, and its bf16 products run ~5x slower than fp32 ones
+# (2 x 128 tokens took 8-45 s a model on the CPU)
+TRAIN16_PARITY_TEXT = 32
+# ... card against CPU for granite-3-2b, mamba2-1.3b and whisper-base; the
+# others' CPU step (Adam over 0.5-1.9 B fp32 params, the vlm's 256 patches:
+# 16-31 s each) the script's time limit cannot hold, so every model's card
+# step is held to the plain version of the step on the card
+TRAIN16_CARD_ONLY = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "internvl2-2b",
+                     "zamba2-2.7b")
+# ... with an Adam whose eps is far above every |gradient| and no clip: its
+# first step is -lr g / (|g| + eps), here about -0.1 x the mean gradient, so
+# the update carries the microbatches' sum, the division by their count,
+# the cast and the sign, stands well above the fp32 spacing of the weights
+# it moves, and lifts the largest gradients' moves past the params' atol
+# (the launcher's Adam moves each weight by about lr x sign(g) whatever the
+# gradient's scale, under the bf16 atol at lr 3e-4; at -1 x the gradient,
+# one bf16 gradient element's spread, card against CPU, passed that atol)
+TRAIN16_STEP_ADAM = dict(lr=1e2, eps=1e3)
+LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_MICRO = 2048, 8, 2
+LM_TRAIN_WARMUP, LM_TRAIN_TIMED = 1, 3
+TRAIN_DEPTH = {"qwen3-moe-30b-a3b": 4, "deepseek-v2-lite-16b": 4}
+TRAIN_RESUME_ARCH, TRAIN_PROFILE_ARCH = "whisper-base", "granite-3-2b"
+# gradients card against CPU: each leaf within 1e-4 of its largest element
+# on the CPU (fp32 sums in another order through 2 to 12 layers); the bf16
+# train step within the repo's bf16 bound, and each leaf's update within
+# that rtol as a share of its norm
+GRAD_TOL = 1e-4
+TRAIN16_STEP_RTOL, TRAIN16_STEP_ATOL = 2e-2, 1e-3
 
 # phase analyze: the CLI's audits at full width, by part: (name, spec, --set)
 ANALYZE_RUNS = (("lstm", "esrnn-quarterly", ()), ("bf16", "esrnn-quarterly", ("precision=bf16",)),
@@ -3373,9 +3439,10 @@ def run_parity(dev, arch, n_layers, prompt_len, batch=LM_PARITY_BATCH, gen=LM_PA
 
     cfg = arch_config(arch, n_layers=n_layers, dtype="float32")
     model = build_model(cfg)
+    # drawn on the card (a CPU draw of qwen2.5-14b's 2 layers took 25 s), copied
     t0 = time.perf_counter()
-    params_cpu = model.init(torch.Generator().manual_seed(seed))
-    params_dev = _params_to(params_cpu, dev)
+    params_dev = model.init(torch.Generator(device=dev).manual_seed(seed))
+    params_cpu = _params_to(params_dev, "cpu")
     init_s = time.perf_counter() - t0
     prompts, extra = draw_inputs(cfg, batch, prompt_len, seed)
     batch_cpu = {"tokens": prompts, **extra}
@@ -3813,7 +3880,8 @@ def profile_moe(call, top: int = 12):
 def run_moe_phases(dev, smi, counted, lm_kernels, gen):
     """Phase 7b: qwen3-moe-30b-a3b at full width, 2 layers, fp32, card
     against CPU with its routing held equal (and deepseek-v2-lite's MoE
-    layer); then the full model in bf16 through ``generate``, K6 once per
+    layer); then 24 of its 48 layers (``SERVE_DEPTH``) in bf16 through
+    ``generate``, K6 once per
     layer of each prefill, one profiled prefill and decode step split by
     part, and K6 on layer 0's own q, k, v. ``counted`` is ``main``'s: the
     launches of the parity run and of ``generate`` join the main path's."""
@@ -3827,7 +3895,7 @@ def run_moe_phases(dev, smi, counted, lm_kernels, gen):
     emit(dict(phase="lm_moe_parity", card=smi, **deepseek))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    moe_lm = LMServe(dev, arch_config(MOE_ARCH))
+    moe_lm = LMServe(dev, arch_config(MOE_ARCH, n_layers=SERVE_DEPTH.get(MOE_ARCH)))
     init_peak = torch.cuda.max_memory_allocated()
     moe_serve, moe_launches = counted(lm_kernels, "MoE serving",
                                       lambda: run_lm_serve(moe_lm))
@@ -3988,10 +4056,11 @@ def run_family_phases(dev, smi, counted, lm_kernels, gen):
     mamba2-1.3b (ssm) and zamba2-2.7b (hybrid), each at full width, 2
     layers (zamba2: 12, two applications of its shared block), fp32, card
     against CPU (``lm_vlm_parity``, ``lm_ssm_parity`` at a prompt of 128 and
-    a ragged one, ``lm_hybrid_parity``); then each at full width and depth
-    in bf16 through ``generate`` (``lm_vlm_serve``: K6 once per layer;
-    ``lm_ssm_serve``: no K6; ``lm_hybrid_serve``: K6 at D = DV = 80 once
-    per application of the shared block, 9), K6 held against its plain
+    a ragged one, ``lm_hybrid_parity``); then each at full width in bf16
+    (mamba2 and zamba2 at ``SERVE_DEPTH``) through ``generate``
+    (``lm_vlm_serve``: K6 once per layer; ``lm_ssm_serve``: no K6;
+    ``lm_hybrid_serve``: K6 at D = DV = 80 once per application of the
+    shared block, 4 at 24 blocks), K6 held against its plain
     version on the q, k, v a prefill passes its first K6 launch (the
     hybrid's: the shared block's at its first application), mamba2's SiLU
     against ``F.silu`` (``silu_cost``), and the hybrid's prefill and decode
@@ -4015,7 +4084,7 @@ def run_family_phases(dev, smi, counted, lm_kernels, gen):
                                  ("lm_hybrid_serve", HYBRID_ARCH, lm_kernels)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        lm = LMServe(dev, arch_config(arch))
+        lm = LMServe(dev, arch_config(arch, n_layers=SERVE_DEPTH.get(arch)))
         init_peak = torch.cuda.max_memory_allocated()
         serve, launches = counted(kernels, f"{arch} serving", lambda: run_lm_serve(lm))
         serve.update(init_peak_gb=init_peak / 1e9)
@@ -4183,6 +4252,514 @@ def run_dense_presets(dev, smi, counted, lm_kernels, gen):
         del launch
         emit(dict(phase="lm_dense_serve", card=smi, launches=launches, **serve))
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7f: LM training (every family's loss, remat, the train step, the
+# train launcher)
+# ---------------------------------------------------------------------------
+
+
+def attention_calls(cfg, remat: bool) -> int:
+    """Attention calls in one forward and backward of ``cfg``'s loss: one
+    per attention layer, one per application of a hybrid's shared block,
+    none in an ssm model; an encdec model one per encoder layer and two per
+    decoder layer; under remat twice each (the forward and its recompute),
+    but once in DeepSeek's prefix layers, which run without remat. Each
+    needs a gradient and takes the plain path, once per microbatch."""
+    n = k6_per_prefill(cfg)
+    prefix = cfg.first_dense_layers if cfg.family == "moe" else 0
+    return 2 * n - prefix if remat else n
+
+
+def loss_and_grads(model, params, batch):
+    """``model.loss`` and its gradient per ``param_leaves`` entry, by
+    autograd; the leaves' flags are put back."""
+    import torch
+
+    from repro_torch.core.esrnn import param_leaves
+
+    leaves = [t for _, t in param_leaves(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss = model.loss(params, batch)
+        loss.backward()
+        grads = [torch.zeros_like(t) if t.grad is None else t.grad for t in leaves]
+    finally:
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def check_close_on_card(name, got, want, *, rtol, atol) -> float:
+    """``check_close`` of a card tensor against a CPU one, compared on the
+    card (a model's leaves are gigabytes; the CPU would take seconds)."""
+    import torch
+
+    want = want.detach().to(got.device, torch.float32)
+    got = got.detach().float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: max abs err {err} outside rtol {rtol}, atol {atol}")
+    return err
+
+
+def grads_err(what, got, want, tol=GRAD_TOL) -> float:
+    """The largest leaf error of ``got`` against ``want`` (lists of
+    tensors), each relative to that leaf's largest |want|; raises past
+    ``tol`` or on a non-finite gradient."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        w = w.to(g.device)
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        rel = err / scale if scale > 0 else err
+        if not np.isfinite(rel) or rel > tol:
+            raise AssertionError(f"{what}: gradient leaf {i} {tuple(w.shape)} off by {err:.3g}"
+                                 f" (its scale {scale:.3g}, bound {tol} of it)")
+        worst = max(worst, rel)
+    return worst
+
+
+def update_err(what, got, want, rtol=TRAIN16_STEP_RTOL) -> float:
+    """The largest ``|got - want| / |want|`` over the leaves' updates (lists
+    of tensors, the norms over each leaf); raises past ``rtol``, where a
+    leaf's update is not finite, or where ``want`` moves no leaf."""
+    import torch
+
+    worst, moved = 0.0, False
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        w = w.to(g.device, torch.float64)
+        norm = float(w.norm())
+        err = float((g.double() - w).norm())
+        rel = err / norm if norm > 0 else err
+        if not np.isfinite(rel) or rel > rtol:
+            raise AssertionError(f"{what}: the update of leaf {i} {tuple(w.shape)} off by "
+                                 f"{rel:.3g} of its norm {norm:.3g} (bound {rtol})")
+        worst, moved = max(worst, rel), moved or norm > 0
+    if not moved:
+        raise AssertionError(f"{what}: no leaf moved")
+    return worst
+
+
+def plain_train_update(model, params, batch, n_micro, adam):
+    """The plain version of one ``make_train_step`` from a fresh Adam state
+    with no clip or weight decay: each microbatch's loss and gradient on the
+    bf16-cast masters (a cast's gradient is its output's, in fp32), both
+    summed and divided by ``n_micro``, and Adam's first step from zero
+    moments, ``-lr g / (|g| + eps)``, added to each fp32 master as the step
+    adds it. Returns ``(loss, updates)`` by leaf: new master - old master."""
+    from repro_torch.core.esrnn import param_leaves
+    from repro_torch.launch.steps import cast_params_for_compute
+
+    assert adam.clip_norm is None and not adam.weight_decay
+    rows = next(iter(batch.values())).shape[0] // n_micro
+    loss, grads = 0.0, None
+    for i in range(n_micro):
+        micro = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        m_loss, m_grads = loss_and_grads(model, cast_params_for_compute(params), micro)
+        loss = loss + m_loss
+        m_grads = [g.float() for g in m_grads]
+        grads = m_grads if grads is None else [a + b for a, b in zip(grads, m_grads)]
+    grads = [g / n_micro for g in grads]
+    return loss / n_micro, [(p - adam.lr * g / (g.abs() + adam.eps)) - p
+                            for (_, p), g in zip(param_leaves(params), grads, strict=True)]
+
+
+def run_train_parity(dev, arch, seed=11):
+    """``arch`` at full width in fp32 (``run_parity``'s depth), the train
+    launcher's batch of 2 x 128 text tokens: the loss within rtol 1e-4 and
+    every gradient leaf within ``GRAD_TOL`` of its largest element, card
+    against CPU, remat off; each MoE layer's routing on the CPU's layer
+    input equal on both devices (``parity_routing``); remat on against off
+    on the card within the same bounds; K6 never launched, the plain route
+    taken ``attention_calls`` times a loss and its backward. Then one
+    ``make_train_step`` step in 2 microbatches under the bf16 compute
+    policy (the model's bf16 config over the same fp32 masters, 2 x 32 text
+    tokens, ``TRAIN16_STEP_ADAM``) against ``plain_train_update`` on the
+    card and, but for ``TRAIN16_CARD_ONLY``, against the same step on the
+    CPU: the loss (and on the CPU every updated param) within rtol 2e-2 /
+    atol 1e-3, and each leaf's update within 2e-2 of its norm
+    (``update_err``)."""
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.core.esrnn import param_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import attention as A
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import moe_route
+    from repro_torch.train.optimizer import AdamConfig, adam_init
+
+    def leaves(params):
+        return [t for _, t in param_leaves(params)]
+
+    cfg = arch_config(arch, n_layers=TRAIN_PARITY_LAYERS.get(arch, LM_PARITY_LAYERS),
+                      dtype="float32")
+    off = build_model(dataclasses.replace(cfg, remat=False))
+    on = build_model(dataclasses.replace(cfg, remat=True))
+    seq = TRAIN_PARITY_TEXT + (cfg.n_patches if cfg.family == "vlm" else 0)
+    cell = ShapeCell("parity", "train", seq, LM_PARITY_BATCH)
+    batch_cpu = synthetic_batch(cfg, cell, 0, seed)
+    batch_dev = {k: v.to(dev) for k, v in batch_cpu.items()}
+    # drawn on the card (a CPU draw of qwen3-moe's 1.9 B takes 16 s), copied
+    t0 = time.perf_counter()
+    params_dev = off.init(torch.Generator(device=dev).manual_seed(seed))
+    params_cpu = _params_to(params_dev, "cpu")
+    init_s = time.perf_counter() - t0
+    seen = {"cpu": [], "card": []}
+
+    def route_on(where):
+        def record(p, c, x):
+            with torch.no_grad():
+                seen[where].append((p, x.detach(), moe_route(p, c, x.detach())))
+        return record
+
+    t0 = time.perf_counter()
+    with moe_layers_seen(route_on("cpu")):
+        loss_c, g_c = loss_and_grads(off, params_cpu, batch_cpu)
+    cpu_s = time.perf_counter() - t0
+    A.reset_grad_route_calls()
+    k6_before = ops.launch_counts()["flash_attention"]
+    with moe_layers_seen(route_on("card")):
+        loss_d, g_d = loss_and_grads(off, params_dev, batch_dev)
+    routes_off = A.grad_route_calls()
+    rec = dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers, dtype="float32",
+               batch=LM_PARITY_BATCH, text_tokens=TRAIN_PARITY_TEXT,
+               image_patches=cfg.n_patches if cfg.family == "vlm" else 0,
+               frames=cfg.n_frames if cfg.family == "encdec" else 0, init_s=init_s,
+               cpu_loss_and_grads_s=cpu_s, n_grad_leaves=len(g_c))
+    if seen["cpu"]:
+        with torch.no_grad():
+            rec.update(parity_routing(cfg, seen, dev))
+    seen = None
+    rec["loss"] = float(loss_c)
+    rec["loss_rel_err"] = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    if rec["loss_rel_err"] > LM_RTOL:
+        raise AssertionError(f"{arch} train parity: loss {float(loss_d)} != {float(loss_c)}")
+    rec["grad_max_rel_err"] = grads_err(f"{arch} train parity", g_d, g_c)
+    del g_c
+    A.reset_grad_route_calls()
+    loss_r, g_r = loss_and_grads(on, params_dev, batch_dev)
+    routes_on = A.grad_route_calls()
+    rec["remat_loss_rel_err"] = abs(float(loss_r) - float(loss_d)) / abs(float(loss_d))
+    if rec["remat_loss_rel_err"] > LM_RTOL:
+        raise AssertionError(f"{arch} remat on/off: loss {float(loss_r)} != {float(loss_d)}")
+    rec["remat_grad_max_rel_err"] = grads_err(f"{arch} remat on/off", g_r, g_d)
+    del g_r, g_d
+    torch.cuda.synchronize()
+    k6 = ops.launch_counts()["flash_attention"] - k6_before
+    want_routes = (attention_calls(cfg, False), attention_calls(cfg, True))
+    if k6 or (routes_off, routes_on) != want_routes:
+        raise AssertionError(f"{arch} train parity: K6 {k6}, plain routes (remat off, on) "
+                             f"{(routes_off, routes_on)}, want 0 and {want_routes}")
+    rec.update(k6_launches=k6, plain_route_calls_remat_off=routes_off,
+               plain_route_calls_remat_on=routes_on)
+
+    # one bf16-policy train step in 2 microbatches from the same fp32 masters
+    model16 = build_model(dataclasses.replace(cfg, dtype="bfloat16"))
+    seq16 = TRAIN16_PARITY_TEXT + (cfg.n_patches if cfg.family == "vlm" else 0)
+    step_cell = ShapeCell("parity", "train", seq16, LM_PARITY_BATCH, microbatch=1)
+    adam = AdamConfig(**TRAIN16_STEP_ADAM)
+    step = make_train_step(model16, step_cell, adam=adam)
+    batch16_cpu = synthetic_batch(cfg, step_cell, 1, seed)
+    batch16_dev = {k: v.to(dev) for k, v in batch16_cpu.items()}
+    rec.update(bf16_step_text_tokens=TRAIN16_PARITY_TEXT, bf16_step_adam=TRAIN16_STEP_ADAM)
+    masters = [t.clone() for t in leaves(params_dev)]
+    loss_p, delta_p = plain_train_update(model16, params_dev, batch16_dev,
+                                         LM_PARITY_BATCH, adam)
+    params_dev, _, l16_d = step(params_dev, adam_init(params_dev), batch16_dev)
+    rec["bf16_step_loss"] = float(l16_d)
+
+    def delta_d():
+        return (t - m for t, m in zip(leaves(params_dev), masters, strict=True))
+
+    rec["bf16_step_vs_plain_loss_abs_err"] = check_close(
+        f"{arch} bf16 step loss, card against its plain version", l16_d, loss_p,
+        rtol=TRAIN16_STEP_RTOL, atol=TRAIN16_STEP_ATOL)
+    rec["bf16_step_vs_plain_update_rel_err"] = update_err(
+        f"{arch} bf16 step, card against its plain version", delta_d(), delta_p)
+    del delta_p
+    if arch not in TRAIN16_CARD_ONLY:
+        masters_cpu = [t.clone() for t in leaves(params_cpu)]
+        t0 = time.perf_counter()
+        params_cpu, _, l16_c = step(params_cpu, adam_init(params_cpu), batch16_cpu)
+        rec["cpu_bf16_step_s"] = time.perf_counter() - t0
+        rec["bf16_step_loss_abs_err"] = check_close(
+            f"{arch} bf16 step loss", l16_d, l16_c, rtol=TRAIN16_STEP_RTOL,
+            atol=TRAIN16_STEP_ATOL)
+        rec["bf16_step_params_max_abs_err"] = max(
+            check_close_on_card(f"{arch} bf16 step params {i}", d, c,
+                                rtol=TRAIN16_STEP_RTOL, atol=TRAIN16_STEP_ATOL)
+            for i, (d, c) in enumerate(zip(leaves(params_dev), leaves(params_cpu))))
+        rec["bf16_step_update_rel_err"] = update_err(
+            f"{arch} bf16 step, card against CPU", delta_d(),
+            [t - m for t, m in zip(leaves(params_cpu), masters_cpu, strict=True)])
+        del masters_cpu
+    del masters, params_dev, params_cpu
+    torch.cuda.empty_cache()
+    return dict(rec, loss_rtol=LM_RTOL, grad_tol=GRAD_TOL, bf16_rtol=TRAIN16_STEP_RTOL,
+                bf16_atol=TRAIN16_STEP_ATOL, update_rtol=TRAIN16_STEP_RTOL)
+
+
+@contextlib.contextmanager
+def train_config(cfg):
+    """The train launcher given ``cfg`` for ``cfg.name`` (a depth cut), as
+    ``examples/train_lm_torch.py`` gives it its config; the port itself is
+    unchanged."""
+    from repro_torch.launch import train as T
+
+    real = T.get_config
+    T.get_config = lambda arch: cfg if arch == cfg.name else real(arch)
+    try:
+        yield
+    finally:
+        T.get_config = real
+
+
+def run_lm_train(dev, arch, counted):
+    """``arch`` in the train cell through ``launch.train.train`` on the
+    card (given its ``TRAIN_DEPTH`` cut by ``train_config``): 1 warm-up and
+    3 timed steps. Returns the record: ms a step (host clock over the whole
+    step, batch drawing included, ended by the loss's read-back), tokens/s,
+    the peak GB, the losses, K6 launches (asserted 0) and the plain-route
+    count (asserted ``attention_calls`` x microbatches x steps), and the
+    share of the card's dense bf16 peak that (8 with remat, else 6) x
+    active params x tokens a step gives. Asserts every loss finite and the
+    first layer's first matrix moved off its init (the launcher's seeded
+    ``model.init``, made again here)."""
+    import torch
+
+    from repro_torch.core.esrnn import param_leaves
+    from repro_torch.launch import train as T
+    from repro_torch.models import attention as A
+    from repro_torch.models.model import build_model
+
+    cfg = arch_config(arch, n_layers=TRAIN_DEPTH.get(arch))
+    steps = LM_TRAIN_WARMUP + LM_TRAIN_TIMED
+    seed = 0
+
+    def first_layer_matrix(params):
+        return next(t for path, t in param_leaves(params)
+                    if t.dim() == 2 and len(path) > 1 and isinstance(path[1], int))
+
+    at_init = first_layer_matrix(build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(seed))).float()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_grad_route_calls()
+    with train_config(cfg) if arch in TRAIN_DEPTH else contextlib.nullcontext():
+        out, launches = counted((), f"{arch} training", lambda: T.train(
+            arch, smoke=False, steps=steps, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+            microbatch=LM_TRAIN_MICRO, seed=seed, device=dev, log_every=steps))
+    peak = torch.cuda.max_memory_allocated()
+    routes = A.grad_route_calls()
+    n_micro = LM_TRAIN_BATCH // LM_TRAIN_MICRO
+    want_routes = attention_calls(cfg, cfg.remat) * n_micro * steps
+    if launches["flash_attention"] or routes != want_routes:
+        raise AssertionError(f"{arch} training: K6 {launches['flash_attention']}, plain routes "
+                             f"{routes}, want 0 and {want_routes}")
+    losses = out["losses"]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch} training: losses {losses}")
+    params = out.pop("params")
+    moved = float((first_layer_matrix(params) - at_init).abs().max())
+    del params, at_init
+    torch.cuda.empty_cache()
+    if not moved > 0:
+        raise AssertionError(f"{arch} training: the first layer's weights did not move")
+    timed = out["step_s"][LM_TRAIN_WARMUP:]
+    step_s = float(np.mean(timed))
+    # positions a step runs through the decoder (a vlm's patches among them;
+    # an encdec model's 1,500 frames go through its encoder besides)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    active = cfg.active_param_count()
+    flops = (8 if cfg.remat else 6) * active * tokens
+    return dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+                full_depth=cfg.n_layers == arch_config(arch).n_layers,
+                seq=LM_TRAIN_SEQ, global_batch=LM_TRAIN_BATCH, microbatch=LM_TRAIN_MICRO,
+                image_patches=cfg.n_patches if cfg.family == "vlm" else 0,
+                frames=cfg.n_frames if cfg.family == "encdec" else 0, remat=cfg.remat,
+                params=cfg.param_count(), active_params=active, warmup_s=out["step_s"][0],
+                step_s=timed, ms_per_step=step_s * 1e3, tokens_per_step=tokens,
+                tokens_per_s=tokens / step_s, peak_gb=peak / 1e9, losses=losses,
+                k6_launches=launches["flash_attention"], plain_route_calls=routes,
+                plain_route_calls_per_step=routes // steps, first_layer_moved=moved,
+                model_flops_per_step=flops, bf16_peak_share=flops / step_s / BF16_FLOPS)
+
+
+def run_train_resume(dev, arch, tmp):
+    """``arch`` in the train cell: 2 steps, a checkpoint, 1 more step from
+    it, against 3 unbroken steps, on the card: the last loss and every
+    param within rtol 1e-4 (atol 1e-6)."""
+    import torch
+
+    from repro_torch.core.esrnn import param_leaves
+    from repro_torch.launch import train as T
+
+    kw = dict(smoke=False, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, microbatch=LM_TRAIN_MICRO,
+              seed=0, device=dev)
+    whole = T.train(arch, steps=3, **kw)
+    t0 = time.perf_counter()
+    first = T.train(arch, steps=2, ckpt_dir=tmp, **kw)
+    rest = T.train(arch, steps=3, ckpt_dir=tmp, **kw)
+    resumed_s = time.perf_counter() - t0
+    if len(rest["losses"]) != 1:
+        raise AssertionError(f"{arch} resume: ran {len(rest['losses'])} steps after step 2")
+    loss_err = check_close(f"{arch} resumed losses", torch.tensor(first["losses"] + rest["losses"]),
+                           torch.tensor(whole["losses"]), rtol=LM_RTOL, atol=0)
+    err = max(check_close(f"{arch} resumed params {i}", a, b, rtol=LM_RTOL, atol=1e-6)
+              for i, ((_, a), (_, b)) in enumerate(zip(param_leaves(rest["params"]),
+                                                      param_leaves(whole["params"]),
+                                                      strict=True)))
+    del whole, first, rest
+    torch.cuda.empty_cache()
+    return dict(arch=arch, part="resume", steps="2 + checkpoint + 1 vs 3",
+                two_runs_with_checkpoint_s=resumed_s, loss_abs_err=loss_err,
+                params_max_abs_err=err, rtol=LM_RTOL, atol=1e-6)
+
+
+def train_split(prof, labels):
+    """Device ms of one profiled train step by part. A kernel belongs to the
+    innermost of ``labels``' ranges around the op that launched it; a
+    backward op (``autograd::engine::evaluate_function: ...``) to the range
+    of the forward op that made its node (the profiler's sequence numbers
+    tie them); a recompute under remat runs its forward again inside the
+    backward, its attention in the attention range. What no range holds is
+    split into product kernels (``GEMM_NAMES``: the weight products,
+    forward, recompute and backward) and the rest (element-wise work, the
+    casts, the norms, the embedding's scatter)."""
+    from torch.autograd import DeviceType
+
+    names = set(labels)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def innermost(e):
+        while e is not None:
+            if e.name in names:
+                return e.name, False
+            if e.name.startswith("autograd::engine::evaluate_function"):
+                return None, e
+            e = e.cpu_parent
+        return None, False
+
+    forward = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            label, bwd = innermost(e)
+            if bwd is False:
+                forward.setdefault((e.thread, e.sequence_nr), label)
+    parts = dict.fromkeys([f"{n} forward" for n in labels] + [f"{n} backward" for n in labels]
+                          + ["gemm", "rest"], 0.0)
+    for e in events:
+        if not e.kernels:
+            continue
+        label, bwd = innermost(e)
+        if label is not None:
+            key = f"{label} forward"
+        elif bwd is not False:
+            fwd = forward.get((bwd.fwd_thread, bwd.sequence_nr))
+            key = f"{fwd} backward" if fwd else None
+        else:
+            key = None
+        for k in e.kernels:
+            if key is None:
+                part = "gemm" if any(g in k.name.lower() for g in GEMM_NAMES) else "rest"
+            else:
+                part = key
+            parts[part] += k.duration
+    return {k: v / 1e3 for k, v in parts.items()}
+
+
+TRAIN_PROFILE_LABELS = (
+    ("repro_torch.models.attention", "chunked_attention", "attention"),
+    ("repro_torch.models.transformer", "cross_entropy_loss", "cross_entropy"),
+    ("repro_torch.launch.steps", "cast_params_for_compute", "cast"),
+    ("repro_torch.launch.steps", "adam_update", "adam"),
+)
+
+
+def profile_lm_train(dev, arch):
+    """One train step of ``arch`` at the train cell's shape with one
+    microbatch of 2 (the cell's step makes 4 of them) under torch.profiler
+    (after a warm one): wall ms, the device-busy share, device ms by part
+    (``train_split``: the plain attention forward (with its recompute) and
+    backward, cross-entropy, the bf16 casts, the Adam update, the other
+    product kernels, the rest) and the top kernels."""
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import fp32_masters, synthetic_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamConfig, adam_init
+
+    cfg = arch_config(arch, n_layers=TRAIN_DEPTH.get(arch))
+    model = build_model(cfg)
+    params = fp32_masters(model.init(torch.Generator(device=dev).manual_seed(0)))
+    opt = adam_init(params)
+    # one microbatch of the cell and the update: the cell's step runs that
+    # microbatch's work 4 times, and the profiler's events of 4 take a
+    # minute to read back
+    cell = ShapeCell("train", "train", LM_TRAIN_SEQ, LM_TRAIN_MICRO, microbatch=LM_TRAIN_MICRO)
+    step = S.make_train_step(model, cell, adam=AdamConfig(lr=3e-4, clip_norm=1.0))
+    batch = synthetic_batch(cfg, cell, 0, 0, dev)
+    names = [label for _, _, label in TRAIN_PROFILE_LABELS]
+    t0 = time.perf_counter()
+    with profiler_ranges(TRAIN_PROFILE_LABELS):
+        out = profile_call(lambda: step(params, opt, batch), top=12, keep_profile=True,
+                           ranges=set(names))
+    t1 = time.perf_counter()
+    prof = out.pop("profile")
+    out["split_ms"] = split = train_split(prof, names)
+    out["profile_s"], out["split_s"] = t1 - t0, time.perf_counter() - t1
+    out["split_total_ms"] = sum(split.values())
+    del params, opt, prof
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, seq=LM_TRAIN_SEQ,
+                global_batch=LM_TRAIN_MICRO, microbatch=LM_TRAIN_MICRO, **out)
+
+
+def run_train_phases(dev, smi, counted):
+    """Phase 7f, LM training: for each of ``TRAIN_ARCHS``, the parity of its
+    loss, gradients, remat and a bf16 train step, card against CPU
+    (``lm_train_parity``); then each in the train cell through the train
+    launcher (``lm_train``), whisper-base also resumed from a checkpoint;
+    then one granite-3-2b step of one microbatch profiled by part
+    (``profile_lm_train``). A
+    train step launches no K6: every attention of it needs a gradient and
+    takes the plain path, which the phases count. ``counted`` is
+    ``main``'s: these phases' launches join the main path's (none)."""
+    import torch
+
+    for arch in TRAIN_ARCHS:
+        rec, launches = counted((), f"the {arch} train parity run",
+                                lambda: run_train_parity(dev, arch))
+        emit(dict(phase="lm_train_parity", card=smi, launches=launches, **rec))
+        torch.cuda.empty_cache()
+    for arch in TRAIN_ARCHS:
+        rec = run_lm_train(dev, arch, counted)
+        if not rec["full_depth"]:
+            rec["cut"] = (f"depth {rec['n_layers']} of {arch_config(arch).n_layers} layers: "
+                          "the full model's training state is past one card")
+        emit(dict(phase="lm_train", card=smi, **rec))
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_train_") as tmp:
+        rec, launches = counted((), "the resumed training",
+                                lambda: run_train_resume(dev, TRAIN_RESUME_ARCH, tmp))
+    emit(dict(phase="lm_train", card=smi, launches=launches, **rec))
+    emit(dict(phase="profile_lm_train", card=smi,
+              call=f"one {TRAIN_PROFILE_ARCH} train step of one microbatch of the train cell",
+              **profile_lm_train(dev, TRAIN_PROFILE_ARCH)))
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4623,6 +5200,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_encdec_phases(dev, smi, counted, lm_kernels, gen)
     run_dense_presets(dev, smi, counted, lm_kernels, gen)
+    # phase 7f: LM training, every family, at full width
+    torch.cuda.empty_cache()
+    run_train_phases(dev, smi, counted)
     emit(dict(phase="done"))
 
     # phase 8: summary, one entry per ported kernel and stream dtype.

@@ -38,6 +38,13 @@ port's own objects stand for the JAX trees they mirror:
   shared weights and render as that tree (the reference's
   ``init_error_state`` of the trainable groups without ``hw``).
 
+An LM's ``(params, opt_state)`` (the port's per-layer params, Adam's
+``mu`` and ``nu`` lists in ``param_leaves`` order, ``step`` an int) is
+written in the reference's layout: its stacked ``(L, ...)`` params and
+moments and a 0-d int32 step (:mod:`repro_torch.convert`), under the
+treedef the reference's ``(params, opt_state)`` has; it restores onto the
+template's device in the port's layout.
+
 Over a series mesh (``Checkpointer(..., mesh=)``) every rank holds the same
 replicated state: rank 0 alone writes, and every rank waits at a barrier
 until the checkpoint is published; every rank restores.
@@ -60,6 +67,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import convert
 from repro_torch.core.esrnn import param_leaves
 from repro_torch.core.holt_winters import HWParams
 
@@ -113,6 +121,25 @@ def _shaped_like(params, leaves: List[torch.Tensor], frozen: FrozenSet[str]):
     return shape(params)
 
 
+def _is_lm_state(state) -> bool:
+    return (isinstance(state, tuple) and len(state) == 2 and isinstance(state[0], dict)
+            and "embed" in state[0] and _is_opt_state(state[1]))
+
+
+def _lm_layout(state):
+    """An LM ``(params, opt_state)`` as the reference's tree of
+    :class:`repro_torch.convert.StackedLeaf`: its structure, nothing copied."""
+    layout = convert.lm_stacked_layout(state[0])
+    return (layout, {"mu": layout, "nu": layout,
+                     "step": convert.StackedLeaf((), "int32")})
+
+
+def _lm_numpy(state):
+    """An LM ``(params, opt_state)`` as the reference's numpy tree."""
+    params, opt = state
+    return (convert.lm_params_to_numpy(params), convert.lm_opt_state_to_numpy(params, opt))
+
+
 def _canonical(state, frozen: FrozenSet[str] = frozenset()):
     """A ``(params, opt_state)`` pair with the optimizer's moment lists
     shaped as its trainable params and its step count marked, and a
@@ -120,6 +147,8 @@ def _canonical(state, frozen: FrozenSet[str] = frozenset()):
     the trainable shared weights too; any other state as is."""
     if not (isinstance(state, tuple) and len(state) == 2):
         return state
+    if _is_lm_state(state):
+        return _lm_layout(state)
     params, opt = state
 
     def adam(opt):
@@ -197,6 +226,8 @@ def flatten_with_path(state, frozen: FrozenSet[str] = frozenset()) -> List[Tuple
 def _to_numpy(leaf, index: int) -> np.ndarray:
     if isinstance(leaf, _Step):
         return np.asarray(leaf.value, np.int32)
+    if isinstance(leaf, np.ndarray) and str(leaf.dtype) in _NP_DTYPES:
+        return leaf
     if not isinstance(leaf, torch.Tensor):
         raise TypeError(f"leaf {index}: cannot checkpoint a {type(leaf).__name__}")
     if leaf.dtype not in _DTYPES:
@@ -274,7 +305,8 @@ class Checkpointer:
 
     def _write(self, step: int, state: Any, metric: Optional[float],
                shard_rows: Optional[int]) -> None:
-        flat = flatten_with_path(state, self.frozen)
+        flat = flatten_with_path(_lm_numpy(state) if _is_lm_state(state) else state,
+                                 self.frozen)
         tmp = os.path.join(self.directory, f"step_{step}.tmp-{uuid.uuid4().hex[:8]}")
         final = os.path.join(self.directory, f"step_{step}")
         os.makedirs(tmp, exist_ok=True)
@@ -392,27 +424,12 @@ class Checkpointer:
         if manifest["treedef"] != treedef_token(template, self.frozen):
             raise ValueError("checkpoint tree structure mismatch")
         flat = flatten_with_path(template, self.frozen)
+        if _is_lm_state(template):
+            return step, self._restore_lm(d, manifest, template, flat)
         leaves = []
         for i, (tpath, tl) in enumerate(flat):
             spec = manifest["leaves"][i]
-            if spec["dtype"] not in _NP_DTYPES:
-                raise TypeError(f"leaf {i}: stored dtype {spec['dtype']} is not "
-                                f"supported (float32 and int32 only)")
-            dtype = np.dtype(spec["dtype"])
-            shape = tuple(spec["shape"])
-            if spec.get("n_shards"):
-                arr = np.empty(shape, dtype)
-                lo = 0
-                for j in range(spec["n_shards"]):
-                    with open(os.path.join(d, f"leaf_{i}.shard_{j}.bin"), "rb") as f:
-                        part = np.frombuffer(f.read(), dtype=dtype)
-                    rows = min(spec["shard_rows"], shape[0] - lo)
-                    arr[lo:lo + rows] = part.reshape((rows,) + shape[1:])
-                    lo += rows
-            else:
-                with open(os.path.join(d, f"leaf_{i}.bin"), "rb") as f:
-                    # frombuffer is read-only; the trainer updates in place
-                    arr = np.frombuffer(f.read(), dtype=dtype).reshape(shape).copy()
+            arr = _read_leaf(d, i, spec)
             expect = tuple(tl.shape) if isinstance(tl, torch.Tensor) else ()
             if tuple(arr.shape) != expect:
                 raise ValueError(f"leaf {i}: saved {arr.shape} != expected {expect}")
@@ -427,3 +444,43 @@ class Checkpointer:
                 leaves.append(torch.from_numpy(arr).to(
                     tl.device if shardings is None else shardings.device))
         return step, _unflatten(_canonical(template, self.frozen), iter(leaves))
+
+    @staticmethod
+    def _restore_lm(d: str, manifest, template, flat):
+        """The reference's stacked LM state read into the port's layout on
+        the template's device."""
+        arrays = []
+        for i, (_, tl) in enumerate(flat):
+            spec = manifest["leaves"][i]
+            arr = _read_leaf(d, i, spec)
+            if arr.shape != tl.shape or spec["dtype"] != tl.dtype:
+                raise ValueError(f"leaf {i}: saved {spec['dtype']}{list(arr.shape)} != "
+                                 f"expected {tl.dtype}{list(tl.shape)}")
+            arrays.append(arr)
+        params_np, opt_np = _unflatten(_lm_layout(template), iter(arrays))
+        dev = template[0]["embed"].device
+        return (convert.lm_params_from_numpy(params_np, dev),
+                convert.lm_opt_state_from_numpy(opt_np, dev))
+
+
+def _read_leaf(d: str, i: int, spec) -> np.ndarray:
+    """Leaf ``i`` of checkpoint directory ``d`` as a writable array, its
+    row shards reassembled."""
+    if spec["dtype"] not in _NP_DTYPES:
+        raise TypeError(f"leaf {i}: stored dtype {spec['dtype']} is not "
+                        f"supported (float32 and int32 only)")
+    dtype = np.dtype(spec["dtype"])
+    shape = tuple(spec["shape"])
+    if spec.get("n_shards"):
+        arr = np.empty(shape, dtype)
+        lo = 0
+        for j in range(spec["n_shards"]):
+            with open(os.path.join(d, f"leaf_{i}.shard_{j}.bin"), "rb") as f:
+                part = np.frombuffer(f.read(), dtype=dtype)
+            rows = min(spec["shard_rows"], shape[0] - lo)
+            arr[lo:lo + rows] = part.reshape((rows,) + shape[1:])
+            lo += rows
+        return arr
+    with open(os.path.join(d, f"leaf_{i}.bin"), "rb") as f:
+        # frombuffer is read-only; the trainer updates in place
+        return np.frombuffer(f.read(), dtype=dtype).reshape(shape).copy()

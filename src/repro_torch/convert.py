@@ -19,12 +19,15 @@ import torch
 from torch import nn
 
 from repro_torch.core.drnn import LSTMCell
+from repro_torch.core.esrnn import param_leaves
 from repro_torch.core.heads import SSM, Attention, Readout
 from repro_torch.core.holt_winters import HWParams
 from repro_torch.device import resolve_device
 
 __all__ = ["params_from_numpy", "params_to_numpy", "params_to_device", "copy_params",
-           "lm_params_from_numpy", "lm_params_to_numpy"]
+           "lm_params_from_numpy", "lm_params_to_numpy", "lm_leaves_to_numpy",
+           "lm_leaves_from_numpy", "lm_opt_state_to_numpy", "lm_opt_state_from_numpy",
+           "lm_stacked_layout"]
 
 _HW_FIELDS = tuple(f.name for f in dataclasses.fields(HWParams))
 _READOUT = ("dense_w", "dense_b", "out_w", "out_b")
@@ -181,3 +184,69 @@ def _stack(layers):
     if isinstance(layers[0], dict):
         return {k: _stack([layer[k] for layer in layers]) for k in layers[0]}
     return np.stack(layers)
+
+
+def _like(params, it):
+    """``params``' nest with its tensors replaced, in ``param_leaves``
+    order (sorted keys, then list order), by the items of ``it``."""
+    if isinstance(params, dict):
+        return {k: _like(params[k], it) for k in sorted(params)}
+    if isinstance(params, list):
+        return [_like(v, it) for v in params]
+    return next(it)
+
+
+def lm_leaves_to_numpy(params, leaves):
+    """``leaves`` (gradients or moments, one per ``param_leaves(params)``
+    entry) as the reference's stacked tree of numpy arrays."""
+    if len(leaves) != len(param_leaves(params)):
+        raise ValueError(f"{len(leaves)} leaves for {len(param_leaves(params))} params")
+    return lm_params_to_numpy(_like(params, iter(leaves)))
+
+
+def lm_leaves_from_numpy(tree, device=None):
+    """A stacked numpy tree of the reference (its grads or moments) as the
+    port's list in ``param_leaves`` order, on ``device``."""
+    return [t for _, t in param_leaves(lm_params_from_numpy(tree, device))]
+
+
+def lm_opt_state_to_numpy(params, opt_state):
+    """The port's LM Adam state (``mu``, ``nu`` lists; ``step`` an int) as
+    the reference's ``{"mu", "nu", "step"}``: stacked numpy trees and a 0-d
+    int32."""
+    return {"mu": lm_leaves_to_numpy(params, opt_state["mu"]),
+            "nu": lm_leaves_to_numpy(params, opt_state["nu"]),
+            "step": np.asarray(opt_state["step"], np.int32)}
+
+
+def lm_opt_state_from_numpy(tree, device=None):
+    """The reference's LM Adam state (numpy leaves) as the port's."""
+    return {"mu": lm_leaves_from_numpy(tree["mu"], device),
+            "nu": lm_leaves_from_numpy(tree["nu"], device),
+            "step": int(np.asarray(tree["step"]))}
+
+
+class StackedLeaf:
+    """The shape and dtype of one stacked leaf, without its data."""
+
+    def __init__(self, shape, dtype: str):
+        self.shape, self.dtype = tuple(shape), dtype
+
+
+def _layout(tree, axes):
+    if axes == 0:
+        return _map(tree, lambda t: StackedLeaf(t.shape, str(t.dtype).removeprefix("torch.")))
+    parts = [_layout(p, axes - 1) for p in tree]
+
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([i[k] for i in items]) for k in items[0]}
+        return StackedLeaf((len(items),) + items[0].shape, items[0].dtype)
+
+    return stack(parts)
+
+
+def lm_stacked_layout(params):
+    """``lm_params_to_numpy(params)``'s tree with a :class:`StackedLeaf` for
+    each array: its structure and shapes, nothing copied."""
+    return {k: _layout(v, _STACKED.get(k, 0)) for k, v in params.items()}

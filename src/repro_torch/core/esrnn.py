@@ -129,14 +129,27 @@ def _module_leaves(prefix: Tuple, mod: nn.Module) -> List[Tuple[Tuple, torch.Ten
             for name, p in sorted(mod.named_parameters(recurse=False))]
 
 
+def _nest_leaves(prefix: Tuple, value) -> List[Tuple[Tuple, torch.Tensor]]:
+    if isinstance(value, torch.Tensor):
+        return [(prefix, value)]
+    if isinstance(value, dict):
+        return [leaf for k in sorted(value) for leaf in _nest_leaves(prefix + (k,), value[k])]
+    if isinstance(value, (list, tuple)):
+        return [leaf for i, v in enumerate(value) for leaf in _nest_leaves(prefix + (i,), v)]
+    raise TypeError(f"not a params node at {prefix}: {type(value).__name__}")
+
+
 def param_leaves(params) -> List[Tuple[Tuple, torch.Tensor]]:
     """``[(path, tensor), ...]`` in the JAX tree's flatten order.
 
     Sorted top-level keys, ``HWParams`` fields in declaration order (``None``
-    fields are not leaves), module parameters by name. Paths read like the
+    fields are not leaves), module parameters by name; a nest of dicts and
+    lists of tensors (the LM's params) by sorted keys, then list order. Paths read like the
     JAX tree paths: ``("hw", "alpha_logit")``, ``("rnn", 0, 1, "wx")``,
-    ``("head", "out_w")``. Gradients, optimizer moments and converted
-    parameters line up with the reference leaf for leaf in this order.
+    ``("head", "out_w")``, ``("layers", 3, "attn", "wq")``. Gradients,
+    optimizer moments and converted parameters line up with the reference
+    leaf for leaf in this order (an LM's per-layer leaves with its stacked
+    ones through :mod:`repro_torch.convert`).
     """
     out: List[Tuple[Tuple, torch.Tensor]] = []
     for key in sorted(params):
@@ -145,8 +158,10 @@ def param_leaves(params) -> List[Tuple[Tuple, torch.Tensor]]:
             out += [((key, f.name), getattr(value, f.name))
                     for f in dataclasses.fields(value)
                     if getattr(value, f.name) is not None]
-        else:
+        elif isinstance(value, nn.Module):
             out += _module_leaves((key,), value)
+        else:
+            out += _nest_leaves((key,), value)
     return out
 
 

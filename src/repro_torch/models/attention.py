@@ -9,7 +9,10 @@ and encoder-decoder families:
   the plain chunked path (query chunks of 512, scores grouped ``(B, Hkv,
   G, BQ, Tk)``, K/V heads never repeated), the reference's
   ``use_pallas=False``. There is no ``use_pallas`` flag: the device
-  decides;
+  decides. Training is the one exception: a call whose q, k or v needs a
+  gradient takes the plain path on the card too, counted by
+  :func:`grad_route_calls` (K6 has no backward; the reference trains
+  with ``use_pallas=False``, and its kernel has no ``custom_vjp``);
 * decode (:func:`cached_attention`) attends over the whole preallocated
   cache buffer with an explicit position mask, a plain masked einsum, as in
   the reference; it runs no kernel;
@@ -46,7 +49,7 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import apply_rope, dense_init, mm, rms_norm
 
 DEFAULT_Q_CHUNK = 512
 
@@ -74,6 +77,31 @@ def _attn_block(qg, k, v, q_start, offset, causal, scale):
     return torch.einsum("bkgqt,bktd->bkgqd", p.to(v.dtype), v)
 
 
+# attention calls that needed a gradient, since the last reset: each took
+# the plain chunked path (on the card, in place of K6)
+_grad_route_calls = 0
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and one of ``tensors`` needs a gradient: the route
+    of a training call (and of its recompute under remat)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def grad_route_calls() -> int:
+    """Calls of :func:`chunked_attention` that needed a gradient and so took
+    the plain path, since the last :func:`reset_grad_route_calls`: on the
+    card, the attention calls of a train step that did not launch K6 (one a
+    layer and microbatch, twice under remat: the forward and its
+    recompute)."""
+    return _grad_route_calls
+
+
+def reset_grad_route_calls() -> None:
+    global _grad_route_calls
+    _grad_route_calls = 0
+
+
 def chunked_attention(q, k, v, *, causal: bool, scale: float,
                       q_chunk: int = DEFAULT_Q_CHUNK):
     """softmax(q k^T * scale) v without materializing (Tq, Tk) or repeated KV.
@@ -81,8 +109,15 @@ def chunked_attention(q, k, v, *, causal: bool, scale: float,
     q: (B, Hq, Tq, hd); k: (B, Hkv, Tk, hd); v: (B, Hkv, Tk, dv) -> (B, Hq,
     Tq, dv). End-aligned causal offset.
     On a CUDA tensor this is one K6 launch; on the CPU the chunked plain path.
+    A call that needs a gradient (:func:`needs_grad`) takes the plain path
+    on every device and is counted (:func:`grad_route_calls`): K6 has no
+    backward, as the reference's Pallas kernel has none, and the reference
+    trains through this same plain path (``use_pallas=False``).
     """
-    if q.device.type == "cuda":
+    global _grad_route_calls
+    if needs_grad(q, k, v):
+        _grad_route_calls += 1
+    elif q.device.type == "cuda":
         return kernel_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                           causal=causal, scale=scale)
     b, hq, tq, hd = q.shape
@@ -153,9 +188,9 @@ def gqa_qkv(p, cfg: ArchConfig, x, positions):
     """
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = mm(x, p["wq"])
+    k = mm(x, p["wk"])
+    v = mm(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, hq, hd)
@@ -207,7 +242,7 @@ def gqa_apply(
             vc[:, :s] = v
             new_cache = KVCache(kc, vc, s)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return out @ p["wo"], new_cache
+    return mm(out, p["wo"]), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -248,10 +283,10 @@ def _mla_latent(p, cfg: ArchConfig, x, positions):
     b, s, _ = x.shape
     h = cfg.n_heads
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = (x @ p["wq"]).reshape(b, s, h, dn + dr)
+    q = mm(x, p["wq"]).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, theta=cfg.rope_theta)
-    ckv = x @ p["w_dkv"]
+    ckv = mm(x, p["w_dkv"])
     c_kv, k_rope = ckv[..., :r], ckv[..., r:]
     c_kv = rms_norm(c_kv, p["kv_norm"])
     k_rope = apply_rope(k_rope[:, :, None, :], positions, theta=cfg.rope_theta)[:, :, 0]
@@ -265,8 +300,8 @@ def _mla_heads(p, cfg: ArchConfig, q_nope, q_rope, c, kr):
     H, T, dv), transposed views."""
     b, t, _ = c.shape
     h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    k_nope = (c @ p["w_uk"]).reshape(b, t, h, dn)
-    v = (c @ p["w_uv"]).reshape(b, t, h, dv)
+    k_nope = mm(c, p["w_uk"]).reshape(b, t, h, dn)
+    v = mm(c, p["w_uv"]).reshape(b, t, h, dv)
     k = torch.cat([k_nope, kr[:, :, None, :].expand(b, t, h, dr)], dim=-1)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
     return tuple(t_.transpose(1, 2) for t_ in (qfull, k, v))
@@ -309,7 +344,7 @@ def mla_apply(p, cfg: ArchConfig, x, positions, *,
         if absorbed_decode:
             out = _mla_absorbed(p, cfg, q_nope, q_rope, cache.c_kv, cache.k_rope,
                                 positions, scale)
-            return out @ p["wo"], new_cache
+            return mm(out, p["wo"]), new_cache
         qh, kh, vh = _mla_heads(p, cfg, q_nope, q_rope, cache.c_kv, cache.k_rope)
         out = cached_attention(qh, kh, vh, positions, scale)
     else:  # train / prefill
@@ -322,7 +357,7 @@ def mla_apply(p, cfg: ArchConfig, x, positions, *,
             kc[:, :s] = k_rope
             new_cache = MLACache(cc, kc, s)
     out = out.transpose(1, 2).reshape(b, s, h * dv)
-    return out @ p["wo"], new_cache
+    return mm(out, p["wo"]), new_cache
 
 
 def _mla_absorbed(p, cfg: ArchConfig, q_nope, q_rope, c_all, kr_all, positions, scale):
@@ -375,8 +410,8 @@ def cross_attn_kv(p, cfg: ArchConfig, memory):
     H, M, hd), transposed views."""
     b = memory.shape[0]
     h, hd = cfg.n_heads, cfg.hd
-    k = (memory @ p["wk"]).reshape(b, -1, h, hd)
-    v = (memory @ p["wv"] + p["bv"]).reshape(b, -1, h, hd)
+    k = mm(memory, p["wk"]).reshape(b, -1, h, hd)
+    v = (mm(memory, p["wv"]) + p["bv"]).reshape(b, -1, h, hd)
     return k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -385,7 +420,7 @@ def cross_attn_apply(p, cfg: ArchConfig, x, memory):
     Non-causal at scale ``hd ** -0.5``: one K6 launch on the card."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
-    qh = (x @ p["wq"] + p["bq"]).reshape(b, s, h, hd).transpose(1, 2)
+    qh = (mm(x, p["wq"]) + p["bq"]).reshape(b, s, h, hd).transpose(1, 2)
     kh, vh = cross_attn_kv(p, cfg, memory)
     out = chunked_attention(qh, kh, vh, causal=False, scale=hd ** -0.5)
-    return out.transpose(1, 2).reshape(b, s, h * hd) @ p["wo"] + p["bo"]
+    return mm(out.transpose(1, 2).reshape(b, s, h * hd), p["wo"]) + p["bo"]

@@ -27,7 +27,10 @@ causal one and a non-causal cross-attention (whisper-base: 6 + 6 + 6 = 18);
 every decode step makes one cross-attention launch per decoder layer (6) at
 Tq = 1, its k and v recomputed from ``memory`` as the reference does. The
 self-attention's decode is :func:`repro_torch.models.attention.cached_attention`,
-no kernel. ``encdec_loss`` comes with LM training (``ROADMAP.md``).
+no kernel. ``encdec_loss`` is the training entry point: the encoder and the
+decoder each layer under ``cfg.remat``, the tied head, the CE; every
+attention of it needs a gradient and takes the plain path on the card too,
+so a train step launches no K6.
 """
 
 from __future__ import annotations
@@ -40,11 +43,14 @@ from repro_torch.models import attention as A
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     apply_norm,
+    cross_entropy_loss,
     embed_init,
     embed_lookup,
     gelu_mlp_apply,
     gelu_mlp_init,
+    mm,
     norm_init,
+    remat_call,
 )
 
 
@@ -109,23 +115,24 @@ def _enc_block(cfg: ArchConfig, lp, h):
     """One encoder layer: bidirectional self-attention, then the MLP."""
     x = apply_norm(h, lp["attn_norm"], "layernorm")
     b, s, _ = x.shape
-    q = (x @ lp["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = (x @ lp["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (x @ lp["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    q = mm(x, lp["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    k = mm(x, lp["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = mm(x, lp["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     o = A.chunked_attention(qh, kh, vh, causal=False, scale=cfg.hd ** -0.5)
-    h = h + o.transpose(1, 2).reshape(b, s, -1) @ lp["attn"]["wo"]
+    h = h + mm(o.transpose(1, 2).reshape(b, s, -1), lp["attn"]["wo"])
     return h + gelu_mlp_apply(lp["mlp"], apply_norm(h, lp["mlp_norm"], "layernorm"))
 
 
-def encode(cfg: ArchConfig, params, frames):
+def encode(cfg: ArchConfig, params, frames, *, remat: bool = False):
     """frames: (B, M, d) precomputed embeddings (the conv stub) -> the
-    encoder's states (B, M, d) in ``cfg``'s dtype."""
+    encoder's states (B, M, d) in ``cfg``'s dtype; each layer recomputed in
+    the backward under ``remat``."""
     h = frames.to(cfg.tdtype)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h = h + _sinusoid(positions, cfg.d_model).to(h.dtype)
     for lp in params["enc_layers"]:
-        h = _enc_block(cfg, lp, h)
+        h = remat_call(remat, lambda h, lp=lp: _enc_block(cfg, lp, h), h)
     return apply_norm(h, params["enc_norm"], "layernorm")
 
 
@@ -143,18 +150,35 @@ def _dec_block(cfg: ArchConfig, lp, h, memory, positions, *, cache=None, cache_m
 
 
 def decode_stack(cfg: ArchConfig, params, tokens, memory, positions, *, caches=None,
-                 cache_max_len=None):
+                 cache_max_len=None, remat: bool = False):
     """The decoder over ``tokens`` (B, S) at ``positions``: returns (h after
-    the final norm, one KV cache per layer)."""
+    the final norm, one KV cache per layer). ``remat`` (training, no
+    caches): each layer recomputed in the backward, and no caches."""
     h = embed_lookup(params["embed"], tokens).to(cfg.tdtype)
     h = h + _sinusoid(positions, cfg.d_model).to(h.dtype)
     new_caches = []
     for i, lp in enumerate(params["dec_layers"]):
+        if remat:
+            h = remat_call(True, lambda h, lp=lp: _dec_block(cfg, lp, h, memory, positions)[0],
+                           h)
+            continue
         h, nc = _dec_block(cfg, lp, h, memory, positions,
                            cache=None if caches is None else caches[i],
                            cache_max_len=cache_max_len)
         new_caches.append(nc)
     return apply_norm(h, params["dec_norm"], "layernorm"), new_caches
+
+
+def encdec_loss(cfg: ArchConfig, params, batch):
+    """Teacher-forced token CE: ``frames`` (B, M, d) through the encoder,
+    ``tokens``/``labels`` (B, S) through the decoder over its memory, the
+    head tied to the embedding; the batch's optional ``loss_mask``."""
+    memory = encode(cfg, params, batch["frames"], remat=cfg.remat)
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    h, _ = decode_stack(cfg, params, tokens, memory, positions, remat=cfg.remat)
+    return cross_entropy_loss(mm(h, params["embed"].t()), batch["labels"],
+                              batch.get("loss_mask"))
 
 
 def encdec_make_caches(cfg: ArchConfig, batch_size: int, max_len: int, dtype, device=None):
@@ -171,7 +195,7 @@ def encdec_prefill(cfg: ArchConfig, params, batch, *, max_len: int):
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     h, caches = decode_stack(cfg, params, tokens, memory, positions, cache_max_len=max_len)
-    return h[:, -1:, :] @ params["embed"].t(), {"self": caches, "memory": memory}
+    return mm(h[:, -1:, :], params["embed"].t()), {"self": caches, "memory": memory}
 
 
 def encdec_decode(cfg: ArchConfig, params, batch, caches):
@@ -180,4 +204,4 @@ def encdec_decode(cfg: ArchConfig, params, batch, caches):
     ``memory`` is passed on as it is."""
     h, new_caches = decode_stack(cfg, params, batch["tokens"], caches["memory"],
                                  batch["positions"], caches=caches["self"])
-    return h @ params["embed"].t(), {"self": new_caches, "memory": caches["memory"]}
+    return mm(h, params["embed"].t()), {"self": new_caches, "memory": caches["memory"]}

@@ -14,8 +14,11 @@ run :func:`repro_torch.models.ssm_lm.run_blocks` (the reference's
 ``params["shared"]`` once; caches are ``{"mamba": [[SSMCache] * K] * G,
 "attn": [KVCache] * G}``. On the card the shared block's prefill attention
 is one K6 launch an application (zamba2-2.7b: D = DV = 80, 9 a prefill);
-the Mamba2 blocks run no kernel of the port. ``hybrid_loss`` comes with LM
-training (``ROADMAP.md``).
+the Mamba2 blocks run no kernel of the port. ``hybrid_loss`` is the
+training entry point: the teacher-forced CE, each Mamba2 block and each
+shared-block application recomputed in the backward under ``cfg.remat``;
+its attention takes the plain path on the card too (it needs a gradient),
+so a train step launches no K6.
 """
 
 from __future__ import annotations
@@ -28,10 +31,13 @@ from repro_torch.models import ssm_lm as SL
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     apply_norm,
+    cross_entropy_loss,
     dense_init,
     embed_init,
     embed_lookup,
+    mm,
     norm_init,
+    remat_call,
     swiglu_apply,
     swiglu_init,
 )
@@ -60,14 +66,14 @@ def hybrid_init(cfg: ArchConfig, gen, dtype=None):
         "mamba": mamba,
         "shared": shared,
         "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, dev),
-        "lm_head": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).t(),
+        "lm_head": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).t().contiguous(),
     }
 
 
 def _shared_block(cfg: ArchConfig, sp, h, e0, positions, *, cache=None, cache_max_len=None):
     """The shared transformer block on ``concat(h, e0) @ w_concat``; its
     residuals add to ``h``. Returns (h, the application's KV cache)."""
-    x = torch.cat([h, e0], dim=-1) @ sp["w_concat"]
+    x = mm(torch.cat([h, e0], dim=-1), sp["w_concat"])
     a_out, new_cache = A.gqa_apply(
         sp["attn"], cfg, apply_norm(x, sp["attn_norm"], cfg.norm), positions,
         cache=cache, cache_max_len=cache_max_len)
@@ -93,6 +99,22 @@ def _forward(cfg: ArchConfig, params, tokens, positions, *, mamba_caches=None,
         new_mamba.append(nmc)
         new_attn.append(nac)
     return h, new_mamba, new_attn
+
+
+def hybrid_loss(cfg: ArchConfig, params, batch):
+    """Teacher-forced token CE over ``tokens``/``labels`` (B, S), with the
+    batch's optional ``loss_mask``."""
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    g, _ = _groups(cfg)
+    h = embed_lookup(params["embed"], tokens).to(cfg.tdtype)
+    e0 = h
+    for gi in range(g):
+        h = SL.train_blocks(cfg, params["mamba"][gi], h, remat=cfg.remat)
+        h = remat_call(cfg.remat,
+                       lambda h: _shared_block(cfg, params["shared"], h, e0, positions)[0], h)
+    return cross_entropy_loss(SL.logits(cfg, params, h), batch["labels"],
+                              batch.get("loss_mask"))
 
 
 def hybrid_make_caches(cfg: ArchConfig, batch_size: int, max_len: int, dtype, device=None):

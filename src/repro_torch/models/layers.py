@@ -9,15 +9,52 @@ give the JAX package's numbers; the two frameworks' generators do not.
 
 ``gelu_mlp_*`` is the encoder-decoder's MLP (whisper), with the tanh GELU
 rounded as XLA rounds ``jax.nn.gelu(approximate=True)`` (:func:`gelu_tanh`).
-``cross_entropy_loss`` waits for LM training (``ROADMAP.md``).
+``cross_entropy_loss`` is LM training's token loss.
+
+Products of the models go through :func:`mm` (and ``promoted``), which
+promote mixed float operands as ``jnp.matmul`` does: under the train
+step's cast (:func:`repro_torch.launch.steps.cast_params_for_compute`) a
+float32 config's activations meet bfloat16 weights, and JAX computes such a
+product in float32 where ``torch.matmul`` refuses it. Element-wise
+arithmetic needs nothing: PyTorch promotes two float tensors as JAX does.
+:func:`remat_call` is the per-layer rematerialization of the losses.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+def promoted(a, b):
+    """``a`` and ``b`` cast to their common dtype (``torch.promote_types``:
+    float32 with bfloat16 is float32, as in JAX); as they are if equal."""
+    if a.dtype == b.dtype:
+        return a, b
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def mm(a, b):
+    """``a @ b`` with JAX's promotion of mixed operands: ``jnp.matmul`` of
+    float32 and bfloat16 is a float32 product."""
+    a, b = promoted(a, b)
+    return a @ b
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward when ``remat`` (the
+    reference's ``jax.checkpoint`` with ``nothing_saveable``): only the
+    inputs are kept, and grad mode stays on while ``fn`` runs, so every call
+    inside it sees the tensors that need a gradient."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def dense_init(gen: torch.Generator, d_in, d_out, dtype=torch.float32, scale=None):
@@ -57,9 +94,27 @@ def norm_init(d, kind: str, dtype=torch.float32, device=None):
 # -- rotary ------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    exps = (torch.arange(0, dim, 2, dtype=torch.float32) / dim).numpy()
+    # one float32 power at a time: numpy's scalar power is libm's powf, as
+    # XLA's is; a vectorized power (numpy's, PyTorch's) differs by an ulp on
+    # about 1 % of the frequencies
+    one, base = np.float32(1.0), np.float32(theta)
+    return torch.tensor([one / (base ** e) for e in exps], dtype=torch.float32).to(device)
+
+
 def rope_freqs(dim: int, theta: float, device=None):
-    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
-    return 1.0 / (theta ** exps)
+    """1 / theta^(i / dim) for even i < dim, float32 (dim / 2,).
+
+    Made on the host, whatever ``device``, and copied there once (cached per
+    device; callers must not write to it): the exponents by float32 true
+    division, the power and the reciprocal in float32, each equal to the
+    reference's bits (held at every even width to 398 and five thetas). The
+    card divides a tensor by a number as a product with the reciprocal,
+    which puts some exponents an ulp off at a width that is not a power of
+    two (zamba2's 80), an ulp that grows with the position in the angle."""
+    return _rope_freqs(int(dim), float(theta), torch.device("cpu" if device is None else device))
 
 
 def apply_rope(x, positions, *, theta: float = 10000.0, fraction: float = 1.0):
@@ -95,7 +150,7 @@ def swiglu_init(gen: torch.Generator, d_model, d_ff, dtype=torch.float32):
 
 
 def swiglu_apply(p, x):
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
 
 
 def _rounded(v: float, dtype) -> float:
@@ -126,7 +181,7 @@ def gelu_mlp_init(gen: torch.Generator, d_model, d_ff, dtype=torch.float32):
 
 
 def gelu_mlp_apply(p, x):
-    return gelu_tanh(x @ p["w_in"] + p["b_in"]) @ p["w_out"] + p["b_out"]
+    return mm(gelu_tanh(mm(x, p["w_in"]) + p["b_in"]), p["w_out"]) + p["b_out"]
 
 
 # -- embeddings -----------------------------------------------------------------
@@ -139,3 +194,17 @@ def embed_init(gen: torch.Generator, vocab, d_model, dtype=torch.float32):
 
 def embed_lookup(table, ids):
     return table[ids]
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Token CE with an fp32 logsumexp; logits (B, S, V), labels (B, S).
+    With ``mask`` (B, S), the masked mean: sum(nll * mask) / max(sum(mask),
+    1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

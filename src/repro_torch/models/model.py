@@ -1,11 +1,12 @@
-"""Unified model API: ``build_model(config) -> Model`` with init/prefill/decode.
+"""Unified model API: ``build_model(config) -> Model`` with init/loss/prefill/decode.
 
 The port of the JAX package's ``models/model.py``. Every family of the
 registry runs (serving: prefill + decode): dense, MoE and vlm (the
 transformer, with GQA or MLA attention; vlm with its image prefix), ssm
 (Mamba2), hybrid (Zamba2) and encdec (whisper: an encode of the batch's
 ``frames`` in the prefill, cross-attention over it in every decoder layer).
-``lm_loss`` (and with it the ``loss`` entry) comes with LM training. There
+``loss`` (``(params, batch) -> scalar``) is what the train step
+(:mod:`repro_torch.launch.steps`) differentiates, for every family. There
 is no ``use_pallas`` switch:
 as everywhere in the port, a CUDA tensor runs the kernels and a CPU tensor
 the plain versions.
@@ -26,6 +27,7 @@ from repro_torch.models.config import ArchConfig
 class Model:
     cfg: ArchConfig
     init: Callable[..., Any]                  # (generator) -> params
+    loss: Callable[..., Any]                  # (params, batch) -> scalar
     prefill: Callable[..., Any]               # (params, batch, max_len) -> (logits, caches)
     decode: Callable[..., Any]                # (params, batch, caches) -> (logits, caches)
     make_caches: Callable[..., Any]           # (batch, max_len, dtype, device) -> caches
@@ -37,6 +39,7 @@ def build_model(cfg: ArchConfig) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: TF.lm_init(cfg, gen),
+            loss=lambda p, b: TF.lm_loss(cfg, p, b),
             prefill=lambda p, b, max_len: TF.lm_prefill(cfg, p, b, max_len=max_len),
             decode=lambda p, b, c: TF.lm_decode(cfg, p, b, c),
             make_caches=lambda bs, ml, dt, dev=None: TF.lm_make_caches(cfg, bs, ml, dt, dev),
@@ -45,6 +48,7 @@ def build_model(cfg: ArchConfig) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: SL.ssm_lm_init(cfg, gen),
+            loss=lambda p, b: SL.ssm_lm_loss(cfg, p, b),
             prefill=lambda p, b, max_len: SL.ssm_lm_prefill(cfg, p, b, max_len=max_len),
             decode=lambda p, b, c: SL.ssm_lm_decode(cfg, p, b, c),
             make_caches=lambda bs, ml, dt, dev=None: SL.ssm_lm_make_caches(cfg, bs, ml, dt,
@@ -54,6 +58,7 @@ def build_model(cfg: ArchConfig) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: HY.hybrid_init(cfg, gen),
+            loss=lambda p, b: HY.hybrid_loss(cfg, p, b),
             prefill=lambda p, b, max_len: HY.hybrid_prefill(cfg, p, b, max_len=max_len),
             decode=lambda p, b, c: HY.hybrid_decode(cfg, p, b, c),
             make_caches=lambda bs, ml, dt, dev=None: HY.hybrid_make_caches(cfg, bs, ml, dt,
@@ -63,6 +68,7 @@ def build_model(cfg: ArchConfig) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: ED.encdec_init(cfg, gen),
+            loss=lambda p, b: ED.encdec_loss(cfg, p, b),
             prefill=lambda p, b, max_len: ED.encdec_prefill(cfg, p, b, max_len=max_len),
             decode=lambda p, b, c: ED.encdec_decode(cfg, p, b, c),
             make_caches=lambda bs, ml, dt, dev=None: ED.encdec_make_caches(cfg, bs, ml, dt,

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import dense_init, swiglu_apply
+from repro_torch.models.layers import dense_init, mm, promoted, swiglu_apply
 
 
 def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype):
@@ -86,7 +86,7 @@ def moe_route(p, cfg: ArchConfig, x, capacity: Optional[int] = None) -> Routing:
     b, s, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     c = capacity or _capacity(s, cfg)
-    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    probs = torch.softmax(mm(x.float(), p["router"]), dim=-1)
     top_w, top_ids = torch.topk(probs, k, dim=-1, sorted=True)
     if cfg.norm_topk_prob:
         top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -123,8 +123,8 @@ def moe_scatter(cfg: ArchConfig, x, r: Routing):
 
 def moe_experts(p, buf):
     """The expert SwiGLU, batched over E: (E, N, d) -> (E, N, d)."""
-    act = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    return torch.bmm(act, p["w_down"])
+    act = F.silu(torch.bmm(*promoted(buf, p["w_gate"]))) * torch.bmm(*promoted(buf, p["w_up"]))
+    return torch.bmm(*promoted(act, p["w_down"]))
 
 
 def moe_gather(out_buf, r: Routing, dtype):

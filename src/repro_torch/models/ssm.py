@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, mm, rms_norm
 
 __all__ = ["segsum", "ssd_chunked", "SSMCache", "ssm_init", "ssm_apply", "make_ssm_cache"]
 
@@ -66,13 +66,37 @@ def ssm_init(gen: torch.Generator, cfg: ArchConfig, dtype):
     }
 
 
+def _sigmoid(x):
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+class _SiLU(torch.autograd.Function):
+    """The forward of :func:`_silu`, with the reference's backward: JAX
+    differentiates ``x * logistic(x)`` through ``logistic``'s own rule,
+    ``ct * x * (s * (1 - s))`` beside ``ct * s``. Autograd through the
+    forward's expression would give 0 * inf = NaN where ``exp(-x)``
+    overflows (x below about -88); this gives 0 there, as JAX does."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * _sigmoid(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (x,) = ctx.saved_tensors
+        s = _sigmoid(x)
+        return ct * s + (x * ct) * (s * (1 - s))
+
+
 def _silu(x):
     """x * sigmoid(x) with the sigmoid as 1 / (1 + exp(-x)), each step
     rounded to x's dtype: the rounding of the reference's ``jax.nn.silu``
     (XLA expands its logistic so). In bf16 the block then gives the
     reference's bits; ``F.silu`` rounds once, and its outputs sit an ulp
-    apart on 40 % of bf16 inputs, which the block's out-projection sums."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    apart on 40 % of bf16 inputs, which the block's out-projection sums.
+    Differentiable (:class:`_SiLU`)."""
+    return _SiLU.apply(x)
 
 
 def _split_proj(cfg: ArchConfig, zxbcdt):
@@ -168,7 +192,7 @@ def ssm_apply(p, cfg: ArchConfig, u, *, cache: Optional[SSMCache] = None):
     di, h, pp = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
     g, n = cfg.ssm_ngroups, cfg.ssm_state
 
-    z, x, bb, cc, dt = _split_proj(cfg, u @ p["w_in"])
+    z, x, bb, cc, dt = _split_proj(cfg, mm(u, p["w_in"]))
     a = -torch.exp(p["a_log"])                                      # (H,)
     dt_act = F.softplus(dt.float() + p["dt_bias"])                  # (B, T, H) float32
     conv_out, tail = _causal_conv(torch.cat([x, bb, cc], dim=-1), p["conv_w"], p["conv_b"],
@@ -202,7 +226,7 @@ def ssm_apply(p, cfg: ArchConfig, u, *, cache: Optional[SSMCache] = None):
     # the D skip on the conv's x, in the input dtype
     y = y.to(u.dtype) + p["d_skip"].to(u.dtype)[None, None, :, None] * xs.to(u.dtype)
     y = rms_norm(y.reshape(b, t, di) * _silu(z), p["out_norm"])
-    return y @ p["w_out"], new_cache
+    return mm(y, p["w_out"]), new_cache
 
 
 def make_ssm_cache(cfg: ArchConfig, batch: int, dtype, device=None) -> SSMCache:

@@ -9,14 +9,24 @@ blocks takes the place of ``lax.scan``; params hold one dict per block
 :class:`~repro_torch.models.ssm.SSMCache` per block. The reference's stacked
 ``(L, ...)`` leaves are kept at the converter (:mod:`repro_torch.convert`).
 No kernel of the port runs here (the SSD is plain tensor code, as in the
-reference). ``ssm_lm_loss`` comes with LM training (``ROADMAP.md``).
+reference). ``ssm_lm_loss`` is the training entry point: the teacher-forced
+CE, each block recomputed in the backward under ``cfg.remat``
+(:func:`train_blocks`, the hybrid's too).
 """
 
 from __future__ import annotations
 
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import apply_norm, embed_init, embed_lookup, norm_init
+from repro_torch.models.layers import (
+    apply_norm,
+    cross_entropy_loss,
+    embed_init,
+    embed_lookup,
+    mm,
+    norm_init,
+    remat_call,
+)
 
 
 def ssm_lm_init(cfg: ArchConfig, gen, dtype=None):
@@ -30,7 +40,7 @@ def ssm_lm_init(cfg: ArchConfig, gen, dtype=None):
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "layers": layers,
         "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, dev),
-        "lm_head": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).t(),
+        "lm_head": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).t().contiguous(),
     }
 
 
@@ -46,9 +56,31 @@ def run_blocks(cfg: ArchConfig, layers, h, *, caches=None):
     return h, new_caches
 
 
+def _train_block(cfg: ArchConfig, lp, h):
+    out, _ = S.ssm_apply(lp["ssm"], cfg, apply_norm(h, lp["norm"], cfg.norm))
+    return h + out
+
+
+def train_blocks(cfg: ArchConfig, layers, h, *, remat: bool):
+    """The blocks of a loss, in order, each under ``remat``
+    (:func:`~repro_torch.models.layers.remat_call`). Returns h."""
+    for lp in layers:
+        h = remat_call(remat, lambda h, lp=lp: _train_block(cfg, lp, h), h)
+    return h
+
+
 def logits(cfg: ArchConfig, params, h):
     """The final norm and the LM head (the hybrid's too)."""
-    return apply_norm(h, params["final_norm"], cfg.norm) @ params["lm_head"]
+    return mm(apply_norm(h, params["final_norm"], cfg.norm), params["lm_head"])
+
+
+def ssm_lm_loss(cfg: ArchConfig, params, batch):
+    """Teacher-forced token CE over ``tokens``/``labels`` (B, S), with the
+    batch's optional ``loss_mask``."""
+    h = embed_lookup(params["embed"], batch["tokens"]).to(cfg.tdtype)
+    h = train_blocks(cfg, params["layers"], h, remat=cfg.remat)
+    return cross_entropy_loss(logits(cfg, params, h), batch["labels"],
+                              batch.get("loss_mask"))
 
 
 def ssm_lm_make_caches(cfg: ArchConfig, batch_size: int, max_len: int, dtype, device=None):

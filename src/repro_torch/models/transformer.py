@@ -20,9 +20,15 @@ identity on one device and is not ported.
 A vlm prefill takes ``batch["image_embeds"]`` (B, n_patches, d_model), cast
 to the model dtype and put in front of the token embeddings before the
 layers (the stubbed vision frontend's patch embeddings), so its positions
-and caches start with the patches; its decode is the dense one. ``lm_loss``
-(which adds 0.01 x the summed MoE aux loss, and masks the image positions
-of a vlm batch) waits for LM training (``ROADMAP.md``).
+and caches start with the patches; its decode is the dense one.
+
+``lm_loss`` is the training entry point: the teacher-forced CE, plus 0.01
+x the summed MoE aux loss of the non-prefix layers, the image positions of
+a vlm batch masked out, each non-prefix layer recomputed in the backward
+under ``cfg.remat`` (a MoE layer's MLP half kept). Its attention needs a
+gradient, so it takes the plain chunked path on the card as well
+(:func:`repro_torch.models.attention.chunked_attention`): a train step
+launches no K6.
 """
 
 from __future__ import annotations
@@ -34,9 +40,12 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     apply_norm,
+    cross_entropy_loss,
     embed_init,
     embed_lookup,
+    mm,
     norm_init,
+    remat_call,
     swiglu_apply,
     swiglu_init,
 )
@@ -83,7 +92,9 @@ def lm_init(cfg: ArchConfig, gen, dtype=None):
     if prefix:
         params["prefix_layers"] = prefix
     if not cfg.tie_embeddings:
-        params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).t()
+        # contiguous (d, V), as a converted or restored head is: the head's
+        # product then sums in one order whichever way the params came
+        params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).t().contiguous()
     return params
 
 
@@ -92,21 +103,43 @@ def lm_init(cfg: ArchConfig, gen, dtype=None):
 # ---------------------------------------------------------------------------
 
 
-def _block(cfg: ArchConfig, p, h, positions, *, cache=None, cache_max_len=None):
-    """Pre-norm residual block. Returns (h, new_cache, aux_loss); the aux
-    loss of a dense block is the float 0.0 (no launch on the card)."""
+def _attn_half(cfg: ArchConfig, p, h, positions, *, cache=None, cache_max_len=None):
+    """The block's pre-norm attention and its residual: (h, new_cache)."""
     attn_fn = A.mla_apply if cfg.use_mla else A.gqa_apply
     a_out, new_cache = attn_fn(
         p["attn"], cfg, apply_norm(h, p["attn_norm"], cfg.norm), positions,
         cache=cache, cache_max_len=cache_max_len)
-    h = h + cfg.residual_multiplier * a_out
+    return h + cfg.residual_multiplier * a_out, new_cache
+
+
+def _mlp_half(cfg: ArchConfig, p, h):
+    """The block's pre-norm MLP (SwiGLU or MoE) and its residual: (h, aux);
+    the aux loss of a dense block is the float 0.0 (no launch on the card)."""
     x = apply_norm(h, p["mlp_norm"], cfg.norm)
     if "moe" in p:
         m_out, aux = MOE.moe_apply(p["moe"], cfg, x)
     else:
         m_out, aux = swiglu_apply(p["mlp"], x), 0.0
-    h = h + cfg.residual_multiplier * m_out
+    return h + cfg.residual_multiplier * m_out, aux
+
+
+def _block(cfg: ArchConfig, p, h, positions, *, cache=None, cache_max_len=None):
+    """Pre-norm residual block. Returns (h, new_cache, aux_loss)."""
+    h, new_cache = _attn_half(cfg, p, h, positions, cache=cache, cache_max_len=cache_max_len)
+    h, aux = _mlp_half(cfg, p, h)
     return h, new_cache, aux
+
+
+def _train_block(cfg: ArchConfig, p, h, positions, *, remat: bool):
+    """A block of the loss: (h, aux). Under ``remat`` a dense block is
+    recomputed whole in the backward; a MoE block only its attention half,
+    its MLP half (router, dispatch, experts) kept: the reference saves the
+    MoE output (``save_only_these_names("moe_out")``), and here nothing of
+    the MoE layer is recomputed, so its routing is made once."""
+    if "moe" in p:
+        h = remat_call(remat, lambda h: _attn_half(cfg, p, h, positions)[0], h)
+        return _mlp_half(cfg, p, h)
+    return remat_call(remat, lambda h: _block(cfg, p, h, positions)[0], h), 0.0
 
 
 def _run_layers(cfg: ArchConfig, layers, h, positions, *, caches=None,
@@ -144,13 +177,46 @@ def _embed_h(cfg, params, tokens):
 def _logits(cfg, params, h):
     h = apply_norm(h, params["final_norm"], cfg.norm)
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = h @ head
+    logits = mm(h, head)
     return logits / cfg.logits_scaling
 
 
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+
+def lm_loss(cfg: ArchConfig, params, batch):
+    """Teacher-forced token CE + 0.01 x the summed MoE aux loss (a scalar).
+
+    batch: ``tokens`` and ``labels`` (B, S), optional ``loss_mask`` (B, S);
+    a vlm's ``image_embeds`` (B, P, d) go in front of the tokens, their
+    positions labelled 0 and masked out. The prefix layers run without
+    remat and their aux loss is dropped, as the reference's; the other
+    layers each run under ``cfg.remat`` (:func:`_train_block`)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    mask = batch.get("loss_mask")
+    b, s = tokens.shape
+    h = _embed_h(cfg, params, tokens)
+    if cfg.family == "vlm":
+        img = batch["image_embeds"].to(cfg.tdtype)           # (B, P, d)
+        n_img = img.shape[1]
+        h = torch.cat([img, h], dim=1)
+        labels = torch.cat([labels.new_zeros((b, n_img)), labels], dim=1)
+        tok_mask = (mask.float() if mask is not None
+                    else torch.ones((b, s), dtype=torch.float32, device=h.device))
+        mask = torch.cat([torch.zeros((b, n_img), dtype=torch.float32, device=h.device),
+                          tok_mask], dim=1)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    for lp in params.get("prefix_layers", []):
+        h = _block(cfg, lp, h, positions)[0]
+    aux = 0.0
+    for lp in params["layers"]:
+        h, a = _train_block(cfg, lp, h, positions, remat=cfg.remat)
+        aux = aux + a
+    ce = cross_entropy_loss(_logits(cfg, params, h), labels, mask)
+    return ce + 0.01 * aux
+
 
 
 def lm_make_caches(cfg: ArchConfig, batch_size: int, max_len: int, dtype, device=None):

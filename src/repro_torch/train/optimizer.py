@@ -11,8 +11,11 @@ touches only a batch's rows (:func:`adam_update_sparse`).
 Not ``torch.optim.Adam``: its clipping, grouping and sparse semantics
 differ from the reference's. The functions here work on an explicit leaf
 order, :func:`repro_torch.core.esrnn.param_leaves` (the JAX params tree's
-flatten order), so gradients, moments and parameters line up with the
-reference leaf for leaf. The scalar factors (bias corrections, schedule, learning
+flatten order; an LM's nest of dicts and lists too), so gradients, moments
+and parameters line up with the reference leaf for leaf. An LM keeps one
+leaf per layer where the reference stacks them ``(L, ...)``: the per-leaf
+math is the same, and only the global norm sums its squares in another
+order. The scalar factors (bias corrections, schedule, learning
 rates) are computed in float32 on the host, as the reference computes them
 in float32, and the updates run on the leaves' device.
 
@@ -96,14 +99,18 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
         [torch.sum(torch.square(g.float())) for g in grads])))
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor],
-                        cfg: AdamConfig) -> List[torch.Tensor]:
-    """Scale every gradient by ``min(1, clip_norm / norm)``; no host sync."""
+def _clip_scale(grads: Sequence[torch.Tensor], cfg: AdamConfig) -> Optional[torch.Tensor]:
+    """``min(1, clip_norm / norm)`` as a device scalar, or None without a
+    ``clip_norm``; no host sync."""
     if cfg.clip_norm is None:
-        return list(grads)
-    norm = global_norm(grads)
-    scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(norm, 1e-12), 1.0)
-    return [g * scale for g in grads]
+        return None
+    return torch.clamp_max(cfg.clip_norm / torch.clamp_min(global_norm(grads), 1e-12), 1.0)
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], cfg: AdamConfig) -> List[torch.Tensor]:
+    """Every gradient scaled by ``min(1, clip_norm / norm)``, as copies."""
+    scale = _clip_scale(grads, cfg)
+    return list(grads) if scale is None else [g * scale for g in grads]
 
 
 # ---------------------------------------------------------------------------
@@ -139,9 +146,10 @@ def adam_init_sparse(params, hw_key: str = "hw") -> Dict:
 # ---------------------------------------------------------------------------
 
 
-def _dense_leaf_update(p, g, mu, nu, *, cfg, lr, bc1, bc2) -> None:
-    """The one copy of the per-leaf AdamW math, in place."""
-    g32 = g.float()
+def _dense_leaf_update(p, g, mu, nu, *, cfg, lr, bc1, bc2, scale=None) -> None:
+    """The one copy of the per-leaf AdamW math, in place; ``scale`` is the
+    clip's (:func:`_clip_scale`), applied to this leaf alone."""
+    g32 = (g if scale is None else g * scale).float()
     mu.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
     nu.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
     upd = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
@@ -157,16 +165,18 @@ def adam_update(grads: Sequence[torch.Tensor], opt_state: Dict, params,
 
     ``grads[i]`` belongs to ``param_leaves(params)[i]``; ``group_fn`` maps a
     leaf path to a group name for the group learning rates. The parameter
-    and moment tensors are updated in place.
+    and moment tensors are updated in place; the clipping scales one leaf's
+    gradient at a time (an LM's gradients are as large as its weights), and
+    ``grads`` are left as they were.
     """
     step = opt_state["step"] + 1
     sched = schedule_factor(cfg, step)
     bc1, bc2 = _bias_corrections(cfg, step)
-    grads = clip_by_global_norm(grads, cfg)
+    scale = _clip_scale(grads, cfg)
     for (path, p), g, mu, nu in zip(param_leaves(params), grads,
                                     opt_state["mu"], opt_state["nu"], strict=True):
-        _dense_leaf_update(p, g, mu, nu, cfg=cfg,
-                           lr=_leaf_lr(path, cfg, sched, group_fn), bc1=bc1, bc2=bc2)
+        _dense_leaf_update(p, g, mu, nu, cfg=cfg, lr=_leaf_lr(path, cfg, sched, group_fn),
+                           bc1=bc1, bc2=bc2, scale=scale)
     return params, dict(opt_state, step=step)
 
 

@@ -1219,3 +1219,56 @@ def test_chunked_fit_restaging_a_chunk_equals_chunk_resident_on_card(card):
         assert torch.equal(a.cpu(), b.cpu()), path
     assert runs[0]["params"]["hw"].alpha_logit.is_pinned()
     assert torch.equal(runs[0]["opt_state"]["t_hw"], runs[1]["opt_state"]["t_hw"].cpu())
+
+
+@pytest.mark.cuda
+def test_rope_at_width_80_matches_the_cpu_to_position_4096_on_card(card):
+    """zamba2's rotated width, 80, at every position a train cell reaches and
+    past it: the card's frequencies are the CPU's bits (both made on the
+    host), and the rotation within 1e-5 of the CPU's (the card's sin and cos
+    of the same float32 angles)."""
+    from repro_torch.models import layers as TL
+
+    assert torch.equal(TL.rope_freqs(80, 10000.0, card).cpu(), TL.rope_freqs(80, 10000.0))
+    gen = torch.Generator().manual_seed(80)
+    x = torch.randn((2, 4096, 3, 80), generator=gen)
+    pos = torch.arange(4096)[None, :]
+    want = TL.apply_rope(x, pos, theta=10000.0)
+    got = TL.apply_rope(x.to(card), pos.to(card), theta=10000.0)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_train_step_takes_the_plain_attention_route_on_card(card):
+    """A train step's attention needs a gradient: the plain chunked path on
+    the card too, counted, and no K6 launch; without a gradient the same
+    call launches K6, and K6 itself still refuses a tensor that needs one."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeCell, get_smoke_config
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import attention as A
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import adam_init
+
+    strict_fp32()
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), remat=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    cell = ShapeCell("t", "train", 32, 4, microbatch=2)
+    batch = synthetic_batch(cfg, cell, 0, device=card)
+    A.reset_grad_route_calls()
+    ops.reset_launch_counts()
+    _, _, loss = S.make_train_step(model, cell)(params, adam_init(params), batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert A.grad_route_calls() == cfg.n_layers * 2 * 2      # layers x microbatches x remat
+    q = torch.randn((1, 4, 32, 16), device=card, requires_grad=True)
+    k = torch.randn((1, 2, 32, 16), device=card)
+    with torch.no_grad():
+        A.chunked_attention(q, k, k, causal=True, scale=0.25)
+    assert ops.launch_counts()["flash_attention"] == 1
+    with pytest.raises(RuntimeError, match="needs a gradient"):
+        flash_attention.flash_attention(q, k, k, causal=True)

@@ -32,6 +32,7 @@ from repro_torch.forecast import BucketDispatcher, ESRNNForecaster, get_smoke_sp
 from repro_torch.forecast.server import ForecastServer, IdleFineTuner
 from repro_torch.kernels import build, flash_attention, hw_scan, lstm_cell, ops
 from repro_torch.launch import forecast as forecast_cli
+from repro_torch.launch import train as lm_train
 from repro_torch.train.trainer import TrainConfig, train_esrnn
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -106,6 +107,8 @@ def test_entry_points_default_to_the_card(tmp_path):
         ESRNNForecaster.load(str(tmp_path / "fq"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         forecast_cli.main(["fit", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_train.train("granite-3-2b", smoke=True, steps=1, batch=2, seq=8)
 
 
 def test_cpu_tensors_take_the_plain_versions():
