@@ -57,8 +57,17 @@ decode step split into the encoder, the decoder's self-attention, the
 cross-attention, the MLPs and K6 (``profile_lm_encdec``); last,
 granite-3-2b, chatglm3-6b and qwen2.5-14b at full width and 2 layers in
 fp32 against the CPU and float64 (``lm_dense_parity``) and at full width
-and depth in bf16 (``lm_dense_serve``: K6 on the first layer's own q, k, v
-at the model's scale); then LM training, for granite-3-2b, qwen3-moe,
+and 24 layers in bf16 (``lm_dense_serve``: K6 on the first layer's own q, k, v
+at the model's scale); then tensor-parallel serving on two gloo ranks
+sharing the card, a (1, 2) host mesh, in one spawn: every arch at full width
+and the parity depths in fp32 against the one-device card run of the same
+weights, logits and every cache, routing, K6 launches and collectives per
+rank (``lm_tp_parity``), and yi-6b at full width and depth in bf16, 2 x 512
++ 8 tokens (``lm_tp_serve``: prefill and decode ms, each rank's peak GB and
+collective ms a step, the logits held to the model in fp32 against the
+one-device bf16 serve's, K6 at 16 q and 2 kv heads against its plain
+version); the production-mesh dry-run of every cell (``dryrun``); then LM
+training, for granite-3-2b, qwen3-moe,
 deepseek-v2-lite, internvl2-2b, mamba2-1.3b, zamba2-2.7b and whisper-base:
 at full width and the parity depths in fp32, the loss and every gradient
 card against CPU, MoE routing equal, remat on against off, and one bf16
@@ -349,9 +358,11 @@ MOE_PARITY_LAYERS = 2
 VLM_ARCH, SSM_ARCH, HYBRID_ARCH = "internvl2-2b", "mamba2-1.3b", "zamba2-2.7b"
 # serve cells cut in depth to keep the script inside its time limit beside
 # the LM training phases: qwen3-moe at 24 of its 48 layers, mamba2 at 24 of
-# 48 blocks, zamba2 at 24 of 54 (4 shared-block applications); PERF.md
-# keeps their full-depth serving numbers
-SERVE_DEPTH = {"qwen3-moe-30b-a3b": 24, "mamba2-1.3b": 24, "zamba2-2.7b": 24}
+# 48 blocks, zamba2 at 24 of 54 (4 shared-block applications); and, beside
+# the tensor-parallel phases, granite-3-2b (40), chatglm3-6b (28) and
+# qwen2.5-14b (48) at 24; PERF.md keeps their full-depth serving numbers
+SERVE_DEPTH = {"qwen3-moe-30b-a3b": 24, "mamba2-1.3b": 24, "zamba2-2.7b": 24,
+               "granite-3-2b": 24, "chatglm3-6b": 24, "qwen2.5-14b": 24}
 HYBRID_PARITY_LAYERS = 12
 SSM_RAGGED_PROMPT = 200
 # the encdec cells: whisper-base (6 + 6 layers, d 512, MHA 8 x 64, 1,500
@@ -412,6 +423,27 @@ TRAIN_RESUME_ARCH, TRAIN_PROFILE_ARCH = "whisper-base", "granite-3-2b"
 # that rtol as a share of its norm
 GRAD_TOL = 1e-4
 TRAIN16_STEP_RTOL, TRAIN16_STEP_ATOL = 2e-2, 1e-3
+
+# the tensor-parallel cells: 2 gloo ranks sharing the card, a (1, 2) host
+# mesh. Parity (``lm_tp_parity``): every arch at full width in fp32 at
+# ``run_parity``'s depths (2 layers; zamba2 12 blocks; whisper 6 + 6) and
+# inputs, against the one-device card run of the same weights on rank 0, at
+# the LM bounds; all ten in one spawn. Serving (``lm_tp_serve``): yi-6b at
+# full width and depth in bf16, batch 2 x prompt 512 + 8 tokens (its
+# prefill's partial sums cross the host through gloo twice a layer, so the
+# cell is cut from the LM serve cell's 8 x 2048), against the one-device
+# bf16 serve of the same inputs within the bf16 bound
+TP_SIZE = 2
+TP_PARITY_LAYERS = {"zamba2-2.7b": HYBRID_PARITY_LAYERS, "whisper-base": None}
+TP_SERVE_ARCH, TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_GEN = "yi-6b", 2, 512, 8
+# the bf16 bound, reported for the tp logits against the one-device serve's;
+# at full depth the one-device bf16 serve is as far from its own fp32 model
+# (77 x that bound, on an H100 80GB HBM3 at 700 W), so the phase holds the tp
+# logits to the fp32 model: their RMS error at most TP16_RMS_GATE x the
+# one-device bf16 serve's (two roundings of one model, in another order)
+TP16_RTOL, TP16_ATOL = 2e-2, 1e-3
+TP16_RMS_GATE = 1.1
+TP_COLLECTIVE_STEPS = 3     # decode steps whose collectives are timed
 
 # phase analyze: the CLI's audits at full width, by part: (name, spec, --set)
 ANALYZE_RUNS = (("lstm", "esrnn-quarterly", ()), ("bf16", "esrnn-quarterly", ("precision=bf16",)),
@@ -3575,22 +3607,9 @@ class LMServe:
         module's attribute sees every call; the port itself is unchanged."""
         import torch
 
-        from repro_torch.kernels import ops
-
-        real, seen, n = ops.flash_attention, {}, [0]
-
-        def spy(q, k, v, *, causal, scale=None):
-            if n[0] in which:
-                seen[n[0]] = (q, k, v, causal, scale)
-            n[0] += 1
-            return real(q, k, v, causal=causal, scale=scale)
-
-        ops.flash_attention = spy
-        try:
-            with torch.no_grad():
-                (call or self.prefill)()
-        finally:
-            ops.flash_attention = real
+        seen = {}
+        with torch.no_grad(), k6_captured(seen, which):
+            (call or self.prefill)()
         return [seen[i] for i in which]
 
 
@@ -4227,7 +4246,8 @@ def run_dense_presets(dev, smi, counted, lm_kernels, gen):
     """Phase 7e, the dense presets not served before (granite-3-2b,
     chatglm3-6b, qwen2.5-14b): each at full width, 2 layers, fp32, card
     against CPU and float64 (``lm_dense_parity``), then at full width and
-    depth in bf16 through ``generate`` (``lm_dense_serve``), K6 once per
+    24 layers (``SERVE_DEPTH``) in bf16 through ``generate``
+    (``lm_dense_serve``), K6 once per
     layer, held against its plain version on the first layer's own q, k, v
     at the model's scale. ``counted`` is ``main``'s: these launches join the
     main path's."""
@@ -4240,7 +4260,7 @@ def run_dense_presets(dev, smi, counted, lm_kernels, gen):
         emit(dict(phase="lm_dense_parity", card=smi, launches=launches, **rec))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        lm = LMServe(dev, arch_config(arch))
+        lm = LMServe(dev, arch_config(arch, n_layers=SERVE_DEPTH.get(arch)))
         init_peak = torch.cuda.max_memory_allocated()
         serve, launches = counted(lm_kernels, f"{arch} serving", lambda: run_lm_serve(lm))
         serve.update(init_peak_gb=init_peak / 1e9)
@@ -4252,6 +4272,433 @@ def run_dense_presets(dev, smi, counted, lm_kernels, gen):
         del launch
         emit(dict(phase="lm_dense_serve", card=smi, launches=launches, **serve))
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7e': tensor-parallel serving (two gloo ranks sharing the card) and the
+# production-mesh dry-run
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def routing_recorded(calls):
+    """``moe_route`` recording each call's top-k ids, slots and keep (and
+    its least top-k probability gap) in ``calls`` while the block runs."""
+    from repro_torch.models import moe as MOE
+
+    real = MOE.moe_route
+
+    def route(*a, **k):
+        r = real(*a, **k)
+        calls.append(dict(top_ids=r.top_ids.cpu(), pos=r.pos.cpu(), keep=r.keep.cpu(),
+                          gap=moe_margin(r, r.top_ids.shape[-1])))
+        return r
+
+    MOE.moe_route = route
+    try:
+        yield
+    finally:
+        MOE.moe_route = real
+
+
+def _routing_digest(calls):
+    import hashlib
+
+    h = hashlib.sha256()
+    for c in calls:
+        for f in ("top_ids", "pos", "keep"):
+            h.update(c[f].numpy().tobytes())
+    return h.hexdigest()
+
+
+def _k6_launches():
+    from repro_torch.kernels import ops
+
+    return ops.launch_counts()["flash_attention"]
+
+
+def _tp_run(model, params, batch_in, max_len, steps, tokens=None):
+    """The prefill and ``steps`` decode steps; ``tokens`` (steps, B) the ids
+    to feed (else each step's greedy ids). Returns every step's last-position
+    logits, the greedy ids, the caches after the prefill and after the last
+    step (kept by reference: the decode writes the KV caches in place, so
+    the prefill's are cloned), K6 launches of the prefill and of the decode
+    steps."""
+    import torch
+
+    from repro_torch.sharding import ctx
+
+    mesh = (ctx.current() or {}).get("mesh")
+    b, p = batch_in["tokens"].shape
+    offset = batch_in["image_embeds"].shape[1] if "image_embeds" in batch_in else 0
+    k0 = _k6_launches()
+    if mesh is not None:
+        mesh.reset_counts()
+    logits, caches = model.prefill(params, batch_in, max_len)
+    torch.cuda.synchronize()
+    out = dict(k6_prefill=_k6_launches() - k0, logits=[logits[:, -1].float().cpu()],
+               collectives=[mesh.collective_counts()] if mesh is not None else [])
+    out["caches_prefill"] = _clone_caches(caches)
+    greedy = [logits[:, -1].argmax(dim=-1)]
+    k0 = _k6_launches()
+    for i in range(steps):
+        tok = greedy[-1] if tokens is None else tokens[i].to(logits.device)
+        pos = torch.full((b, 1), p + offset + i, dtype=torch.int64, device=logits.device)
+        if mesh is not None:
+            mesh.reset_counts()
+        logits, caches = model.decode(params, {"tokens": tok[:, None], "positions": pos},
+                                      caches)
+        if mesh is not None:
+            out["collectives"].append(mesh.collective_counts())
+        out["logits"].append(logits[:, -1].float().cpu())
+        greedy.append(logits[:, -1].argmax(dim=-1))
+    torch.cuda.synchronize()
+    out.update(k6_decode=_k6_launches() - k0, greedy=torch.stack(greedy).cpu(),
+               caches_last=caches)
+    return out
+
+
+def _clone_caches(caches):
+    if isinstance(caches, dict):
+        return {k: _clone_caches(v) for k, v in caches.items()}
+    if isinstance(caches, list):
+        return [_clone_caches(v) for v in caches]
+    if hasattr(caches, "_fields"):
+        return type(caches)(*(v if isinstance(v, int) else v.clone()
+                              for v in (getattr(caches, f) for f in caches._fields)))
+    return caches.clone()
+
+
+def _tp_parity_case(mesh, arch, n_layers, batch=LM_PARITY_BATCH, prompt_len=LM_PARITY_PROMPT,
+                    gen=LM_PARITY_GEN, seed=7):
+    """One arch on the rank: the whole model from the seed on the card, cut
+    to this rank's share; the prefill and ``gen - 1`` greedy decode steps
+    under the mesh's context, the caches gathered back to one device's
+    layout; then, on rank 0, the one-device card run of the same weights fed
+    the same ids, held at the LM bounds (logits every step, every cache
+    after the prefill and after the last step), its routing and greedy ids
+    against the ranks'. K6 launches and collectives counted."""
+    import torch
+
+    from repro_torch.launch.serve import draw_inputs
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import ctx, tp
+
+    cfg = arch_config(arch, n_layers=n_layers, dtype="float32")
+    model = build_model(cfg)
+    dev = mesh.device
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    local = tp.shard_lm_params(cfg, params, mesh)
+    if mesh.rank:
+        del params
+    prompts, extra = draw_inputs(cfg, batch, prompt_len, seed, dev)
+    batch_in = {"tokens": prompts, **extra}
+    offset = extra["image_embeds"].shape[1] if "image_embeds" in extra else 0
+    max_len = prompt_len + offset + gen
+    tp_routing, routing = [], []
+    t0 = time.perf_counter()
+    with torch.no_grad(), ctx.activation_sharding(mesh, dp="data", tp="model"), \
+            routing_recorded(tp_routing):
+        run = _tp_run(model, local, batch_in, max_len, gen - 1)
+        gathered = {k: tp.gather_caches(cfg, mesh, run[k], batch)
+                    for k in ("caches_prefill", "caches_last")}
+    tp_s = time.perf_counter() - t0
+    want_k6 = (k6_per_prefill(cfg), k6_per_decode_step(cfg) * (gen - 1))
+    if (run["k6_prefill"], run["k6_decode"]) != want_k6:
+        raise AssertionError(f"{arch} tp parity, rank {mesh.rank}: K6 launches "
+                             f"{(run['k6_prefill'], run['k6_decode'])}, want {want_k6}")
+    want_coll = [tp.collectives_per_call(cfg, mesh.shape["model"], prefill=i == 0)
+                 for i in range(gen)]
+    got_coll = [c.get("model", {}).get("all_reduce", 0) for c in run["collectives"]]
+    if got_coll != want_coll:
+        raise AssertionError(f"{arch} tp parity, rank {mesh.rank}: collectives {got_coll}, "
+                             f"want {want_coll}")
+    rec = dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers, batch=batch,
+               prompt_len=prompt_len, steps=gen, rank=mesh.rank,
+               k6_launches_prefill=run["k6_prefill"],
+               k6_launches_per_decode_step=run["k6_decode"] // max(gen - 1, 1),
+               collectives_prefill=got_coll[0], collectives_per_decode_step=got_coll[1],
+               routing_digest=_routing_digest(tp_routing), tp_s=tp_s,
+               greedy=run["greedy"].tolist())
+    del local, run["caches_prefill"], run["caches_last"]
+    if mesh.rank == 0:
+        with torch.no_grad(), routing_recorded(routing):
+            one = _tp_run(model, params, batch_in, max_len, gen - 1,
+                          tokens=torch.tensor(rec["greedy"]))
+        del params
+        errs = [check_close(f"{arch} tp vs one device, logits step {i}", g, w,
+                            rtol=LM_RTOL, atol=LM_ATOL)
+                for i, (g, w) in enumerate(zip(run["logits"], one["logits"]))]
+        cache_errs = [cache_err(f"{arch} tp vs one device, caches after the {when}",
+                                gathered[k], one[k])
+                      for when, k in (("prefill", "caches_prefill"),
+                                      ("last step", "caches_last"))]
+        # one device's own greedy ids against the ranks' (fed to both)
+        agree = (one["greedy"] == run["greedy"]).all(dim=1).tolist()
+        flips = sum(int((a[f] != b[f]).any()) for a, b in zip(tp_routing, routing)
+                    for f in ("top_ids", "pos", "keep"))
+        if len(tp_routing) != len(routing) or flips:
+            raise AssertionError(f"{arch} tp parity: routing differs from one device's "
+                                 f"({flips} fields of {len(routing)} calls)")
+        rec.update(max_abs_err_per_step=errs, max_abs_err=max(errs),
+                   cache_max_abs_err=cache_errs, greedy_tokens_agree=all(agree),
+                   tokens_agree_per_step=agree, moe_calls=len(routing),
+                   least_topk_gap=min((c["gap"] for c in routing), default=None),
+                   one_device_k6=(one["k6_prefill"], one["k6_decode"]),
+                   rtol=LM_RTOL, atol=LM_ATOL)
+    return rec
+
+
+@contextlib.contextmanager
+def k6_captured(seen, which=(0,)):
+    """Records the K6 launches numbered ``which`` (in launch order) as (q,
+    k, v, causal, scale) in ``seen``: the model calls K6 through ``ops``, so
+    swapping the module's attribute sees every call; the port itself is
+    unchanged."""
+    from repro_torch.kernels import ops
+
+    real, n = ops.flash_attention, [0]
+
+    def spy(q, k, v, *, causal, scale=None):
+        if n[0] in which:
+            seen[n[0]] = (q, k, v, causal, scale)
+        n[0] += 1
+        return real(q, k, v, causal=causal, scale=scale)
+
+    ops.flash_attention = spy
+    try:
+        yield
+    finally:
+        ops.flash_attention = real
+
+
+def logit_errs(got, want, rtol=TP16_RTOL, atol=TP16_ATOL):
+    """Over every step's logits: the largest |got - want|, its root mean
+    square, the largest |got - want| / (atol + rtol |want|) (1 is the
+    bound) and ``want``'s largest magnitude."""
+    import torch
+
+    got, want = torch.stack([torch.as_tensor(g) for g in got]), torch.stack(
+        [torch.as_tensor(w) for w in want])
+    d = (got - want).abs()
+    return dict(max_abs_err=float(d.max()), rms_err=float(d.square().mean().sqrt()),
+                bound_excess=float((d / (atol + rtol * want.abs())).max()),
+                scale=float(want.abs().max()))
+
+
+def tp_serve_reference(dev, seed=0):
+    """The one-device serve of the tensor-parallel serve cell, on the card
+    in this process: its bf16 greedy ids (B, gen) and each step's logits,
+    the same steps fed the same ids with the weights in fp32 (the model the
+    bf16 serves round), and one warm-up and one timed ``generate``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+
+    lm = LMServe(dev, arch_config(TP_SERVE_ARCH), batch=TP_SERVE_BATCH,
+                 prompt_len=TP_SERVE_PROMPT, seed=seed)
+    max_len = TP_SERVE_PROMPT + TP_SERVE_GEN
+    with torch.no_grad():
+        run = _tp_run(lm.model, lm.params, lm.batch(), max_len, TP_SERVE_GEN - 1)
+    generate(lm.model, lm.params, lm.prompts, 2)                  # warm-up
+    out = generate(lm.model, lm.params, lm.prompts, TP_SERVE_GEN)
+    if not (out["generated"] == run["greedy"].T.numpy()).all():
+        raise AssertionError("the one-device serve's ids differ from its own greedy run")
+    ref = dict(generated=out["generated"], logits=[t.numpy() for t in run["logits"]])
+    prompts = lm.prompts
+    timing = dict(prefill_ms=out["prefill_s"] * 1e3,
+                  decode_ms_per_token=out["decode_s_per_tok"] * 1e3,
+                  k6_launches_per_prefill=out["kernel_launches"]["prefill"]["flash_attention"])
+    params32 = _params_to(lm.params, torch.float32)
+    del lm, run
+    torch.cuda.empty_cache()
+    model32 = build_model(dataclasses.replace(arch_config(TP_SERVE_ARCH), dtype="float32"))
+    with torch.no_grad():
+        run32 = _tp_run(model32, params32, {"tokens": prompts}, max_len,
+                        TP_SERVE_GEN - 1, tokens=torch.from_numpy(ref["generated"].T.copy()))
+    ref["fp32_logits"] = [t.numpy() for t in run32["logits"]]
+    del params32, run32
+    torch.cuda.empty_cache()
+    return ref, timing
+
+
+def _tp_serve_case(mesh, ref, seed=0):
+    """yi-6b at full width and depth in bf16 on the rank: the whole model
+    from the seed, cut to its share (16 q heads, 2 kv heads); one warm-up
+    and one timed ``generate`` (prefill ms, decode ms a token, the rank's
+    peak GB, greedy ids against the one-device serve's, ``ref``); the
+    prefill and decode steps fed the one-device ids, their logits within the
+    bf16 bound of its on rank 0; a prefill and ``TP_COLLECTIVE_STEPS``
+    decode steps with the collectives timed (the device synchronized around
+    each); on rank 0, the prefill's first K6 launch against its plain
+    version once the weights are freed."""
+    import torch
+
+    from repro_torch.launch.serve import draw_inputs, generate
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import ctx, tp
+
+    cfg = arch_config(TP_SERVE_ARCH)
+    model = build_model(cfg)
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats()
+    params = tp.shard_lm_params(cfg, model.init(torch.Generator(device=dev).manual_seed(seed)),
+                                mesh)
+    torch.cuda.empty_cache()
+    init_peak = torch.cuda.max_memory_allocated()
+    prompts, _ = draw_inputs(cfg, TP_SERVE_BATCH, TP_SERVE_PROMPT, seed, dev)
+    batch_in, max_len = {"tokens": prompts}, TP_SERVE_PROMPT + TP_SERVE_GEN
+    rec = dict(rank=mesh.rank, mesh=dict(mesh.shape, backend=mesh.backend),
+               init_peak_gb=init_peak / 1e9,
+               param_gb=sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9)
+    launch = {}
+    with ctx.activation_sharding(mesh, dp="data", tp="model"):
+        generate(model, params, prompts, 2)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = generate(model, params, prompts, TP_SERVE_GEN)
+        peak = torch.cuda.max_memory_allocated()
+        k6 = (out["kernel_launches"]["prefill"]["flash_attention"],
+              out["kernel_launches"]["decode"]["flash_attention"])
+        if k6 != (k6_per_prefill(cfg), 0) or not out["logits_finite"]:
+            raise AssertionError(f"tp serving, rank {mesh.rank}: K6 {k6}, finite "
+                                 f"{out['logits_finite']}")
+        agree = (out["generated"] == ref["generated"]).all(axis=0)
+        rec.update(prefill_ms=out["prefill_s"] * 1e3,
+                   decode_ms_per_token=out["decode_s_per_tok"] * 1e3,
+                   prefill_tokens_per_s=TP_SERVE_BATCH * TP_SERVE_PROMPT / out["prefill_s"],
+                   k6_launches_per_prefill=k6[0], k6_launches_per_decode_step=0,
+                   collectives=out["collectives"], peak_mem_gb=peak / 1e9,
+                   greedy_tokens_agree=bool(agree.all()), tokens_agree_per_step=agree.tolist())
+        with torch.no_grad(), k6_captured(launch):
+            run = _tp_run(model, params, batch_in, max_len, TP_SERVE_GEN - 1,
+                          tokens=torch.from_numpy(ref["generated"].T.copy()))
+        tp_logits = [t.numpy() for t in run["logits"]]
+        del run
+        mesh.timed = True
+        try:
+            with torch.no_grad():
+                mesh.reset_counts()
+                logits, caches = model.prefill(params, batch_in, max_len)
+                prefill_s = sum(mesh.seconds.values())
+                mesh.reset_counts()
+                for i in range(TP_COLLECTIVE_STEPS):
+                    pos = torch.full((TP_SERVE_BATCH, 1), TP_SERVE_PROMPT + i, dtype=torch.int64,
+                                     device=dev)
+                    logits, caches = model.decode(
+                        params, {"tokens": logits[:, -1].argmax(dim=-1)[:, None],
+                                 "positions": pos}, caches)
+                torch.cuda.synchronize()
+                decode_s = sum(mesh.seconds.values()) / TP_COLLECTIVE_STEPS
+        finally:
+            mesh.timed = False
+        del logits, caches
+        rec.update(collective_ms_prefill=prefill_s * 1e3,
+                   collective_ms_per_decode_step=decode_s * 1e3)
+    q, k = launch[0][0], launch[0][1]
+    if (q.shape[1], k.shape[1]) != (cfg.n_heads // TP_SIZE, cfg.n_kv_heads // TP_SIZE):
+        raise AssertionError(f"tp serving: K6 ran {q.shape[1]} q and {k.shape[1]} kv heads "
+                             f"on rank {mesh.rank}")
+    rec["k6_heads"] = dict(q=q.shape[1], kv=k.shape[1])
+    del params
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        rec["k6_layer0"] = check_k6_on(launch[0], torch.Generator().manual_seed(0))
+        rec["logits"] = tp_logits
+    return rec
+
+
+def _tp_rank(mesh, parity_cases, serve_ref):
+    """One rank of the tensor-parallel phases (a spawned process): every
+    parity case, then the serve cell."""
+    import torch
+
+    from repro_torch import strict_fp32
+
+    strict_fp32()
+    parity = []
+    for arch, n_layers in parity_cases:
+        parity.append(_tp_parity_case(mesh, arch, n_layers))
+        torch.cuda.empty_cache()
+    return dict(parity=parity, serve=_tp_serve_case(mesh, serve_ref))
+
+
+def run_tp_phases(dev, smi, counted, lm_kernels):
+    """Phase 7e', tensor-parallel serving: the one-device bf16 serve of the
+    serve cell here, then one spawn of ``TP_SIZE`` gloo ranks sharing the
+    card on a (1, 2) host mesh (``run_ranks`` with ``make_host_mesh``) for
+    ``lm_tp_parity`` (all ten archs) and ``lm_tp_serve``. The ranks' routing
+    and greedy ids are held equal here. The ranks' K6 launches are theirs,
+    counted and checked in each rank; this process's (the reference serve)
+    join the main path's through ``counted``."""
+    import functools
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import run_ranks
+
+    t0 = time.perf_counter()
+    (ref, one_device), launches = counted(lm_kernels, "the one-device tp serve reference",
+                                          lambda: tp_serve_reference(dev))
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    cases = [(arch, TP_PARITY_LAYERS.get(arch, LM_PARITY_LAYERS)) for arch in ARCHS]
+    t0 = time.perf_counter()
+    ranks = run_ranks(_tp_rank, TP_SIZE, device="cuda", args=(cases, ref),
+                      mesh_factory=functools.partial(make_host_mesh, TP_SIZE))
+    spawn_s = time.perf_counter() - t0
+    for i, _ in enumerate(cases):
+        recs = [r["parity"][i] for r in ranks]
+        for key in ("routing_digest", "greedy"):
+            if any(r[key] != recs[0][key] for r in recs):
+                raise AssertionError(f"{recs[0]['arch']} tp parity: the ranks' {key} differ")
+        emit(dict(phase="lm_tp_parity", card=smi, mesh=dict(data=1, model=TP_SIZE),
+                  backend="gloo", **{k: v for k, v in recs[0].items() if k != "greedy"},
+                  ranks_tp_s=[r["tp_s"] for r in recs]))
+    tp_logits = ranks[0]["serve"].pop("logits")
+    errs = dict(tp_vs_one_device=logit_errs(tp_logits, ref["logits"]),
+                tp_vs_fp32=logit_errs(tp_logits, ref["fp32_logits"]),
+                one_device_vs_fp32=logit_errs(ref["logits"], ref["fp32_logits"]))
+    one_rms = errs["one_device_vs_fp32"]["rms_err"]
+    ratio = errs["tp_vs_fp32"]["rms_err"] / one_rms if one_rms else float("inf")
+    emit(dict(phase="lm_tp_serve", card=smi, arch=TP_SERVE_ARCH, dtype="bfloat16",
+              batch=TP_SERVE_BATCH, prompt_len=TP_SERVE_PROMPT, gen=TP_SERVE_GEN,
+              one_device=dict(one_device, launches=launches, s=ref_s), logits=errs,
+              rms_vs_fp32_ratio=ratio, rms_gate=TP16_RMS_GATE, rtol=TP16_RTOL, atol=TP16_ATOL,
+              ranks=[r["serve"] for r in ranks], spawn_s=spawn_s))
+    if ratio > TP16_RMS_GATE:
+        raise AssertionError(f"tp serving: logits {ratio} x as far from the fp32 model's as "
+                             f"the one-device bf16 serve's (gate {TP16_RMS_GATE})")
+
+
+def run_dryrun_phase(smi, tmp):
+    """Phase 7e'', the dry-run: ``--all`` on both production meshes through
+    the port's CLI (``repro_torch.launch.dryrun.main``); every cell ``ok``,
+    and each rank's bytes against this card's memory."""
+    from repro_torch.launch import dryrun
+
+    for kind in ("single", "multi"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = dryrun.main(["--all", "--mesh", kind, "--out", tmp])
+        folder = Path(tmp) / kind
+        cells = [json.loads(f.read_text()) for f in sorted(folder.glob("*.json"))]
+        bad = [c["arch"] + " x " + c["shape"] for c in cells if c["status"] != "ok"]
+        if rc or bad or len(cells) != 33:
+            raise AssertionError(f"dryrun {kind}: rc {rc}, {len(cells)} cells, errors {bad}:\n"
+                                 + out.getvalue()[-2000:])
+        card = cells[0]["device_bytes"]
+        emit(dict(phase="dryrun", card=smi, mesh=kind, chips=cells[0]["chips"],
+                  cells=len(cells), errors=0, device_bytes=card,
+                  all_fit=None if card is None else all(c["fits"] for c in cells),
+                  s=time.perf_counter() - t0,
+                  per_rank_gb={f"{c['arch']} {c['shape']}": round(
+                      c["per_rank_bytes"]["total"] / 1e9, 4) for c in cells}))
 
 
 # ---------------------------------------------------------------------------
@@ -5200,6 +5647,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_encdec_phases(dev, smi, counted, lm_kernels, gen)
     run_dense_presets(dev, smi, counted, lm_kernels, gen)
+    # phase 7e': tensor-parallel serving on two gloo ranks sharing the card
+    # (every arch's parity, yi-6b served in bf16), then the dry-run
+    torch.cuda.empty_cache()
+    run_tp_phases(dev, smi, counted, lm_kernels)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        run_dryrun_phase(smi, tmp)
     # phase 7f: LM training, every family, at full width
     torch.cuda.empty_cache()
     run_train_phases(dev, smi, counted)

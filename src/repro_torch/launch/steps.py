@@ -23,9 +23,13 @@ then takes one AdamW step, with fp32 master params and bf16 compute casts:
   writes the params and moments in place. The gradients reach the fp32
   masters through the cast, as JAX's do.
 
-:func:`batch_template` gives each cell's batch as shapes and dtypes. The
-dry-run's ``abstract_params``, ``abstract_caches`` and
-``abstract_opt_state`` wait for the sharded LM stack (``ROADMAP.md``).
+:func:`batch_template` gives each cell's batch as shapes and dtypes, and
+the dry-run's :func:`abstract_params`, :func:`abstract_caches` and
+:func:`abstract_opt_state` the reference's ``jax.eval_shape`` trees: the
+stacked layout (:func:`repro_torch.convert.lm_stacked_layout`) with a
+:class:`~repro_torch.convert.StackedLeaf` (shape and dtype name) per
+array, built on the ``meta`` device, so nothing is allocated (qwen3-moe's
+fp32 masters alone are 122 GB).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs import ShapeCell
-from repro_torch.convert import _STACKED
+from repro_torch.convert import _STACKED, StackedLeaf, lm_stacked_layout
 from repro_torch.core.esrnn import param_leaves
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Model
@@ -80,6 +84,77 @@ def batch_template(cfg: ArchConfig, cell: ShapeCell) -> Dict[str, Tuple[Tuple[in
         return out
     # decode: one new token against a cache of length s
     return {"tokens": ((b, 1), torch.int32), "positions": ((b, 1), torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs (the dry-run's)
+# ---------------------------------------------------------------------------
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is ``meta``: an ``init`` that draws
+    from it and allocates on its device makes shapes and dtypes only."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def abstract_params(model: Model, *, master_fp32: bool):
+    """``model``'s params in the reference's stacked layout, shapes and
+    dtypes only; with ``master_fp32`` the bf16 leaves as float32 (the fp32
+    masters of training)."""
+    layout = lm_stacked_layout(model.init(_MetaGenerator()))
+
+    def master(tree):
+        if isinstance(tree, dict):
+            return {k: master(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [master(v) for v in tree]
+        return StackedLeaf(tree.shape, "float32") if tree.dtype == "bfloat16" else tree
+
+    return master(layout) if master_fp32 else layout
+
+
+def _stack_parts(parts):
+    first = parts[0]
+    if hasattr(first, "_fields"):
+        return type(first)(*(_stack_parts([getattr(p, f) for p in parts])
+                             for f in first._fields))
+    return StackedLeaf((len(parts),) + first.shape, first.dtype)
+
+
+def _cache_layout(tree):
+    if isinstance(tree, dict):
+        return {k: _cache_layout(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return _stack_parts([_cache_layout(v) for v in tree])
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_cache_layout(getattr(tree, f)) for f in tree._fields))
+    if isinstance(tree, int):                  # a cache's fill: int32 in the reference
+        return StackedLeaf((), "int32")
+    return StackedLeaf(tree.shape, str(tree.dtype).removeprefix("torch."))
+
+
+def abstract_caches(model: Model, cell: ShapeCell):
+    """The bf16 caches of ``cell`` (``global_batch`` x ``seq_len``) in the
+    reference's stacked layout: a cache per layer stacked on ``(L,)`` (the
+    hybrid's Mamba2 caches on ``(G, K)``), its fill an int32 of ``(L,)``."""
+    return _cache_layout(model.make_caches(cell.global_batch, cell.seq_len, torch.bfloat16,
+                                           "meta"))
+
+
+def abstract_opt_state(params_abs):
+    """Adam's state for ``params_abs``: float32 ``mu`` and ``nu`` of every
+    leaf's shape and an int32 ``step`` (the reference's ``adam_init``)."""
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [zeros(v) for v in tree]
+        return StackedLeaf(tree.shape, "float32")
+
+    return {"mu": zeros(params_abs), "nu": zeros(params_abs), "step": StackedLeaf((), "int32")}
 
 
 # ---------------------------------------------------------------------------

@@ -77,8 +77,9 @@ def train(arch: str, *, smoke: bool, steps: int, batch: int, seq: int,
     back, so the device has finished it)."""
     if model_parallel != 1:
         raise NotImplementedError(
-            "model_parallel > 1: sharded LM training comes with the rest of the LM "
-            "stack (ROADMAP.md, section 1, item 7)")
+            "model_parallel > 1: sharded LM training (FSDP on data, TP on model) is the "
+            "last part of ROADMAP.md, section 1, item 7; serving runs tensor-parallel "
+            "(repro_torch.launch.serve.serve(model_parallel=N))")
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     cell = ShapeCell("custom", "train", seq, batch, microbatch=microbatch)

@@ -39,6 +39,15 @@ buffer of ``cache_max_len``; decode appends in place. Unlike the JAX
 package, which returns new buffers, the port writes the cache tensors in
 place at ``length`` and returns a cache over the same storage: a caller
 that needs the old cache keeps a copy.
+
+Under a ``model`` axis of more than one rank
+(:func:`repro_torch.sharding.ctx.model_axis`, tensor-parallel serving) every
+attention runs at the rank's heads: the head counts come from the params'
+shapes (:func:`repro_torch.sharding.tp.shard_lm_params` cut them), K6 runs
+at the local head counts on the card, a bias kept whole is cut to the
+rank's heads at use, the KV caches hold the rank's kv heads (MLA's latents
+whole: every head reads them), and the output projection is
+:func:`repro_torch.models.layers.row_parallel` (one all-reduce).
 """
 
 from __future__ import annotations
@@ -49,7 +58,9 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import apply_rope, dense_init, mm, rms_norm
+from repro_torch.models.layers import apply_rope, dense_init, mm, rms_norm, row_parallel
+from repro_torch.sharding import tp
+from repro_torch.sharding.ctx import model_axis
 
 DEFAULT_Q_CHUNK = 512
 
@@ -175,8 +186,29 @@ def gqa_init(gen: torch.Generator, cfg: ArchConfig, dtype):
     return p
 
 
+def _local_kv_heads(cfg: ArchConfig) -> int:
+    axis = model_axis()
+    if axis is None:
+        return cfg.n_kv_heads
+    k0, k1 = tp.kv_block(cfg.n_heads, cfg.n_kv_heads, axis)
+    return k1 - k0
+
+
+def _head_bias(b, cfg: ArchConfig, kv: bool):
+    """A bias over every q (or kv) head, kept whole by the serving plan as
+    the spec keeps it, cut to this rank's heads; as it is on one device."""
+    axis = model_axis()
+    if axis is None:
+        return b
+    lo, hi = (tp.kv_block(cfg.n_heads, cfg.n_kv_heads, axis) if kv
+              else tp.q_block(cfg.n_heads, axis))
+    return b[lo * cfg.hd:hi * cfg.hd]
+
+
 def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device=None) -> KVCache:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    """Zeroed (B, S_max, Hkv, hd) buffers; under a ``model`` axis at the
+    rank's kv heads."""
+    shape = (batch, max_len, _local_kv_heads(cfg), cfg.hd)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
@@ -187,15 +219,17 @@ def gqa_qkv(p, cfg: ArchConfig, x, positions):
     x: (B, S, d) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd).
     """
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     q = mm(x, p["wq"])
     k = mm(x, p["wk"])
     v = mm(x, p["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+        q = q + _head_bias(p["bq"], cfg, kv=False)
+        k = k + _head_bias(p["bk"], cfg, kv=True)
+        v = v + _head_bias(p["bv"], cfg, kv=True)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -220,7 +254,7 @@ def gqa_apply(
     (``cache`` set: append S positions in place, attend over the buffer).
     """
     b, s, _ = x.shape
-    hq, hd = cfg.n_heads, cfg.hd
+    hd = cfg.hd
     q, k, v = gqa_qkv(p, cfg, x, positions)
     scale = cfg.attention_multiplier if cfg.attention_multiplier is not None else hd ** -0.5
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
@@ -241,8 +275,8 @@ def gqa_apply(
             kc[:, :s] = k
             vc[:, :s] = v
             new_cache = KVCache(kc, vc, s)
-    out = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return mm(out, p["wo"]), new_cache
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return row_parallel(out, p["wo"]), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -281,9 +315,8 @@ def _mla_latent(p, cfg: ArchConfig, x, positions):
     RoPE, the RMS-normed latent c_kv (B, S, r) and k_rope (B, S, dr) after
     RoPE (through a head axis of 1)."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = mm(x, p["wq"]).reshape(b, s, h, dn + dr)
+    q = mm(x, p["wq"]).reshape(b, s, -1, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, theta=cfg.rope_theta)
     ckv = mm(x, p["w_dkv"])
@@ -299,8 +332,9 @@ def _mla_heads(p, cfg: ArchConfig, q_nope, q_rope, c, kr):
     W_uv``. Returns qh (B, H, S, dn + dr), kh (B, H, T, dn + dr) and vh (B,
     H, T, dv), transposed views."""
     b, t, _ = c.shape
-    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    k_nope = mm(c, p["w_uk"]).reshape(b, t, h, dn)
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    k_nope = mm(c, p["w_uk"]).reshape(b, t, -1, dn)
+    h = k_nope.shape[2]
     v = mm(c, p["w_uv"]).reshape(b, t, h, dv)
     k = torch.cat([k_nope, kr[:, :, None, :].expand(b, t, h, dr)], dim=-1)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
@@ -331,7 +365,7 @@ def mla_apply(p, cfg: ArchConfig, x, positions, *,
     default) or over per-head K/V up-projected from it.
     """
     b, s, _ = x.shape
-    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     scale = (dn + dr) ** -0.5
 
     new_cache = None
@@ -344,7 +378,7 @@ def mla_apply(p, cfg: ArchConfig, x, positions, *,
         if absorbed_decode:
             out = _mla_absorbed(p, cfg, q_nope, q_rope, cache.c_kv, cache.k_rope,
                                 positions, scale)
-            return mm(out, p["wo"]), new_cache
+            return row_parallel(out, p["wo"]), new_cache
         qh, kh, vh = _mla_heads(p, cfg, q_nope, q_rope, cache.c_kv, cache.k_rope)
         out = cached_attention(qh, kh, vh, positions, scale)
     else:  # train / prefill
@@ -356,8 +390,8 @@ def mla_apply(p, cfg: ArchConfig, x, positions, *,
             cc[:, :s] = c_kv
             kc[:, :s] = k_rope
             new_cache = MLACache(cc, kc, s)
-    out = out.transpose(1, 2).reshape(b, s, h * dv)
-    return mm(out, p["wo"]), new_cache
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return row_parallel(out, p["wo"]), new_cache
 
 
 def _mla_absorbed(p, cfg: ArchConfig, q_nope, q_rope, c_all, kr_all, positions, scale):
@@ -372,7 +406,7 @@ def _mla_absorbed(p, cfg: ArchConfig, q_nope, q_rope, c_all, kr_all, positions, 
     r, dv = cfg.kv_lora_rank, cfg.v_head_dim
     smax = c_all.shape[1]
     w_uk = p["w_uk"].reshape(r, h, dn)
-    w_uv = p["w_uv"].reshape(r, h, dv)
+    w_uv = p["w_uv"].reshape(r, -1, dv)
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
     logits = (torch.einsum("bshr,btr->bhst", q_lat, c_all)
               + torch.einsum("bshd,btd->bhst", q_rope, kr_all)).float() * scale
@@ -382,7 +416,7 @@ def _mla_absorbed(p, cfg: ArchConfig, q_nope, q_rope, c_all, kr_all, positions, 
     probs = torch.softmax(logits, dim=-1)
     ctx = torch.einsum("bhst,btr->bshr", probs.to(c_all.dtype), c_all)
     out = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
-    return out.reshape(b, s, h * dv)
+    return out.reshape(b, s, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -408,10 +442,10 @@ def cross_attn_init(gen: torch.Generator, cfg: ArchConfig, dtype):
 def cross_attn_kv(p, cfg: ArchConfig, memory):
     """The encoder states' keys and values, memory (B, M, d) -> kh, vh (B,
     H, M, hd), transposed views."""
-    b = memory.shape[0]
-    h, hd = cfg.n_heads, cfg.hd
-    k = mm(memory, p["wk"]).reshape(b, -1, h, hd)
-    v = (mm(memory, p["wv"]) + p["bv"]).reshape(b, -1, h, hd)
+    b, m = memory.shape[:2]
+    hd = cfg.hd
+    k = mm(memory, p["wk"]).reshape(b, m, -1, hd)
+    v = (mm(memory, p["wv"]) + _head_bias(p["bv"], cfg, kv=False)).reshape(b, m, -1, hd)
     return k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -419,8 +453,9 @@ def cross_attn_apply(p, cfg: ArchConfig, x, memory):
     """x: (B, S, d) queries; memory: (B, M, d) encoder states -> (B, S, d).
     Non-causal at scale ``hd ** -0.5``: one K6 launch on the card."""
     b, s, _ = x.shape
-    h, hd = cfg.n_heads, cfg.hd
-    qh = (mm(x, p["wq"]) + p["bq"]).reshape(b, s, h, hd).transpose(1, 2)
+    hd = cfg.hd
+    qh = (mm(x, p["wq"]) + _head_bias(p["bq"], cfg, kv=False)).reshape(b, s, -1, hd)
+    qh = qh.transpose(1, 2)
     kh, vh = cross_attn_kv(p, cfg, memory)
     out = chunked_attention(qh, kh, vh, causal=False, scale=hd ** -0.5)
-    return mm(out.transpose(1, 2).reshape(b, s, h * hd), p["wo"]) + p["bo"]
+    return row_parallel(out.transpose(1, 2).reshape(b, s, -1), p["wo"]) + p["bo"]

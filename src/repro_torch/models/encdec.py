@@ -31,6 +31,12 @@ no kernel. ``encdec_loss`` is the training entry point: the encoder and the
 decoder each layer under ``cfg.remat``, the tied head, the CE; every
 attention of it needs a gradient and takes the plain path on the card too,
 so a train step launches no K6.
+
+Under a ``model`` axis (tensor-parallel serving) every encoder and decoder
+layer runs at the rank's heads and hidden: an encoder layer all-reduces
+twice, a decoder layer three times (self-attention, cross-attention, MLP);
+the tied head is cut with the embedding where the vocabulary divides the
+axis; ``memory`` is whole on every rank.
 """
 
 from __future__ import annotations
@@ -51,6 +57,8 @@ from repro_torch.models.layers import (
     mm,
     norm_init,
     remat_call,
+    row_parallel,
+    vocab_logits,
 )
 
 
@@ -115,12 +123,12 @@ def _enc_block(cfg: ArchConfig, lp, h):
     """One encoder layer: bidirectional self-attention, then the MLP."""
     x = apply_norm(h, lp["attn_norm"], "layernorm")
     b, s, _ = x.shape
-    q = mm(x, lp["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = mm(x, lp["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = mm(x, lp["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    q = mm(x, lp["attn"]["wq"]).reshape(b, s, -1, cfg.hd)
+    k = mm(x, lp["attn"]["wk"]).reshape(b, s, -1, cfg.hd)
+    v = mm(x, lp["attn"]["wv"]).reshape(b, s, -1, cfg.hd)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     o = A.chunked_attention(qh, kh, vh, causal=False, scale=cfg.hd ** -0.5)
-    h = h + mm(o.transpose(1, 2).reshape(b, s, -1), lp["attn"]["wo"])
+    h = h + row_parallel(o.transpose(1, 2).reshape(b, s, -1), lp["attn"]["wo"])
     return h + gelu_mlp_apply(lp["mlp"], apply_norm(h, lp["mlp_norm"], "layernorm"))
 
 
@@ -154,7 +162,7 @@ def decode_stack(cfg: ArchConfig, params, tokens, memory, positions, *, caches=N
     """The decoder over ``tokens`` (B, S) at ``positions``: returns (h after
     the final norm, one KV cache per layer). ``remat`` (training, no
     caches): each layer recomputed in the backward, and no caches."""
-    h = embed_lookup(params["embed"], tokens).to(cfg.tdtype)
+    h = embed_lookup(params["embed"], tokens, cfg.vocab_size).to(cfg.tdtype)
     h = h + _sinusoid(positions, cfg.d_model).to(h.dtype)
     new_caches = []
     for i, lp in enumerate(params["dec_layers"]):
@@ -195,7 +203,8 @@ def encdec_prefill(cfg: ArchConfig, params, batch, *, max_len: int):
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     h, caches = decode_stack(cfg, params, tokens, memory, positions, cache_max_len=max_len)
-    return mm(h[:, -1:, :], params["embed"].t()), {"self": caches, "memory": memory}
+    return (vocab_logits(h[:, -1:, :], params["embed"].t(), cfg.vocab_size),
+            {"self": caches, "memory": memory})
 
 
 def encdec_decode(cfg: ArchConfig, params, batch, caches):
@@ -204,4 +213,5 @@ def encdec_decode(cfg: ArchConfig, params, batch, caches):
     ``memory`` is passed on as it is."""
     h, new_caches = decode_stack(cfg, params, batch["tokens"], caches["memory"],
                                  batch["positions"], caches=caches["self"])
-    return mm(h, params["embed"].t()), {"self": new_caches, "memory": caches["memory"]}
+    return (vocab_logits(h, params["embed"].t(), cfg.vocab_size),
+            {"self": new_caches, "memory": caches["memory"]})

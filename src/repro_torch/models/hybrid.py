@@ -18,7 +18,10 @@ the Mamba2 blocks run no kernel of the port. ``hybrid_loss`` is the
 training entry point: the teacher-forced CE, each Mamba2 block and each
 shared-block application recomputed in the backward under ``cfg.remat``;
 its attention takes the plain path on the card too (it needs a gradient),
-so a train step launches no K6.
+so a train step launches no K6. Under a ``model`` axis (tensor-parallel
+serving) the Mamba2 blocks and ``w_concat`` run whole on every rank, the
+shared block's attention and MLP at the rank's heads and hidden (two
+all-reduces an application), and the vocabulary is cut as ``ssm_lm``'s.
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ def _forward(cfg: ArchConfig, params, tokens, positions, *, mamba_caches=None,
     """Every group and shared-block application. Returns (h before the final
     norm, the Mamba2 caches, the KV caches)."""
     g, _ = _groups(cfg)
-    h = embed_lookup(params["embed"], tokens).to(cfg.tdtype)
+    h = embed_lookup(params["embed"], tokens, cfg.vocab_size).to(cfg.tdtype)
     e0 = h
     new_mamba, new_attn = [], []
     for gi in range(g):
@@ -107,7 +110,7 @@ def hybrid_loss(cfg: ArchConfig, params, batch):
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     g, _ = _groups(cfg)
-    h = embed_lookup(params["embed"], tokens).to(cfg.tdtype)
+    h = embed_lookup(params["embed"], tokens, cfg.vocab_size).to(cfg.tdtype)
     e0 = h
     for gi in range(g):
         h = SL.train_blocks(cfg, params["mamba"][gi], h, remat=cfg.remat)

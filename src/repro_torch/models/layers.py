@@ -18,6 +18,16 @@ float32 config's activations meet bfloat16 weights, and JAX computes such a
 product in float32 where ``torch.matmul`` refuses it. Element-wise
 arithmetic needs nothing: PyTorch promotes two float tensors as JAX does.
 :func:`remat_call` is the per-layer rematerialization of the losses.
+
+Tensor parallelism (serving under a ``model`` axis of more than one rank,
+:func:`repro_torch.sharding.ctx.model_axis`; the rank's params from
+:func:`repro_torch.sharding.tp.shard_lm_params`): :func:`row_parallel` is
+an output projection over this rank's rows of the inner dim, its float32
+partial sums all-reduced and rounded once, as one GEMM on one device
+accumulates and rounds; :func:`embed_lookup` and :func:`vocab_logits` take
+a vocabulary cut into row blocks (a masked lookup and one all-reduce; the
+local logits gathered by one all-reduce of a zero-filled float32 buffer).
+Outside such an axis each is the single-device call it replaces.
 """
 
 from __future__ import annotations
@@ -29,6 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding.ctx import model_axis
 
 
 def promoted(a, b):
@@ -45,6 +57,34 @@ def mm(a, b):
     float32 and bfloat16 is a float32 product."""
     a, b = promoted(a, b)
     return a @ b
+
+
+def mm_f32(a, b):
+    """``a @ b`` (2-D or batched 3-D ``b``) with float32 outputs: a float32
+    product as it is; bf16 operands accumulate in float32 and are not
+    rounded (on the card the GEMM's ``out_dtype``, on the CPU the operands
+    widened)."""
+    a, b = promoted(a, b)
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        if b.dim() == 2:
+            out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+            return out.reshape(*a.shape[:-1], b.shape[-1])
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def row_parallel(x, w):
+    """``x @ w`` where ``w`` holds this rank's rows of the inner dim (an
+    attention output or FFN down projection, ``x`` its columns): the
+    float32 partial sums all-reduced over the ``model`` axis, then rounded
+    once to the operands' dtype. Without a ``model`` axis, :func:`mm`."""
+    axis = model_axis()
+    if axis is None:
+        return mm(x, w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return axis.all_reduce(mm_f32(x, w)).to(dt)
 
 
 def remat_call(remat: bool, fn, *args):
@@ -150,7 +190,7 @@ def swiglu_init(gen: torch.Generator, d_model, d_ff, dtype=torch.float32):
 
 
 def swiglu_apply(p, x):
-    return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
+    return row_parallel(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
 
 
 def _rounded(v: float, dtype) -> float:
@@ -180,8 +220,19 @@ def gelu_mlp_init(gen: torch.Generator, d_model, d_ff, dtype=torch.float32):
     }
 
 
+def _hidden_bias(b, width: int):
+    """A bias over the whole hidden (kept whole by the plan, as the spec
+    does) cut to this rank's ``width`` units."""
+    if b.shape[-1] == width:
+        return b
+    i = model_axis().index
+    return b[i * width:(i + 1) * width]
+
+
 def gelu_mlp_apply(p, x):
-    return mm(gelu_tanh(mm(x, p["w_in"]) + p["b_in"]), p["w_out"]) + p["b_out"]
+    hid = mm(x, p["w_in"])
+    hid = gelu_tanh(hid + _hidden_bias(p["b_in"], hid.shape[-1]))
+    return row_parallel(hid, p["w_out"]) + p["b_out"]
 
 
 # -- embeddings -----------------------------------------------------------------
@@ -192,8 +243,36 @@ def embed_init(gen: torch.Generator, vocab, d_model, dtype=torch.float32):
     return (w * 0.02).to(dtype)
 
 
-def embed_lookup(table, ids):
-    return table[ids]
+def embed_lookup(table, ids, vocab_size=None):
+    """``table[ids]``. Under a ``model`` axis, a ``table`` of fewer rows than
+    ``vocab_size`` is this rank's block of them: the ids outside it look up
+    zeros, and one all-reduce (float32, exact: one term is not zero) gives
+    every rank every row."""
+    axis = model_axis()
+    n = table.shape[0]
+    if axis is None or vocab_size is None or n == vocab_size:
+        return table[ids]
+    local = ids - axis.index * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].float()
+    rows = torch.where(inside[..., None], rows, torch.zeros((), device=rows.device))
+    return axis.all_reduce(rows).to(table.dtype)
+
+
+def vocab_logits(h, head, vocab_size: int):
+    """``h @ head`` (head (d, V)). Under a ``model`` axis, a ``head`` of
+    fewer columns than ``vocab_size`` is this rank's block of them: its
+    logits go into a zero-filled float32 (..., V) buffer, and one
+    all-reduce gives every rank every logit."""
+    logits = mm(h, head)
+    axis = model_axis()
+    n = head.shape[-1]
+    if axis is None or n == vocab_size:
+        return logits
+    buf = torch.zeros(logits.shape[:-1] + (vocab_size,), dtype=torch.float32,
+                      device=logits.device)
+    buf[..., axis.index * n:(axis.index + 1) * n] = logits.float()
+    return axis.all_reduce(buf).to(logits.dtype)
 
 
 def cross_entropy_loss(logits, labels, mask=None):

@@ -9,7 +9,10 @@ transformer, with GQA or MLA attention; vlm with its image prefix), ssm
 (:mod:`repro_torch.launch.steps`) differentiates, for every family. There
 is no ``use_pallas`` switch:
 as everywhere in the port, a CUDA tensor runs the kernels and a CPU tensor
-the plain versions.
+the plain versions. Under a host mesh's activation context
+(:mod:`repro_torch.sharding.ctx`, tensor-parallel serving) every entry
+point runs at the rank's share of the heads and hidden, and
+``make_caches`` makes KV caches of the rank's kv heads.
 """
 
 from __future__ import annotations

@@ -23,6 +23,14 @@ reference's einsums do.
 Shared experts (DeepSeek-V2) run densely on every token. The reference's
 sharding constraints and its remat name are the identity on one device and
 are not ported.
+
+Under a ``model`` axis of more than one rank (tensor-parallel serving, the
+spec's decode mode) the router and the routing are computed whole and
+identically on every rank; each rank holds every expert's block of ``f``
+(and the shared experts' block of theirs), so its expert outputs are
+float32 partial sums, gathered and weighted as above, joined by the shared
+experts' partial sums and all-reduced once over the axis, then rounded to
+the activations' dtype.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import dense_init, mm, promoted, swiglu_apply
+from repro_torch.models.layers import dense_init, mm, mm_f32, promoted, swiglu_apply
+from repro_torch.sharding.ctx import model_axis
 
 
 def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype):
@@ -121,10 +130,13 @@ def moe_scatter(cfg: ArchConfig, x, r: Routing):
     return buf[:spare].view(e, b * c, d)
 
 
+def _expert_act(p, buf):
+    return F.silu(torch.bmm(*promoted(buf, p["w_gate"]))) * torch.bmm(*promoted(buf, p["w_up"]))
+
+
 def moe_experts(p, buf):
     """The expert SwiGLU, batched over E: (E, N, d) -> (E, N, d)."""
-    act = F.silu(torch.bmm(*promoted(buf, p["w_gate"]))) * torch.bmm(*promoted(buf, p["w_up"]))
-    return torch.bmm(*promoted(act, p["w_down"]))
+    return torch.bmm(*promoted(_expert_act(p, buf), p["w_down"]))
 
 
 def moe_gather(out_buf, r: Routing, dtype):
@@ -143,6 +155,14 @@ def moe_apply(p, cfg: ArchConfig, x, *, capacity: Optional[int] = None):
     """
     r = moe_route(p, cfg, x, capacity)
     aux = moe_aux(cfg, r)
+    axis = model_axis()
+    if axis is not None:
+        buf = moe_scatter(cfg, x, r)
+        y = moe_gather(mm_f32(_expert_act(p, buf), p["w_down"]), r, torch.float32)
+        if cfg.n_shared_experts:
+            sp = p["shared"]
+            y = y + mm_f32(F.silu(mm(x, sp["w_gate"])) * mm(x, sp["w_up"]), sp["w_down"])
+        return axis.all_reduce(y).to(x.dtype), aux
     y = moe_gather(moe_experts(p, moe_scatter(cfg, x, r)), r, x.dtype)
     if cfg.n_shared_experts:
         y = y + swiglu_apply(p["shared"], x)

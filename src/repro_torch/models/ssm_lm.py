@@ -11,7 +11,10 @@ blocks takes the place of ``lax.scan``; params hold one dict per block
 No kernel of the port runs here (the SSD is plain tensor code, as in the
 reference). ``ssm_lm_loss`` is the training entry point: the teacher-forced
 CE, each block recomputed in the backward under ``cfg.remat``
-(:func:`train_blocks`, the hybrid's too).
+(:func:`train_blocks`, the hybrid's too). Under a ``model`` axis
+(tensor-parallel serving) every block runs whole on every rank, as the
+spec keeps ``w_in`` and ``conv_w`` whole, and only the vocabulary is cut:
+the embedding and the logits all-reduce once a step each.
 """
 
 from __future__ import annotations
@@ -23,9 +26,9 @@ from repro_torch.models.layers import (
     cross_entropy_loss,
     embed_init,
     embed_lookup,
-    mm,
     norm_init,
     remat_call,
+    vocab_logits,
 )
 
 
@@ -71,13 +74,14 @@ def train_blocks(cfg: ArchConfig, layers, h, *, remat: bool):
 
 def logits(cfg: ArchConfig, params, h):
     """The final norm and the LM head (the hybrid's too)."""
-    return mm(apply_norm(h, params["final_norm"], cfg.norm), params["lm_head"])
+    return vocab_logits(apply_norm(h, params["final_norm"], cfg.norm), params["lm_head"],
+                        cfg.vocab_size)
 
 
 def ssm_lm_loss(cfg: ArchConfig, params, batch):
     """Teacher-forced token CE over ``tokens``/``labels`` (B, S), with the
     batch's optional ``loss_mask``."""
-    h = embed_lookup(params["embed"], batch["tokens"]).to(cfg.tdtype)
+    h = embed_lookup(params["embed"], batch["tokens"], cfg.vocab_size).to(cfg.tdtype)
     h = train_blocks(cfg, params["layers"], h, remat=cfg.remat)
     return cross_entropy_loss(logits(cfg, params, h), batch["labels"],
                               batch.get("loss_mask"))
@@ -92,13 +96,13 @@ def ssm_lm_make_caches(cfg: ArchConfig, batch_size: int, max_len: int, dtype, de
 def ssm_lm_prefill(cfg: ArchConfig, params, batch, *, max_len: int):
     """The prompt through the chunked SSD. Returns (last-token logits (B, 1,
     V), the caches: each block's final state and conv tail)."""
-    h = embed_lookup(params["embed"], batch["tokens"]).to(cfg.tdtype)
+    h = embed_lookup(params["embed"], batch["tokens"], cfg.vocab_size).to(cfg.tdtype)
     h, caches = run_blocks(cfg, params["layers"], h)
     return logits(cfg, params, h[:, -1:, :]), caches
 
 
 def ssm_lm_decode(cfg: ArchConfig, params, batch, caches):
     """One-token step: batch tokens (B, 1); positions are not needed."""
-    h = embed_lookup(params["embed"], batch["tokens"]).to(cfg.tdtype)
+    h = embed_lookup(params["embed"], batch["tokens"], cfg.vocab_size).to(cfg.tdtype)
     h, caches = run_blocks(cfg, params["layers"], h, caches=caches)
     return logits(cfg, params, h), caches

@@ -15,7 +15,13 @@ the others, with their own caches under ``"prefix"``. A ``use_mla`` config
 too (:func:`repro_torch.models.attention.mla_apply`, its absorbed decode).
 Caches are ``{"layers": [KVCache, ...]}`` (``MLACache`` under MLA; plus
 ``"prefix"``), one per layer. The activation-sharding ``constrain`` is the
-identity on one device and is not ported.
+identity on one device and is not ported. Under a ``model`` axis
+(tensor-parallel serving) the blocks run at the rank's heads and hidden
+(:mod:`repro_torch.models.attention`, :mod:`repro_torch.models.moe`,
+:func:`repro_torch.models.layers.row_parallel`) and the embedding and the
+head at its block of the vocabulary, where it has one: a dense layer
+all-reduces twice (after ``wo`` and ``w_down``), and a step once more for
+each of the embedding and the logits where the vocabulary is cut.
 
 A vlm prefill takes ``batch["image_embeds"]`` (B, n_patches, d_model), cast
 to the model dtype and put in front of the token embeddings before the
@@ -43,11 +49,11 @@ from repro_torch.models.layers import (
     cross_entropy_loss,
     embed_init,
     embed_lookup,
-    mm,
     norm_init,
     remat_call,
     swiglu_apply,
     swiglu_init,
+    vocab_logits,
 )
 
 
@@ -170,14 +176,14 @@ def _run_all(cfg: ArchConfig, params, h, positions, *, caches=None, cache_max_le
 
 
 def _embed_h(cfg, params, tokens):
-    h = embed_lookup(params["embed"], tokens).to(cfg.tdtype)
+    h = embed_lookup(params["embed"], tokens, cfg.vocab_size).to(cfg.tdtype)
     return h * cfg.embedding_multiplier
 
 
 def _logits(cfg, params, h):
     h = apply_norm(h, params["final_norm"], cfg.norm)
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = mm(h, head)
+    logits = vocab_logits(h, head, cfg.vocab_size)
     return logits / cfg.logits_scaling
 
 

@@ -1,12 +1,15 @@
-"""Start the ranks of a series mesh: :func:`run_ranks` and :func:`choose_backend`.
+"""Start the ranks of a mesh: :func:`run_ranks` and :func:`choose_backend`.
 
-``run_ranks(target, world_size, device=..., args=...)`` spawns
-``world_size`` processes (the ``spawn`` start method), initializes a
+``run_ranks(target, world_size, device=..., args=..., mesh_factory=...)``
+spawns ``world_size`` processes (the ``spawn`` start method), initializes a
 process group in each through a ``file://`` store in a temporary directory
 (no fixed port: test workers running side by side never collide), builds the
-rank's :class:`~repro_torch.sharding.series.SeriesMesh` and calls
-``target(mesh, *args)``; it returns the ranks' results, by rank. ``target``
-and ``args`` are pickled, so ``target`` is a module-level function.
+rank's mesh with ``mesh_factory(device=...)`` (default: the series mesh,
+:class:`~repro_torch.sharding.series.SeriesMesh`; the LM's is
+``functools.partial(repro_torch.launch.mesh.make_host_mesh, model_parallel)``)
+and calls ``target(mesh, *args)``; it returns the ranks' results, by rank.
+``target``, ``args`` and ``mesh_factory`` are pickled, so they are
+module-level functions (or partials of them).
 
 The backend follows the layout, decided before ``init_process_group`` and
 logged: NCCL when every rank has a card of its own, gloo when ranks share a
@@ -17,13 +20,14 @@ switches backend after an error.
 from __future__ import annotations
 
 import datetime
+import functools
 import logging
 import os
 import queue as queue_mod
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -42,9 +46,12 @@ def choose_backend(world_size: int, device) -> str:
 
 
 def _rank_main(target, rank, world_size, backend, init_method, device, args, timeout_s,
-               results):
+               results, mesh_factory):
     try:
-        from repro_torch.sharding.series import make_series_mesh
+        if mesh_factory is None:
+            from repro_torch.sharding.series import make_series_mesh
+
+            mesh_factory = functools.partial(make_series_mesh, world_size)
 
         dev = torch.device(device)
         if dev.type == "cuda":
@@ -59,7 +66,7 @@ def _rank_main(target, rank, world_size, backend, init_method, device, args, tim
                                 world_size=world_size,
                                 timeout=datetime.timedelta(seconds=timeout_s))
         try:
-            out = target(make_series_mesh(world_size, device=dev), *args)
+            out = target(mesh_factory(device=dev), *args)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
@@ -69,13 +76,15 @@ def _rank_main(target, rank, world_size, backend, init_method, device, args, tim
 
 
 def run_ranks(target: Callable, world_size: int, *, device="cuda",
-              args: Sequence[Any] = (), timeout_s: float = 1800.0) -> List[Any]:
+              args: Sequence[Any] = (), timeout_s: float = 1800.0,
+              mesh_factory: Optional[Callable] = None) -> List[Any]:
     """Run ``target(mesh, *args)`` on ``world_size`` spawned ranks; returns
     their results in rank order. A rank that raises stops the others and
     raises here with its traceback. On the card the kernel library is built
     here first, so the ranks load it instead of each running nvcc."""
     backend = choose_backend(world_size, device)
-    log.info("series mesh: %d ranks on %s, backend %s", world_size, device, backend)
+    log.info("%s: %d ranks on %s, backend %s",
+             "series mesh" if mesh_factory is None else "mesh", world_size, device, backend)
     if torch.device(device).type == "cuda":
         from repro_torch.kernels import build
 
@@ -86,7 +95,7 @@ def run_ranks(target: Callable, world_size: int, *, device="cuda",
         init_method = "file://" + os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main,
                              args=(target, r, world_size, backend, init_method, str(device),
-                                   tuple(args), timeout_s, results))
+                                   tuple(args), timeout_s, results, mesh_factory))
                  for r in range(world_size)]
         for p in procs:
             p.start()

@@ -444,9 +444,6 @@ def test_vlm_bf16_prefill_and_decode_match_jax():
 
 
 def test_serve_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="model_parallel"):
-        tserve.serve("yi-6b", smoke=True, batch=1, prompt_len=4, gen=2, device="cpu",
-                     model_parallel=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.serve("yi-6b", smoke=True, batch=1, prompt_len=4, gen=2)
