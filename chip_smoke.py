@@ -23,7 +23,7 @@ prefill and decode step; then the MoE family: qwen3-moe-30b-a3b at full
 width and two layers in fp32 on the card against the CPU, its routing held
 equal on the same layer input and its dropped share equal on both devices,
 with deepseek-v2-lite's MoE layer (routed and shared experts) alone
-(``lm_moe_parity``), 24 of its 48 layers in bf16 through the serve
+(``lm_moe_parity``), 12 of its 48 layers in bf16 through the serve
 launcher (``lm_moe_serve``; ``SERVE_DEPTH``), and one profiled prefill and decode step with
 their device time split into the expert products, the dispatch, K6, the
 attention projections and the rest (``profile_lm_moe``,
@@ -40,7 +40,7 @@ prompt of 128 and one the SSD pads) and zamba2-2.7b (12 layers: two
 applications of its shared block) at full width in fp32 on the card
 against the CPU, logits and every cache (``lm_vlm_parity``,
 ``lm_ssm_parity``, ``lm_hybrid_parity``), each at full width in bf16
-(internvl2 at full depth, mamba2 and zamba2 at 24 blocks: ``SERVE_DEPTH``)
+(internvl2 at full depth, mamba2 and zamba2 at 12 blocks: ``SERVE_DEPTH``)
 through the serve launcher (``lm_vlm_serve``: K6 once per layer;
 ``lm_ssm_serve``: no K6, and what the Mamba2 block's SiLU costs against
 ``F.silu``; ``lm_hybrid_serve``: K6 at head dim 80 once per application of
@@ -57,7 +57,7 @@ decode step split into the encoder, the decoder's self-attention, the
 cross-attention, the MLPs and K6 (``profile_lm_encdec``); last,
 granite-3-2b, chatglm3-6b and qwen2.5-14b at full width and 2 layers in
 fp32 against the CPU and float64 (``lm_dense_parity``) and at full width
-and 24 layers in bf16 (``lm_dense_serve``: K6 on the first layer's own q, k, v
+and 12 layers in bf16 (``lm_dense_serve``: K6 on the first layer's own q, k, v
 at the model's scale); then tensor-parallel serving on two gloo ranks
 sharing the card, a (1, 2) host mesh, in one spawn: every arch at full width
 and the parity depths in fp32 against the one-device card run of the same
@@ -75,13 +75,27 @@ train step in 2 microbatches, its update leaf by leaf against the step's
 plain version on the card and, for three of them, against the CPU
 (``lm_train_parity``); each in the train cell
 (seq 2,048, batch 8 in microbatches of 2, 1 warm-up and 3 timed steps)
-through the train launcher, five at full depth, qwen3-moe and
-deepseek-v2-lite cut to 4 layers, whisper-base also resumed from a
+through the train launcher, whisper-base at full depth, the others cut
+in depth (``TRAIN_DEPTH``), whisper-base also resumed from a
 checkpoint (``lm_train``: ms a step, tokens/s, peak GB, K6 0 launches and
 the plain attention route counted); one granite-3-2b step of one
 microbatch profiled by part
-(``profile_lm_train``). Every phase line carries the script's wall seconds
-so far (``wall_s``); ``done`` closes the phases. Between the fp32 serving
+(``profile_lm_train``); then sharded LM training on four gloo ranks sharing
+the card, a (2, 2) host mesh (FSDP on ``data``, heads, hidden units and the
+MoE experts on ``model``), in one spawn: yi-6b, deepseek-v2-lite,
+internvl2-2b, mamba2-1.3b, zamba2-2.7b (6 blocks) and whisper-base at full
+width in fp32, one step's loss, clip norm and every gradient shard against
+the one-device card step on the same weights and rows, routing and the
+collectives of the training plan (``lm_train_tp_parity``), and yi-6b at full
+width, 2 layers, bf16 compute over fp32 masters, 4 x 512 tokens in 2
+microbatches through the train launcher's ``train_on_mesh``, its losses
+against the one-device bf16 run (``lm_train_tp``: ms a step, tokens/s, each
+rank's collective ms by axis and op, peak GB, bytes of masters and Adam
+state against the dry-run's); last, the three Torch examples
+(``examples/*_torch.py`` but train_lm's), each once in a process of its
+own on the card (``examples``: exit 0, the last printed line). Every phase
+line carries the script's wall seconds so far (``wall_s``); ``done`` closes
+the phases. Between the fp32 serving
 phases and training, the
 same forecast and server run under the bf16 policy (``precision="bf16"``:
 K1 with a bf16 y, K3 in bf16 on the tensor cores; phases ``forecast_bf16``, ``profile_bf16``
@@ -356,13 +370,13 @@ MOE_PARITY_LAYERS = 2
 # mamba2's also at a prompt that is not a multiple of its SSD chunk (128),
 # so the scan pads
 VLM_ARCH, SSM_ARCH, HYBRID_ARCH = "internvl2-2b", "mamba2-1.3b", "zamba2-2.7b"
-# serve cells cut in depth to keep the script inside its time limit beside
-# the LM training phases: qwen3-moe at 24 of its 48 layers, mamba2 at 24 of
-# 48 blocks, zamba2 at 24 of 54 (4 shared-block applications); and, beside
-# the tensor-parallel phases, granite-3-2b (40), chatglm3-6b (28) and
-# qwen2.5-14b (48) at 24; PERF.md keeps their full-depth serving numbers
-SERVE_DEPTH = {"qwen3-moe-30b-a3b": 24, "mamba2-1.3b": 24, "zamba2-2.7b": 24,
-               "granite-3-2b": 24, "chatglm3-6b": 24, "qwen2.5-14b": 24}
+# serve cells cut in depth to keep the script inside its time limit: qwen3-moe
+# (48 layers), mamba2 (48 blocks), zamba2 (54; 2 shared-block applications at
+# 12), granite-3-2b (40), chatglm3-6b (28) and qwen2.5-14b (48) at 12, since
+# the sharded training phases (at 24 the whole script took 1,092-1,174 s on
+# an H100 80GB HBM3 at 700 W); PERF.md keeps their full-depth serving numbers
+SERVE_DEPTH = {"qwen3-moe-30b-a3b": 12, "mamba2-1.3b": 12, "zamba2-2.7b": 12,
+               "granite-3-2b": 12, "chatglm3-6b": 12, "qwen2.5-14b": 12}
 HYBRID_PARITY_LAYERS = 12
 SSM_RAGGED_PROMPT = 200
 # the encdec cells: whisper-base (6 + 6 layers, d 512, MHA 8 x 64, 1,500
@@ -386,10 +400,14 @@ DENSE_PRESETS = ("granite-3-2b", "chatglm3-6b", "qwen2.5-14b")
 # (internvl2 1,792 tokens after its 256 patches; whisper 2,048 tokens over
 # 1,500 frames), global batch 8 in microbatches of 2, fp32 masters, bf16
 # compute, AdamConfig(lr=3e-4, clip_norm=1.0), 1 warm-up and 3 timed steps
-# through ``launch.train.train``; five models at full depth, qwen3-moe at 4
-# layers and deepseek-v2-lite at its prefix layer + 3 (their fp32 masters,
-# gradients and Adam moments at full depth, 550 and 292 GB, are past one
-# card)
+# through ``launch.train.train``; qwen3-moe at 4 layers and deepseek-v2-lite
+# at its prefix layer + 3 (their fp32 masters, gradients and Adam moments
+# at full depth, 550 and 292 GB, are past one card); since the sharded
+# training phases, granite-3-2b at 10 of 40 layers, internvl2-2b at 6 of 24,
+# mamba2-1.3b at 12 of 48 and zamba2-2.7b at 12 of 54, for the script's
+# time limit (the whole script took 1,092 s with them at full depth on an
+# H100 80GB HBM3 at 700 W; PERF.md keeps their full-depth numbers); whisper
+# at full depth
 TRAIN_ARCHS = ("granite-3-2b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "internvl2-2b",
                "mamba2-1.3b", "zamba2-2.7b", "whisper-base")
 TRAIN_PARITY_LAYERS = {"zamba2-2.7b": HYBRID_PARITY_LAYERS, "whisper-base": None}
@@ -415,7 +433,11 @@ TRAIN16_CARD_ONLY = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "internvl2-2b"
 TRAIN16_STEP_ADAM = dict(lr=1e2, eps=1e3)
 LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_MICRO = 2048, 8, 2
 LM_TRAIN_WARMUP, LM_TRAIN_TIMED = 1, 3
-TRAIN_DEPTH = {"qwen3-moe-30b-a3b": 4, "deepseek-v2-lite-16b": 4}
+TRAIN_DEPTH = {"qwen3-moe-30b-a3b": 4, "deepseek-v2-lite-16b": 4, "granite-3-2b": 10,
+               "internvl2-2b": 6, "mamba2-1.3b": 12, "zamba2-2.7b": 12}
+# why each is cut
+TRAIN_CUT_WHY = {"qwen3-moe-30b-a3b": "the full model's training state is past one card",
+                 "deepseek-v2-lite-16b": "the full model's training state is past one card"}
 TRAIN_RESUME_ARCH, TRAIN_PROFILE_ARCH = "whisper-base", "granite-3-2b"
 # gradients card against CPU: each leaf within 1e-4 of its largest element
 # on the CPU (fp32 sums in another order through 2 to 12 layers); the bf16
@@ -423,6 +445,36 @@ TRAIN_RESUME_ARCH, TRAIN_PROFILE_ARCH = "whisper-base", "granite-3-2b"
 # that rtol as a share of its norm
 GRAD_TOL = 1e-4
 TRAIN16_STEP_RTOL, TRAIN16_STEP_ATOL = 2e-2, 1e-3
+
+# the sharded training cells: 4 gloo ranks sharing the card, a (2, 2) host
+# mesh (FSDP on data, heads, hidden units and the MoE experts on model).
+# Parity (``lm_train_tp_parity``): one arch of each family at full width in
+# fp32 at the train parity's depths and batch (2 x 128 text tokens: one row
+# a data rank), one step's loss and gradients against the one-device card
+# step on the same weights and rows, remat off (the collectives of
+# ``fsdp.step_collectives``); the MoE family by deepseek-v2-lite (MLA, the
+# shared experts), qwen3-moe left out: its 9.9 s step was the slowest of the
+# seven in the phases' 150 s (the CPU tests hold all ten); zamba2 at 6
+# blocks, one application of its shared block (12 took 8.1-10.3 s). The
+# train cell (``lm_train_tp``): yi-6b (its 64,000-entry vocabulary is cut at tp 2) at
+# full width, cut to 2 layers (4 took 10.2 s a step, past the phases'
+# share), seq 512, global batch 4 in 2 microbatches, bf16 compute over fp32
+# masters, 1 warm-up and 2 timed steps through the train launcher's
+# ``train_on_mesh`` with the collectives timed, its losses against the
+# one-device bf16 run of the same weights within the repo's bf16 bound
+TRAIN_TP_MESH = (2, 2)
+TRAIN_TP_ARCHS = ("yi-6b", "deepseek-v2-lite-16b", "internvl2-2b", "mamba2-1.3b",
+                  "zamba2-2.7b", "whisper-base")
+TRAIN_TP_PARITY_LAYERS = {"zamba2-2.7b": 6, "whisper-base": None}
+TRAIN_TP_ARCH, TRAIN_TP_LAYERS = "yi-6b", 2
+TRAIN_TP_SEQ, TRAIN_TP_BATCH, TRAIN_TP_MICRO = 512, 4, 2
+TRAIN_TP_WARMUP, TRAIN_TP_TIMED = 1, 2
+# the examples phase: each Torch example once on the card, in a process of
+# its own, with these arguments (quickstart's fit at 40 of its 80 steps,
+# forecast_m4 at one frequency and 25 steps: the phases' time)
+EXAMPLES = (("quickstart_torch.py", ("--steps", "40")),
+            ("forecast_m4_torch.py", ("--freq", "quarterly", "--steps", "25")),
+            ("serve_decode_torch.py", ()))
 
 # the tensor-parallel cells: 2 gloo ranks sharing the card, a (1, 2) host
 # mesh. Parity (``lm_tp_parity``): every arch at full width in fp32 at
@@ -3899,7 +3951,7 @@ def profile_moe(call, top: int = 12):
 def run_moe_phases(dev, smi, counted, lm_kernels, gen):
     """Phase 7b: qwen3-moe-30b-a3b at full width, 2 layers, fp32, card
     against CPU with its routing held equal (and deepseek-v2-lite's MoE
-    layer); then 24 of its 48 layers (``SERVE_DEPTH``) in bf16 through
+    layer); then 12 of its 48 layers (``SERVE_DEPTH``) in bf16 through
     ``generate``, K6 once per
     layer of each prefill, one profiled prefill and decode step split by
     part, and K6 on layer 0's own q, k, v. ``counted`` is ``main``'s: the
@@ -4079,7 +4131,7 @@ def run_family_phases(dev, smi, counted, lm_kernels, gen):
     (mamba2 and zamba2 at ``SERVE_DEPTH``) through ``generate``
     (``lm_vlm_serve``: K6 once per layer; ``lm_ssm_serve``: no K6;
     ``lm_hybrid_serve``: K6 at D = DV = 80 once per application of the
-    shared block, 4 at 24 blocks), K6 held against its plain
+    shared block, 2 at 12 blocks), K6 held against its plain
     version on the q, k, v a prefill passes its first K6 launch (the
     hybrid's: the shared block's at its first application), mamba2's SiLU
     against ``F.silu`` (``silu_cost``), and the hybrid's prefill and decode
@@ -4246,7 +4298,7 @@ def run_dense_presets(dev, smi, counted, lm_kernels, gen):
     """Phase 7e, the dense presets not served before (granite-3-2b,
     chatglm3-6b, qwen2.5-14b): each at full width, 2 layers, fp32, card
     against CPU and float64 (``lm_dense_parity``), then at full width and
-    24 layers (``SERVE_DEPTH``) in bf16 through ``generate``
+    12 layers (``SERVE_DEPTH``) in bf16 through ``generate``
     (``lm_dense_serve``), K6 once per
     layer, held against its plain version on the first layer's own q, k, v
     at the model's scale. ``counted`` is ``main``'s: these launches join the
@@ -4284,14 +4336,17 @@ def run_dense_presets(dev, smi, counted, lm_kernels, gen):
 def routing_recorded(calls):
     """``moe_route`` recording each call's top-k ids, slots and keep (and
     its least top-k probability gap) in ``calls`` while the block runs."""
+    import torch
+
     from repro_torch.models import moe as MOE
 
     real = MOE.moe_route
 
     def route(*a, **k):
         r = real(*a, **k)
-        calls.append(dict(top_ids=r.top_ids.cpu(), pos=r.pos.cpu(), keep=r.keep.cpu(),
-                          gap=moe_margin(r, r.top_ids.shape[-1])))
+        with torch.no_grad():
+            gap = moe_margin(r, r.top_ids.shape[-1])
+        calls.append(dict(top_ids=r.top_ids.cpu(), pos=r.pos.cpu(), keep=r.keep.cpu(), gap=gap))
         return r
 
     MOE.moe_route = route
@@ -4674,6 +4729,312 @@ def run_tp_phases(dev, smi, counted, lm_kernels):
     if ratio > TP16_RMS_GATE:
         raise AssertionError(f"tp serving: logits {ratio} x as far from the fp32 model's as "
                              f"the one-device bf16 serve's (gate {TP16_RMS_GATE})")
+
+
+def train_tp_parity_reference(dev, arch, seed=13):
+    """The one-device card step of ``arch`` at the sharded parity cell: its
+    fp32 config at ``TRAIN_TP_PARITY_LAYERS``' depth, remat off, the batch of 2 x
+    ``TRAIN_PARITY_TEXT`` text tokens; the loss, every gradient (in
+    ``param_leaves`` order), their global norm and each MoE call's routing.
+    The weights are drawn on the card from ``seed``, as each rank draws
+    them."""
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import global_norm
+
+    cfg = dataclasses.replace(arch_config(arch, n_layers=TRAIN_TP_PARITY_LAYERS.get(
+        arch, LM_PARITY_LAYERS), dtype="float32"), remat=False)
+    model = build_model(cfg)
+    seq = TRAIN_PARITY_TEXT + (cfg.n_patches if cfg.family == "vlm" else 0)
+    cell = ShapeCell("tp parity", "train", seq, LM_PARITY_BATCH)
+    batch = synthetic_batch(cfg, cell, 0, seed, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    routing = []
+    with routing_recorded(routing):
+        loss, grads = loss_and_grads(model, params, batch)
+    del params
+    with torch.no_grad():
+        norm = float(global_norm(grads))
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, seed=seed, loss=float(loss), grads=grads, norm=norm,
+                routing=[{f: c[f] for f in ("top_ids", "pos", "keep")} for c in routing])
+
+
+def _train_tp_parity_case(mesh, ref):
+    """One arch on the rank: the whole model drawn from the reference's seed,
+    cut to the rank's shards by the training plan; one sharded step in fp32
+    compute (its Adam replaced by a spy that keeps the gradients it is
+    given), the loss, the global norm through the plan's ``sq_reduce``,
+    each gradient shard against its block of the one-device gradient (every
+    element of a leaf held once over the ranks: the gathered comparison
+    without moving the leaves) within ``GRAD_TOL`` of the leaf's largest
+    element, the routing of the rank's row against the one-device routing's,
+    and the collectives against ``fsdp.step_collectives``."""
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import ctx, fsdp, tp
+    from repro_torch.train.optimizer import AdamConfig, global_norm
+
+    cfg, dev = ref["cfg"], mesh.device
+    model = build_model(cfg)
+    cell = ShapeCell("tp parity", "train", TRAIN_PARITY_TEXT + (
+        cfg.n_patches if cfg.family == "vlm" else 0), LM_PARITY_BATCH)
+    with ctx.activation_sharding(mesh, dp="data", tp="model"):
+        step = S.make_train_step(model, cell, adam=AdamConfig(lr=1e-3),
+                                 compute_dtype=torch.float32)
+    plan = step.plan
+    full = model.init(torch.Generator(device=dev).manual_seed(ref["seed"]))
+    masters = plan.shard(full)
+    del full
+    torch.cuda.empty_cache()
+    batch = synthetic_batch(cfg, cell, 0, ref["seed"], dev)
+    seen, real = {}, S.adam_update
+
+    def spy(grads, opt_state, params, adam, **kw):
+        seen.update(grads=grads, sq_reduce=kw["sq_reduce"])
+        return params, opt_state
+
+    routing = []
+    S.adam_update = spy
+    try:
+        torch.cuda.synchronize()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        with routing_recorded(routing):
+            _, _, loss = step(masters, {"step": 0}, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        collectives = mesh.collective_counts()
+    finally:
+        S.adam_update = real
+    want = fsdp.step_collectives(cfg, plan, 1, clip=False)
+    if collectives != want:
+        raise AssertionError(f"{cfg.name} sharded parity, rank {mesh.rank}: collectives "
+                             f"{collectives}, want {want}")
+    with torch.no_grad():
+        norm = float(global_norm(seen["grads"], seen["sq_reduce"]))
+    loss_err = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    norm_err = abs(norm - ref["norm"]) / ref["norm"]
+    if loss_err > LM_RTOL or norm_err > LM_RTOL:
+        raise AssertionError(f"{cfg.name} sharded parity, rank {mesh.rank}: loss {float(loss)} "
+                             f"vs {ref['loss']}, norm {norm} vs {ref['norm']}")
+    worst = 0.0
+    with torch.no_grad():
+        for lp, g, w in zip(plan.leaves, seen["grads"], ref["grads"], strict=True):
+            block = tp.cut(w, lp.model)
+            if lp.data is not None:
+                block = block.narrow(lp.data, *plan.data_block(lp))
+            scale = float(w.abs().max())
+            err = float((g - block).abs().max())
+            rel = err / scale if scale > 0 else err
+            if not np.isfinite(rel) or rel > GRAD_TOL:
+                raise AssertionError(f"{cfg.name} sharded parity, rank {mesh.rank}: gradient "
+                                     f"{lp.path} off by {err:.3g} (scale {scale:.3g})")
+            worst = max(worst, rel)
+    rows = plan.rows(LM_PARITY_BATCH)
+    flips = sum(int((a[f].cpu() != b[f][rows].cpu()).any()) for a, b in
+                zip(routing, ref["routing"]) for f in ("top_ids", "pos", "keep"))
+    if len(routing) != len(ref["routing"]) or flips:
+        raise AssertionError(f"{cfg.name} sharded parity, rank {mesh.rank}: routing differs "
+                             f"from one device's ({flips} fields)")
+    del masters, seen
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers, rank=mesh.rank,
+                loss_rel_err=loss_err, norm_rel_err=norm_err, grad_max_rel_err=worst,
+                n_grad_leaves=len(plan.leaves), moe_calls=len(routing), collectives=collectives,
+                differs_from_spec=sorted(plan.differs_from_spec()), step_s=step_s)
+
+
+def train_tp_reference(dev):
+    """The one-device bf16 run of the sharded train cell on the card: the
+    train launcher's losses over the cell's steps, its ms a step and peak
+    GB; the launcher's weights from seed 0."""
+    import torch
+
+    from repro_torch.launch import train as T
+
+    cfg = arch_config(TRAIN_TP_ARCH, n_layers=TRAIN_TP_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    with train_config(cfg):
+        out = T.train(TRAIN_TP_ARCH, smoke=False, steps=TRAIN_TP_WARMUP + TRAIN_TP_TIMED,
+                      batch=TRAIN_TP_BATCH, seq=TRAIN_TP_SEQ, microbatch=TRAIN_TP_MICRO,
+                      seed=0, device=dev, log_every=100)
+    rec = dict(losses=out["losses"], step_s=out["step_s"],
+               ms_per_step=float(np.mean(out["step_s"][TRAIN_TP_WARMUP:])) * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_tp_cell(mesh):
+    """The sharded train cell on the rank, through ``train_on_mesh`` (the
+    depth cut given by ``train_config``) with the mesh's collectives timed
+    by (axis, op), the device synchronized around each: each step's seconds
+    and losses, the rank's peak GB and bytes of masters and Adam state
+    against the dry-run's reckoning for the mesh, and its collectives and
+    their ms a step."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import train_on_mesh
+    from repro_torch.models.model import build_model
+
+    cfg = arch_config(TRAIN_TP_ARCH, n_layers=TRAIN_TP_LAYERS)
+    steps = TRAIN_TP_WARMUP + TRAIN_TP_TIMED
+    torch.cuda.reset_peak_memory_stats()
+    mesh.timed = True
+    try:
+        with train_config(cfg):
+            out = train_on_mesh(mesh, TRAIN_TP_ARCH, steps=steps, smoke=False,
+                                batch=TRAIN_TP_BATCH, seq=TRAIN_TP_SEQ,
+                                microbatch=TRAIN_TP_MICRO, seed=0, log_every=100,
+                                gather_params=False)
+        seconds = {f"{axis} {op}": t * 1e3 / steps
+                   for (axis, op), t in sorted(mesh.seconds.items())}
+    finally:
+        mesh.timed = False
+    peak = torch.cuda.max_memory_allocated()
+    want = dryrun.train_state_bytes(build_model(cfg), mesh)
+    if out["state_bytes"] != want["params"] + want["opt"] - 4:
+        raise AssertionError(f"sharded train cell, rank {mesh.rank}: {out['state_bytes']} bytes "
+                             f"of state, the dry-run reckons {want}")
+    torch.cuda.empty_cache()
+    return dict(rank=mesh.rank, mesh=out["mesh"], losses=out["losses"], step_s=out["step_s"],
+                ms_per_step=float(np.mean(out["step_s"][TRAIN_TP_WARMUP:])) * 1e3,
+                peak_gb=peak / 1e9, state_bytes=out["state_bytes"],
+                dryrun_state_bytes=want["params"] + want["opt"] - 4,
+                collectives_per_step={a: {o: n / steps for o, n in ops.items()}
+                                      for a, ops in out["collectives"].items()},
+                collective_ms_per_step=seconds)
+
+
+def _train_tp_rank(mesh, refs):
+    """One rank of the sharded training phases (a spawned process): every
+    parity arch, then the train cell."""
+    import torch
+
+    from repro_torch import strict_fp32
+
+    strict_fp32()
+    parity = []
+    for ref in refs:
+        parity.append(_train_tp_parity_case(mesh, ref))
+        torch.cuda.empty_cache()
+    return dict(parity=parity, cell=_train_tp_cell(mesh))
+
+
+def run_train_tp_phases(dev, smi, counted):
+    """Phase 7g, sharded LM training: the one-device bf16 run of the train
+    cell and each parity arch's one-device fp32 step here (their gradients
+    stay on the card and reach the ranks as CUDA IPC handles), then one spawn
+    of 4 gloo ranks sharing the card on a (2, 2) host mesh for
+    ``lm_train_tp_parity`` and ``lm_train_tp``. A train step launches no
+    K6 (its attention needs a gradient): ``counted`` checks this process's
+    runs; the ranks count their own."""
+    import functools
+
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import run_ranks
+
+    t0 = time.perf_counter()
+    one_device, launches = counted((), "the one-device sharded-cell reference",
+                                   lambda: train_tp_reference(dev))
+    refs, ref_launches = counted((), "the sharded parity references", lambda: [
+        train_tp_parity_reference(dev, arch) for arch in TRAIN_TP_ARCHS])
+    ref_s = time.perf_counter() - t0
+    if launches["flash_attention"] or ref_launches["flash_attention"]:
+        raise AssertionError("a one-device train step launched K6")
+    world = TRAIN_TP_MESH[0] * TRAIN_TP_MESH[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(_train_tp_rank, world, device="cuda", args=(refs,),
+                      mesh_factory=functools.partial(make_host_mesh, TRAIN_TP_MESH[1]))
+    spawn_s = time.perf_counter() - t0
+    del refs
+    torch.cuda.ipc_collect()       # the ranks' handles of the gradients shared with them
+    torch.cuda.empty_cache()
+    mesh = dict(data=TRAIN_TP_MESH[0], model=TRAIN_TP_MESH[1])
+    for i, arch in enumerate(TRAIN_TP_ARCHS):
+        recs = [r["parity"][i] for r in ranks]
+        emit(dict(phase="lm_train_tp_parity", card=smi, mesh=mesh, backend="gloo",
+                  arch=arch, family=recs[0]["family"], n_layers=recs[0]["n_layers"],
+                  batch=LM_PARITY_BATCH, text_tokens=TRAIN_PARITY_TEXT, dtype="float32",
+                  loss_rel_err=max(r["loss_rel_err"] for r in recs),
+                  norm_rel_err=max(r["norm_rel_err"] for r in recs),
+                  grad_max_rel_err=max(r["grad_max_rel_err"] for r in recs),
+                  n_grad_leaves=recs[0]["n_grad_leaves"], moe_calls=recs[0]["moe_calls"],
+                  collectives_per_rank=[r["collectives"] for r in recs],
+                  differs_from_spec=recs[0]["differs_from_spec"],
+                  step_s=[r["step_s"] for r in recs], loss_rtol=LM_RTOL, grad_tol=GRAD_TOL))
+    cells = [r["cell"] for r in ranks]
+    losses = cells[0]["losses"]
+    if any(c["losses"] != losses for c in cells):
+        raise AssertionError("sharded train cell: the ranks' losses differ")
+    loss_err = check_close("sharded train cell losses against one device",
+                           torch.tensor(losses), torch.tensor(one_device["losses"]),
+                           rtol=TRAIN16_STEP_RTOL, atol=TRAIN16_STEP_ATOL)
+    tokens = TRAIN_TP_BATCH * TRAIN_TP_SEQ
+    ms = float(np.mean([c["ms_per_step"] for c in cells]))
+    emit(dict(phase="lm_train_tp", card=smi, arch=TRAIN_TP_ARCH, mesh=mesh, backend="gloo",
+              n_layers=TRAIN_TP_LAYERS, seq=TRAIN_TP_SEQ, global_batch=TRAIN_TP_BATCH,
+              microbatch=TRAIN_TP_MICRO, dtype="bf16 compute, fp32 masters",
+              cut=f"depth {TRAIN_TP_LAYERS} of {arch_config(TRAIN_TP_ARCH).n_layers} layers, "
+                  f"seq {TRAIN_TP_SEQ}, batch {TRAIN_TP_BATCH}: gloo stages every "
+                  "collective of the 4 ranks through the host",
+              losses=losses, one_device=dict(one_device, launches=launches),
+              loss_max_abs_err=loss_err, rtol=TRAIN16_STEP_RTOL, atol=TRAIN16_STEP_ATOL,
+              ms_per_step=ms, tokens_per_step=tokens, tokens_per_s=tokens / ms * 1e3,
+              ranks=cells, references_s=ref_s, spawn_s=spawn_s))
+
+
+def _last_line(text: str) -> str:
+    lines = [line for line in text.splitlines() if line.strip()]
+    return lines[-1] if lines else ""
+
+
+def run_examples_phase(smi, tmp):
+    """Phase 7h: each Torch example (``EXAMPLES``) once, in a process of its
+    own on the card (``--device`` left at its default), from the checkout's
+    ``examples/``; the three run side by side (each mostly its interpreter's
+    and the card's start-up). Each must exit 0, and its last printed line
+    goes on the phase's line."""
+    import os
+
+    # the three share the host's cores
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 3) // len(EXAMPLES))))
+    done = {}
+
+    def run(name, argv):
+        extra = ("--ckpt-root", str(Path(tmp) / "ckpt")) if name.startswith("forecast") else ()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / name), *argv, *extra],
+                              capture_output=True, text=True, env=env, cwd=tmp, timeout=600)
+        done[name] = (proc, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=run, args=ex) for ex in EXAMPLES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name, argv in EXAMPLES:
+        if name not in done:
+            raise AssertionError(f"example {name} did not run to its end")
+        proc, seconds = done[name]
+        if proc.returncode:
+            raise AssertionError(f"example {name} exited {proc.returncode}:\n"
+                                 + proc.stderr[-3000:])
+        emit(dict(phase="examples", card=smi, example=name, argv=list(argv), s=seconds,
+                  last_line=_last_line(proc.stdout), lines=len(proc.stdout.splitlines())))
 
 
 def run_dryrun_phase(smi, tmp):
@@ -5196,7 +5557,7 @@ def run_train_phases(dev, smi, counted):
         rec = run_lm_train(dev, arch, counted)
         if not rec["full_depth"]:
             rec["cut"] = (f"depth {rec['n_layers']} of {arch_config(arch).n_layers} layers: "
-                          "the full model's training state is past one card")
+                          + TRAIN_CUT_WHY.get(arch, "the script's time limit"))
         emit(dict(phase="lm_train", card=smi, **rec))
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_train_") as tmp:
@@ -5656,6 +6017,12 @@ def main() -> int:
     # phase 7f: LM training, every family, at full width
     torch.cuda.empty_cache()
     run_train_phases(dev, smi, counted)
+    # phase 7g: sharded LM training on 4 gloo ranks sharing the card; 7h:
+    # the Torch examples, each in a process of its own
+    torch.cuda.empty_cache()
+    run_train_tp_phases(dev, smi, counted)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        run_examples_phase(smi, tmp)
     emit(dict(phase="done"))
 
     # phase 8: summary, one entry per ported kernel and stream dtype.

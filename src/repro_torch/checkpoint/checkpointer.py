@@ -47,7 +47,11 @@ template's device in the port's layout.
 
 Over a series mesh (``Checkpointer(..., mesh=)``) every rank holds the same
 replicated state: rank 0 alone writes, and every rank waits at a barrier
-until the checkpoint is published; every rank restores.
+until the checkpoint is published; every rank restores. Sharded LM training
+passes its host mesh the same way, and the state it saves is every leaf
+gathered whole (:meth:`repro_torch.sharding.fsdp.TrainPlan.gather`): the
+reference's layout, whatever mesh wrote it, restored whole on every rank
+and cut again by the training plan.
 
 Leaves are float32 or int32 tensors (under ``precision="bf16"`` too: the
 master weights and moments stay float32). Any other dtype is refused.
@@ -272,7 +276,9 @@ def _unflatten(obj, it: Iterator):
 class Checkpointer:
     """``frozen``: the param groups the moments of a saved or restored
     ``(params, opt_state)`` leave out (the trainer passes its head's).
-    ``mesh``: the series mesh of a data-parallel run; rank 0 writes."""
+    ``mesh``: the series mesh of a data-parallel run, or the host mesh of a
+    sharded LM run (anything with ``rank`` and ``barrier()``); rank 0
+    writes."""
 
     def __init__(self, directory: str, *, keep: int = 3,
                  frozen: FrozenSet[str] = frozenset(), mesh=None):

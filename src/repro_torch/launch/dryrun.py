@@ -76,6 +76,19 @@ def _batch_bytes(mesh, batch_abs, batch: int) -> int:
                for k, (shape, dtype) in batch_abs.items())
 
 
+def train_state_bytes(model, mesh):
+    """One rank's bytes of a train cell's state on ``mesh`` (any mesh with
+    ``axis_names`` and ``shape``: a production or a host mesh), by part:
+    ``params`` (the fp32 masters) and ``opt`` (Adam's ``mu``, ``nu`` and
+    int32 ``step``), under the partition rules in mode ``"train"``."""
+    params_abs = steps.abstract_params(model, master_fp32=True)
+    params_sp = specs.param_shardings(mesh, params_abs, "train")
+    opt_abs = steps.abstract_opt_state(params_abs)
+    return {"params": specs.tree_local_bytes(params_abs, params_sp, mesh),
+            "opt": specs.tree_local_bytes(opt_abs, {"mu": params_sp, "nu": params_sp,
+                                                    "step": ()}, mesh)}
+
+
 def cell_bytes(arch: str, shape: str, mesh):
     """(meta, per-rank bytes by part) of an LM cell on ``mesh``."""
     cfg = get_config(arch)
@@ -89,14 +102,12 @@ def cell_bytes(arch: str, shape: str, mesh):
             "tokens": b if cell.kind == "decode" else b * cell.seq_len}
     parts = {"params": 0, "opt": 0, "caches": 0,
              "batch": _batch_bytes(mesh, steps.batch_template(cfg, cell), b)}
-    params_abs = steps.abstract_params(model, master_fp32=cell.kind == "train")
-    params_sp = specs.param_shardings(mesh, params_abs, mode)
-    parts["params"] = specs.tree_local_bytes(params_abs, params_sp, mesh)
     if cell.kind == "train":
-        opt_abs = steps.abstract_opt_state(params_abs)
-        parts["opt"] = specs.tree_local_bytes(
-            opt_abs, {"mu": params_sp, "nu": params_sp, "step": ()}, mesh)
+        parts.update(train_state_bytes(model, mesh))
     else:
+        params_abs = steps.abstract_params(model, master_fp32=False)
+        parts["params"] = specs.tree_local_bytes(
+            params_abs, specs.param_shardings(mesh, params_abs, mode), mesh)
         caches_abs = steps.abstract_caches(model, cell)
         parts["caches"] = specs.tree_local_bytes(
             caches_abs, specs.cache_shardings(mesh, caches_abs, b), mesh)

@@ -11,9 +11,13 @@ The port of the JAX package's ``launch/mesh.py``:
   over ``("data", "model")``, rank ``r`` at ``(r // model_parallel, r %
   model_parallel)`` (``jax.make_mesh``'s order). It has one process group
   per ``data`` row (its ``model`` axis) and one per ``model`` column (its
-  ``data`` axis); every collective goes through :meth:`MeshAxis.all_reduce`,
-  which counts it, as :class:`~repro_torch.sharding.series.SeriesMesh`
-  counts its own. Without a process group the world is one rank, so only
+  ``data`` axis); every collective goes through :class:`MeshAxis`
+  (``all_reduce``, and FSDP's ``all_gather`` and ``reduce_scatter``), which
+  counts it by (axis, op), as :class:`~repro_torch.sharding.series.SeriesMesh`
+  counts its own. The backend is the process group's, chosen once
+  (:func:`repro_torch.sharding.ranks.choose_backend`): NCCL runs the native
+  gather and reduce-scatter, gloo (no gather of CUDA tensors) all-reduces.
+  Without a process group the world is one rank, so only
   ``model_parallel == 1`` is accepted.
 
 The ES-RNN series mesh lives in :mod:`repro_torch.sharding.series` and is
@@ -71,23 +75,100 @@ class MeshAxis:
     def __repr__(self) -> str:
         return f"MeshAxis({self.name!r}, index={self.index}, size={self.size})"
 
+    def _timed(self, op: str, t: torch.Tensor, run):
+        """``run()``, counted as ``(axis, op)`` and timed (the device
+        synchronized around it) when the mesh is ``timed``."""
+        mesh = self.mesh
+        mesh.counts[self.name, op] += 1
+        if not mesh.timed:
+            return run()
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = run()
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        mesh.seconds[self.name, op] += time.perf_counter() - t0
+        return out
+
+    def _skip(self, op: str) -> bool:
+        """An axis of one rank moves nothing (counted all the same), unless
+        the world itself is that one rank: then its collectives run, on the
+        world's group (one NCCL rank runs the native calls)."""
+        solo = dist.is_available() and dist.is_initialized() and dist.get_world_size() == 1
+        if self.size == 1 and not solo:
+            self.mesh.counts[self.name, op] += 1
+            return True
+        return False
+
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the axis, in place; returns it. Counted, and timed
         (the device synchronized around it) when the mesh is ``timed``."""
-        mesh = self.mesh
-        mesh.counts[self.name, "all_reduce"] += 1
-        if self.size == 1:
+        if self._skip("all_reduce"):
             return t
-        if mesh.timed:
-            if t.is_cuda:
-                torch.cuda.synchronize(t.device)
-            t0 = time.perf_counter()
-        dist.all_reduce(t, group=self.group)
-        if mesh.timed:
-            if t.is_cuda:
-                torch.cuda.synchronize(t.device)
-            mesh.seconds[self.name, "all_reduce"] += time.perf_counter() - t0
-        return t
+
+        def run():
+            dist.all_reduce(t, group=self.group)
+            return t
+
+        return self._timed("all_reduce", t, run)
+
+    def block(self, n: int) -> slice:
+        """This rank's block of ``n`` (a multiple of the axis size)."""
+        b = n // self.size
+        return slice(self.index * b, (self.index + 1) * b)
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``t`` joined along ``dim`` in axis order (a new
+        tensor of ``size`` times ``t``'s extent there). NCCL:
+        ``all_gather_into_tensor``; gloo, which has no gather of CUDA
+        tensors, an all-reduce of a zero-filled buffer in ``t``'s dtype,
+        exact: one term of each sum is not zero. Counted and timed."""
+        if self._skip("all_gather"):
+            return t
+        dim = dim % t.dim()
+        shape = list(t.shape)
+        shape[dim] *= self.size
+
+        def run():
+            if self.mesh.backend == "nccl":
+                src = t.movedim(dim, 0).contiguous()
+                out = src.new_empty((shape[dim],) + tuple(src.shape[1:]))
+                dist.all_gather_into_tensor(out, src, group=self.group)
+                return out.movedim(0, dim).contiguous()
+            out = t.new_zeros(shape)
+            index = [slice(None)] * t.dim()
+            index[dim] = self.block(shape[dim])
+            out[tuple(index)] = t
+            dist.all_reduce(out, group=self.group)
+            return out
+
+        return self._timed("all_gather", t, run)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The sum of ``t`` over the axis, this rank's block of it along
+        ``dim`` (a new tensor). NCCL: ``reduce_scatter_tensor``; gloo an
+        all-reduce of a copy of ``t``, then the block. Counted and timed."""
+        if self._skip("reduce_scatter"):
+            return t
+        dim = dim % t.dim()
+        if t.shape[dim] % self.size:
+            raise ValueError(f"reduce_scatter of {tuple(t.shape)} along dim {dim} over "
+                             f"{self.size} ranks")
+
+        def run():
+            if self.mesh.backend == "nccl":
+                src = t.movedim(dim, 0).contiguous()
+                out = src.new_empty((src.shape[0] // self.size,) + tuple(src.shape[1:]))
+                dist.reduce_scatter_tensor(out, src, group=self.group)
+                return out.movedim(0, dim).contiguous()
+            full = t.clone()
+            dist.all_reduce(full, group=self.group)
+            index = [slice(None)] * t.dim()
+            index[dim] = self.block(t.shape[dim])
+            return full[tuple(index)].contiguous()
+
+        return self._timed("reduce_scatter", t, run)
 
 
 class HostMesh:
@@ -127,6 +208,12 @@ class HostMesh:
     def reset_counts(self) -> None:
         self.counts.clear()
         self.seconds.clear()
+
+    def barrier(self) -> None:
+        """Wait for every rank of the world (the checkpointer's, after rank
+        0 has written)."""
+        if dist.is_available() and dist.is_initialized():
+            dist.barrier()
 
 
 def make_host_mesh(model_parallel: int = 1, *, device=None) -> HostMesh:

@@ -21,7 +21,9 @@ then takes one AdamW step, with fp32 master params and bf16 compute casts:
   divides both by the count and runs :func:`repro_torch.train.optimizer.adam_update`
   (default ``AdamConfig(lr=3e-4, clip_norm=1.0, weight_decay=0.0)``), which
   writes the params and moments in place. The gradients reach the fp32
-  masters through the cast, as JAX's do.
+  masters through the cast, as JAX's do. Built under a host mesh's
+  activation context, it is the sharded step of the training plan
+  (:func:`make_sharded_train_step`, :mod:`repro_torch.sharding.fsdp`).
 
 :func:`batch_template` gives each cell's batch as shapes and dtypes, and
 the dry-run's :func:`abstract_params`, :func:`abstract_caches` and
@@ -43,6 +45,7 @@ from repro_torch.convert import _STACKED, StackedLeaf, lm_stacked_layout
 from repro_torch.core.esrnn import param_leaves
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Model
+from repro_torch.sharding import ctx
 from repro_torch.train.optimizer import AdamConfig, adam_update
 
 
@@ -168,10 +171,20 @@ def make_train_step(model: Model, cell: ShapeCell, *, adam: Optional[AdamConfig]
 
     ``params`` and ``opt_state`` are updated in place and returned; ``loss``
     is the microbatches' mean, a 0-d float32 tensor on the params' device.
+
+    Built inside a host mesh's activation context
+    (:func:`repro_torch.sharding.ctx.activation_sharding`) of more than one
+    rank, the step is the sharded one (:func:`make_sharded_train_step`):
+    ``params`` and ``opt_state`` are then this rank's shards and ``batch``
+    the global batch.
     """
     adam = adam or AdamConfig(lr=3e-4, clip_norm=1.0, weight_decay=0.0)
     mb = cell.microbatch or cell.global_batch
     n_micro = max(1, cell.global_batch // mb)
+    mesh = (ctx.current() or {}).get("mesh")
+    if hasattr(mesh, "axis") and mesh.shape["data"] * mesh.shape["model"] > 1:
+        return make_sharded_train_step(model, cell, mesh, adam=adam,
+                                       compute_dtype=compute_dtype)
 
     def train_step(params, opt_state, batch):
         leaves = [t for _, t in param_leaves(params)]
@@ -201,6 +214,63 @@ def make_train_step(model: Model, cell: ShapeCell, *, adam: Optional[AdamConfig]
         params, opt_state = adam_update(grads, opt_state, params, adam)
         return params, opt_state, loss
 
+    return train_step
+
+
+def make_sharded_train_step(model: Model, cell: ShapeCell, mesh, *,
+                            adam: Optional[AdamConfig] = None, compute_dtype=torch.bfloat16):
+    """The train step on a host ``mesh``: FSDP on ``data``, tensor and
+    expert parallelism on ``model`` (:class:`repro_torch.sharding.fsdp.TrainPlan`,
+    built from the model's shapes on the ``meta`` device; the step's
+    ``plan``). ``(masters, opt_state, batch) -> (masters, opt_state,
+    loss)``: this rank's fp32 master shards and Adam state (``plan.shard``,
+    ``plan.shard_list``), updated in place, and the global batch, of which
+    each ``data`` rank takes its rows of every microbatch (the MoE aux loss
+    is a function of a microbatch's token means). Each microbatch gathers
+    the compute params (``plan.compute_params``) and runs the loss under a
+    training context, its gradient reduce-scattered to the shards; then the
+    leaves whole on ``data`` are all-reduced there, the losses summed over
+    ``data``, and Adam runs on the shards with the global norm
+    (``plan.sq_reduce``). ``loss`` is the global one, on every rank."""
+    from repro_torch.sharding.fsdp import TrainPlan
+
+    adam = adam or AdamConfig(lr=3e-4, clip_norm=1.0, weight_decay=0.0)
+    mb = cell.microbatch or cell.global_batch
+    n_micro = max(1, cell.global_batch // mb)
+    plan = TrainPlan(model.cfg, mesh, model.init(_MetaGenerator()))
+    rows = plan.rows(mb)
+
+    def train_step(masters, opt_state, batch):
+        leaves = [t for _, t in param_leaves(masters)]
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(True)
+        try:
+            loss = None
+            with ctx.activation_sharding(mesh, dp="data", tp="model", train=True):
+                for i in range(n_micro):
+                    micro = {k: v[i * mb:(i + 1) * mb][rows] for k, v in batch.items()}
+                    m_loss = model.loss(plan.compute_params(masters, compute_dtype), micro)
+                    m_loss.backward()
+                    m_loss = m_loss.detach()
+                    loss = m_loss if loss is None else loss + m_loss
+            grads = [torch.zeros_like(t) if t.grad is None else t.grad for t in leaves]
+        finally:
+            for t in leaves:
+                t.grad = None
+                t.requires_grad_(False)
+        plan.reduce_whole_on_data(grads)
+        if mesh.shape["data"] > 1:
+            loss = mesh.axis("data").all_reduce(loss.clone())
+        if n_micro > 1:
+            loss = loss / n_micro
+            for g in grads:
+                g.div_(n_micro)
+        masters, opt_state = adam_update(grads, opt_state, masters, adam,
+                                         sq_reduce=plan.sq_reduce)
+        return masters, opt_state, loss
+
+    train_step.plan = plan
     return train_step
 
 

@@ -41,13 +41,17 @@ place at ``length`` and returns a cache over the same storage: a caller
 that needs the old cache keeps a copy.
 
 Under a ``model`` axis of more than one rank
-(:func:`repro_torch.sharding.ctx.model_axis`, tensor-parallel serving) every
-attention runs at the rank's heads: the head counts come from the params'
-shapes (:func:`repro_torch.sharding.tp.shard_lm_params` cut them), K6 runs
-at the local head counts on the card, a bias kept whole is cut to the
-rank's heads at use, the KV caches hold the rank's kv heads (MLA's latents
-whole: every head reads them), and the output projection is
-:func:`repro_torch.models.layers.row_parallel` (one all-reduce).
+(:func:`repro_torch.sharding.ctx.model_axis`, tensor-parallel serving and
+training) every attention runs at the rank's heads: the head counts come
+from the params' shapes (:func:`repro_torch.sharding.tp.shard_lm_params`
+cut them), K6 runs at the local head counts on the card, a bias kept whole
+is cut to the rank's heads at use, the KV caches hold the rank's kv heads
+(MLA's latents whole: every head reads them), and the output projection is
+:func:`repro_torch.models.layers.row_parallel` (one all-reduce). Under a
+gradient, :func:`repro_torch.models.layers.to_model` sums over the axis
+the gradients of what each rank uses only in part: the input of the q, k,
+v projections (and of cross-attention's, the encoder's ``memory``), MLA's
+latents and shared RoPE key, a bias cut at use and the QK-norm scales.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import apply_rope, dense_init, mm, rms_norm, row_parallel
+from repro_torch.models.layers import (apply_rope, dense_init, mm, rms_norm, row_parallel,
+                                      to_model)
 from repro_torch.sharding import tp
 from repro_torch.sharding.ctx import model_axis
 
@@ -202,7 +207,7 @@ def _head_bias(b, cfg: ArchConfig, kv: bool):
         return b
     lo, hi = (tp.kv_block(cfg.n_heads, cfg.n_kv_heads, axis) if kv
               else tp.q_block(cfg.n_heads, axis))
-    return b[lo * cfg.hd:hi * cfg.hd]
+    return to_model(b)[lo * cfg.hd:hi * cfg.hd]
 
 
 def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device=None) -> KVCache:
@@ -220,6 +225,7 @@ def gqa_qkv(p, cfg: ArchConfig, x, positions):
     """
     b, s, _ = x.shape
     hd = cfg.hd
+    x = to_model(x)
     q = mm(x, p["wq"])
     k = mm(x, p["wk"])
     v = mm(x, p["wv"])
@@ -230,9 +236,9 @@ def gqa_qkv(p, cfg: ArchConfig, x, positions):
     q = q.reshape(b, s, -1, hd)
     k = k.reshape(b, s, -1, hd)
     v = v.reshape(b, s, -1, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+    if cfg.qk_norm:         # a whole scale over the rank's heads
+        q = rms_norm(q, to_model(p["q_norm"]))
+        k = rms_norm(k, to_model(p["k_norm"]))
     q = apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     k = apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     return q, k, v
@@ -316,7 +322,7 @@ def _mla_latent(p, cfg: ArchConfig, x, positions):
     RoPE (through a head axis of 1)."""
     b, s, _ = x.shape
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = mm(x, p["wq"]).reshape(b, s, -1, dn + dr)
+    q = mm(to_model(x), p["wq"]).reshape(b, s, -1, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, theta=cfg.rope_theta)
     ckv = mm(x, p["w_dkv"])
@@ -333,6 +339,7 @@ def _mla_heads(p, cfg: ArchConfig, q_nope, q_rope, c, kr):
     H, T, dv), transposed views."""
     b, t, _ = c.shape
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    c, kr = to_model(c), to_model(kr)      # every head's latents, the rank's heads
     k_nope = mm(c, p["w_uk"]).reshape(b, t, -1, dn)
     h = k_nope.shape[2]
     v = mm(c, p["w_uv"]).reshape(b, t, h, dv)
@@ -444,6 +451,7 @@ def cross_attn_kv(p, cfg: ArchConfig, memory):
     H, M, hd), transposed views."""
     b, m = memory.shape[:2]
     hd = cfg.hd
+    memory = to_model(memory)
     k = mm(memory, p["wk"]).reshape(b, m, -1, hd)
     v = (mm(memory, p["wv"]) + _head_bias(p["bv"], cfg, kv=False)).reshape(b, m, -1, hd)
     return k.transpose(1, 2), v.transpose(1, 2)
@@ -454,7 +462,7 @@ def cross_attn_apply(p, cfg: ArchConfig, x, memory):
     Non-causal at scale ``hd ** -0.5``: one K6 launch on the card."""
     b, s, _ = x.shape
     hd = cfg.hd
-    qh = (mm(x, p["wq"]) + _head_bias(p["bq"], cfg, kv=False)).reshape(b, s, -1, hd)
+    qh = (mm(to_model(x), p["wq"]) + _head_bias(p["bq"], cfg, kv=False)).reshape(b, s, -1, hd)
     qh = qh.transpose(1, 2)
     kh, vh = cross_attn_kv(p, cfg, memory)
     out = chunked_attention(qh, kh, vh, causal=False, scale=hd ** -0.5)

@@ -36,7 +36,10 @@ Under a ``model`` axis (tensor-parallel serving) every encoder and decoder
 layer runs at the rank's heads and hidden: an encoder layer all-reduces
 twice, a decoder layer three times (self-attention, cross-attention, MLP);
 the tied head is cut with the embedding where the vocabulary divides the
-axis; ``memory`` is whole on every rank.
+axis; ``memory`` is whole on every rank (its gradient, which each rank's
+cross-attention heads make in part, summed over the axis by
+:func:`~repro_torch.models.layers.to_model`). Training cuts the same way
+(:mod:`repro_torch.sharding.fsdp`).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from repro_torch.models.layers import (
     norm_init,
     remat_call,
     row_parallel,
+    to_model,
     vocab_logits,
 )
 
@@ -121,7 +125,7 @@ def encdec_init(cfg: ArchConfig, gen, dtype=None):
 
 def _enc_block(cfg: ArchConfig, lp, h):
     """One encoder layer: bidirectional self-attention, then the MLP."""
-    x = apply_norm(h, lp["attn_norm"], "layernorm")
+    x = to_model(apply_norm(h, lp["attn_norm"], "layernorm"))
     b, s, _ = x.shape
     q = mm(x, lp["attn"]["wq"]).reshape(b, s, -1, cfg.hd)
     k = mm(x, lp["attn"]["wk"]).reshape(b, s, -1, cfg.hd)
@@ -185,8 +189,8 @@ def encdec_loss(cfg: ArchConfig, params, batch):
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     h, _ = decode_stack(cfg, params, tokens, memory, positions, remat=cfg.remat)
-    return cross_entropy_loss(mm(h, params["embed"].t()), batch["labels"],
-                              batch.get("loss_mask"))
+    return cross_entropy_loss(vocab_logits(h, params["embed"].t(), cfg.vocab_size),
+                              batch["labels"], batch.get("loss_mask"))
 
 
 def encdec_make_caches(cfg: ArchConfig, batch_size: int, max_len: int, dtype, device=None):

@@ -19,15 +19,25 @@ product in float32 where ``torch.matmul`` refuses it. Element-wise
 arithmetic needs nothing: PyTorch promotes two float tensors as JAX does.
 :func:`remat_call` is the per-layer rematerialization of the losses.
 
-Tensor parallelism (serving under a ``model`` axis of more than one rank,
+Tensor parallelism (under a ``model`` axis of more than one rank,
 :func:`repro_torch.sharding.ctx.model_axis`; the rank's params from
-:func:`repro_torch.sharding.tp.shard_lm_params`): :func:`row_parallel` is
-an output projection over this rank's rows of the inner dim, its float32
-partial sums all-reduced and rounded once, as one GEMM on one device
-accumulates and rounds; :func:`embed_lookup` and :func:`vocab_logits` take
-a vocabulary cut into row blocks (a masked lookup and one all-reduce; the
-local logits gathered by one all-reduce of a zero-filled float32 buffer).
-Outside such an axis each is the single-device call it replaces.
+:func:`repro_torch.sharding.tp.shard_lm_params` or, training, from
+:mod:`repro_torch.sharding.fsdp`): :func:`row_parallel` is an output
+projection over this rank's rows of the inner dim, its float32 partial sums
+all-reduced and rounded once, as one GEMM on one device accumulates and
+rounds; :func:`embed_lookup` and :func:`vocab_logits` take a vocabulary cut
+into row blocks (a masked lookup and one all-reduce; the local logits
+gathered by one all-reduce of a zero-filled float32 buffer). Outside such
+an axis each is the single-device call it replaces. The collectives are
+right under autograd, in Megatron's pairing: :func:`reduce_from_model` (an
+all-reduce forward) is the identity backward, and :func:`to_model`, put on
+the replicated input of every column-parallel product and on a whole
+parameter cut at use, is the identity forward and an all-reduce of its
+gradient backward, so a tensor whole on ``model`` gets the whole gradient
+on every rank. Without a gradient both are the serving path's calls.
+Under a training context (:func:`repro_torch.sharding.ctx.loss_axis`, the
+rows split on ``data``) :func:`cross_entropy_loss` is this rank's share of
+the global mean: the ranks' losses sum to the one-device loss.
 """
 
 from __future__ import annotations
@@ -40,7 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding.ctx import model_axis
+from repro_torch.sharding import ctx as sharding_ctx
+from repro_torch.sharding.ctx import loss_axis, model_axis
 
 
 def promoted(a, b):
@@ -62,17 +73,64 @@ def mm(a, b):
 def mm_f32(a, b):
     """``a @ b`` (2-D or batched 3-D ``b``) with float32 outputs: a float32
     product as it is; bf16 operands accumulate in float32 and are not
-    rounded (on the card the GEMM's ``out_dtype``, on the CPU the operands
-    widened)."""
+    rounded (on the card the GEMM's ``out_dtype``, which has no derivative;
+    under a gradient, and on the CPU, the operands widened)."""
     a, b = promoted(a, b)
     if a.dtype == torch.float32:
         return a @ b
-    if a.is_cuda:
+    if a.is_cuda and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
         if b.dim() == 2:
             out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
             return out.reshape(*a.shape[:-1], b.shape[-1])
         return torch.bmm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce over the axis forward (on a copy), the identity backward."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        return axis.all_reduce(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity forward, an all-reduce of the gradient backward (summed
+    in float32, rounded once to the gradient's dtype)."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce(g.to(torch.float32, copy=True)).to(g.dtype), None
+
+
+def _graded(t) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def reduce_from_model(t, axis):
+    """``t`` summed over ``axis``: in place without a gradient (serving),
+    else a copy whose backward passes the gradient through."""
+    return _ReduceFromModel.apply(t, axis) if _graded(t) else axis.all_reduce(t)
+
+
+def to_model(t):
+    """``t`` as it is; under a ``model`` axis, and where ``t`` needs a
+    gradient, one whose gradient is summed over the axis: the input of a
+    column-parallel product, or a whole parameter cut to the rank's share
+    at use, whose gradient each rank makes only in part."""
+    axis = model_axis()
+    if axis is None or not _graded(t):
+        return t
+    return _CopyToModel.apply(t, axis)
 
 
 def row_parallel(x, w):
@@ -84,16 +142,24 @@ def row_parallel(x, w):
     if axis is None:
         return mm(x, w)
     dt = torch.promote_types(x.dtype, w.dtype)
-    return axis.all_reduce(mm_f32(x, w)).to(dt)
+    return reduce_from_model(mm_f32(x, w), axis).to(dt)
 
 
 def remat_call(remat: bool, fn, *args):
     """``fn(*args)``, recomputed in the backward when ``remat`` (the
     reference's ``jax.checkpoint`` with ``nothing_saveable``): only the
     inputs are kept, and grad mode stays on while ``fn`` runs, so every call
-    inside it sees the tensors that need a gradient."""
+    inside it sees the tensors that need a gradient. The recompute runs
+    under the activation context of the forward (on the card the backward
+    runs on the autograd engine's own thread), so a sharded layer
+    recomputes sharded."""
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
+        saved = sharding_ctx.current()
+
+        def again(*a):          # the recompute runs on the autograd engine's thread
+            with sharding_ctx.restored(saved):
+                return fn(*a)
+        return checkpoint(again, *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -190,6 +256,7 @@ def swiglu_init(gen: torch.Generator, d_model, d_ff, dtype=torch.float32):
 
 
 def swiglu_apply(p, x):
+    x = to_model(x)
     return row_parallel(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
 
 
@@ -226,11 +293,11 @@ def _hidden_bias(b, width: int):
     if b.shape[-1] == width:
         return b
     i = model_axis().index
-    return b[i * width:(i + 1) * width]
+    return to_model(b)[i * width:(i + 1) * width]
 
 
 def gelu_mlp_apply(p, x):
-    hid = mm(x, p["w_in"])
+    hid = mm(to_model(x), p["w_in"])
     hid = gelu_tanh(hid + _hidden_bias(p["b_in"], hid.shape[-1]))
     return row_parallel(hid, p["w_out"]) + p["b_out"]
 
@@ -256,7 +323,7 @@ def embed_lookup(table, ids, vocab_size=None):
     inside = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)].float()
     rows = torch.where(inside[..., None], rows, torch.zeros((), device=rows.device))
-    return axis.all_reduce(rows).to(table.dtype)
+    return reduce_from_model(rows, axis).to(table.dtype)
 
 
 def vocab_logits(h, head, vocab_size: int):
@@ -264,26 +331,34 @@ def vocab_logits(h, head, vocab_size: int):
     fewer columns than ``vocab_size`` is this rank's block of them: its
     logits go into a zero-filled float32 (..., V) buffer, and one
     all-reduce gives every rank every logit."""
-    logits = mm(h, head)
     axis = model_axis()
     n = head.shape[-1]
     if axis is None or n == vocab_size:
-        return logits
+        return mm(h, head)
+    logits = mm(to_model(h), head)
     buf = torch.zeros(logits.shape[:-1] + (vocab_size,), dtype=torch.float32,
                       device=logits.device)
     buf[..., axis.index * n:(axis.index + 1) * n] = logits.float()
-    return axis.all_reduce(buf).to(logits.dtype)
+    return reduce_from_model(buf, axis).to(logits.dtype)
 
 
 def cross_entropy_loss(logits, labels, mask=None):
     """Token CE with an fp32 logsumexp; logits (B, S, V), labels (B, S).
     With ``mask`` (B, S), the masked mean: sum(nll * mask) / max(sum(mask),
-    1)."""
+    1). Under a training context with the rows split on ``data``
+    (:func:`~repro_torch.sharding.ctx.loss_axis`), this rank's rows' sum
+    over the global count (the masks' sum one all-reduce over ``data``)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None].long())[..., 0]
     nll = lse - gold
+    axis = loss_axis()
     if mask is not None:
         mask = mask.float()
-        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        count = torch.sum(mask)
+        if axis is not None:
+            count = axis.all_reduce(count.detach().clone())
+        return torch.sum(nll * mask) / torch.clamp_min(count, 1.0)
+    if axis is not None:
+        return torch.sum(nll) / (nll.numel() * axis.size)
     return torch.mean(nll)

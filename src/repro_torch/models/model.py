@@ -10,9 +10,11 @@ transformer, with GQA or MLA attention; vlm with its image prefix), ssm
 is no ``use_pallas`` switch:
 as everywhere in the port, a CUDA tensor runs the kernels and a CPU tensor
 the plain versions. Under a host mesh's activation context
-(:mod:`repro_torch.sharding.ctx`, tensor-parallel serving) every entry
-point runs at the rank's share of the heads and hidden, and
-``make_caches`` makes KV caches of the rank's kv heads.
+(:mod:`repro_torch.sharding.ctx`, tensor-parallel serving and sharded
+training) every entry point runs at the rank's share of the heads, hidden
+units and experts, and ``make_caches`` makes KV caches of the rank's kv
+heads; under a training context ``loss`` is the rank's rows' share of the
+global microbatch's loss.
 """
 
 from __future__ import annotations

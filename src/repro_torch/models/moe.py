@@ -24,13 +24,16 @@ Shared experts (DeepSeek-V2) run densely on every token. The reference's
 sharding constraints and its remat name are the identity on one device and
 are not ported.
 
-Under a ``model`` axis of more than one rank (tensor-parallel serving, the
-spec's decode mode) the router and the routing are computed whole and
-identically on every rank; each rank holds every expert's block of ``f``
-(and the shared experts' block of theirs), so its expert outputs are
-float32 partial sums, gathered and weighted as above, joined by the shared
-experts' partial sums and all-reduced once over the axis, then rounded to
-the activations' dtype.
+Under a ``model`` axis of more than one rank the router and the routing
+are computed whole and identically on every rank. Serving (the spec's
+decode mode) holds every expert's block of ``f`` on each rank; training
+(the spec's train mode, expert parallelism) holds E / tp whole experts, and
+a rank runs them over the kept assignments routed to them (its buffer
+(E / tp, B·C, d)). Either way the rank's expert outputs are float32
+partial sums, gathered and weighted as above, joined by the shared
+experts' partial sums (their ``f`` cut) and all-reduced once over the axis
+(the combine), then rounded to the activations' dtype. Which of the two the
+params hold shows in their expert count.
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import dense_init, mm, mm_f32, promoted, swiglu_apply
-from repro_torch.sharding.ctx import model_axis
+from repro_torch.models.layers import (dense_init, mm, mm_f32, promoted, reduce_from_model,
+                                      swiglu_apply, to_model)
+from repro_torch.sharding.ctx import loss_axis, model_axis
 
 
 def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype):
@@ -112,10 +116,21 @@ def moe_route(p, cfg: ArchConfig, x, capacity: Optional[int] = None) -> Routing:
 
 
 def moe_aux(cfg: ArchConfig, r: Routing):
-    """Switch-style load-balancing loss: E · Σ_e mean(p_e) · f_e / K."""
+    """Switch-style load-balancing loss: E · Σ_e mean(p_e) · f_e / K. Under a
+    training context with the rows split on ``data``
+    (:func:`~repro_torch.sharding.ctx.loss_axis`) both means are the global
+    batch's, ``f_e``'s counts one all-reduce over ``data``, and the result
+    this rank's share: its rows' probabilities, so that the ranks' shares
+    sum to the one-device aux loss and its gradient."""
     b, s = r.probs.shape[:2]
-    me = r.probs.mean(dim=(0, 1))
-    fe = r.counts.float() / (b * s)                            # fraction routed
+    axis = loss_axis()
+    if axis is None:
+        me = r.probs.mean(dim=(0, 1))
+        fe = r.counts.float() / (b * s)                        # fraction routed
+    else:
+        n = b * s * axis.size
+        me = r.probs.sum(dim=(0, 1)) / n
+        fe = axis.all_reduce(r.counts.clone()).float() / n
     return cfg.n_experts * torch.sum(me * fe) / cfg.top_k
 
 
@@ -148,6 +163,42 @@ def moe_gather(out_buf, r: Routing, dtype):
     return (ytok.view(b, s, k, d) * wk[..., None]).sum(dim=2)
 
 
+def _moe_partial(p, cfg: ArchConfig, x, r: Routing):
+    """This rank's float32 partial sum of the MoE output (routed and shared
+    experts) under a ``model`` axis: every expert's block of ``f`` (the
+    serving plan), or the rank's own experts, each whole (the training
+    plan: expert parallelism), over the kept assignments that reach them.
+    The replicated input and combine weights go through
+    :func:`~repro_torch.models.layers.to_model`: each rank makes their
+    gradient only in part."""
+    b, s, k = r.top_ids.shape
+    d = x.shape[-1]
+    xin = to_model(x)
+    top_w = to_model(r.top_w)
+    e_local = p["w_down"].shape[0]
+    if e_local == cfg.n_experts:       # f cut, every expert on every rank
+        buf = moe_scatter(cfg, xin, r)
+        out = mm_f32(_expert_act(p, buf), p["w_down"])
+        ytok = out.reshape(-1, d)[r.row.reshape(-1)]
+        wk = top_w * r.keep
+    else:                              # the rank's experts [e0, e0 + e_local)
+        e0 = model_axis().index * e_local
+        mine = r.keep & (r.top_ids >= e0) & (r.top_ids < e0 + e_local)
+        local = r.row - e0 * b * r.capacity
+        spare = e_local * b * r.capacity
+        dest = torch.where(mine, local, spare).reshape(-1)
+        xk = xin[:, :, None, :].expand(b, s, k, d).reshape(-1, d)
+        buf = xin.new_zeros((spare + 1, d)).index_copy_(0, dest, xk)[:spare]
+        out = mm_f32(_expert_act(p, buf.view(e_local, b * r.capacity, d)), p["w_down"])
+        ytok = out.reshape(-1, d)[torch.where(mine, local, 0).reshape(-1)]
+        wk = top_w * mine
+    y = (ytok.view(b, s, k, d) * wk.float()[..., None]).sum(dim=2)
+    if cfg.n_shared_experts:
+        sp = p["shared"]
+        y = y + mm_f32(F.silu(mm(xin, sp["w_gate"])) * mm(xin, sp["w_up"]), sp["w_down"])
+    return y
+
+
 def moe_apply(p, cfg: ArchConfig, x, *, capacity: Optional[int] = None):
     """x: (B, S, d) -> (B, S, d), plus the aux load-balancing loss (scalar).
 
@@ -157,12 +208,7 @@ def moe_apply(p, cfg: ArchConfig, x, *, capacity: Optional[int] = None):
     aux = moe_aux(cfg, r)
     axis = model_axis()
     if axis is not None:
-        buf = moe_scatter(cfg, x, r)
-        y = moe_gather(mm_f32(_expert_act(p, buf), p["w_down"]), r, torch.float32)
-        if cfg.n_shared_experts:
-            sp = p["shared"]
-            y = y + mm_f32(F.silu(mm(x, sp["w_gate"])) * mm(x, sp["w_up"]), sp["w_down"])
-        return axis.all_reduce(y).to(x.dtype), aux
+        return reduce_from_model(_moe_partial(p, cfg, x, r), axis).to(x.dtype), aux
     y = moe_gather(moe_experts(p, moe_scatter(cfg, x, r)), r, x.dtype)
     if cfg.n_shared_experts:
         y = y + swiglu_apply(p["shared"], x)

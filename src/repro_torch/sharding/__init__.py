@@ -9,7 +9,10 @@
 * :mod:`repro_torch.sharding.ctx` -- the activation-sharding context that
   carries the LM mesh to model code;
 * :mod:`repro_torch.sharding.tp` -- the rank-local serving plan
-  (:func:`~repro_torch.sharding.tp.shard_lm_params`).
+  (:func:`~repro_torch.sharding.tp.shard_lm_params`) and the cuts on
+  ``model`` it shares with training;
+* :mod:`repro_torch.sharding.fsdp` -- the rank-local training plan (FSDP on
+  ``data``, tensor and expert parallelism on ``model``).
 
 The names below load their module on first use: the model modules import
 ``ctx`` and ``tp``, and ``series`` imports the ES-RNN core, which imports

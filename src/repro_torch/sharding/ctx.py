@@ -11,9 +11,10 @@ In the port the context carries the LM mesh itself. On a host mesh
 (:class:`repro_torch.launch.mesh.HostMesh`) :func:`model_axis` gives model
 code this rank's ``model`` axis: its index, its size and its counted
 collectives, so a layer reduces its partial sums over its tensor-parallel
-group without a new argument. :func:`constrain` returns its input: an
-eager rank-local tensor already has its layout, where the reference's
-``with_sharding_constraint`` asks XLA for one.
+group without a new argument, and a training context (``train=True``)
+gives the loss its ``data`` axis (:func:`loss_axis`). :func:`constrain`
+returns its input: an eager rank-local tensor already has its layout,
+where the reference's ``with_sharding_constraint`` asks XLA for one.
 """
 
 from __future__ import annotations
@@ -28,10 +29,12 @@ Dim = Union[None, str, Tuple[str, ...]]
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh, *, dp, tp):
-    """dp/tp: mesh axis name or tuple of names for the logical axes."""
+def activation_sharding(mesh, *, dp, tp, train: bool = False):
+    """dp/tp: mesh axis name or tuple of names for the logical axes.
+    ``train``: a training context, whose loss rows are split on ``dp``
+    (:func:`loss_axis`)."""
     prev = getattr(_state, "ctx", None)
-    _state.ctx = {"mesh": mesh, "dp": dp, "tp": tp}
+    _state.ctx = {"mesh": mesh, "dp": dp, "tp": tp, "train": train}
     try:
         yield
     finally:
@@ -40,6 +43,19 @@ def activation_sharding(mesh, *, dp, tp):
 
 def current():
     return getattr(_state, "ctx", None)
+
+
+@contextlib.contextmanager
+def restored(saved):
+    """The context ``saved`` (a :func:`current` value, None for none) in
+    force: a recompute in the backward runs on the autograd engine's thread,
+    where this thread's context is not set."""
+    prev = getattr(_state, "ctx", None)
+    _state.ctx = saved
+    try:
+        yield
+    finally:
+        _state.ctx = prev
 
 
 def logical_to_spec(dims: Sequence[Dim]) -> Optional[tuple]:
@@ -83,4 +99,17 @@ def model_axis():
     if ctx is None or not hasattr(ctx["mesh"], "axis"):
         return None
     axis = ctx["mesh"].axis(ctx["tp"])
+    return axis if axis.size > 1 else None
+
+
+def loss_axis():
+    """This rank's ``data`` axis (``dp``) of a training context on a host
+    mesh whose ``data`` axis spans more than one rank, else None: each
+    rank's loss is then its rows' share of the global batch's, the ranks'
+    shares summing to it (:func:`repro_torch.models.layers.cross_entropy_loss`,
+    :func:`repro_torch.models.moe.moe_aux`)."""
+    ctx = current()
+    if ctx is None or not ctx.get("train") or not hasattr(ctx["mesh"], "axis"):
+        return None
+    axis = ctx["mesh"].axis(ctx["dp"])
     return axis if axis.size > 1 else None

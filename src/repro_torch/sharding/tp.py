@@ -28,7 +28,10 @@ zamba2's ``w_concat`` (which the spec cuts: a layout that differs on
 purpose, ``ROADMAP.md``). A layout this plan cannot cut on head or hidden
 boundaries raises ``NotImplementedError``.
 
-Model code finds its ``model`` axis through
+The plan is a tree of cuts (:func:`model_cuts`), which the training plan
+(:mod:`repro_torch.sharding.fsdp`) reads too, with the MoE experts cut
+whole on ``model`` (the spec's train mode) and a kv head shared by ranks
+refused. Model code finds its ``model`` axis through
 :func:`repro_torch.sharding.ctx.model_axis` and reads the blocks below
 (:func:`q_block`, :func:`kv_block`). :func:`gather_caches` and
 :func:`gather_rows` put a rank's caches and rows back into the
@@ -41,7 +44,8 @@ from typing import Optional, Tuple
 
 import torch
 
-_ITEM = "ROADMAP.md, section 1, item 7"
+_ITEM = "the plan cuts heads and hidden units evenly over the axis"
+_ITEM_TRAIN = "the training plan holds each kv head on one rank"
 
 
 # -- blocks ------------------------------------------------------------------
@@ -51,7 +55,7 @@ def even_block(n: int, axis) -> Tuple[int, int]:
     """This rank's block of ``n`` (heads, hidden units) on ``axis``."""
     if n % axis.size:
         raise NotImplementedError(
-            f"tensor-parallel serving cuts {n} over {axis.size} ranks on head or hidden "
+            f"tensor parallelism cuts {n} over {axis.size} ranks on head or hidden "
             f"boundaries only ({_ITEM})")
     b = n // axis.size
     return axis.index * b, (axis.index + 1) * b
@@ -98,21 +102,40 @@ def batch_rows(mesh, batch: int) -> slice:
 
 
 # -- the plan ------------------------------------------------------------------
+#
+# A plan is a tree of cuts beside the params: ``(dim, lo, hi)`` where a
+# leaf keeps ``[lo, hi)`` of ``dim``, None where it stays whole.
+# :func:`shard_lm_params` applies the serving plan; the training plan
+# (:mod:`repro_torch.sharding.fsdp`) reads the same cuts with the MoE
+# experts on ``model`` (``experts="ep"``).
 
 
 def _cols(w, lo, hi):
-    return w[..., lo:hi].contiguous()
+    return (w.dim() - 1, lo, hi)
 
 
 def _rows(w, lo, hi):
-    return w[..., lo:hi, :].contiguous()
+    return (w.dim() - 2, lo, hi)
 
 
-def _gqa(cfg, p, axis, n_kv=None):
+def _whole(tree):
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_whole(v) for v in tree]
+    return None
+
+
+def _gqa(cfg, p, axis, n_kv=None, train=False):
     hd = cfg.hd
+    n_kv = n_kv or cfg.n_kv_heads
+    if train and n_kv < axis.size:
+        raise NotImplementedError(
+            f"{n_kv} kv heads on {axis.size} ranks: training would sum a shared kv head's "
+            f"gradient over part of the axis ({_ITEM_TRAIN})")
     q0, q1 = q_block(cfg.n_heads, axis)
-    k0, k1 = kv_block(cfg.n_heads, n_kv or cfg.n_kv_heads, axis)
-    out = dict(p)          # biases and QK-norm scales stay whole
+    k0, k1 = kv_block(cfg.n_heads, n_kv, axis)
+    out = _whole(p)        # biases and QK-norm scales stay whole
     out["wq"] = _cols(p["wq"], q0 * hd, q1 * hd)
     out["wk"] = _cols(p["wk"], k0 * hd, k1 * hd)
     out["wv"] = _cols(p["wv"], k0 * hd, k1 * hd)
@@ -123,7 +146,7 @@ def _gqa(cfg, p, axis, n_kv=None):
 def _mla(cfg, p, axis):
     q0, q1 = q_block(cfg.n_heads, axis)
     dq, dn, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
-    out = dict(p)          # w_dkv and kv_norm stay whole: the latent is every head's
+    out = _whole(p)        # w_dkv and kv_norm stay whole: the latent is every head's
     out["wq"] = _cols(p["wq"], q0 * dq, q1 * dq)
     out["w_uk"] = _cols(p["w_uk"], q0 * dn, q1 * dn)
     out["w_uv"] = _cols(p["w_uv"], q0 * dv, q1 * dv)
@@ -133,32 +156,83 @@ def _mla(cfg, p, axis):
 
 def _ffn(p, axis, up=("w_gate", "w_up"), down="w_down"):
     f0, f1 = even_block(p[down].shape[-2], axis)
-    out = dict(p)          # a GELU MLP's biases stay whole
+    out = _whole(p)        # a GELU MLP's biases stay whole
     for k in up:
         out[k] = _cols(p[k], f0, f1)
     out[down] = _rows(p[down], f0, f1)
     return out
 
 
-def _moe(p, axis):
-    out = _ffn(p, axis)    # (E, d, f) and (E, f, d): f cut, the experts whole
+def _moe(p, axis, experts):
+    if experts == "ep":    # (E, d, f) and (E, f, d): the experts cut, each whole
+        e0, e1 = even_block(p["w_down"].shape[0], axis)
+        out = _whole(p)
+        for k in ("w_gate", "w_up", "w_down"):
+            out[k] = (0, e0, e1)
+    else:                  # f cut, the experts whole (the spec's decode mode)
+        out = _ffn(p, axis)
     if "shared" in p:
         out["shared"] = _ffn(p["shared"], axis)
     return out
 
 
-def _block(cfg, p, axis):
-    out = dict(p)
+def _block(cfg, p, axis, experts, train):
+    out = _whole(p)
     if "attn" in p:
-        out["attn"] = (_mla if cfg.use_mla else _gqa)(cfg, p["attn"], axis)
+        out["attn"] = (_mla(cfg, p["attn"], axis) if cfg.use_mla
+                       else _gqa(cfg, p["attn"], axis, train=train))
     if "cross" in p:
         out["cross"] = _gqa(cfg, p["cross"], axis, n_kv=cfg.n_heads)
     if "moe" in p:
-        out["moe"] = _moe(p["moe"], axis)
+        out["moe"] = _moe(p["moe"], axis, experts)
     if "mlp" in p:
         out["mlp"] = (_ffn(p["mlp"], axis, up=("w_in",), down="w_out") if "w_in" in p["mlp"]
                       else _ffn(p["mlp"], axis))
     return out
+
+
+def model_cuts(cfg, params, axis, *, experts: str = "f", train: bool = False):
+    """The plan's cut of every leaf of ``params`` (one device's, any
+    family) on ``axis`` (``model``): a tree beside ``params`` of ``(dim,
+    lo, hi)`` or None (whole). ``experts``: ``"f"`` cuts the MoE experts'
+    hidden (serving), ``"ep"`` the experts themselves (training). With
+    ``train``, a kv head shared by ranks raises: its gradient would be a
+    sum over part of the axis."""
+    out = _whole(params)
+    if axis.size == 1:
+        return out
+    vb = vocab_block(cfg.vocab_size, axis)
+    if vb is not None:
+        out["embed"] = _rows(params["embed"], *vb)
+        if "lm_head" in params:
+            out["lm_head"] = _cols(params["lm_head"], *vb)
+    for key in ("layers", "prefix_layers", "enc_layers", "dec_layers"):
+        if key in params and cfg.family != "ssm":
+            out[key] = [_block(cfg, lp, axis, experts, train) for lp in params[key]]
+    if "shared" in params:             # the hybrid's: attention and MLP cut, w_concat whole
+        sp = dict(out["shared"])
+        sp["attn"] = _gqa(cfg, params["shared"]["attn"], axis, train=train)
+        sp["mlp"] = _ffn(params["shared"]["mlp"], axis)
+        out["shared"] = sp
+    return out
+
+
+def cut(t, c):
+    """``t``'s block under the cut ``c`` (a contiguous copy), or ``t``."""
+    if c is None:
+        return t
+    dim, lo, hi = c
+    return t.narrow(dim, lo, hi - lo).contiguous()
+
+
+def apply_cuts(params, cuts):
+    """``params`` with every leaf cut by its entry of ``cuts``; a whole leaf
+    is shared with ``params``, not copied."""
+    if isinstance(params, dict):
+        return {k: apply_cuts(v, cuts[k]) for k, v in params.items()}
+    if isinstance(params, list):
+        return [apply_cuts(v, c) for v, c in zip(params, cuts)]
+    return cut(params, cuts)
 
 
 def shard_lm_params(cfg, params, mesh):
@@ -169,21 +243,7 @@ def shard_lm_params(cfg, params, mesh):
     axis = mesh.axis("model")
     if axis.size == 1:
         return params
-    out = dict(params)
-    vb = vocab_block(cfg.vocab_size, axis)
-    if vb is not None:
-        out["embed"] = _rows(params["embed"], *vb)
-        if "lm_head" in params:
-            out["lm_head"] = _cols(params["lm_head"], *vb)
-    for key in ("layers", "prefix_layers", "enc_layers", "dec_layers"):
-        if key in params and cfg.family != "ssm":
-            out[key] = [_block(cfg, lp, axis) for lp in params[key]]
-    if "shared" in params:             # the hybrid's: attention and MLP cut, w_concat whole
-        sp = dict(params["shared"])
-        sp["attn"] = _gqa(cfg, sp["attn"], axis)
-        sp["mlp"] = _ffn(sp["mlp"], axis)
-        out["shared"] = sp
-    return out
+    return apply_cuts(params, model_cuts(cfg, params, axis))
 
 
 # -- back to one device's layout (checks) ----------------------------------------

@@ -93,18 +93,24 @@ def _bias_corrections(cfg: AdamConfig, step: int) -> Tuple[float, float]:
             float(_f32(1.0) - _f32(cfg.b2) ** step_f))
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every gradient leaf (a device scalar)."""
-    return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(g.float())) for g in grads])))
+def global_norm(grads: Sequence[torch.Tensor], sq_reduce: Optional[Callable] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares over every gradient leaf (a device scalar).
+    ``sq_reduce``, for gradients that are a rank's shards: each leaf's local
+    sum of squares -> the global sum (the training plan's
+    :meth:`~repro_torch.sharding.fsdp.TrainPlan.sq_reduce`)."""
+    sq = [torch.sum(torch.square(g.float())) for g in grads]
+    return torch.sqrt(torch.sum(torch.stack(sq)) if sq_reduce is None else sq_reduce(sq))
 
 
-def _clip_scale(grads: Sequence[torch.Tensor], cfg: AdamConfig) -> Optional[torch.Tensor]:
+def _clip_scale(grads: Sequence[torch.Tensor], cfg: AdamConfig,
+                sq_reduce: Optional[Callable] = None) -> Optional[torch.Tensor]:
     """``min(1, clip_norm / norm)`` as a device scalar, or None without a
     ``clip_norm``; no host sync."""
     if cfg.clip_norm is None:
         return None
-    return torch.clamp_max(cfg.clip_norm / torch.clamp_min(global_norm(grads), 1e-12), 1.0)
+    return torch.clamp_max(
+        cfg.clip_norm / torch.clamp_min(global_norm(grads, sq_reduce), 1e-12), 1.0)
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], cfg: AdamConfig) -> List[torch.Tensor]:
@@ -160,19 +166,21 @@ def _dense_leaf_update(p, g, mu, nu, *, cfg, lr, bc1, bc2, scale=None) -> None:
 
 @torch.no_grad()
 def adam_update(grads: Sequence[torch.Tensor], opt_state: Dict, params,
-                cfg: AdamConfig, *, group_fn: Optional[Callable] = None):
+                cfg: AdamConfig, *, group_fn: Optional[Callable] = None,
+                sq_reduce: Optional[Callable] = None):
     """One AdamW step over every leaf; returns ``(params, opt_state)``.
 
     ``grads[i]`` belongs to ``param_leaves(params)[i]``; ``group_fn`` maps a
     leaf path to a group name for the group learning rates. The parameter
     and moment tensors are updated in place; the clipping scales one leaf's
     gradient at a time (an LM's gradients are as large as its weights), and
-    ``grads`` are left as they were.
+    ``grads`` are left as they were. ``sq_reduce``: see :func:`global_norm`
+    (a rank's shards of a sharded LM step).
     """
     step = opt_state["step"] + 1
     sched = schedule_factor(cfg, step)
     bc1, bc2 = _bias_corrections(cfg, step)
-    scale = _clip_scale(grads, cfg)
+    scale = _clip_scale(grads, cfg, sq_reduce)
     for (path, p), g, mu, nu in zip(param_leaves(params), grads,
                                     opt_state["mu"], opt_state["nu"], strict=True):
         _dense_leaf_update(p, g, mu, nu, cfg=cfg, lr=_leaf_lr(path, cfg, sched, group_fn),

@@ -1272,3 +1272,106 @@ def test_train_step_takes_the_plain_attention_route_on_card(card):
     assert ops.launch_counts()["flash_attention"] == 1
     with pytest.raises(RuntimeError, match="needs a gradient"):
         flash_attention.flash_attention(q, k, k, causal=True)
+
+
+def _mesh_collectives_rank(mesh, seed):
+    """One rank of ``test_mesh_gather_and_reduce_scatter_on_one_nccl_rank``."""
+    g = torch.Generator(device=mesh.device).manual_seed(seed)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.randn((6, 5, 4), generator=g, device=mesh.device).to(dtype)
+        for dim in (0, 1, 2):
+            gathered = mesh.axis("data").all_gather(t, dim)
+            scattered = mesh.axis("model").reduce_scatter(t, dim)
+            out[str(dtype), dim] = (torch.equal(gathered, t), torch.equal(scattered, t))
+    return out, mesh.backend, mesh.collective_counts()
+
+
+@pytest.mark.cuda
+def test_mesh_gather_and_reduce_scatter_on_one_nccl_rank(card):
+    """``MeshAxis.all_gather`` and ``reduce_scatter`` on one NCCL rank (the
+    native ``all_gather_into_tensor`` and ``reduce_scatter_tensor``, not the
+    gloo all-reduces) give one device's bits, fp32 and bf16, on every dim."""
+    import functools
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import run_ranks
+
+    (got, backend, counts), = run_ranks(_mesh_collectives_rank, 1, device="cuda", args=(4,),
+                                        mesh_factory=functools.partial(make_host_mesh, 1))
+    assert backend == "nccl"
+    assert all(a and b for a, b in got.values()), got
+    assert counts == {"data": {"all_gather": 6}, "model": {"reduce_scatter": 6}}
+
+
+@pytest.mark.cuda
+def test_sharded_train_matches_one_device_on_card(card):
+    """``train(model_parallel=2)`` on the card (two gloo ranks sharing it, a
+    (1, 2) mesh) against the one-device card run at SMOKE size: the losses
+    within rtol 1e-5, the gathered masters within the bf16 bound, no K6."""
+    import numpy as np
+
+    from repro_torch.launch import train as T
+    from repro_torch.train.optimizer import param_leaves
+
+    kw = dict(smoke=True, steps=3, batch=4, seq=32, microbatch=2, seed=2, device="cuda")
+    got = T.train("qwen3-moe-30b-a3b", model_parallel=2, **kw)
+    want = T.train("qwen3-moe-30b-a3b", **kw)
+    assert got["mesh"] == {"data": 1, "model": 2, "backend": "gloo"}
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    for (_, a), (_, b) in zip(param_leaves(got["params"]), param_leaves(want["params"]),
+                              strict=True):
+        torch.testing.assert_close(a.cpu(), b.cpu(), rtol=2e-2, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_shape", [(48, 40), (3, 48, 40)])
+def test_mm_f32_gradients_on_card(card, b_shape):
+    """``layers.mm_f32`` of bf16 operands under a gradient (a sharded train
+    step's row-parallel products; the card's ``out_dtype`` GEMM has no
+    derivative): float32 outputs, and the gradients of the operands' own
+    bf16 GEMM, within an ulp."""
+    from repro_torch.models.layers import mm_f32
+
+    g = torch.Generator(device=card).manual_seed(0)
+    a_shape = (3, 16, 48) if len(b_shape) == 3 else (2, 16, 48)
+    a = torch.randn(a_shape, generator=g, device=card).to(torch.bfloat16).requires_grad_()
+    b = torch.randn(b_shape, generator=g, device=card).to(torch.bfloat16).requires_grad_()
+    out = mm_f32(a, b)
+    assert out.dtype == torch.float32
+    ct = torch.randn(out.shape, generator=g, device=card).to(torch.bfloat16).float()
+    out.backward(ct)
+    a2, b2 = a.detach().requires_grad_(), b.detach().requires_grad_()
+    ref = a2 @ b2
+    ref.backward(ct.to(torch.bfloat16))
+    torch.testing.assert_close(out, a.detach().float() @ b.detach().float(), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(a.grad, a2.grad)      # the bf16 defaults: an ulp
+    torch.testing.assert_close(b.grad, b2.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b"])
+def test_sharded_remat_step_matches_one_device_on_card(card, arch):
+    """One sharded fp32 step with every layer recomputed in the backward, on
+    two gloo ranks sharing the card (a (1, 2) mesh): the one-device card
+    step's loss and gradients (rtol 1e-5; each leaf within 1e-5 of its
+    largest). On the card the backward, and so the recompute, runs on the
+    autograd engine's thread: the recompute must find the mesh's context."""
+    import functools
+
+    import numpy as np
+    import torch_tp_train_ranks as R
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import run_ranks
+
+    got = run_ranks(R.grads_case, 2, device="cuda", args=(arch, True),
+                    mesh_factory=functools.partial(make_host_mesh, 2))
+    want = R.grads_case(make_host_mesh(1, device=card), arch, True)
+    for rank in (0, 1):
+        np.testing.assert_allclose(got[rank]["loss"], want["loss"], rtol=1e-5)
+        for k, w in want["grads"].items():
+            err = float(np.abs(got[rank]["grads"][k] - w).max())
+            assert err <= 1e-5 * max(float(np.abs(w).max()), 1e-30), (arch, rank, k, err)
+        assert got[rank]["collectives"]["model"]["all_reduce"] >= \
+            got[rank]["want_collectives"]["model"]["all_reduce"]

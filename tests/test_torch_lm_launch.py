@@ -12,7 +12,8 @@ On the CPU:
   restored by the reference, bit for bit, the treedef text equal (stacked
   layers, DeepSeek's prefix list, the hybrid's (G, K) blocks, whisper);
 * ``train()`` resumed from a checkpoint equal to the unbroken run bit for
-  bit (losses and params), ``model_parallel > 1`` raising, the CLI;
+  bit (losses and params), ``train(model_parallel=2)`` spawning its ranks
+  and matching the one-device run, the CLI;
 * ``batch_template`` against the reference's for every arch and cell, and
   the prefill and decode steps;
 * the train step of the vlm (internvl2-2b) and of DeepSeek's MLA with its
@@ -153,10 +154,22 @@ def test_train_resumes_bit_for_bit(tmp_path):
     assert whole["losses"][-1] < whole["losses"][0]
 
 
-def test_train_refuses_model_parallel():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TT.train("granite-3-2b", smoke=True, steps=1, batch=2, seq=8, model_parallel=2,
-                 device="cpu")
+def test_train_model_parallel_spawns_its_ranks():
+    """``train(model_parallel=2)`` starts 2 gloo ranks on a (1, 2) mesh and
+    returns rank 0's result: the one-device run's losses (fp32 partial sums
+    in another order) and its params gathered to one device's layout,
+    within the bf16 bound (the launcher's Adam moves a weight by about lr x
+    sign(g))."""
+    kw = dict(smoke=True, steps=2, batch=4, seq=16, microbatch=2, seed=1, device="cpu")
+    got = TT.train("granite-3-2b", model_parallel=2, **kw)
+    want = TT.train("granite-3-2b", **kw)
+    assert got["mesh"] == {"data": 1, "model": 2, "backend": "gloo"}
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    assert got["collectives"]["model"]["all_reduce"] > 0 and "data" not in got["collectives"]
+    for (pa, a), (pb, b) in zip(TO.param_leaves(got["params"]),
+                                TO.param_leaves(want["params"]), strict=True):
+        assert pa == pb and a.shape == b.shape and a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-2, atol=1e-3)
 
 
 def test_train_cli_runs_on_cpu(capsys):

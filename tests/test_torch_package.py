@@ -1,7 +1,8 @@
 """The port as a package: isolation from JAX, device rules, conversion, build.
 
-* ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor the JAX
-  package ``repro`` (an AST scan, and an import with ``jax`` blocked);
+* ``src/repro_torch``, ``chip_smoke.py`` and the Torch examples
+  (``examples/*_torch.py``) import neither ``jax`` nor the JAX package
+  ``repro`` (an AST scan; the package also imported with ``jax`` blocked);
 * entry points run on the card unless told otherwise, and on a host without
   one they raise instead of running on the CPU;
 * CPU tensors take the plain versions, forward and backward: the kernel
@@ -42,6 +43,7 @@ NO_LAUNCHES = {"hw_scan": 0, "hw_scan_bf16": 0, "hw_scan_bwd": 0, "hw_scan_bwd_b
                "lstm_cell_bwd_dx": 0, "lstm_cell_bwd_dx_bf16": 0,
                "flash_attention": 0}
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLE_FILES = sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imports(path):
@@ -52,11 +54,18 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", PORT_FILES + EXAMPLE_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+
+
+def test_the_scan_covers_the_examples():
+    assert [p.name for p in EXAMPLE_FILES] == [
+        "forecast_m4_torch.py", "quickstart_torch.py", "serve_decode_torch.py",
+        "train_lm_torch.py"]
 
 
 def test_the_scan_covers_the_auditor():
