@@ -339,6 +339,10 @@ TRAIN_RTOL = 1e-4
 # ulp, 2**-9 relative) and the probabilities rounded to bf16 before the
 # product with V, as the JAX kernel does (its test allows 0.05).
 K6_F32_TOL, K6_BF16_TOL = 2e-5, 1e-2
+# K6's decode route is also timed over this many distinct (k, v) pairs in
+# turn: a whisper decode step's 6 cross-attentions, 147 MB at batch 8,
+# past the 50 MB L2
+K6_ROTATE = 6
 # the LM card-vs-CPU parity (fp32, TF32 off): the forecast's rtol 1e-4, and
 # atol 5e-5 instead of its 1e-5. The logits sum 4096- and 11008-wide
 # products through two layers, in another order on each device: each
@@ -1172,16 +1176,25 @@ def device_kernel_names(call):
 
 
 def check_flash_attention(gen, b, hq, hkv, tq, tk, d, dv, dtype_name, causal, scale=None,
-                          qkv=None):
+                          qkv=None, parent=None):
     """K6 against its plain version on the card at ``scale`` (None: 1/sqrt(D));
     SDPA (timed only) as the library yardstick, with an explicit end-aligned
     mask where Tq != Tk under the causal mask (its ``is_causal`` aligns the
-    starts). Where DV != D, the record names the kernels SDPA ran
-    (``library_kernels``: which backend it picked)."""
+    starts). The record names the kernel that ran (``kernel``, from the
+    decode route's counter). Where DV != D, it names the kernels SDPA ran
+    (``library_kernels``: which backend it picked). On the decode route,
+    the decode kernel is timed beside the prefill kernel launched through
+    its own entry (``flash_attention_bf16``) and SDPA, each warm (30 calls
+    in one graph on one (k, v), the table's method; 24.6 MB at whisper's
+    shape fits the 50 MB L2) and rotating over ``K6_ROTATE`` distinct (k,
+    v) pairs, as a decode step's layers read them (``decode_timing``).
+    ``parent``: the ``flash_attention_bf16`` entry of a parent's library
+    (``--k6 --parent``), timed in turns with this kernel (parent, kernel,
+    kernel, parent; ``parent_turns``)."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels import build, flash_attention, ref
 
     dtype = getattr(torch, dtype_name)
     dev = torch.device("cuda")
@@ -1189,17 +1202,28 @@ def check_flash_attention(gen, b, hq, hkv, tq, tk, d, dv, dtype_name, causal, sc
         qkv = [torch.randn(shape, generator=gen).to(dev, dtype)
                for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, dv))]
     q, k, v = qkv
-    kernel = lambda: flash_attention.flash_attention(q, k, v, causal=causal, scale=scale)
+    kernel_on = lambda kk, vv: flash_attention.flash_attention(q, kk, vv, causal=causal,
+                                                               scale=scale)
+    kernel = lambda: kernel_on(k, v)
     plain = lambda: ref.attention_ref(q, k, v, causal=causal, scale=scale)
     mask = None
     if causal and tq != tk:
         mask = (torch.arange(tk, device=dev)[None, :]
                 <= torch.arange(tq, device=dev)[:, None] + (tk - tq))
-    library = lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
+    library_on = lambda kk, vv: F.scaled_dot_product_attention(
+        q, kk, vv, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
         enable_gqa=True)
+    library = lambda: library_on(k, v)
+    before = flash_attention.decode_launches
     got = kernel()
     torch.cuda.synchronize()
+    if flash_attention.decode_launches > before:
+        route = "flash_decode_bf16"
+    elif dtype == torch.float32:
+        route = "flash_simt_f32"
+    else:
+        # (64, 64) runs its own schedule of the tensor-core kernel
+        route = "flash_tc_bf16_overlap" if (d, dv) == (64, 64) else "flash_tc_bf16"
     want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal, scale=scale)
     tol = K6_F32_TOL if dtype == torch.float32 else K6_BF16_TOL
     err = check_close(f"flash_attention {tuple(q.shape)} x {tuple(k.shape)}", got, want,
@@ -1208,17 +1232,58 @@ def check_flash_attention(gen, b, hq, hkv, tq, tk, d, dv, dtype_name, causal, sc
     del want
     ms, host_ms, library_ms = time_ms(kernel), wrapper_ms(kernel), time_ms(library)
     plain_ms = time_ms(plain, iters=3, warmup=1)
-    sdpa = dict(library_kernels=device_kernel_names(library)) if dv != d else {}
+    extra = dict(library_kernels=device_kernel_names(library)) if dv != d else {}
+    scale_f = float(d ** -0.5 if scale is None else scale)
+    entry_on = lambda fn: lambda kk, vv: build.check(fn(
+        q.data_ptr(), kk.data_ptr(), vv.data_ptr(), q.new_empty((b, hq, tq, dv)).data_ptr(),
+        b, hq, hkv, tq, tk, d, dv, int(causal), scale_f,
+        torch.cuda.current_stream().cuda_stream), "flash_attention_bf16")
+    pairs = [(k, v)]
+    if route == "flash_decode_bf16":
+        pairs += [(torch.randn_like(k), torch.randn_like(v)) for _ in range(K6_ROTATE - 1)]
+        extra["decode_timing"] = decode_timing(
+            pairs, kernel_on, entry_on(build.library().flash_attention_bf16), library_on)
+    if parent is not None:
+        parent_on = entry_on(parent)
+        turns = [time_ms(lambda: parent_on(k, v)), time_ms(kernel), time_ms(kernel),
+                 time_ms(lambda: parent_on(k, v))]
+        extra["parent_turns"] = dict(warm_ms=turns)
+        if len(pairs) > 1:
+            extra["parent_turns"]["rotating_ms"] = [
+                rotating_ms(pairs, fn) for fn in (parent_on, kernel_on, kernel_on, parent_on)]
+    del pairs
     n_bytes, n_flops = k6_work(b, hq, hkv, tq, tk, d, dv, q.element_size(), causal)
     bound_ms, bound_by = bound(n_bytes, n_flops,
                                FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
-    return dict(name="flash_attention",
-                kernel="flash_tc_bf16" if dtype == torch.bfloat16 else "flash_simt_f32",
+    return dict(name="flash_attention", kernel=route,
                 shape=dict(B=b, Hq=hq, Hkv=hkv, Tq=tq, Tk=tk, D=d, DV=dv, causal=causal),
-                scale=d ** -0.5 if scale is None else scale, dtype=dtype_name,
+                scale=scale_f, dtype=dtype_name,
                 max_abs_err=err, tol=tol, ms=ms, wrapper_ms=host_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, tflops=n_flops / ms / 1e9, **sdpa)
+                bound_by=bound_by, tflops=n_flops / ms / 1e9, **extra)
+
+
+def rotating_ms(pairs, fn) -> float:
+    """``time_ms`` of ``fn(k, v)`` with the calls walking ``pairs`` in turn
+    (30 calls: 5 rounds of 6), so each reads a (k, v) the calls before
+    have pushed out of L2."""
+    turn = iter(range(10 ** 9))
+    return time_ms(lambda: fn(*pairs[next(turn) % len(pairs)]))
+
+
+def decode_timing(pairs, decode_on, entry_on, library_on):
+    """The decode route, the prefill kernel through its entry and SDPA at
+    one shape: warm on ``pairs[0]`` and rotating over all of ``pairs``,
+    each timed twice in turns (decode, prefill kernel, SDPA, then the
+    reverse)."""
+    k, v = pairs[0]
+    fns = dict(decode=decode_on, prefill_kernel=entry_on, library=library_on)
+    order = list(fns) + list(fns)[::-1]
+    out = {f"{name}_{how}_ms": [] for name in fns for how in ("warm", "rotating")}
+    for name in order:
+        out[f"{name}_warm_ms"].append(time_ms(lambda: fns[name](k, v)))
+        out[f"{name}_rotating_ms"].append(rotating_ms(pairs, fns[name]))
+    return out
 
 
 def check_k6_on(launch, gen):
@@ -3680,6 +3745,8 @@ def run_lm_serve(lm, gen=LM_GEN):
     peak = torch.cuda.max_memory_allocated()
     k6 = (out["kernel_launches"]["prefill"]["flash_attention"],
           out["kernel_launches"]["decode"]["flash_attention"])
+    route = (out["kernel_launches"]["prefill"]["flash_attention_decode"],
+             out["kernel_launches"]["decode"]["flash_attention_decode"])
     want = (k6_per_prefill(cfg), k6_per_decode_step(cfg) * (gen - 1))
     if k6 != want:
         raise AssertionError(f"{cfg.name} serving: K6 launches (prefill, {gen - 1} decode "
@@ -3698,6 +3765,8 @@ def run_lm_serve(lm, gen=LM_GEN):
                 decode_ms_per_token=out["decode_s_per_tok"] * 1e3,
                 decode_tokens_per_s=batch / out["decode_s_per_tok"],
                 k6_launches_per_prefill=k6[0], k6_launches_per_decode_step=k6[1] // (gen - 1),
+                k6_decode_route_launches=dict(prefill=route[0], decode=route[1],
+                                              per_decode_step=route[1] / (gen - 1)),
                 peak_mem_gb=peak / 1e9,
                 param_gb=sum(t.numel() * t.element_size() for t in _leaves(lm.params)) / 1e9,
                 logits_finite=True, sample=generated[0, :8].tolist())
@@ -4254,8 +4323,9 @@ def run_encdec_phases(dev, smi, counted, lm_kernels, gen):
     encoder's memory, both devices also against float64, K6 (18, 6) a step
     (``lm_encdec_parity``); then in bf16 through ``generate``, batch 8 x
     (1,500 frames, prompt 2,048) + 32 tokens, K6 18 per prefill and 6 per
-    decode step (``lm_encdec_serve``), K6 held against its plain version on
-    the q, k, v (causal flag, scale) of the first launch of each use (the
+    decode step, all 6 on its decode route (``lm_encdec_serve``), K6 held
+    against its plain version on the q, k, v (causal flag, scale) of the
+    first launch of each use (the
     encoder's, the decoder's self-attention, the cross-attention in the
     prefill and in a decode step), the tanh GELU against ``F.gelu``
     (``gelu_cost``), and one profiled prefill and decode step split by part
@@ -4270,7 +4340,15 @@ def run_encdec_phases(dev, smi, counted, lm_kernels, gen):
     torch.cuda.reset_peak_memory_stats()
     lm = LMServe(dev, arch_config(ENCDEC_ARCH))
     init_peak = torch.cuda.max_memory_allocated()
-    serve, launches = counted(lm_kernels, "whisper serving", lambda: run_lm_serve(lm))
+    serve, launches = counted(lm_kernels + ("flash_attention_decode",), "whisper serving",
+                              lambda: run_lm_serve(lm))
+    # every cross-attention of a decode step (Tq = 1, bf16, D 64) on K6's
+    # decode route, and no launch of the prefill on it
+    route = serve["k6_decode_route_launches"]
+    want = dict(prefill=0, decode=lm.cfg.n_layers * (LM_GEN - 1),
+                per_decode_step=lm.cfg.n_layers)
+    if route != want:
+        raise AssertionError(f"whisper serving: K6 decode-route launches {route}, want {want}")
     serve.update(init_peak_gb=init_peak / 1e9, frames=lm.cfg.n_frames,
                  gelu_cost=gelu_cost(lm))
     with torch.no_grad():
@@ -5573,6 +5651,67 @@ def run_train_phases(dev, smi, counted):
 # ---------------------------------------------------------------------------
 
 
+def k6_main(parent=None) -> int:
+    """``python3 chip_smoke.py --k6 [--parent DIR]``: the kernel build and
+    K6's checks alone, every shape of ``k6_shapes`` on the route it takes,
+    one ``kernel`` line each. With ``--parent DIR`` (the root of a checkout
+    of another commit, unpacked with ``git archive``), that tree's
+    ``flash_attention.cu`` is built beside this one's and every bf16 shape
+    is timed on both in turns (parent, this, this, parent; at the decode
+    route warm and rotating), in one process on one card."""
+    import ctypes
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import strict_fp32
+    from repro_torch.kernels import build
+
+    strict_fp32()
+    smi = nvidia_smi()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parent_") as tmp:
+        so = Path(tmp) / "libparent_flash_attention.so"
+        nvcc = None
+        if parent is not None:
+            src = Path(parent) / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
+            nvcc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(so),
+                                     str(src)], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        t0 = time.perf_counter()
+        build.library()
+        build_s = time.perf_counter() - t0
+        entry, parent_ptxas = None, None
+        if nvcc is not None:
+            out, _ = nvcc.communicate()
+            if nvcc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on the parent's {src}:\n{out}")
+            entry = ctypes.CDLL(str(so)).flash_attention_bf16
+            entry.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
+                              + [ctypes.c_void_p])
+            entry.restype = ctypes.c_int
+            parent_ptxas = ptxas_summary(out)
+        emit(dict(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+                  count=torch.cuda.device_count(), torch=torch.__version__, build_s=build_s,
+                  ptxas=ptxas_summary(build.build_info.get("ptxas", {}).get(
+                      "flash_attention.cu", "")),
+                  parent=parent, parent_ptxas=parent_ptxas))
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for shape in k6_shapes():
+                rec = check_flash_attention(gen, *shape,
+                                            parent=entry if shape[7] == "bfloat16" else None)
+                emit(dict(phase="kernel", **rec))
+                torch.cuda.empty_cache()
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5580,6 +5719,9 @@ def main() -> int:
         if not torch.cuda.is_available():
             return 1
         return million_main()
+    if "--k6" in sys.argv[1:]:
+        argv = sys.argv[1:]
+        return k6_main(argv[argv.index("--parent") + 1] if "--parent" in argv else None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -6040,6 +6182,7 @@ def main() -> int:
                     library_ms=library_ms)
 
     csrc = "src/repro_torch/kernels/csrc/"
+    k6_decode = [r for r in k6 if r["kernel"] == "flash_decode_bf16"]
     kernels = [
         entry("hw_scan", csrc + "hw_scan.cu", "src/repro/kernels/hw_scan.py:56", k1, None),
         entry("lstm_cell", csrc + "lstm_cell.cu", "src/repro/kernels/lstm_cell.py:56", k3,
@@ -6052,6 +6195,11 @@ def main() -> int:
               k5, None),
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:28", k6, k6[0]["library_ms"]),
+        # K6's decode route (flash_decode_bf16 and its combine), at
+        # whisper's cross decode; its launches are also in flash_attention's
+        entry("flash_attention_decode", csrc + "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:28", k6_decode,
+              k6_decode[0]["library_ms"]),
         entry("hw_scan_bf16", csrc + "hw_scan.cu", "src/repro/kernels/hw_scan.py:56", k1b,
               None),
         entry("lstm_cell_bf16", csrc + "lstm_cell_tc.cu", "src/repro/kernels/lstm_cell.py:56",

@@ -57,6 +57,8 @@ _SIGNATURES = {
     "lstm_cell_bwd_dx_wide_bf16": (11, 4, 0),  # the same, bf16, past the presets' widths
     "flash_attention_f32": (4, 8, 1),      # K6, fp32
     "flash_attention_bf16": (4, 8, 1),     # K6, bf16
+    "flash_attention_decode_bf16": (6, 8, 1),  # K6, bf16, G * Tq <= 16 rows a kv head at D 64
+                                           # (the last two pointers: its workspace)
 }
 
 _lock = threading.Lock()

@@ -54,7 +54,10 @@ def launch_counts() -> Dict[str, int]:
     launches, ``_bf16`` the bf16 policy's (K1 and K2 with a bf16 y, K3, K4
     and K5 in bf16). K5 counts its two launches apart: ``lstm_cell_bwd``
     forms the weight gradients too, ``lstm_cell_bwd_dx`` only dx, dh_prev
-    and dc_prev (a step whose weights need no gradient, the esn head's)."""
+    and dc_prev (a step whose weights need no gradient, the esn head's).
+    K6 counts every call in ``flash_attention`` and, of those, the calls
+    that took its decode route (bf16, D 64, G * Tq <= 16) in
+    ``flash_attention_decode``."""
     return {"hw_scan": _hw.launches, "hw_scan_bf16": _hw.bf16_launches,
             "hw_scan_bwd": _hw.bwd_launches, "hw_scan_bwd_bf16": _hw.bwd_bf16_launches,
             "lstm_cell": _lstm.launches, "lstm_cell_bf16": _lstm.bf16_launches,
@@ -62,7 +65,8 @@ def launch_counts() -> Dict[str, int]:
             "lstm_cell_bwd": _lstm.bwd_launches, "lstm_cell_bwd_bf16": _lstm.bwd_bf16_launches,
             "lstm_cell_bwd_dx": _lstm.bwd_dx_launches,
             "lstm_cell_bwd_dx_bf16": _lstm.bwd_dx_bf16_launches,
-            "flash_attention": _fa.launches}
+            "flash_attention": _fa.launches,
+            "flash_attention_decode": _fa.decode_launches}
 
 
 def reset_launch_counts() -> None:
@@ -71,7 +75,7 @@ def reset_launch_counts() -> None:
     _lstm.fwd_launches = _lstm.fwd_bf16_launches = 0
     _lstm.bwd_launches = _lstm.bwd_bf16_launches = 0
     _lstm.bwd_dx_launches = _lstm.bwd_dx_bf16_launches = 0
-    _fa.launches = 0
+    _fa.launches = _fa.decode_launches = 0
 
 
 # ---------------------------------------------------------------------------

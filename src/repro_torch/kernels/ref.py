@@ -236,3 +236,49 @@ def attention_ref(q, k, v, *, causal: bool = True, scale=None):
         logits = logits.masked_fill(ki > qi, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs.to(v.dtype), v)
+
+
+def attention_decode_ref(q, k, v, *, causal: bool = True, scale=None, n_split: int = 1):
+    """K6's decode route in plain torch: the keys cut into ``n_split``
+    ranges of ``ceil(Tk / n_split)`` (the last shorter; with more splits
+    than that covers, the rest hold no key), each range's partial
+    softmax, then the combine. Arguments and result as :func:`attention_ref`.
+
+    Per range s, in fp32: m_s = the row's largest visible logit, p = exp(s -
+    m_s), l_s = sum(p), acc_s = (p cast to v's dtype) . v; a range in
+    which a row sees no key has m_s = -inf, l_s = 0 and acc_s = 0 (its
+    reference point taken as 0, so nothing is NaN). The combine: m =
+    max_s m_s, l = sum_s exp(m_s - m) l_s, acc likewise, o = acc / max(l,
+    1e-30) in v's dtype. The kernel does the same in log2 units.
+    """
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        ki = torch.arange(tk, device=q.device)[None, :]
+        logits = logits.masked_fill(ki > qi, float("-inf"))
+    keys = -(-tk // n_split)
+    m_parts, l_parts, acc_parts = [], [], []
+    for s in range(n_split):
+        lo, hi = min(s * keys, tk), min((s + 1) * keys, tk)
+        part = logits[..., lo:hi]
+        if hi > lo:
+            m = part.amax(dim=-1, keepdim=True)
+        else:
+            m = logits.new_full((b, hq, tq, 1), float("-inf"))
+        p = torch.exp(part - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+        m_parts.append(m)
+        l_parts.append(p.sum(dim=-1, keepdim=True))
+        acc_parts.append(torch.matmul(p.to(v.dtype).float(), v[..., lo:hi, :].float()))
+    m_all = torch.stack(m_parts)
+    m_top = m_all.amax(dim=0)
+    weight = torch.exp(m_all - torch.where(torch.isinf(m_top), torch.zeros_like(m_top), m_top))
+    l_sum = (weight * torch.stack(l_parts)).sum(dim=0)
+    acc = (weight * torch.stack(acc_parts)).sum(dim=0)
+    return (acc / l_sum.clamp_min(1e-30)).to(v.dtype)

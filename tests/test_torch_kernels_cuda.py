@@ -457,6 +457,103 @@ def test_flash_attention_granite_scale_at_its_shapes_on_card(card, dtype):
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
 
 
+# the decode route (flash_decode_bf16, bf16 at D 64): (Tk, G, Tq, causal)
+# with G * Tq = 1, 4 and 16 query rows a kv head; causal needs Tq <= Tk
+_DECODE_CASES = [(tk, group, tq, causal) for tk in (1, 127, 1500, 4096)
+                 for group, tq in ((1, 1), (4, 1), (1, 4), (16, 1), (4, 4), (1, 16))
+                 for causal in (False, True) if not (causal and tq > tk)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tk,group,tq,causal", _DECODE_CASES)
+def test_flash_decode_matches_plain_on_card(card, tk, group, tq, causal):
+    """The split kernel and its combine against the plain version and the
+    plain split-and-combine: keys in one partial tile (1, 127), whisper's
+    1,500 frames and 4,096; causal rows of Tq 4 or 16 end before the last
+    split."""
+    hkv = 2
+    q, k, v = _attn_inputs(2, hkv * group, hkv, tq, tk, 64, torch.bfloat16,
+                           seed=tk + 17 * group + tq, dev=card)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    ops.reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_decode"]) == (1, 1)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+    plan = flash_attention.decode_plan(2 * hkv, tk, build.device_limits(card).sm_count)
+    split = ref.attention_decode_ref(q.float(), k.float(), v.float(), causal=causal,
+                                     n_split=plan.splits)
+    torch.testing.assert_close(got.float(), split, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_flash_decode_at_whispers_cross_decode_on_card(card):
+    """whisper-base's cross-attention from one decode position over 1,500
+    frames, (8, 8, 8, 1 x 1,500, 64) at scale 1/8: within 1e-2 of the fp32
+    plain version, the same bits on two launches (no atomics: each split
+    writes its own partial, one thread sums them in a fixed order), one K6
+    call and one decode-route launch each; the prefill kernel, through its
+    own entry, still takes the shape."""
+    q, k, v = _attn_inputs(8, 8, 8, 1, 1500, 64, torch.bfloat16, seed=1501, dev=card)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=False, scale=0.125)
+    ops.reset_launch_counts()
+    first = flash_attention.flash_attention(q, k, v, causal=False, scale=0.125)
+    second = flash_attention.flash_attention(q, k, v, causal=False, scale=0.125)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_decode"]) == (2, 2)
+    torch.testing.assert_close(first.float(), want, rtol=1e-2, atol=1e-2)
+    assert torch.equal(first, second), "the decode route differs between two launches"
+    parent = torch.empty_like(q)
+    err = build.library().flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), parent.data_ptr(), 8, 8, 8, 1, 1500, 64, 64,
+        0, 0.125, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_attention_bf16")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(parent.float(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_flash_decode_refuses_a_plan_that_misses_keys_on_card(card):
+    q, k, v = _attn_inputs(1, 8, 2, 1, 300, 64, torch.bfloat16, seed=3, dev=card)
+    o = torch.empty_like(q)
+    part = torch.empty((2 * 4 * 4, 66), device=card)
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    # (splits, keys): too few keys, an empty last split, 17 rows a kv head
+    for splits, keys, hq in ((2, 100, 8), (4, 100, 8), (2, 150, 34)):
+        err = lib.flash_attention_decode_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), part.data_ptr(),
+            part.data_ptr(), 1, hq, 2, 1, 300, splits, keys, 0, 0.125, stream)
+        assert err != 0, f"the decode entry took {splits} splits of {keys} keys, Hq {hq}"
+
+
+# flash_tc_bf16<64, 64>'s prefill schedule at ragged Tq and Tk (not
+# multiples of the 128-row / 128-key tiles), causal and not
+_D64_RAGGED = [(200, 260, True), (333, 1157, True), (129, 129, True), (1000, 1000, True),
+               (17, 300, True), (700, 1500, False), (255, 383, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (8, 8)])
+@pytest.mark.parametrize("tq,tk,causal", _D64_RAGGED)
+def test_flash_attention_d64_prefill_schedule_at_ragged_tiles_on_card(card, tq, tk, causal,
+                                                                     hq, hkv):
+    """granite's GQA 32/8 at its scale 2**-7 and whisper's MHA 8/8 at 1/8."""
+    scale = 0.0078125 if hq != hkv else 0.125
+    q, k, v = _attn_inputs(1, hq, hkv, tq, tk, 64, torch.bfloat16, seed=tq + 3 * tk + hq,
+                           dev=card)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal, scale=scale)
+    ops.reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_decode"]) == (1, 0)
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,in_size,hidden", [(24_001, 14, 40), (333, 50, 50),
                                                  (333, 128, 128)])
@@ -536,6 +633,8 @@ def test_flash_attention_refuses_what_it_does_not_take_on_card(card):
         flash_attention.flash_attention(q, k, v, causal=True)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         flash_attention.flash_attention(q.double(), k.double(), v.double(), causal=False)
+    with pytest.raises(ValueError, match="scale -0.125"):
+        flash_attention.flash_attention(q, k, v, causal=False, scale=-0.125)
     # the C entry points refuse such a pair too, past the wrapper's check
     lib = build.library()
     for entry, dtype, (d, dv) in (("flash_attention_bf16", torch.bfloat16, (128, 64)),

@@ -42,7 +42,7 @@ NO_LAUNCHES = {"hw_scan": 0, "hw_scan_bf16": 0, "hw_scan_bwd": 0, "hw_scan_bwd_b
                "lstm_cell": 0, "lstm_cell_bf16": 0, "lstm_cell_fwd": 0,
                "lstm_cell_fwd_bf16": 0, "lstm_cell_bwd": 0, "lstm_cell_bwd_bf16": 0,
                "lstm_cell_bwd_dx": 0, "lstm_cell_bwd_dx_bf16": 0,
-               "flash_attention": 0}
+               "flash_attention": 0, "flash_attention_decode": 0}
 
 
 @pytest.fixture(scope="module")
